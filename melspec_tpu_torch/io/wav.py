@@ -1,0 +1,55 @@
+"""Float32-LE mono WAV reader (copy of ``melspec_tpu.io.wav.read_wav_f32le``
+and the RIFF walk it needs)."""
+
+from __future__ import annotations
+
+import struct
+from pathlib import Path
+from typing import Tuple, Union
+
+import numpy as np
+
+
+def _find_chunk(wav_bytes: bytes, chunk_ids: Tuple[bytes, ...]) -> Tuple[int, int]:
+    """Walk the RIFF chunk list; return (payload offset, size) of the first
+    chunk whose id is in ``chunk_ids``."""
+    if len(wav_bytes) < 12 or wav_bytes[:4] != b"RIFF" or wav_bytes[8:12] != b"WAVE":
+        raise ValueError("not a RIFF/WAVE file")
+    pos = 12
+    while pos + 8 <= len(wav_bytes):
+        chunk_id = wav_bytes[pos : pos + 4]
+        (chunk_size,) = struct.unpack_from("<I", wav_bytes, pos + 4)
+        if chunk_id in chunk_ids:
+            return pos + 8, chunk_size
+        pos += 8 + chunk_size
+        if chunk_size % 2:
+            pos += 1  # chunks are word-aligned
+    raise ValueError(f"no {chunk_ids[0].decode(errors='replace')!r} chunk found")
+
+
+def _read_fmt(wav_bytes: bytes) -> Tuple[int, int, int, int]:
+    """Return (format_tag, channels, sample_rate, bits_per_sample)."""
+    pos, chunk_size = _find_chunk(wav_bytes, (b"fmt ", b"fmt\x00"))
+    tag, channels, rate = struct.unpack_from("<HHI", wav_bytes, pos)
+    bits = struct.unpack_from("<H", wav_bytes, pos + 14)[0] \
+        if chunk_size >= 16 else 0
+    if tag == 0xFFFE and chunk_size >= 40:
+        # WAVE_FORMAT_EXTENSIBLE: the real format tag is the first
+        # two bytes of the SubFormat GUID
+        (tag,) = struct.unpack_from("<H", wav_bytes, pos + 24)
+    return tag, channels, rate, bits
+
+
+def read_wav_f32le(path: Union[str, Path]) -> np.ndarray:
+    """Read a mono float32-LE WAV; returns float32 samples. Rejects files
+    whose fmt chunk declares anything else."""
+    wav_bytes = Path(path).read_bytes()
+    tag, _, _, bits = _read_fmt(wav_bytes)
+    if tag != 3 or bits not in (0, 32):
+        raise ValueError(
+            f"{path}: not float32 PCM (format tag {tag}, {bits} bits)"
+        )
+    offset, size = _find_chunk(wav_bytes, (b"data",))
+    payload = wav_bytes[offset : offset + size]
+    n = len(payload) // 4
+    return np.frombuffer(payload[: n * 4], dtype="<f4").copy()

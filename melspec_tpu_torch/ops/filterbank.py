@@ -1,0 +1,103 @@
+"""Slaney/HTK mel filterbank, built on the host in float64 (numpy copy of
+``melspec_tpu.ops.filterbank``'s whisper part; within 1e-7 of librosa and
+of the whisper GGML filters, ``testdata/filterbanks_golden.npz``)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+
+def hz_to_mel(frequency: float, htk: bool = False) -> float:
+    """Hz -> mel, Slaney (librosa default) or HTK variant."""
+    if htk:
+        return 2595.0 * np.log10(1.0 + frequency / 700.0)
+
+    f_min = 0.0
+    f_sp = 200.0 / 3.0
+    min_log_hz = 1000.0
+    min_log_mel = (min_log_hz - f_min) / f_sp
+    logstep = np.log(6.4) / 27.0
+
+    if frequency >= min_log_hz:
+        return min_log_mel + np.log(frequency / min_log_hz) / logstep
+    return (frequency - f_min) / f_sp
+
+
+def mel_to_hz(mel: float, htk: bool = False) -> float:
+    """Mel -> Hz, Slaney or HTK variant."""
+    if htk:
+        return 700.0 * (10.0 ** (mel / 2595.0) - 1.0)
+
+    f_min = 0.0
+    f_sp = 200.0 / 3.0
+    min_log_hz = 1000.0
+    min_log_mel = (min_log_hz - f_min) / f_sp
+    logstep = np.log(6.4) / 27.0
+
+    if mel >= min_log_mel:
+        return min_log_hz * np.exp(logstep * (mel - min_log_mel))
+    return f_min + f_sp * mel
+
+
+def mels_to_hz(mels: np.ndarray, htk: bool = False) -> np.ndarray:
+    """Vectorized mel -> Hz."""
+    mels = np.asarray(mels, dtype=np.float64)
+    if htk:
+        return 700.0 * (10.0 ** (mels / 2595.0) - 1.0)
+    f_sp = 200.0 / 3.0
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    linear = f_sp * mels
+    log = min_log_hz * np.exp(logstep * (mels - min_log_mel))
+    return np.where(mels >= min_log_mel, log, linear)
+
+
+def mel_frequencies(
+    n_mels: int, fmin: float, fmax: float, htk: bool = False
+) -> np.ndarray:
+    """``n_mels`` frequencies evenly spaced on the mel scale."""
+    min_mel = hz_to_mel(fmin, htk)
+    max_mel = hz_to_mel(fmax, htk)
+    mels = np.linspace(min_mel, max_mel, n_mels)
+    return mels_to_hz(mels, htk)
+
+
+def fft_frequencies(sr: float, n_fft: int) -> np.ndarray:
+    """Center frequency of each rFFT bin."""
+    step = sr / n_fft
+    return step * np.arange(n_fft // 2 + 1, dtype=np.float64)
+
+
+def mel_filterbank(
+    sr: float,
+    n_fft: int,
+    n_mels: int,
+    f_min: Optional[float] = None,
+    f_max: Optional[float] = None,
+    htk: bool = False,
+    norm: bool = True,
+) -> np.ndarray:
+    """Slaney-style triangular mel filterbank ``[n_mels, n_fft//2+1]``
+    (float64)."""
+    fftfreqs = fft_frequencies(sr, n_fft)
+    f_min = 0.0 if f_min is None else f_min
+    f_max = sr / 2.0 if f_max is None else f_max
+    mel_f = mel_frequencies(n_mels + 2, f_min, f_max, htk)
+
+    fdiff = mel_f[1:] - mel_f[:-1]  # [n_mels+1]
+    ramps = mel_f[:, None] - fftfreqs[None, :]  # [n_mels+2, bins]
+
+    lower = -ramps[:n_mels] / fdiff[:n_mels, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.minimum(np.clip(lower, 0.0, 1.0), np.clip(upper, 0.0, 1.0))
+
+    if norm:
+        # Slaney normalization: approx constant energy per channel.
+        enorm = 2.0 / (mel_f[2 : n_mels + 2] - mel_f[:n_mels])
+        weights = weights * enorm[:, None]
+
+    return weights
+

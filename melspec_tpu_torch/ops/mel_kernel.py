@@ -1,0 +1,278 @@
+"""Whisper log-mel through kernel K1, the signal-input sig route (port of
+the sig part of ``melspec_tpu.ops.mel_kernel``).
+
+The host builders make K1's device matrices exactly as the JAX package
+does: the window-folded real-DFT matrix is cut into rounded-bf16 planes
+and K-stacked in slice-pair order (``m_big``, ``pair_i``), next to the mel
+projection in f32 (``mt``) and as a 2-slice bf16 stack (``mt_bf2``).
+``whisper_mel_sig`` runs K1 (``kernels/sig_mel.py``) on a CUDA signal and
+its plain PyTorch version on a CPU one.
+
+Not carried over from the JAX function: ``interpret`` (no interpret mode
+for a CUDA kernel), ``input_mode`` / ``flat_rows`` and the macro-row
+``row_w`` / ``phases`` / ``rows_tile`` geometry, and the ``_pad_for_flat``
+batch padding — all TPU tiling. K1 frames any ``[B, T]`` signal as it is.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+
+import numpy as np
+import torch
+
+from melspec_tpu_torch._device import as_signal, resolve_device
+from melspec_tpu_torch.kernels.sig_mel import sig_mel, sig_mel_reference
+from melspec_tpu_torch.ops import dft, framing
+from melspec_tpu_torch.ops.filterbank import mel_filterbank
+from melspec_tpu_torch.ops.hp_dft import bf16_round_slices
+from melspec_tpu_torch.ops.windows import hann_periodic
+
+__all__ = [
+    "SigMatrices", "sig_geometry", "sig_mel_reference", "whisper_mel_pallas",
+    "whisper_mel_sig",
+]
+
+LANES = 128
+
+
+def sig_geometry(fft_size: int, hop_size: int, offset: int = 0):
+    """The JAX kernel's macro-row geometry ``(row_w, phases, rows_tile)``,
+    or ``None`` for a config it rejects. The port keeps it only as the
+    acceptance predicate, so both packages take the same configs."""
+    if hop_size < 8:
+        return None
+    k_pad = -(-fft_size // LANES) * LANES
+    base = hop_size * LANES // math.gcd(hop_size, LANES)
+    row_w = base
+    while row_w + hop_size < k_pad + offset:
+        row_w += base
+    if row_w > 4096:
+        return None
+    phases = row_w // hop_size
+    rows_tile = max(8, ((512 // phases) // 8) * 8)
+    while rows_tile > 8 and 2 * (rows_tile + 8) * row_w * 4 > (4 << 20):
+        rows_tile -= 8
+    return row_w, phases, rows_tile
+
+
+def sig_packed_im_bins(fft_size: int, n_bins: int) -> list:
+    """Bins whose imaginary DFT column is not identically zero: every bin
+    except DC and (for even fft sizes) Nyquist."""
+    return [j for j in range(1, n_bins) if 2 * j != fft_size]
+
+
+def _sig_stack_combined(csw: np.ndarray, ks: int, km: int, cutoff: int,
+                        pack: int):
+    """Cut the float64 spectral matrix ``[k_pad, width]`` into rounded-bf16
+    planes and K-stack the kept slice pairs ``(i, j)``, ``i + j <=
+    cutoff``, i-major; each block keeps its ``pack`` real rows and the
+    stack is padded to a multiple of 128 rows. Returns ``(m_big bf16
+    [K_tot, width], pair_i)``."""
+    planes = bf16_round_slices(csw, km)
+    pair_i = []
+    blocks = []
+    for i in range(ks):
+        for j in range(min(cutoff - i, km - 1) + 1):
+            pair_i.append(i)
+            blocks.append(planes[j][:pack])
+    stack = torch.cat(blocks, dim=0)
+    k_tot = -(-stack.shape[0] // LANES) * LANES
+    if k_tot != stack.shape[0]:
+        stack = torch.cat([stack, stack.new_zeros(
+            (k_tot - stack.shape[0], stack.shape[1]))])
+    return stack, tuple(pair_i)
+
+
+def bf2_stack(mt) -> torch.Tensor:
+    """2-slice rounded-bf16 K-stack ``[F0; F1; F0]`` of a filter
+    projection, pairing with K1's power slices ``[p0 | p0 | p1]``."""
+    f0, f1 = bf16_round_slices(np.asarray(mt, np.float64), 2)
+    return torch.cat([f0, f1, f0], dim=0)
+
+
+def _sig_frontend_matrices(fft_size: int, n_bins: int, window: np.ndarray,
+                           filters: np.ndarray, ks: int, km: int,
+                           cutoff: int):
+    """K1's matrices for any windowed-rDFT -> power -> filterbank
+    frontend: the K-stacked bf16 plane matrix with ``window`` folded in,
+    its pair order, and the float64 projection from ``filters [n_mels,
+    >= n_bins]``.
+
+    The columns are the JAX builder's SPLIT layout (its ``npack=False``):
+    re in ``[0, n_bins_pad)`` and im in ``[n_bins_pad, 2*n_bins_pad)``
+    with ``mt [n_bins_pad, n_mels_pad]``. The JAX builder's N-packed
+    layout, which it picks where it is narrower (fft 320), is not ported
+    yet. Returns ``(m_big, pair_i, mt, n_bins_pad, n_mels_pad, k_pad)``."""
+    n_mels = filters.shape[0]
+    n_bins_pad = -(-n_bins // LANES) * LANES
+    n_mels_pad = -(-n_mels // LANES) * LANES
+    k_pad = -(-fft_size // LANES) * LANES
+
+    cos_m, msin_m = dft.rdft_matrices(fft_size, n_bins)
+    w = np.asarray(window, np.float64)[:, None]
+    taps = w.shape[0]
+    filt = np.asarray(filters, np.float64)[:, :n_bins].T  # [n_bins, n_mels]
+    csw = np.zeros((k_pad, 2 * n_bins_pad))
+    csw[:taps, :n_bins] = w * cos_m[:taps]
+    csw[:taps, n_bins_pad : n_bins_pad + n_bins] = w * msin_m[:taps]
+    mt = np.zeros((n_bins_pad, n_mels_pad))
+    mt[:n_bins, :n_mels] = filt
+    m_big, pair_i = _sig_stack_combined(csw, ks, km, cutoff, fft_size)
+    return m_big, pair_i, mt, n_bins_pad, n_mels_pad, k_pad
+
+
+@functools.lru_cache(maxsize=8)
+def _sig_device_matrices(fft_size: int, n_mels: int, sampling_rate: float,
+                         ks: int, km: int, cutoff: int):
+    """Whisper instantiation (the projection zeroes bins >= fft/2), plus
+    the bf2 mel stack. The JAX function's tuple less its ``npack``, as
+    CPU tensors: ``(m_big, pair_i, mt f32, mt_bf2, n_bins_pad, n_mels_pad,
+    k_pad)``."""
+    half = fft_size // 2
+    filters = mel_filterbank(sampling_rate, fft_size, n_mels)
+    m_big, pair_i, mt, n_bins_pad, n_mels_pad, k_pad = \
+        _sig_frontend_matrices(fft_size, half, hann_periodic(fft_size),
+                               filters, ks, km, cutoff)
+    mt_bf2 = bf2_stack(mt)
+    return (m_big, pair_i, torch.as_tensor(mt, dtype=torch.float32), mt_bf2,
+            n_bins_pad, n_mels_pad, k_pad)
+
+
+@dataclasses.dataclass(frozen=True)
+class SigMatrices:
+    """K1's device matrices: ``m_big`` bf16 ``[K_tot, 2*n_bins_pad]``,
+    ``pair_i``, ``mt`` f32 ``[n_bins_pad, n_mels_pad]``, ``mt_bf2`` bf16
+    ``[3*n_bins_pad, n_mels_pad]`` and the re|im split point
+    ``n_bins_pad``."""
+
+    m_big: torch.Tensor
+    pair_i: tuple
+    mt: torch.Tensor
+    mt_bf2: torch.Tensor
+    n_bins_pad: int
+
+    def to(self, device) -> "SigMatrices":
+        return dataclasses.replace(
+            self, m_big=self.m_big.to(device), mt=self.mt.to(device),
+            mt_bf2=self.mt_bf2.to(device))
+
+
+@functools.lru_cache(maxsize=16)
+def sig_matrices(fft_size: int, n_mels: int, sampling_rate: float, ks: int,
+                 cutoff: int, device: torch.device) -> SigMatrices:
+    """The whisper matrices for ``(ks, cutoff)``, cached on ``device``."""
+    m_big, pair_i, mt, mt_bf2, n_bins_pad, _, _ = _sig_device_matrices(
+        fft_size, n_mels, float(sampling_rate), ks, ks, cutoff)
+    return SigMatrices(m_big, pair_i, mt, mt_bf2, n_bins_pad).to(device)
+
+
+def whisper_mel_sig(
+    samples,
+    fft_size: int = 400,
+    hop_size: int = 160,
+    n_mels: int = 80,
+    sampling_rate: float = 16000.0,
+    streaming: bool = False,
+    ks: int = 3,
+    cutoff: int = 2,
+    mel_precision: str = "bf2",
+    device=None,
+    matrices: SigMatrices | None = None,
+) -> torch.Tensor:
+    """Whisper log-mel from the raw signal through K1 (bf16 slice-pair
+    DFT, framing inside the kernel). ``samples`` ``[T]`` or ``[B, T]`` ->
+    ``[n_frames, n_mels]`` / ``[B, n_frames, n_mels]`` float32 on
+    ``device``; ``streaming=True`` gives the streaming-equivalent frames
+    (offset by ``ceil(fft/hop)*hop - fft``) in the same frame-major
+    layout.
+
+    ``mel_precision``: ``"bf2"`` (2-slice bf16 projection) or
+    ``"highest"`` (f32). ``(ks, cutoff)`` is the slice-pair schedule;
+    (3, 2) is the least with 24-bit absolute DFT accuracy, (2, 1) misses
+    the 1e-5 JFK gate (1.0e-3 in the JAX package's measurement).
+    ``matrices`` replaces the host-built matrices (for example with the
+    JAX package's, through ``convert.from_jax_sig_matrices``)."""
+    dev = resolve_device(device)
+    x = as_signal(samples, dev)
+    squeeze = x.dim() == 1
+    if squeeze:
+        x = x[None]
+    offset = 0
+    if streaming:
+        offset = framing.streaming_frame_offset(fft_size, hop_size)
+        n_frames = framing.num_frames_streaming(x.shape[-1], fft_size,
+                                                hop_size)
+    else:
+        n_frames = framing.num_frames_batch(x.shape[-1], fft_size, hop_size)
+    if sig_geometry(fft_size, hop_size, offset) is None:
+        raise ValueError(
+            "no macro-row geometry for this (fft, hop); the JAX package "
+            "routes it to whisper_mel_pallas(impl='bf3'), not ported yet"
+        )
+    if mel_precision not in ("bf2", "highest"):
+        raise ValueError("mel_precision must be 'bf2' or 'highest'")
+    if n_frames <= 0 or x.shape[0] == 0:
+        out = torch.zeros((x.shape[0], max(n_frames, 0), n_mels),
+                          dtype=torch.float32, device=dev)
+        return out[0] if squeeze else out
+    mats = (sig_matrices(fft_size, n_mels, float(sampling_rate), ks, cutoff,
+                         x.device)
+            if matrices is None else matrices.to(x.device))
+    out = sig_mel(
+        x, mats.m_big, mats.pair_i,
+        mats.mt_bf2 if mel_precision == "bf2" else mats.mt,
+        ks=ks, n_frames=n_frames, hop=hop_size, offset=offset,
+        pack=fft_size, n_bins_pad=mats.n_bins_pad, n_mels=n_mels,
+        mel_precision=mel_precision,
+    )
+    return out[0] if squeeze else out
+
+
+def whisper_mel_pallas(
+    samples,
+    fft_size: int = 400,
+    hop_size: int = 160,
+    n_mels: int = 80,
+    sampling_rate: float = 16000.0,
+    streaming: bool = False,
+    hp: bool = False,
+    hp_n_slices: int | None = None,
+    hp_max_pair_sum: int | None = None,
+    impl: str | None = None,
+    device=None,
+) -> torch.Tensor:
+    """Whisper log-mel via the fused kernel, by the JAX function's name.
+    ``impl=None`` resolves as in JAX: ``"sig"`` wherever the geometry
+    applies (every standard config), else ``"bf3"``; ``hp=True`` means
+    ``"hp_bf16"``. Only ``"sig"`` (K1) is ported; ``"bf3"``, ``"hp8"``,
+    ``"hp_bf16"`` and ``"f32"`` are kernels K5-K8 of ROADMAP.md and
+    raise ``NotImplementedError``."""
+    if impl is None:
+        if hp:
+            impl = "hp_bf16"
+        else:
+            off_ = (framing.streaming_frame_offset(fft_size, hop_size)
+                    if streaming else 0)
+            impl = "sig" if sig_geometry(fft_size, hop_size,
+                                         off_) is not None else "bf3"
+    if impl not in ("sig", "bf3", "hp8", "hp_bf16", "f32"):
+        raise ValueError(
+            "impl must be 'sig', 'bf3', 'hp8', 'hp_bf16' or 'f32'"
+        )
+    if impl != "sig":
+        kernel = {"bf3": "K5", "hp8": "K6", "hp_bf16": "K7", "f32": "K8"}
+        raise NotImplementedError(
+            f"whisper_mel_pallas(impl={impl!r}) needs kernel "
+            f"{kernel[impl]}, which is not ported yet (ROADMAP.md, TPU "
+            f"kernels to port)"
+        )
+    return whisper_mel_sig(
+        samples, fft_size, hop_size, n_mels, sampling_rate,
+        streaming=streaming,
+        ks=3 if hp_n_slices is None else hp_n_slices,
+        cutoff=2 if hp_max_pair_sum is None else hp_max_pair_sum,
+        device=device,
+    )
