@@ -3,14 +3,25 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port from the sources in this checkout,
-holds each against its plain PyTorch version on the card, checks the
-accuracy gates through the kernels, and drives the main path — raw
-``[B, T]`` audio -> whisper large-v3 log-mel through
-``WhisperMelPipeline.mel_batch`` — at full width, with launch counts that
-show the path went through the kernels. Each phase prints one JSON line.
-Any failure raises and the script exits non-zero without its last line;
-on success the last line is
+Builds every CUDA kernel of the port from the sources in this checkout
+(K1 ``csrc/sig_mel.cu``, K3/K4 ``csrc/resample.cu``, one ``nvcc`` each,
+started together), holds each against its plain PyTorch version on the
+card, checks the accuracy gates through the kernels, and drives the port's
+two main paths at full width, with launch counts (zeroed just before each
+path, read just after) that show each went through its kernels:
+
+- the batch path: raw ``[B, T]`` audio -> whisper large-v3 log-mel through
+  ``WhisperMelPipeline.mel_batch`` (K1);
+- the serving tick: 256 streams of 48 kHz PCM -> resample -> streaming mel
+  -> VAD -> u8 records through ``shared_frontend(..., input_rate=48000)``
+  (K4, K3 on a 1-hop tick, K1 on the sig route), its frame grid held
+  against a plain frontend fed float64 ``resample_poly`` audio and, on
+  the sig route, every tick's K1 output (offset = hop) held against K1's
+  plain version; then a 64-stream 8 kHz fleet (K4 upsampling) and a 256 x
+  500-hop bulk tick for kernel times.
+
+Each phase prints one JSON line. Any failure raises and the script exits
+non-zero without its last line; on success the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It exits non-zero at once where CUDA is not available.
 """
@@ -34,9 +45,16 @@ from melspec_tpu_torch import (WHISPER_LARGE_V3, WhisperMelPipeline,  # noqa: E4
                                compute_streaming_mel, read_wav_f32le,
                                whisper_mel_sig)
 from melspec_tpu_torch.kernels import build, sig_mel  # noqa: E402
+from melspec_tpu_torch.kernels import resample as kres  # noqa: E402
 from melspec_tpu_torch.ops import framing, mel_kernel  # noqa: E402
 from melspec_tpu_torch.ops.filterbank import mel_filterbank  # noqa: E402
+from melspec_tpu_torch.ops.resample import (_phase_matrix,  # noqa: E402
+                                            resample_poly)
 from melspec_tpu_torch.ops.windows import hann_periodic  # noqa: E402
+from melspec_tpu_torch.streaming.resample import (  # noqa: E402
+    MultiStreamResampler)
+from melspec_tpu_torch.streaming.serving import (  # noqa: E402
+    MultiStreamFrontend, calibrate_fft_impl, shared_frontend)
 
 TESTDATA = ROOT / "testdata"
 # K1 is held against the exact result (its plain version with the DFT dot
@@ -52,8 +70,30 @@ SEED = 0
 # tensor-core rate and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+# and the float32 rate outside the tensor cores (K3/K4 "highest")
+PEAK_F32_FLOPS = 67e12
 K1_SOURCE = "melspec_tpu_torch/csrc/sig_mel.cu"
 K1_REPLACES = "melspec_tpu/ops/mel_kernel.py:1547"
+RS_SOURCE = "melspec_tpu_torch/csrc/resample.cu"
+K3_REPLACES = "melspec_tpu/ops/resample.py:224"
+K4_REPLACES = "melspec_tpu/ops/resample.py:396"
+# K3/K4 bars: "highest" (the serving default) sums 61 / 21 taps of a
+# 0.3-scale signal in f32, held at 2e-6 against the plain version and the
+# float64 result; "bf3" against its plain version (same bf16 products,
+# another f32 order) at 2e-6 and against the float64 result of the
+# unsliced filter at 1e-5 x scale (the resampler tests' bar)
+RS_TOL = 2e-6
+RS_BF3_REL = 1e-5
+# VAD decisions of a fleet that differ from the plain frontend's on the
+# same frames: JAX's own budget is 1 per test for two separately computed
+# mels; every earlier run of this script counted 0 of 44,008 (48 kHz)
+# and 0 of 7,424 (8 kHz) per fleet
+VA_FLIP_BUDGET = 2
+# the serving path's sizes: a 48 kHz fleet of FLEET streams ticked FLEET_TICKS
+# times with TICK_HOPS hops a tick, an 8 kHz fleet, and the bulk tick
+FLEET, FLEET_TICKS, TICK_HOPS = 256, 50, 4
+FLEET_8K, FLEET_8K_TICKS = 64, 30
+BULK_HOPS = 500
 
 
 def emit(phase: str, **fields) -> None:
@@ -82,15 +122,19 @@ def signal(rng, b: int, t: int, dev) -> torch.Tensor:
         (rng.normal(size=(b, t)) * 0.2).astype(np.float32)).to(dev)
 
 
-def k1_plain(x, fft, hop, n_mels, streaming, dev, dot_dtype=torch.float32):
+def k1_grid(t: int, fft: int, hop: int, streaming: bool) -> tuple:
+    """``(offset, n_frames)`` of the batch or streaming framing of ``t``
+    samples."""
+    if streaming:
+        return (framing.streaming_frame_offset(fft, hop),
+                framing.num_frames_streaming(t, fft, hop))
+    return 0, framing.num_frames_batch(t, fft, hop)
+
+
+def k1_plain(x, fft, hop, n_mels, offset, nf, dev, dot_dtype=torch.float32):
     """K1's plain version on the same inputs and matrices; with
     ``dot_dtype=torch.float64`` the exact result."""
     mats = mel_kernel.sig_matrices(fft, n_mels, 16000.0, 3, 2, dev)
-    if streaming:
-        offset = framing.streaming_frame_offset(fft, hop)
-        nf = framing.num_frames_streaming(x.shape[-1], fft, hop)
-    else:
-        offset, nf = 0, framing.num_frames_batch(x.shape[-1], fft, hop)
     return sig_mel.sig_mel_reference(
         x, mats.m_big, mats.pair_i, mats.mt_bf2, ks=3, n_frames=nf,
         hop=hop, offset=offset, pack=fft, n_bins_pad=mats.n_bins_pad,
@@ -101,10 +145,11 @@ def max_abs(a, b) -> float:
     return float((a - b).abs().max()) if a.numel() else 0.0
 
 
-def compare(got, x, fft, hop, n_mels, streaming, dev) -> dict:
-    """K1's output against its plain version and the exact result."""
-    plain = k1_plain(x, fft, hop, n_mels, streaming, dev)
-    exact = k1_plain(x, fft, hop, n_mels, streaming, dev, torch.float64)
+def compare(got, x, fft, hop, n_mels, offset, nf, dev) -> dict:
+    """K1's output against its plain version and the exact result, on
+    the same signal ``x`` framed at ``offset`` into ``nf`` frames."""
+    plain = k1_plain(x, fft, hop, n_mels, offset, nf, dev)
+    exact = k1_plain(x, fft, hop, n_mels, offset, nf, dev, torch.float64)
     torch.cuda.synchronize()
     if got.shape != plain.shape:
         raise AssertionError(f"shape {tuple(got.shape)} vs "
@@ -155,10 +200,11 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    built = build.load_all(["sig_mel"])
+    built = build.load_all(["sig_mel", "resample"])
     seconds = time.perf_counter() - t0
-    report = [ln.strip() for ln in built["sig_mel"].log.splitlines()
-              if "registers" in ln or "spill" in ln]
+    report = {name: [ln.strip() for ln in b.log.splitlines()
+                     if "registers" in ln or "spill" in ln]
+              for name, b in built.items()}
     emit("build", kernels=sorted(built), seconds=round(seconds, 3),
          ptxas=report)
 
@@ -173,7 +219,8 @@ def phase_k1_vs_plain(dev) -> dict:
                 x = signal(rng, b, t, dev)
                 got = whisper_mel_sig(x, fft, hop, n_mels, 16000.0,
                                       streaming=streaming, device=dev)
-                errs = compare(got, x, fft, hop, n_mels, streaming, dev)
+                errs = compare(got, x, fft, hop, n_mels,
+                               *k1_grid(t, fft, hop, streaming), dev)
                 rows.append(dict(config=[fft, hop, n_mels],
                                  streaming=streaming, shape=[b, t],
                                  out_shape=list(got.shape), **errs))
@@ -258,7 +305,7 @@ def phase_main_path(dev, rows) -> dict:
         raise AssertionError("main path output is not finite")
     if launches < 1:
         raise AssertionError("the main path launched K1 no time")
-    errs = compare(out, x, c.fft_size, c.hop_size, c.n_mels, False, dev)
+    errs = compare(out, x, c.fft_size, c.hop_size, c.n_mels, 0, nf, dev)
     bars = tolerances(rows + [errs])
     check([errs], bars, "main path")
 
@@ -313,6 +360,428 @@ def phase_main_path(dev, rows) -> dict:
                 library_composition_ms=lib_ms)
 
 
+def rs_exact(sig, up, down, q):
+    """The resampler's float64 result with the unsliced float64 filter."""
+    g = torch.as_tensor(_phase_matrix(up, down, 5.0)[0], device=sig.device)
+    k = g.shape[0]
+    win = sig.double()[:, : (q - 1) * down + k].unfold(-1, k, down)
+    return (win @ g).reshape(sig.shape[0], q * up)
+
+
+def rs_failed(r) -> bool:
+    exact_bar = (RS_TOL if r["precision"] == "highest"
+                 else RS_BF3_REL * r["scale"])
+    return (r["vs_plain"] > RS_TOL or r["vs_exact"] > exact_bar
+            or r.get("k4_equal_k3") is False)
+
+
+def phase_k3_k4_vs_plain(dev) -> list:
+    """K3 against its plain version and the float64 result, K4 as
+    ``torch.equal`` to K3 over the concat, at ratios 1/3 (48 kHz), 2/1
+    (8 kHz) and 1/2 (32 kHz), both precisions, S in {1, 7, 256}, 1-hop and
+    50-hop (multi-tile) chunks, with the serving state length L."""
+    rng = np.random.default_rng(SEED + 2)
+    rows = []
+    for up, down in [(1, 3), (2, 1), (1, 2)]:
+        hop_src = 160 * down // up
+        for precision in ("highest", "bf3"):
+            length = MultiStreamResampler(up, down, 1, align=160,
+                                          impl="kernel", precision=precision,
+                                          device=dev)._len
+            g = kres.resample_matrices(up, down, 5.0, precision, dev)
+            for s in (1, 7, 256):
+                for hops in (1, 50):
+                    n = hops * hop_src
+                    q = n // down
+                    buf = signal(rng, s, length, dev)
+                    chunks = signal(rng, s, n, dev)
+                    sig = torch.cat([buf, chunks], dim=1)
+                    k3 = kres.resample(sig, up, down, q, precision=precision)
+                    plain = kres.resample_reference(sig, g, up, down, q,
+                                                    precision)
+                    exact = rs_exact(sig, up, down, q)
+                    torch.cuda.synchronize()
+                    row = dict(ratio=[up, down], precision=precision,
+                               streams=s, hops=hops, n=n, buf=length,
+                               vs_plain=max_abs(k3, plain),
+                               vs_exact=max_abs(k3.double(), exact),
+                               plain_vs_exact=max_abs(plain.double(), exact),
+                               scale=float(exact.abs().max()))
+                    if kres.pair_eligible(length, n, up, down,
+                                          precision=precision):
+                        k4 = kres.resample_pair(buf, chunks, up, down, q,
+                                                precision=precision)
+                        row["k4_equal_k3"] = bool(torch.equal(k4, k3))
+                    rows.append(row)
+    n_k4 = sum("k4_equal_k3" in r for r in rows)
+    worst = {k: max(r[k] for r in rows)
+             for k in ("vs_plain", "vs_exact", "plain_vs_exact")}
+    emit("k3_k4_vs_plain", bars=dict(vs_plain=RS_TOL, vs_exact_highest=RS_TOL,
+                                     vs_exact_bf3_rel=RS_BF3_REL),
+         max_abs_err=worst, n_cases=len(rows), n_k4_cases=n_k4,
+         n_k4_equal=sum(r.get("k4_equal_k3", False) for r in rows),
+         cases=rows)
+    failed = [r for r in rows if rs_failed(r)]
+    if failed or not n_k4:
+        raise AssertionError(f"K3/K4 failed: {failed or 'no K4 case'}")
+    return rows
+
+
+def tick_device_ms(front, st, x: torch.Tensor, **kw) -> float:
+    """Device time of one source-rate tick's work on device-resident
+    chunks ``x`` (CUDA events; no host copy, no fetch)."""
+    active = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+
+    def tick():
+        _, y = front.rs.step(st.rs, x, active)
+        front.front._tick(st.fe, y, active)
+
+    return time_ms(tick, **kw)
+
+
+def zero_counts() -> None:
+    sig_mel.launches = 0
+    kres.launches.update(K3=0, K4=0)
+
+
+def read_counts() -> dict:
+    return {"K1": sig_mel.launches, **kres.launches}
+
+
+def speechlike(rng, s: int, n: int, rate: int) -> np.ndarray:
+    """White noise switched between 0.3 and 0.003 every 0.25 s (a random
+    phase per stream), so the VAD sees edges and quiet stretches."""
+    t = np.arange(n) / rate
+    on = ((t[None, :] + rng.random((s, 1)) * 0.5) % 0.5) < 0.25
+    x = rng.normal(size=(s, n)) * np.where(on, 0.3, 0.003)
+    return x.astype(np.float32)
+
+
+def check_k1_tick(front, st, x: torch.Tensor, active: torch.Tensor) -> dict:
+    """K1 on the serving route at a tick's shapes: the tick's own
+    resampler and mel code run again on the state ``st`` the tick started
+    from, and K1's mels (offset = hop over ``concat(hop_buf, y)``,
+    ``n_frames`` = hops) are held against the plain version and the
+    exact result on that concat. These launches are not counted."""
+    _, y = front.rs.step(st.rs, x, active)
+    mel = front.front.mel
+    c = mel.config
+    signal = torch.cat([st.fe.mel.hop_buf, y], dim=1)
+    got = mel._push_many(st.fe.mel, y, active)[2]
+    return compare(got, signal, c.fft_size, c.hop_size, c.n_mels,
+                   c.hop_size, y.shape[1] // c.hop_size, x.device)
+
+
+def drive_fleet(dev, rate, s, fft_impl, ticks, hops, seed, sit_out=None,
+                reset_at=None, reset_mask=None) -> dict:
+    """Tick a source-rate fleet from ``shared_frontend`` (the path under
+    test) beside a plain ``MultiStreamFrontend`` on the same mel route fed
+    the same audio resampled on the host side by ``resample_poly`` in
+    float64, with the same activity and resets; then hold the frame grid:
+    per stream segment the first ``spurious_out / hop`` hops are invalid
+    and every later hop's validity, q (within one step) and va (at most
+    ``VA_FLIP_BUDGET`` flips) equal the plain frontend's that many hops
+    earlier. On the sig route every tick's K1 output is also held against
+    K1's plain version (``check_k1_tick``): the plain frontend runs K1
+    too, so the grid alone does not witness K1."""
+    c = WHISPER_LARGE_V3
+    front = shared_frontend(c, s, input_rate=rate, fft_impl=fft_impl,
+                            device=dev)
+    plain = MultiStreamFrontend(c, s, fft_impl=fft_impl, device=dev)
+    up, down, hop = front.rs.up, front.rs.down, c.hop_size
+    n, n16 = hops * front.hop_src, hops * hop
+    spur = front.rs.spurious_out // hop
+    rng = np.random.default_rng(seed)
+    n_seg = 1 if reset_at is None else 2
+    src = [speechlike(rng, s, ticks * n, rate) for _ in range(n_seg)]
+    y16 = [resample_poly(x.astype(np.float64), up, down, device=dev)
+           .to(torch.float32).cpu().numpy() for x in src]
+    seg, cur = np.zeros(s, int), np.zeros(s, int)
+    st, pst = front.init(), plain.init()
+    recs, wall, k1_rows = [], [], []
+    launches = dict.fromkeys(("K1", "K3", "K4"), 0)
+    torch.cuda.synchronize()
+    for t in range(ticks):
+        if t == reset_at:
+            st, pst = front.reset(st, reset_mask), plain.reset(pst, reset_mask)
+            seg[reset_mask], cur[reset_mask] = 1, 0
+        active = np.ones(s, bool)
+        if sit_out is not None and t % 2:
+            active[sit_out] = False
+        chunk = np.zeros((s, n), np.float32)
+        pchunk = np.zeros((s, n16), np.float32)
+        for i in np.flatnonzero(active):
+            chunk[i] = src[seg[i]][i, cur[i] * n : (cur[i] + 1) * n]
+            pchunk[i] = y16[seg[i]][i, cur[i] * n16 : (cur[i] + 1) * n16]
+        # counts zeroed just before the path's tick and read just after;
+        # the plain frontend's and check_k1_tick's launches are not counted
+        st0 = st
+        zero_counts()
+        t0 = time.perf_counter()
+        st, q, lo, hi, va, valid = front.push_many(st, chunk, active)
+        wall.append((time.perf_counter() - t0) * 1e3)
+        for name, v in read_counts().items():
+            launches[name] += v
+        if fft_impl == "sig":
+            k1_rows.append(check_k1_tick(
+                front, st0, torch.as_tensor(chunk, device=dev),
+                torch.as_tensor(active, device=dev)))
+        pst, pq, _, _, pva, pvalid = plain.push_many(pst, pchunk, active)
+        recs.append((active, seg.copy(), q, va, valid, pq, pva, pvalid))
+        cur[active] += 1
+
+    checked = flips = q_diff = 0
+    grid_faults = []
+    for i in range(s):
+        for g in range(n_seg):
+            rows = [r for r in recs if r[0][i] and r[1][i] == g]
+            if not rows:
+                continue
+            gq, gva, gv, pq, pva, pv = (np.concatenate([r[k][i] for r in rows])
+                                        for k in range(2, 8))
+            m = len(gv)
+            if gv[:spur].any() or not np.array_equal(gv[spur:],
+                                                     pv[: m - spur]):
+                grid_faults.append([i, g])
+                continue
+            v = gv[spur:]
+            q_diff = max(q_diff, int(np.abs(
+                gq[spur:][v].astype(int) - pq[: m - spur][v].astype(int)
+            ).max(initial=0)))
+            flips += int((gva[spur:][v] != pva[: m - spur][v]).sum())
+            checked += int(v.sum())
+
+    device_ms = tick_device_ms(front, st, torch.as_tensor(chunk, device=dev))
+    wall_med = statistics.median(wall)
+    out = dict(rate=rate, streams=s, fft_impl=fft_impl, ticks=ticks,
+               hops=hops, ratio=[up, down], buf=front.rs._len,
+               resample_precision=front.rs.precision,
+               spurious_hops=spur, launches=launches,
+               wall_ms_median=wall_med, wall_ms_max=max(wall),
+               device_ms=device_ms,
+               x_real_time=s * hops * hop / c.sampling_rate / (wall_med / 1e3),
+               x_real_time_device=(s * hops * hop / c.sampling_rate
+                                   / (device_ms / 1e3)),
+               valid_checked=checked, q_max_diff=q_diff, va_flips=flips,
+               va_flip_budget=VA_FLIP_BUDGET, grid_faults=grid_faults[:10],
+               n_grid_faults=len(grid_faults))
+    if k1_rows:
+        out["k1_vs_plain"] = {k: max(r[k] for r in k1_rows)
+                              for k in ("vs_plain", "vs_exact",
+                                        "plain_vs_exact")}
+    if (grid_faults or q_diff > 1 or flips > VA_FLIP_BUDGET
+            or checked == 0):
+        raise AssertionError(f"frame grid: {out}")
+    return dict(out, state=st, last_chunk=chunk, k1_rows=k1_rows)
+
+
+def phase_serving_path(dev, rows) -> tuple:
+    """The serving tick at full width: WHISPER_LARGE_V3, 256 streams of 48
+    kHz, 4 hops (1,920 source samples) a tick, 50 ticks on rdft then on
+    sig; a quarter of the slots sit out alternate ticks and 8 slots are
+    reset at tick 25. Then a 1-hop tick (K3), a 64-stream 8 kHz fleet (K4
+    upsampling) and calibrate_fft_impl's pick. K1's serving-route rows
+    are held to the bars of ``rows`` (phase 3's) and returned with the
+    launch counts."""
+    s = FLEET
+    sit_out = np.arange(s) % 4 == 0
+    resets = np.zeros(s, bool)
+    resets[1 :: s // 8] = True
+    counts, k1_rows = {}, []
+
+    def k1_check(new_rows, what):
+        bars = tolerances(rows + k1_rows + new_rows)
+        check(new_rows, bars, what)
+        k1_rows.extend(new_rows)
+
+    for k, impl in enumerate(("rdft", "sig")):
+        r = drive_fleet(dev, 48000, s, impl, FLEET_TICKS, TICK_HOPS,
+                        SEED + 10 + k, sit_out, FLEET_TICKS // 2, resets)
+        st, chunk, new_rows = (r.pop(k) for k in ("state", "last_chunk",
+                                                  "k1_rows"))
+        emit(f"serving_48k_{impl}", **r)
+        k1_check(new_rows, f"serving 48 kHz {impl}")
+        counts[f"48k_{impl}"] = r["launches"]
+        if r["launches"]["K4"] < 1 or (impl == "sig"
+                                       and r["launches"]["K1"] < 1):
+            raise AssertionError(f"serving tick ({impl}) missed a kernel: "
+                                 f"{r['launches']}")
+    front = shared_frontend(WHISPER_LARGE_V3, s, input_rate=48000,
+                            fft_impl="sig", device=dev)
+    x1 = chunk[:, :front.hop_src]
+    torch.cuda.synchronize()
+    zero_counts()
+    front.push_many(st, x1)
+    counts["48k_1hop"] = read_counts()
+    one = check_k1_tick(front, st, torch.as_tensor(x1, device=dev),
+                        torch.ones(s, dtype=torch.bool, device=dev))
+    emit("serving_48k_1hop", launches=counts["48k_1hop"],
+         buf=front.rs._len, n=front.hop_src,
+         k1_vs_plain={k: one[k] for k in ("vs_plain", "vs_exact",
+                                         "plain_vs_exact")})
+    k1_check([one], "serving 1-hop tick")
+    if counts["48k_1hop"]["K3"] != 1 or counts["48k_1hop"]["K4"]:
+        raise AssertionError(f"1-hop tick: {counts['48k_1hop']}")
+    r = drive_fleet(dev, 8000, FLEET_8K, "sig", FLEET_8K_TICKS, TICK_HOPS,
+                    SEED + 20)
+    r.pop("state"), r.pop("last_chunk")
+    new_rows = r.pop("k1_rows")
+    emit("serving_8k_sig", **r)
+    k1_check(new_rows, "serving 8 kHz sig")
+    counts["8k_sig"] = r["launches"]
+    if r["launches"]["K4"] < 1 or r["launches"]["K1"] < 1:
+        raise AssertionError(f"8 kHz fleet: {r['launches']}")
+    pick = calibrate_fft_impl(WHISPER_LARGE_V3, s, hops=TICK_HOPS,
+                              input_rate=48000, device=dev)
+    emit("calibrate_fft_impl", streams=s, hops=TICK_HOPS, input_rate=48000,
+         pick=pick)
+    return counts, k1_rows
+
+
+def phase_serving_profile(dev) -> dict:
+    """Where the serving tick's time goes: ``torch.profiler`` over 20
+    ticks of the 256-stream 48 kHz fleet per route, device time by kernel
+    (and copy) name against the host clock; the rest is the device's
+    idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(SEED + 40)
+    ticks = 20
+    x = speechlike(rng, FLEET, ticks * TICK_HOPS * 480, 48000).reshape(
+        FLEET, ticks, -1)
+    out = {}
+    for impl in ("rdft", "sig"):
+        front = shared_frontend(WHISPER_LARGE_V3, FLEET, input_rate=48000,
+                                fft_impl=impl, device=dev)
+        st = front.push_many(front.init(), x[:, 0])[0]  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for t in range(1, ticks):
+                st = front.push_many(st, x[:, t])[0]
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / (ticks - 1)
+        by_name = {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3 / (ticks - 1)
+        busy = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+        out[impl] = dict(wall_ms_per_tick=wall, device_ms_per_tick=busy,
+                         idle_share=1.0 - busy / wall if wall else None,
+                         n_names=len(by_name),
+                         top=[[k[:80], v, v / busy if busy else None]
+                              for k, v in top])
+    emit("serving_profile", streams=FLEET, hops=TICK_HOPS, ticks=ticks - 1,
+         **out)
+    return out
+
+
+def phase_bulk(dev, rows) -> dict:
+    """One 256 x 500-hop 48 kHz tick per route, then K4, K3 and K1 timed
+    at its shapes beside their plain versions, the library call and
+    their bounds; K3/K4 in the serving precision ("highest") and in bf3,
+    and K1 on the serving route (offset = hop) held against its plain
+    version and the exact result to the bars of ``rows``."""
+    c = WHISPER_LARGE_V3
+    s, hops, up, down = FLEET, BULK_HOPS, 1, 3
+    rng = np.random.default_rng(SEED + 30)
+    x = speechlike(rng, s, hops * 480, 48000)
+    xdev = torch.as_tensor(x, device=dev)
+    ticks = {}
+    for impl in ("rdft", "sig"):
+        front = shared_frontend(c, s, input_rate=48000, fft_impl=impl,
+                                device=dev)
+        st = front.init()
+        front.push_many(st, x)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        front.push_many(st, x)
+        wall = (time.perf_counter() - t0) * 1e3
+        dev_ms = tick_device_ms(front, st, xdev, reps=5, warmup=1)
+        ticks[impl] = dict(wall_ms=wall, device_ms=dev_ms,
+                           x_real_time=s * hops / 100 / (wall / 1e3),
+                           x_real_time_device=s * hops / 100 / (dev_ms / 1e3))
+
+    prec = front.rs.precision
+    length = front.rs._len
+    q = hops * 480 // down
+    buf = signal(rng, s, length, dev)
+    sig = torch.cat([buf, xdev], dim=1)
+    g = kres.resample_matrices(up, down, 5.0, prec, dev)
+    k4 = kres.resample_pair(buf, xdev, up, down, q, precision=prec)
+    k3 = kres.resample(sig, up, down, q, precision=prec)
+    plain = kres.resample_reference(sig, g, up, down, q, prec)
+    g32 = torch.as_tensor(_phase_matrix(up, down, 5.0)[0].T[:, None, :],
+                          dtype=torch.float32, device=dev)
+    lsig = sig[:, None, : (q - 1) * down + g32.shape[-1]]  # the q windows
+
+    def library():
+        return torch.nn.functional.conv1d(lsig, g32, stride=down)
+
+    lib = library()[:, 0]
+    torch.cuda.synchronize()
+    errs = dict(k4_vs_plain=max_abs(k4, plain),
+                k4_equal_k3=bool(torch.equal(k4, k3)),
+                library_vs_k4=max_abs(lib, k4))
+    del plain, lib
+    ms = dict(
+        k4=time_ms(lambda: kres.resample_pair(buf, xdev, up, down, q,
+                                              precision=prec)),
+        k4_bf3=time_ms(lambda: kres.resample_pair(
+            buf, xdev, up, down, q, precision="bf3")),
+        k3=time_ms(lambda: kres.resample(sig, up, down, q, precision=prec)),
+        k3_bf3=time_ms(lambda: kres.resample(sig, up, down, q,
+                                             precision="bf3")),
+        k3_plain=time_ms(lambda: kres.resample_reference(
+            sig, g, up, down, q, prec), reps=3, warmup=1),
+        k4_plain=time_ms(lambda: kres.resample_reference(
+            torch.cat([buf, xdev], dim=1), g, up, down, q, prec),
+            reps=3, warmup=1),
+        library=time_ms(library))
+    k = g.shape[-2]
+    outs = s * q * up
+    nbytes = ((buf.numel() + xdev.numel() + outs) * 4
+              + g.numel() * g.element_size())
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = 2 * k * outs / PEAK_F32_FLOPS * 1e3
+    t_ops_bf3 = 2 * 3 * k * outs / PEAK_BF16_FLOPS * 1e3
+
+    # K1 at the serving tick's bulk shape: offset = hop over the concat
+    mats = mel_kernel.sig_matrices(c.fft_size, c.n_mels, c.sampling_rate,
+                                   3, 2, dev)
+    mel_sig = torch.cat([torch.zeros(s, c.fft_size, device=dev),
+                         k4[:, : hops * c.hop_size]], dim=1)
+
+    def k1():
+        return sig_mel.sig_mel(
+            mel_sig, mats.m_big, mats.pair_i, mats.mt_bf2, ks=3,
+            n_frames=hops, hop=c.hop_size, offset=c.hop_size,
+            pack=c.fft_size, n_bins_pad=mats.n_bins_pad, n_mels=c.n_mels)
+
+    k1_errs = compare(k1(), mel_sig, c.fft_size, c.hop_size, c.n_mels,
+                      c.hop_size, hops, dev)
+    k1_ms = time_ms(k1, reps=5, warmup=1)
+    out = dict(streams=s, hops=hops, ticks=ticks, precision=prec,
+               shape_buf=[s, length], shape_chunks=list(xdev.shape),
+               windows=q, errs=errs, ms=ms, bytes=nbytes,
+               bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
+               bound_ops_bf3_ms=t_ops_bf3, k1_serving_ms=k1_ms,
+               k1_serving_errs=k1_errs)
+    emit("bulk_48k", **out)
+    if not errs["k4_equal_k3"] or errs["k4_vs_plain"] > RS_TOL:
+        raise AssertionError(f"bulk tick: {errs}")
+    check([k1_errs], tolerances(rows + [k1_errs]), "bulk tick K1")
+    return dict(out, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -325,10 +794,30 @@ def main() -> int:
     phase_gates(dev)
     main = phase_main_path(dev, rows)
     rows = rows + [main["errs"]]
+    rs_rows = phase_k3_k4_vs_plain(dev)
+    serving, serving_rows = phase_serving_path(dev, rows)
+    rows = rows + serving_rows
+    phase_serving_profile(dev)
+    bulk = phase_bulk(dev, rows)
+    rows = rows + [bulk["k1_serving_errs"]]
     vs_plain = max(r["vs_plain"] for r in rows)
+    by_path = {"batch": {"K1": main["launches"]}, **serving}
+
+    def launches(name):
+        return sum(c.get(name, 0) for c in by_path.values())
+
+    rs_err = max(max(r["vs_plain"] for r in rs_rows),
+                 bulk["errs"]["k4_vs_plain"])
+    common = dict(route="cuda", source=RS_SOURCE, max_abs_err=rs_err,
+                  max_abs_vs_exact=max(r["vs_exact"] for r in rs_rows),
+                  precision=bulk["precision"], bound_ms=bulk["bound_ms"],
+                  bound_by=bulk["bound_by"],
+                  library_ms=bulk["ms"]["library"],
+                  shape=[bulk["shape_buf"], bulk["shape_chunks"]])
     print(json.dumps({"kernels": [{
         "name": "K1", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": main["launches"],
+        "replaces": K1_REPLACES, "launches": launches("K1"),
+        "launches_by_path": {k: v["K1"] for k, v in by_path.items()},
         "max_abs_err": vs_plain, "max_abs_vs_plain": vs_plain,
         "max_abs_vs_exact": max(r["vs_exact"] for r in rows),
         "f32_floor": max(r["plain_vs_exact"] for r in rows),
@@ -336,7 +825,19 @@ def main() -> int:
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None,
         "library_composition_ms": main["library_composition_ms"],
-    }]}), flush=True)
+        "serving_bulk_ms": bulk["k1_serving_ms"],
+    }, dict(common, name="K3", replaces=K3_REPLACES,
+            launches=launches("K3"),
+            launches_by_path={k: v["K3"] for k, v in serving.items()},
+            ms=bulk["ms"]["k3"], ms_bf3=bulk["ms"]["k3_bf3"],
+            plain_ms=bulk["ms"]["k3_plain"]),
+        dict(common, name="K4", replaces=K4_REPLACES,
+             launches=launches("K4"),
+             launches_by_path={k: v["K4"] for k, v in serving.items()},
+             ms=bulk["ms"]["k4"], ms_bf3=bulk["ms"]["k4_bf3"],
+             plain_ms=bulk["ms"]["k4_plain"],
+             bound_ops_bf3_ms=bulk["bound_ops_bf3_ms"])]}),
+          flush=True)
     emit("done", seconds=round(time.perf_counter() - t0, 1))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

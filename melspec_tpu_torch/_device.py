@@ -1,4 +1,6 @@
-"""Device selection for every public entry point of the port.
+"""Device selection for every public entry point of the port, and the
+few device-side helpers they share (full-float32 numerics, per-stream
+masks, one-transfer fetches).
 
 The rule is explicit placement with no silent fallback: ``device=None``
 means CUDA, and a host without CUDA raises instead of computing on the
@@ -8,6 +10,9 @@ for ``"cpu"`` by name.
 
 from __future__ import annotations
 
+import contextlib
+
+import numpy as np
 import torch
 
 
@@ -32,3 +37,45 @@ def as_signal(samples, device: torch.device) -> torch.Tensor:
     ``device``."""
     return torch.as_tensor(samples, dtype=torch.float32,
                            device=device).contiguous()
+
+
+@contextlib.contextmanager
+def full_f32():
+    """float32 matrix products and cuDNN convolutions in full float32
+    inside the block, whatever the process-wide flags say: PyTorch lets
+    cuDNN convolutions use TF32 by default (about 1e-3 relative error),
+    and a caller may have lowered the matmul precision."""
+    prec = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    cudnn = torch.backends.cudnn
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic,
+                         allow_tf32=False):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(prec)
+
+
+def stream_mask(mask, n_streams: int, device: torch.device) -> torch.Tensor:
+    """A per-stream flag vector as a ``[n_streams]`` bool tensor on
+    ``device``; ``None`` means every stream."""
+    if mask is None:
+        return torch.ones(n_streams, dtype=torch.bool, device=device)
+    return torch.as_tensor(mask, dtype=torch.bool, device=device)
+
+
+def to_host(*tensors: torch.Tensor) -> tuple:
+    """Numpy copies of ``tensors`` through ONE device-to-host transfer:
+    each tensor's bytes are packed into one uint8 buffer on its device,
+    which is fetched once and split on the host."""
+    parts = [t.detach().contiguous().reshape(-1).view(torch.uint8)
+             for t in tensors]
+    flat = torch.cat(parts).cpu().numpy()
+    out, off = [], 0
+    for t, part in zip(tensors, parts):
+        n = part.numel()
+        dtype = np.dtype(str(t.dtype).removeprefix("torch."))
+        out.append(flat[off : off + n].copy().view(dtype).reshape(t.shape))
+        off += n
+    return tuple(out)

@@ -97,3 +97,41 @@ def test_k1_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="float32"):
         sig_mel.sig_mel(x.double(), mats.m_big, mats.pair_i, mats.mt_bf2,
                         **kw)
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_multistream_sig_route_matches_plain(dev, n_mels):
+    """K1 on the serving tick's route: ``MultiStreamMel(fft_impl="sig")``
+    frames ``concat(hop_buf, chunks)`` at offset = hop into H frames, with
+    a carried window, masked streams and H past one block's 64 frames;
+    held against the plain version and the exact result on that concat,
+    with the bars of test_k1_matches_plain."""
+    from melspec_tpu_torch.config import MelConfig
+    from melspec_tpu_torch.streaming.multistream import MultiStreamMel
+
+    s = 5
+    mel = MultiStreamMel(MelConfig(400, 160, n_mels, 16000.0), s,
+                         fft_impl="sig", device=dev)
+    m = mel._sig
+    rng = np.random.default_rng(n_mels)
+    st = mel.init()
+    for h in (4, 1, 70):
+        x = torch.from_numpy((rng.normal(size=(s, h * 160)) * 0.2).astype(
+            np.float32)).to(dev)
+        active = torch.tensor([True, True, h != 1, True, False], device=dev)
+        concat = torch.cat([st.hop_buf, x], dim=1)
+        before = sig_mel.launches
+        st, _, got, _ = mel._push_many(st, x, active)
+        torch.cuda.synchronize()
+        assert sig_mel.launches == before + 1
+        kw = dict(ks=3, n_frames=h, hop=160, offset=160, pack=400,
+                  n_bins_pad=m.n_bins_pad, n_mels=n_mels)
+        want = sig_mel.sig_mel_reference(concat, m.m_big, m.pair_i,
+                                         m.mt_bf2, **kw)
+        exact = sig_mel.sig_mel_reference(concat, m.m_big, m.pair_i,
+                                          m.mt_bf2, dot_dtype=torch.float64,
+                                          **kw)
+        assert got.shape == want.shape == (s, h, n_mels)
+        floor = float((want - exact).abs().max())
+        assert float((got - exact).abs().max()) <= 1e-5
+        assert float((got - want).abs().max()) <= 1e-5 + floor

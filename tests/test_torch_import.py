@@ -96,8 +96,9 @@ def test_wrapper_rejects_devices_other_than_cuda_and_cpu():
 def test_import_builds_nothing():
     """Kernels build at their first launch, never at import."""
     code = ("import melspec_tpu_torch, melspec_tpu_torch.kernels.sig_mel as k\n"
-            "import sys; sys.exit(0 if not k._bound.cache_info().currsize "
-            "else 1)\n")
+            "import melspec_tpu_torch.kernels.resample as r\n"
+            "import sys; sys.exit(0 if not k._bound.cache_info().currsize\n"
+            "         and not r._bound.cache_info().currsize else 1)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
