@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from the sources in this checkout
-(K1 ``csrc/sig_mel.cu``, K3/K4 ``csrc/resample.cu``, one ``nvcc`` each,
-started together), holds each against its plain PyTorch version on the
-card, checks the accuracy gates through the kernels, and drives the port's
-two main paths at full width, with launch counts (zeroed just before each
-path, read just after) that show each went through its kernels:
+(K1 ``csrc/sig_mel.cu``, K2 ``csrc/sig_multi.cu``, K3/K4
+``csrc/resample.cu``, one ``nvcc`` each, started together), holds each
+against its plain PyTorch version on the card, checks the accuracy gates
+through the kernels, and drives the port's three main paths at full
+width, with launch counts (zeroed just before each path, read just after)
+that show each went through its kernels:
 
 - the batch path: raw ``[B, T]`` audio -> whisper large-v3 log-mel through
   ``WhisperMelPipeline.mel_batch`` (K1);
@@ -18,7 +19,12 @@ path, read just after) that show each went through its kernels:
   against a plain frontend fed float64 ``resample_poly`` audio and, on
   the sig route, every tick's K1 output (offset = hop) held against K1's
   plain version; then a 64-stream 8 kHz fleet (K4 upsampling) and a 256 x
-  500-hop bulk tick for kernel times.
+  500-hop bulk tick for kernel times;
+- the composite frontend step: 64 x 30 s through
+  ``sharded_frontend_step`` at whisper large-v3 + Kaldi fbank + NeMo
+  log-mel defaults (K2 with whisper, Kaldi and the VAD; K1 in ln_guard
+  for NeMo), and 64 x 10 s at the JAX defaults, after K1's ln modes and
+  K2 (two and three heads) are held against their plain versions.
 
 Each phase prints one JSON line. Any failure raises and the script exits
 non-zero without its last line; on success the last line is
@@ -28,12 +34,14 @@ It exits non-zero at once where CUDA is not available.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -44,13 +52,26 @@ sys.path.insert(0, str(ROOT))
 from melspec_tpu_torch import (WHISPER_LARGE_V3, WhisperMelPipeline,  # noqa: E402
                                compute_streaming_mel, read_wav_f32le,
                                whisper_mel_sig)
-from melspec_tpu_torch.kernels import build, sig_mel  # noqa: E402
+from melspec_tpu_torch.kernels import build, sig_mel, sig_multi  # noqa: E402
 from melspec_tpu_torch.kernels import resample as kres  # noqa: E402
+from melspec_tpu_torch.config import (BatchLogMelConfig,  # noqa: E402
+                                      DetectionSettings, FbankConfig,
+                                      MelConfig)
+from melspec_tpu_torch.ops import batch_logmel  # noqa: E402
 from melspec_tpu_torch.ops import framing, mel_kernel  # noqa: E402
-from melspec_tpu_torch.ops.filterbank import mel_filterbank  # noqa: E402
+from melspec_tpu_torch.ops.batch_logmel import BatchLogMel  # noqa: E402
+from melspec_tpu_torch.ops.fbank import Fbank  # noqa: E402
+from melspec_tpu_torch.ops.filterbank import (kaldi_filterbank,  # noqa: E402
+                                              mel_filterbank)
 from melspec_tpu_torch.ops.resample import (_phase_matrix,  # noqa: E402
                                             resample_poly)
-from melspec_tpu_torch.ops.windows import hann_periodic  # noqa: E402
+from melspec_tpu_torch.ops.sig_multihead import (  # noqa: E402
+    WhisperKaldiFused, WhisperKaldiNemoFused)
+from melspec_tpu_torch.ops.vad import classify_columns  # noqa: E402
+from melspec_tpu_torch.ops.windows import (hann_centered,  # noqa: E402
+                                           hann_periodic, povey)
+from melspec_tpu_torch.parallel.sharding import (  # noqa: E402
+    sharded_frontend_step)
 from melspec_tpu_torch.streaming.resample import (  # noqa: E402
     MultiStreamResampler)
 from melspec_tpu_torch.streaming.serving import (  # noqa: E402
@@ -74,6 +95,21 @@ PEAK_HBM_BYTES = 3.35e12
 PEAK_F32_FLOPS = 67e12
 K1_SOURCE = "melspec_tpu_torch/csrc/sig_mel.cu"
 K1_REPLACES = "melspec_tpu/ops/mel_kernel.py:1547"
+K2_SOURCE = "melspec_tpu_torch/csrc/sig_multi.cu"
+K2_REPLACES = "melspec_tpu/ops/sig_multihead.py:151"
+# the ln heads' (Kaldi, NeMo) bar against the exact result: the JAX
+# package's cross-route bar, raised to the f32 floor measured in the run
+# (ln turns the relative error of a near-silent bin into absolute error);
+# against the plain version that bar plus the floor
+LN_TOL = 2e-4
+# the JFK gate of Kaldi fbank against kaldi_native_fbank (tests/test_fbank.py)
+KALDI_JFK_GATE = 0.0152
+# the composite frontend step: 64 clips of 30 s (whisper large-v3 + Kaldi +
+# NeMo defaults), and of 10 s at the JAX defaults (80-mel whisper); K1's
+# ln modes and K2 are held against their plain versions on 64 ragged 10 s
+# clips (16 tiles of 64 frames)
+STEP_B, STEP_SECONDS, STEP80_SECONDS = 64, 30.0, 10.0
+CHECK_T = 10 * 16000 + 37
 RS_SOURCE = "melspec_tpu_torch/csrc/resample.cu"
 K3_REPLACES = "melspec_tpu/ops/resample.py:224"
 K4_REPLACES = "melspec_tpu/ops/resample.py:396"
@@ -131,35 +167,36 @@ def k1_grid(t: int, fft: int, hop: int, streaming: bool) -> tuple:
     return 0, framing.num_frames_batch(t, fft, hop)
 
 
-def k1_plain(x, fft, hop, n_mels, offset, nf, dev, dot_dtype=torch.float32):
-    """K1's plain version on the same inputs and matrices; with
-    ``dot_dtype=torch.float64`` the exact result."""
-    mats = mel_kernel.sig_matrices(fft, n_mels, 16000.0, 3, 2, dev)
-    return sig_mel.sig_mel_reference(
-        x, mats.m_big, mats.pair_i, mats.mt_bf2, ks=3, n_frames=nf,
-        hop=hop, offset=offset, pack=fft, n_bins_pad=mats.n_bins_pad,
-        n_mels=n_mels, mel_precision="bf2", dot_dtype=dot_dtype)
-
-
 def max_abs(a, b) -> float:
     return float((a - b).abs().max()) if a.numel() else 0.0
 
 
-def compare(got, x, fft, hop, n_mels, offset, nf, dev) -> dict:
-    """K1's output against its plain version and the exact result, on
-    the same signal ``x`` framed at ``offset`` into ``nf`` frames."""
-    plain = k1_plain(x, fft, hop, n_mels, offset, nf, dev)
-    exact = k1_plain(x, fft, hop, n_mels, offset, nf, dev, torch.float64)
+def held(got, x, head, nf, hop, offset=0) -> dict:
+    """A kernel's output for one head (``SigHead``) against the head's
+    plain version (f32 dot) and the exact result (float64 dot), on the
+    same signal ``x`` framed at ``offset`` into ``nf`` frames."""
+    kw = dict(ks=3, n_frames=nf, hop=hop, offset=offset, **head.kw())
+    plain = sig_mel.sig_mel_reference(x, head.m_big, head.pair_i, head.mt,
+                                      **kw)
+    exact = sig_mel.sig_mel_reference(x, head.m_big, head.pair_i, head.mt,
+                                      dot_dtype=torch.float64, **kw)
     torch.cuda.synchronize()
     if got.shape != plain.shape:
         raise AssertionError(f"shape {tuple(got.shape)} vs "
                              f"{tuple(plain.shape)}")
     if not torch.isfinite(got).all():
-        raise AssertionError("K1 output is not finite")
-    return dict(vs_plain=max_abs(got, plain), vs_exact=max_abs(got, exact),
+        raise AssertionError(f"{head.out_mode} output is not finite")
+    return dict(mode=head.out_mode, vs_plain=max_abs(got, plain),
+                vs_exact=max_abs(got, exact),
                 plain_vs_exact=max_abs(plain, exact),
-                n_over_tol_k1=int(((got - exact).abs() > K1_TOL).sum()),
+                n_over_tol_kernel=int(((got - exact).abs() > K1_TOL).sum()),
                 n_over_tol_plain=int(((plain - exact).abs() > K1_TOL).sum()))
+
+
+def compare(got, x, fft, hop, n_mels, offset, nf, dev) -> dict:
+    """K1's whisper output (bf2, (ks, cutoff) = (3, 2)) held as above."""
+    return held(got, x, mel_kernel.whisper_head(fft, n_mels, 16000.0, dev),
+                nf, hop, offset)
 
 
 def tolerances(rows) -> dict:
@@ -200,7 +237,7 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    built = build.load_all(["sig_mel", "resample"])
+    built = build.load_all(["sig_mel", "resample", "sig_multi"])
     seconds = time.perf_counter() - t0
     report = {name: [ln.strip() for ln in b.log.splitlines()
                      if "registers" in ln or "spill" in ln]
@@ -228,7 +265,7 @@ def phase_k1_vs_plain(dev) -> dict:
     worst = {k: max(r[k] for r in rows)
              for k in ("vs_plain", "vs_exact", "plain_vs_exact")}
     emit("k1_vs_plain", bars=bars, max_abs_err=worst,
-         n_over_tol_k1=sum(r["n_over_tol_k1"] for r in rows),
+         n_over_tol_k1=sum(r["n_over_tol_kernel"] for r in rows),
          n_over_tol_plain=sum(r["n_over_tol_plain"] for r in rows),
          n_out=sum(int(np.prod(r["out_shape"])) for r in rows), cases=rows)
     check(rows, bars, "phase 3")
@@ -323,16 +360,9 @@ def phase_main_path(dev, rows) -> dict:
     lib_ms = time_ms(lib)
     lib_err = float((lib() - out).abs().max())
 
-    # the function's work, not the kernel's: per frame, the slice-pair
-    # blocks' taps against the n_bins re columns and the im columns that
-    # are not identically zero, then the bf2 projection's three products
-    # per (bin, mel); the zero pad columns K1 also multiplies are not counted
     frames = b * nf
-    n_bins = c.fft_size // 2
-    dft_cols = n_bins + len(mel_kernel.sig_packed_im_bins(c.fft_size,
-                                                          n_bins))
-    flops = frames * (2 * len(mats.pair_i) * c.fft_size * dft_cols
-                      + 2 * 3 * n_bins * c.n_mels)
+    flops = head_work(mel_kernel.whisper_head(c.fft_size, c.n_mels,
+                                              c.sampling_rate, dev), frames)
     nbytes = (x.numel() * 4 + mats.m_big.numel() * 2
               + mats.mt_bf2.numel() * 2 + out.numel() * 4)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
@@ -441,11 +471,13 @@ def tick_device_ms(front, st, x: torch.Tensor, **kw) -> float:
 
 def zero_counts() -> None:
     sig_mel.launches = 0
+    sig_multi.launches = 0
     kres.launches.update(K3=0, K4=0)
 
 
 def read_counts() -> dict:
-    return {"K1": sig_mel.launches, **kres.launches}
+    return {"K1": sig_mel.launches, "K2": sig_multi.launches,
+            **kres.launches}
 
 
 def speechlike(rng, s: int, n: int, rate: int) -> np.ndarray:
@@ -499,7 +531,7 @@ def drive_fleet(dev, rate, s, fft_impl, ticks, hops, seed, sit_out=None,
     seg, cur = np.zeros(s, int), np.zeros(s, int)
     st, pst = front.init(), plain.init()
     recs, wall, k1_rows = [], [], []
-    launches = dict.fromkeys(("K1", "K3", "K4"), 0)
+    launches = dict.fromkeys(("K1", "K2", "K3", "K4"), 0)
     torch.cuda.synchronize()
     for t in range(ticks):
         if t == reset_at:
@@ -782,6 +814,375 @@ def phase_bulk(dev, rows) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def ln_bars(rows) -> dict:
+    floor = max(r["plain_vs_exact"] for r in rows)
+    bar = max(LN_TOL, floor)
+    return dict(f32_floor=floor, vs_exact=bar, vs_plain=bar + floor)
+
+
+def head_work(head, frames: int) -> int:
+    """FLOPs of one head over ``frames`` frames, the function's work, not
+    the layout's: the slice-pair blocks' taps against the DFT columns that
+    are not identically zero, the power's re + im add of each bin that has
+    an im column, then the projection's products (three per (bin, mel) in
+    bf2) over the bins. Split columns: the bins are the nonzero re
+    columns (the zero pad columns are not counted). N-packed: n_bins re
+    columns, then n_bins - 2 im columns (no DC, no Nyquist); the second
+    copy of a filter row that lets the add ride the projection is not
+    counted."""
+    nz = (head.m_big != 0).any(dim=0)
+    dft_cols = int(nz.sum())
+    bins = (int(nz[: head.n_bins_pad].sum()) if head.n_bins_pad
+            else (dft_cols + 2) // 2)
+    per = 3 if head.mel_precision == "bf2" else 1
+    return frames * (2 * len(head.pair_i) * head.pack * dft_cols
+                     + (dft_cols - bins) + 2 * per * bins * head.n_mels)
+
+
+def bound(flops: int, nbytes: int) -> dict:
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return dict(flops=flops, bytes=nbytes, bound_ops_ms=t_ops,
+                bound_bytes_ms=t_bytes, bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def head_bytes(heads, x, outs) -> int:
+    return (x.numel() * 4 + sum(o.numel() * o.element_size() for o in outs)
+            + sum(h.m_big.numel() * 2 + h.mt.numel() * h.mt.element_size()
+                  for h in heads))
+
+
+def library_nemo(x, cfg):
+    """NeMo log-mel from library calls: cuFFT STFT (center, zero pad),
+    power, f32 matmul projection, ln(e + guard) (timed only)."""
+    win = torch.as_tensor(hann_centered(cfg.n_fft, cfg.win_length),
+                          dtype=torch.float32, device=x.device)
+    filt = torch.as_tensor(batch_logmel.nemo_filters(cfg).T,
+                           dtype=torch.float32, device=x.device)
+
+    def run():
+        spec = torch.stft(x, cfg.n_fft, cfg.hop_length, window=win,
+                          center=True, pad_mode="constant",
+                          return_complex=True)
+        power = (spec.real ** 2 + spec.imag ** 2).transpose(1, 2)
+        return torch.log(power @ filt + cfg.log_zero_guard)
+
+    return run
+
+
+def library_kaldi(x, cfg):
+    """Kaldi fbank from library calls: frames, DC removal, in-frame
+    preemphasis (the cross-frame term meets the Povey window's zero),
+    window, cuFFT rfft at fft_size, power, f32 matmul, ln(max(e, eps))
+    (timed only)."""
+    n, fft = cfg.frame_length_samples, cfg.fft_size
+    win = torch.as_tensor(povey(n), dtype=torch.float32, device=x.device)
+    filt = torch.as_tensor(kaldi_filterbank(cfg.sample_rate, fft,
+                                            cfg.num_mel_bins).T,
+                           dtype=torch.float32, device=x.device)
+
+    def run():
+        fr = x.unfold(-1, n, cfg.frame_shift_samples)
+        d = fr - fr.mean(dim=-1, keepdim=True)
+        y = torch.cat([d[..., :1], d[..., 1:] - 0.97 * d[..., :-1]], dim=-1)
+        spec = torch.fft.rfft(y * win, n=fft)
+        power = spec.real ** 2 + spec.imag ** 2
+        return torch.log(torch.clamp_min(power @ filt, 1.1920929e-07))
+
+    return run
+
+
+def phase_k1_ln_modes(dev) -> dict:
+    """K1's new modes against its plain version and the exact result:
+    Kaldi (ln_floor, N-packed, DC + preemphasis fold) and NeMo (ln_guard,
+    N-packed, 400 taps at pack_off 56 of the centered frame) at B up to
+    64 and ragged T; the JFK Kaldi gate through K1; K1's times at 64 x 30
+    s in both modes beside their plain versions, library compositions and
+    bounds."""
+    rng = np.random.default_rng(SEED + 50)
+    kcfg, ncfg = FbankConfig(apply_cmn=False), BatchLogMelConfig()
+    kaldi = Fbank(kcfg, fft_impl="sig", device=dev)
+    nemo = BatchLogMel(ncfg, device=dev)
+    if nemo.fft_impl != "sig":
+        raise AssertionError(f"BatchLogMel auto picked {nemo.fft_impl!r}")
+    pad = ncfg.n_fft // 2
+    rows = []
+    for b, t in [(STEP_B, CHECK_T), (7, 48123), (3, 399)]:
+        x = signal(rng, b, t, dev)
+        got = kaldi.compute(x)
+        rows.append(dict(shape=[b, t], **held(
+            got, x, kaldi.sig_head, kaldi.num_frames(t), kaldi.frame_shift)))
+        got = nemo.compute(x).transpose(-1, -2)
+        rows.append(dict(shape=[b, t], **held(
+            got, torch.nn.functional.pad(x, (pad, pad)), nemo.sig_head,
+            nemo.num_frames(t), ncfg.hop_length)))
+    bars = ln_bars(rows)
+    failed = [r for r in rows if r["vs_exact"] > bars["vs_exact"]
+              or r["vs_plain"] > bars["vs_plain"]]
+
+    jfk = read_wav_f32le(TESTDATA / "jfk_f32le.wav")
+    with np.load(TESTDATA / "kaldi_native_fbank_jfk.npz") as npz:
+        golden = torch.from_numpy(npz["features"].T.copy()).to(dev)
+    jfk_k1 = max_abs(Fbank(FbankConfig(), fft_impl="sig",
+                           device=dev).compute(jfk), golden)
+
+    times = {}
+    x = signal(rng, STEP_B, int(STEP_SECONDS * 16000), dev)
+    xp = torch.nn.functional.pad(x, (pad, pad))
+    for name, front, sig, nf, lib in (
+            ("ln_guard_nemo", nemo, xp, nemo.num_frames(x.shape[-1]),
+             library_nemo(x, ncfg)),
+            ("ln_floor_kaldi", kaldi, x, kaldi.num_frames(x.shape[-1]),
+             library_kaldi(x, kcfg))):
+        h = front.sig_head
+        kw = dict(ks=3, n_frames=nf, hop=160, offset=0, **h.kw())
+        out = sig_mel.sig_mel(sig, h.m_big, h.pair_i, h.mt, **kw)
+        times[name] = dict(
+            shape=list(sig.shape), frames=STEP_B * nf,
+            ms=time_ms(lambda: sig_mel.sig_mel(sig, h.m_big, h.pair_i, h.mt,
+                                               **kw)),
+            plain_ms=time_ms(lambda: sig_mel.sig_mel_reference(
+                sig, h.m_big, h.pair_i, h.mt, **kw), reps=3, warmup=1),
+            library_composition_ms=time_ms(lib),
+            **bound(head_work(h, STEP_B * nf), head_bytes([h], sig, [out])))
+    emit("k1_ln_modes", bars=bars, jfk_kaldi_k1=jfk_k1,
+         jfk_gate=KALDI_JFK_GATE,
+         max_abs_err={k: max(r[k] for r in rows)
+                      for k in ("vs_plain", "vs_exact", "plain_vs_exact")},
+         times=times, cases=rows)
+    if failed or not jfk_k1 <= KALDI_JFK_GATE:
+        raise AssertionError(f"K1 ln modes: {failed}, JFK {jfk_k1}")
+    return dict(rows=rows, times=times)
+
+
+def phase_k2(dev, rows, ln_rows) -> dict:
+    """K2 with two heads (whisper 80 and 128 mels + Kaldi) and three
+    (+ NeMo) at 64 x 10 s (ragged, 16 tiles): whisper head 0 and the
+    Kaldi head torch.equal to K1 on the same matrices (same device code
+    and sum order), every head against the plain version and the exact
+    result, the NeMo head within LN_TOL of a float64 BatchLogMel rdft,
+    the VAD counts equal to tile_vad_counts of head 0 and the raw
+    activity equal to classify_columns; the JFK Kaldi gate through K2."""
+    rng = np.random.default_rng(SEED + 60)
+    settings = DetectionSettings()
+    b, t = STEP_B, CHECK_T
+    x = signal(rng, b, t, dev)
+    kaldi = Fbank(FbankConfig(apply_cmn=False), fft_impl="sig", device=dev)
+    k1_kaldi = kaldi.compute(x)
+    f64_nemo = BatchLogMel(dtype=torch.float64, fft_impl="rdft",
+                           device=dev).compute(x.double())
+    whisper_rows, head_rows, cases = [], [], []
+    for name, front in (
+            ("pair80", WhisperKaldiFused(device=dev)),
+            ("pair128", WhisperKaldiFused(WHISPER_LARGE_V3, device=dev)),
+            ("tri", WhisperKaldiNemoFused(device=dev))):
+        tri = name == "tri"
+        mc = front.mel_config
+        xin = torch.nn.functional.pad(x, (front._nemo_pad, 0)) if tri else x
+        nf = (framing.num_frames_centered(t, 160) if tri
+              else framing.num_frames_batch(t, 400, 160))
+        f_w = framing.num_frames_batch(t, 400, 160)
+        vad = (sig_multi.vad_threshold(settings.min_energy),
+               min(settings.min_mel, mc.n_mels - 2))
+        outs, counts = sig_multi.sig_multi(xin, front.heads, ks=3,
+                                           n_frames=nf, hop=160, vad=vad)
+        k1_mel = whisper_mel_sig(x, 400, 160, mc.n_mels, device=dev)
+        case = dict(
+            heads=name, shape=[b, t], frames=nf, tiles=-(-nf // 64),
+            head0_equal_k1=bool(torch.equal(outs[0][:, :f_w], k1_mel)),
+            kaldi_equal_k1=bool(torch.equal(outs[1][:, :f_w], k1_kaldi)),
+            counts_equal=bool(torch.equal(
+                counts, sig_multi.tile_vad_counts(outs[0], *vad))))
+        for h, head in enumerate(front.heads):
+            r = held(outs[h], xin, head, nf, 160)
+            (whisper_rows if h == 0 else head_rows).append(r)
+            case[f"head{h}"] = r
+        res = front.compute_with_vad(x, settings)
+        mel, raw = res[0], res[-1]
+        case["raw_equal_classify"] = bool(torch.equal(
+            raw, classify_columns(mel.transpose(-1, -2), settings)))
+        case["raw_active_share"] = float(raw.float().mean())
+        if tri:
+            case["nemo_vs_f64"] = max_abs(res[2].double(), f64_nemo)
+        cases.append(case)
+    wbars = tolerances(rows + whisper_rows)
+    lbars = ln_bars(ln_rows + head_rows)
+    jfk = read_wav_f32le(TESTDATA / "jfk_f32le.wav")
+    with np.load(TESTDATA / "kaldi_native_fbank_jfk.npz") as npz:
+        golden = torch.from_numpy(npz["features"].T.copy()).to(dev)
+    jfk_k2 = max_abs(WhisperKaldiFused(device=dev).compute(jfk)[1][0],
+                     golden)
+    emit("k2_vs_plain", whisper_bars=wbars, ln_bars=lbars,
+         jfk_kaldi_k2=jfk_k2, jfk_gate=KALDI_JFK_GATE, cases=cases)
+    check(whisper_rows, wbars, "K2 whisper head")
+    bad = [c["heads"] for c in cases
+           if not (c["head0_equal_k1"] and c["kaldi_equal_k1"]
+                   and c["counts_equal"] and c["raw_equal_classify"])
+           or c.get("nemo_vs_f64", 0.0) > LN_TOL]
+    bad += [r for r in head_rows if r["vs_exact"] > lbars["vs_exact"]
+            or r["vs_plain"] > lbars["vs_plain"]]
+    if bad or not jfk_k2 <= KALDI_JFK_GATE:
+        raise AssertionError(f"K2: {bad}, JFK {jfk_k2}")
+    return dict(rows=whisper_rows, ln_rows=head_rows, wbars=wbars,
+                lbars=lbars,
+                max_abs_err=max(r["vs_plain"] for r in whisper_rows
+                                + head_rows))
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside the block, the frontends call K1's and K2's plain versions
+    (f32 dot) on CUDA tensors in place of the kernels."""
+    def k2(samples, heads, **kw):
+        return sig_multi.sig_multi_reference(samples, heads, **kw)
+
+    def k1(samples, m_big, pair_i, mt, **kw):
+        return sig_mel.sig_mel_reference(samples, m_big, pair_i, mt, **kw)
+
+    with mock.patch.object(sig_multi, "sig_multi", k2), \
+            mock.patch.object(batch_logmel, "sig_mel", k1):
+        yield
+
+
+def library_multi(x, mc, kcfg, settings):
+    """K2's function from library calls: the whisper composition, the
+    Kaldi composition and classify_columns on the mel (timed only)."""
+    mel = library_mel(x, mc.fft_size, mc.hop_size, mc.n_mels)
+    kal = library_kaldi(x, kcfg)
+
+    def run():
+        m = mel()
+        return m, kal(), classify_columns(m.transpose(-1, -2), settings)
+
+    return run
+
+
+def step_profile(step, x, calls: int = 3) -> dict:
+    """Device busy time by kernel name under torch.profiler over
+    ``calls`` step calls, against the host clock; the rest is the
+    device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            step(x)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3 / calls
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return dict(wall_ms_per_call=wall, device_ms_per_call=busy,
+                idle_share=1.0 - busy / wall if wall else None,
+                top=[[k[:80], v, v / busy if busy else None]
+                     for k, v in top])
+
+
+def phase_frontend_step(dev, k2: dict) -> dict:
+    """The composite frontend step at full width through
+    ``sharded_frontend_step``: 64 x 30 s at whisper large-v3 + Kaldi +
+    NeMo defaults, then 64 x 10 s at the JAX defaults. Counts zeroed just
+    before one call and read just after (K2 = 1, K1 = 1); every output
+    held against the same step on the plain versions; median device time
+    of 7 calls after 2 warm-ups (CUDA events), x real time, the idle
+    share under torch.profiler; then K2 timed alone at the 30 s step's
+    shape beside its plain version, the library composition and its
+    bound."""
+    rng = np.random.default_rng(SEED + 70)
+    settings = DetectionSettings()
+    out, counts = {}, {}
+    for name, mc, seconds in (
+            ("large_v3_30s", WHISPER_LARGE_V3, STEP_SECONDS),
+            ("jax_defaults_10s", MelConfig(), STEP80_SECONDS)):
+        step = sharded_frontend_step(settings=settings, mel_config=mc,
+                                     device=dev)
+        x = signal(rng, STEP_B, int(seconds * 16000), dev)
+        torch.cuda.synchronize()
+        zero_counts()
+        res = step(x)  # the path, once
+        torch.cuda.synchronize()
+        c = read_counts()
+        with plain_kernels():
+            ref = step(x)
+        torch.cuda.synchronize()
+        nf = framing.num_frames_batch(x.shape[-1], 400, 160)
+        shapes = {k: list(v.shape) for k, v in res.items()}
+        want = {"mel": [STEP_B, nf, mc.n_mels],
+                "nemo": [STEP_B, 80, x.shape[-1] // 160 + 1],
+                "fbank": [STEP_B, nf, 80], "vad_smoothed": [STEP_B, nf - 2],
+                "mel_q8": [STEP_B, nf, mc.n_mels], "mel_q8_range": [1, 2],
+                "vad_active_columns": [], "vad_total_columns": []}
+        flips = int((res["vad_smoothed"] != ref["vad_smoothed"]).sum())
+        errs = dict(
+            mel=max_abs(res["mel"], ref["mel"]),
+            nemo=max_abs(res["nemo"], ref["nemo"]),
+            fbank=max_abs(res["fbank"], ref["fbank"]),
+            vad_flips=flips,
+            active_diff=abs(int(res["vad_active_columns"])
+                            - int(ref["vad_active_columns"])),
+            total_equal=int(res["vad_total_columns"])
+            == int(ref["vad_total_columns"]),
+            q8_max_step=int((res["mel_q8"].int() - ref["mel_q8"].int())
+                            .abs().max()),
+            range=max_abs(res["mel_q8_range"], ref["mel_q8_range"]))
+        finite = all(bool(torch.isfinite(res[k]).all())
+                     for k in ("mel", "nemo", "fbank"))
+        ms = time_ms(lambda: step(x))
+        prof = step_profile(step, x)
+        out[name] = dict(shape=list(x.shape), n_mels=mc.n_mels,
+                         launches=c, errs=errs, ms=ms,
+                         x_real_time=STEP_B * seconds / (ms / 1e3),
+                         profile=prof, active_share=float(
+                             res["vad_smoothed"].float().mean()))
+        counts[name] = c
+        emit(f"frontend_step_{name}", **out[name])
+        fails = []
+        if c["K1"] != 1 or c["K2"] != 1:
+            fails.append(f"launches {c}")
+        if shapes != want:
+            fails.append(f"shapes {shapes}")
+        if (not finite or errs["mel"] > k2["wbars"]["vs_plain"]
+                or max(errs["nemo"], errs["fbank"]) > k2["lbars"]["vs_plain"]
+                or flips > VA_FLIP_BUDGET or errs["active_diff"] > flips
+                or not errs["total_equal"] or errs["q8_max_step"] > 1
+                or errs["range"] > k2["wbars"]["vs_plain"]):
+            fails.append(f"outputs {errs} finite={finite}")
+        if fails:
+            raise AssertionError(f"frontend step {name}: {fails}")
+
+    # K2 alone at the 30 s step's shape: whisper large-v3 + Kaldi + VAD
+    fused = WhisperKaldiFused(WHISPER_LARGE_V3, device=dev)
+    x = signal(rng, STEP_B, int(STEP_SECONDS * 16000), dev)
+    nf = framing.num_frames_batch(x.shape[-1], 400, 160)
+    vad = (sig_multi.vad_threshold(settings.min_energy),
+           min(settings.min_mel, WHISPER_LARGE_V3.n_mels - 2))
+    kw = dict(ks=3, n_frames=nf, hop=160, vad=vad)
+    outs, cnt = sig_multi.sig_multi(x, fused.heads, **kw)
+    flops = sum(head_work(h, STEP_B * nf) for h in fused.heads)
+    lib = library_multi(x, WHISPER_LARGE_V3, FbankConfig(apply_cmn=False),
+                        settings)
+    k2_times = dict(
+        shape=list(x.shape), frames=STEP_B * nf,
+        ms=time_ms(lambda: sig_multi.sig_multi(x, fused.heads, **kw)),
+        plain_ms=time_ms(lambda: sig_multi.sig_multi_reference(
+            x, fused.heads, **kw), reps=3, warmup=1),
+        library_composition_ms=time_ms(lib),
+        **bound(flops, head_bytes(fused.heads, x, list(outs) + [cnt])))
+    emit("k2_times", **k2_times)
+    return dict(counts=counts, k2_times=k2_times, steps=out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -800,8 +1201,13 @@ def main() -> int:
     phase_serving_profile(dev)
     bulk = phase_bulk(dev, rows)
     rows = rows + [bulk["k1_serving_errs"]]
-    vs_plain = max(r["vs_plain"] for r in rows)
-    by_path = {"batch": {"K1": main["launches"]}, **serving}
+    ln = phase_k1_ln_modes(dev)
+    k2 = phase_k2(dev, rows, ln["rows"])
+    front = phase_frontend_step(dev, k2)
+    vs_plain = max(r["vs_plain"] for r in rows + ln["rows"])
+    by_path = {"batch": {"K1": main["launches"]}, **serving,
+               "frontend": front["counts"]["large_v3_30s"],
+               "frontend_80": front["counts"]["jax_defaults_10s"]}
 
     def launches(name):
         return sum(c.get(name, 0) for c in by_path.values())
@@ -817,15 +1223,30 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "K1", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches("K1"),
-        "launches_by_path": {k: v["K1"] for k, v in by_path.items()},
+        "launches_by_path": {k: v.get("K1", 0) for k, v in by_path.items()},
         "max_abs_err": vs_plain, "max_abs_vs_plain": vs_plain,
-        "max_abs_vs_exact": max(r["vs_exact"] for r in rows),
+        "max_abs_vs_exact": max(r["vs_exact"] for r in rows + ln["rows"]),
         "f32_floor": max(r["plain_vs_exact"] for r in rows),
+        "f32_floor_ln": max(r["plain_vs_exact"] for r in ln["rows"]),
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None,
         "library_composition_ms": main["library_composition_ms"],
         "serving_bulk_ms": bulk["k1_serving_ms"],
+        "ln_modes": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by",
+                                           "library_composition_ms")}
+                     for k, v in ln["times"].items()},
+    }, {
+        "name": "K2", "route": "cuda", "source": K2_SOURCE,
+        "replaces": K2_REPLACES, "launches": launches("K2"),
+        "launches_by_path": {k: v.get("K2", 0) for k, v in by_path.items()},
+        "max_abs_err": k2["max_abs_err"],
+        "ms": front["k2_times"]["ms"], "plain_ms": front["k2_times"]["plain_ms"],
+        "bound_ms": front["k2_times"]["bound_ms"],
+        "bound_by": front["k2_times"]["bound_by"], "library_ms": None,
+        "library_composition_ms": front["k2_times"]["library_composition_ms"],
+        "shape": front["k2_times"]["shape"],
     }, dict(common, name="K3", replaces=K3_REPLACES,
             launches=launches("K3"),
             launches_by_path={k: v["K3"] for k, v in serving.items()},

@@ -1,12 +1,15 @@
 """melspec_tpu_torch — the PyTorch + CUDA port of ``melspec_tpu``.
 
-Whisper log-mel from raw ``[B, T]`` float32 audio, and the serving tick
-(ingest resampling -> streaming mel -> streaming VAD -> u8 records for
-many streams at once), held against the JAX package on identical inputs.
-The kernels are written by hand in CUDA C++ for Hopper: K1
-(``csrc/sig_mel.cu``, the fused mel) and K3/K4 (``csrc/resample.cu``, the
-resampler), each built with ``nvcc`` at its first launch; on the CPU the
-same functions run their plain PyTorch versions. Every entry point takes
+Whisper log-mel, Kaldi fbank, MFCC and NeMo log-mel from raw ``[B, T]``
+float32 audio, the composite frontend step (whisper + Kaldi + VAD + NeMo
++ u8 in one call), and the serving tick (ingest resampling -> streaming
+mel -> streaming VAD -> u8 records for many streams at once), held
+against the JAX package on identical inputs. The kernels are written by
+hand in CUDA C++ for Hopper: K1 (``csrc/sig_mel.cu``, one frontend's
+fused features), K2 (``csrc/sig_multi.cu``, several frontends over one
+staging of the signal) and K3/K4 (``csrc/resample.cu``, the resampler),
+each built with ``nvcc`` at its first launch; on the CPU the same
+functions run their plain PyTorch versions. Every entry point takes
 ``device=None``, meaning CUDA: a host without CUDA raises unless the
 caller asks for ``device="cpu"``.
 
@@ -16,22 +19,31 @@ The port imports ``torch`` and numpy, never ``jax`` and nothing of
 
 __version__ = "0.1.0"
 
-from melspec_tpu_torch.config import (WHISPER_LARGE_V3, DetectionSettings,
-                                      MelConfig)
+from melspec_tpu_torch.config import (WHISPER_LARGE_V3, BatchLogMelConfig,
+                                      DetectionSettings, FbankConfig,
+                                      MelConfig, MfccConfig)
 from melspec_tpu_torch.convert import (from_jax_frontend_state,
-                                       from_jax_sig_matrices,
+                                       from_jax_head, from_jax_sig_matrices,
                                        from_jax_source_rate_state)
 from melspec_tpu_torch.io.wav import read_wav_f32le
-from melspec_tpu_torch.ops.mel_kernel import (SigMatrices, whisper_mel_pallas,
+from melspec_tpu_torch.ops.batch_logmel import (BatchLogMel, mel_tensor,
+                                                run_asr_session)
+from melspec_tpu_torch.ops.fbank import Fbank
+from melspec_tpu_torch.ops.mel_kernel import (SigHead, SigMatrices,
+                                              whisper_mel_pallas,
                                               whisper_mel_sig)
+from melspec_tpu_torch.ops.mfcc import Mfcc
 from melspec_tpu_torch.ops.quant import (QuantizationRange, dequantize,
                                          quantize, quantize_frames)
 from melspec_tpu_torch.ops.resample import (StreamingResampler,
                                             resample_poly, validate_ratio)
+from melspec_tpu_torch.ops.sig_multihead import (WhisperKaldiFused,
+                                                 WhisperKaldiNemoFused)
 from melspec_tpu_torch.ops.spectrogram import (WhisperMelPipeline,
                                                compute_mel_spectrogram,
                                                compute_streaming_mel,
                                                whisper_norm)
+from melspec_tpu_torch.parallel.sharding import sharded_frontend_step
 from melspec_tpu_torch.streaming.multistream import MultiStreamMel
 from melspec_tpu_torch.streaming.resample import MultiStreamResampler
 from melspec_tpu_torch.streaming.serving import (MultiStreamFrontend,
@@ -43,17 +55,26 @@ from melspec_tpu_torch.streaming.state_io import (load_stream_state,
                                                   save_stream_state)
 
 __all__ = [
+    "BatchLogMel",
+    "BatchLogMelConfig",
     "DetectionSettings",
+    "Fbank",
+    "FbankConfig",
     "MelConfig",
+    "Mfcc",
+    "MfccConfig",
     "MultiStreamFrontend",
     "MultiStreamMel",
     "MultiStreamResampler",
     "MultiStreamVad",
     "QuantizationRange",
+    "SigHead",
     "SigMatrices",
     "SourceRateFrontend",
     "StreamingResampler",
     "WHISPER_LARGE_V3",
+    "WhisperKaldiFused",
+    "WhisperKaldiNemoFused",
     "WhisperMelPipeline",
     "__version__",
     "calibrate_fft_impl",
@@ -61,15 +82,19 @@ __all__ = [
     "compute_streaming_mel",
     "dequantize",
     "from_jax_frontend_state",
+    "from_jax_head",
     "from_jax_sig_matrices",
     "from_jax_source_rate_state",
     "load_stream_state",
+    "mel_tensor",
     "quantize",
     "quantize_frames",
     "read_wav_f32le",
     "resample_poly",
+    "run_asr_session",
     "save_stream_state",
     "shared_frontend",
+    "sharded_frontend_step",
     "validate_ratio",
     "whisper_mel_pallas",
     "whisper_mel_sig",

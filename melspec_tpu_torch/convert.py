@@ -1,11 +1,16 @@
 """Carrying state across from the JAX package.
 
-The whisper frontend has no learned weights; its parameters are the
-host-built device matrices. ``from_jax_sig_matrices`` takes them as
-``melspec_tpu.ops.mel_kernel._sig_device_matrices(...)`` returns them,
-converted to numpy (bf16 arrays as ml_dtypes ``bfloat16``, as their
+The frontends have no learned weights; their parameters are the
+host-built kernel matrices. ``from_jax_sig_matrices`` takes the whisper
+set as ``melspec_tpu.ops.mel_kernel._sig_device_matrices(...)`` returns
+it, converted to numpy (bf16 arrays as ml_dtypes ``bfloat16``, as their
 ``uint16`` bit patterns, or as float32 holding bf16 values), and returns
 the port's ``SigMatrices`` for ``whisper_mel_sig(matrices=...)``.
+``from_jax_head`` takes one frontend's set (``m_big``, ``pair_i``, the
+projection, the split point and the contracted taps, e.g. JAX's
+``Fbank._sig_m_big`` / ``_sig_pair_i`` / ``_sig_mt``) and returns a
+``SigHead`` for the ``matrices=`` argument of ``Fbank``, ``BatchLogMel``
+and the fused frontends.
 
 A live serving fleet's state crosses over too: ``from_jax_frontend_state``
 and ``from_jax_source_rate_state`` take a JAX ``FrontendState`` or
@@ -20,7 +25,7 @@ import numpy as np
 import torch
 
 from melspec_tpu_torch._device import resolve_device
-from melspec_tpu_torch.ops.mel_kernel import SigMatrices
+from melspec_tpu_torch.ops.mel_kernel import SigHead, SigMatrices
 from melspec_tpu_torch.streaming.multistream import MultiStreamState
 from melspec_tpu_torch.streaming.resample import MultiResampleState
 from melspec_tpu_torch.streaming.serving import (FrontendState,
@@ -41,20 +46,48 @@ def _bf16(arr) -> torch.Tensor:
 
 
 def from_jax_sig_matrices(m_big, pair_i, mt, mt_bf2) -> SigMatrices:
-    """JAX ``(m_big [K_tot, W] bf16, pair_i, mt [W/2, n_mels_pad] f32,
-    mt_bf2 [3*W/2, n_mels_pad] bf16)`` in the split column layout -> the
-    port's ``SigMatrices`` (CPU tensors, bit for bit). The re|im split
-    point is ``W / 2``; N-packed sets (``mt [W, n_mels_pad]``) are not
-    taken."""
+    """JAX ``(m_big [K_tot, W] bf16, pair_i, mt f32, mt_bf2 bf16)`` -> the
+    port's ``SigMatrices`` (CPU tensors, bit for bit). The layout follows
+    from the shapes: split columns (``mt [W/2, n_mels_pad]``, re|im split
+    point ``W / 2``) or N-packed ones (``mt [W, n_mels_pad]``, split point
+    0); ``mt_bf2`` has three times ``mt``'s rows."""
     big = _bf16(m_big)
     mt_t = torch.tensor(np.asarray(mt, dtype=np.float32))
     bf2 = _bf16(mt_bf2)
     width, n_pow = big.shape[1], mt_t.shape[0]
-    if 2 * n_pow != width or bf2.shape[0] != 3 * n_pow:
-        raise ValueError(f"inconsistent shapes for split columns: m_big "
-                         f"{tuple(big.shape)}, mt {tuple(mt_t.shape)}, "
-                         f"mt_bf2 {tuple(bf2.shape)}")
-    return SigMatrices(big, tuple(int(i) for i in pair_i), mt_t, bf2, n_pow)
+    if n_pow not in (width, width // 2) or width % 2 \
+            or bf2.shape != (3 * n_pow, mt_t.shape[1]):
+        raise ValueError(f"inconsistent shapes for split or N-packed "
+                         f"columns: m_big {tuple(big.shape)}, mt "
+                         f"{tuple(mt_t.shape)}, mt_bf2 {tuple(bf2.shape)}")
+    return SigMatrices(big, tuple(int(i) for i in pair_i), mt_t, bf2,
+                       0 if n_pow == width else n_pow)
+
+
+def from_jax_head(m_big, pair_i, mt, n_bins_pad: int, pack: int,
+                  pack_off: int, n_mels: int, out_mode: str = "whisper",
+                  guard: float = 0.0) -> SigHead:
+    """One JAX frontend's kernel matrices as numpy arrays -> the port's
+    ``SigHead`` (CPU tensors, bit for bit), for ``Fbank``, ``BatchLogMel``,
+    ``WhisperKaldiFused`` and ``WhisperKaldiNemoFused`` (``matrices=``).
+    ``m_big`` is the bf16 K-stack ``[K_tot, W]``, ``mt`` the projection as
+    the kernel takes it: the bf2 stack (bf16, ``3 * npow`` rows, as JAX's
+    ``Fbank._sig_mt``) or f32 (``npow`` rows); ``n_bins_pad`` the re|im
+    split point (0: N-packed, ``npow = W``; else ``npow = n_bins_pad``);
+    ``(pack, pack_off)`` the frame's contracted taps; ``n_mels`` the
+    output columns in ``out_mode`` with ``guard``."""
+    big = _bf16(m_big)
+    a = np.asarray(mt)
+    proj = (_bf16(a) if a.dtype.itemsize == 2
+            else torch.tensor(np.asarray(a, dtype=np.float32)))
+    npow = big.shape[1] if n_bins_pad == 0 else n_bins_pad
+    rows = 3 * npow if proj.dtype == torch.bfloat16 else npow
+    if proj.shape[0] != rows or n_bins_pad not in (0, big.shape[1] // 2):
+        raise ValueError(f"inconsistent shapes: m_big {tuple(big.shape)}, "
+                         f"mt {tuple(proj.shape)}, split {n_bins_pad}")
+    return SigHead(big, tuple(int(i) for i in pair_i), proj, int(n_bins_pad),
+                   int(pack), int(n_mels), pack_off=int(pack_off),
+                   out_mode=out_mode, guard=float(guard))
 
 
 def _leaf(arr, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:

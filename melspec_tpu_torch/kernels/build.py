@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 ``melspec_tpu_torch/_build/lib<name>-<digest>.so`` (a plain C interface,
-bound with ``ctypes``), where ``<digest>`` hashes the source and the flags,
-so an edited source rebuilds and an unchanged one is reused. Nothing is
+bound with ``ctypes``), where ``<digest>`` hashes the source, the shared
+``csrc/*.cuh`` headers and the flags, so an edited source rebuilds and an
+unchanged one is reused. Nothing is
 built at import time: the first launch of a kernel builds it. A failed
 build raises; there is no fallback.
 """
@@ -58,9 +59,12 @@ def find_nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
+    # the digest covers the source, every shared header of csrc/ and the
+    # flags: an edited header rebuilds the kernels that include it
+    parts = [(CSRC_DIR / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh"))]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(parts) + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

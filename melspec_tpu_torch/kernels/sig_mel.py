@@ -1,58 +1,136 @@
-"""K1: whisper log-mel from the raw signal — the CUDA kernel
+"""K1: one frontend's features from the raw signal — the CUDA kernel
 (``csrc/sig_mel.cu``), its plain PyTorch version, and the wrapper that
 picks between them by the device the signal lies on.
 
 Replaces ``melspec_tpu/ops/mel_kernel.py::_pallas_sig_mel`` (body
-``_sig_mel_tile_kernel``) in its whisper output mode. ``sig_mel`` launches
-the kernel for a CUDA tensor (or raises) and runs ``sig_mel_reference``
-only for a CPU tensor. ``launches`` counts kernel launches; nothing else
-adds to it.
+``_sig_mel_tile_kernel``) in its output modes ``whisper`` (log10 + the
+whisper norm), ``ln_guard`` (NeMo) and ``ln_floor`` (Kaldi), with split
+or N-packed DFT columns and a tap offset ``pack_off``. ``sig_mel``
+launches the kernel for a CUDA tensor (or raises) and runs
+``sig_mel_reference`` only for a CPU tensor. ``launches`` counts kernel
+launches; nothing else adds to it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from melspec_tpu_torch.kernels import build
-from melspec_tpu_torch.ops.fastmath import log10_accurate
-from melspec_tpu_torch.ops.framing import frame_signal
+from melspec_tpu_torch.ops.fastmath import ln_accurate, log10_accurate
 
 LOG10_FLOOR = 1e-10
+# the smallest normal float32: ln_accurate's bit decomposition takes
+# normal inputs only, so the ln modes clamp their guard to it
+MIN_NORMAL = 1.1754944e-38
+OUT_MODES = ("whisper", "ln_guard", "ln_floor")
 # dynamic shared memory a block may use on Hopper (227 KB)
 MAX_SMEM_BYTES = 232448
 MAX_BLOCKS = 16
 MAX_SLICES = 4
-# K1's DFT columns: re in [0, 256), im in [256, 512) (fft 258..512)
+# the kernels' DFT columns: re | im halves of 256 (split) or 512 single
+# components (N-packed)
 WIDTH = 512
+# frames of one clip per block; the kernels check that the caller's
+# value is theirs (csrc/sig_common.cuh: kTileFrames)
+TILE_FRAMES = 64
 
 launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class SigHead:
+    """One frontend's device matrices and output, as K1 and each head of
+    K2 take them: ``m_big`` bf16 ``[K_tot, 512]`` whose block ``blk``
+    pairs with signal slice ``pair_i[blk]``; ``mt`` the bf2 stack ``[F0;
+    F1; F0]`` (bf16, ``mel_precision`` "bf2") or the f32 projection
+    (``"highest"``); ``n_bins_pad`` the re|im split point (0: N-packed
+    columns); the frame's contracted taps ``[pack_off, pack_off +
+    pack)``; ``n_mels`` output columns in ``out_mode`` with ``guard``."""
+
+    m_big: torch.Tensor
+    pair_i: tuple
+    mt: torch.Tensor
+    n_bins_pad: int
+    pack: int
+    n_mels: int
+    pack_off: int = 0
+    out_mode: str = "whisper"
+    guard: float = 0.0
+
+    @property
+    def mel_precision(self) -> str:
+        return "bf2" if self.mt.dtype == torch.bfloat16 else "highest"
+
+    def kw(self) -> dict:
+        """The keyword arguments of ``sig_mel`` / ``sig_mel_reference``
+        besides the matrices and the frame grid."""
+        return dict(pack=self.pack, pack_off=self.pack_off,
+                    n_bins_pad=self.n_bins_pad, n_mels=self.n_mels,
+                    mel_precision=self.mel_precision,
+                    out_mode=self.out_mode, guard=self.guard)
+
+    def to(self, device) -> "SigHead":
+        return dataclasses.replace(self, m_big=self.m_big.to(device),
+                                   mt=self.mt.to(device))
+
+
+def clamped_guard(guard: float) -> float:
+    """The ln modes' guard as the kernels use it: clamped to the smallest
+    normal float32 and rounded to float32."""
+    return float(np.float32(max(guard, MIN_NORMAL)))
+
+
+def out_vals(energy: torch.Tensor, out_mode: str,
+             guard: float) -> torch.Tensor:
+    """Energy -> output values (``_sig_out_vals`` of the JAX kernel). The
+    whisper row max runs over every padded mel column, as in the kernel
+    (a pad column's energy is 0 and its log sits at the floor)."""
+    if out_mode == "ln_guard":
+        return ln_accurate(energy + clamped_guard(guard))
+    if out_mode == "ln_floor":
+        return ln_accurate(torch.clamp_min(energy, clamped_guard(guard)))
+    if out_mode != "whisper":
+        raise ValueError(f"out_mode must be one of {OUT_MODES}")
+    log_mel = log10_accurate(torch.clamp_min(energy, LOG10_FLOOR))
+    raw = log_mel.amax(dim=-1, keepdim=True)
+    return (torch.maximum(log_mel, raw - 8.0) + 4.0) * 0.25
 
 
 def sig_mel_reference(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
                       mt: torch.Tensor, *, ks: int, n_frames: int, hop: int,
                       offset: int, pack: int, n_bins_pad: int, n_mels: int,
-                      mel_precision: str = "bf2",
+                      mel_precision: str = "bf2", pack_off: int = 0,
+                      out_mode: str = "whisper", guard: float = 0.0,
                       dot_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The JAX kernel's math written out in plain PyTorch, on whatever
     device ``samples`` lies on: ``samples [B, T]`` f32 -> ``[B, n_frames,
-    n_mels]`` f32.
+    n_mels]`` f32. Frame ``k`` contracts samples ``offset + k*hop +
+    pack_off ... + pack``; samples past the clip read as zero.
 
-    ``m_big`` is the bf16 K-stack ``[K_tot, 2*n_bins_pad]`` whose block
-    ``blk`` pairs with signal slice ``pair_i[blk]``, re in columns
-    ``[0, n_bins_pad)`` and im in ``[n_bins_pad, 2*n_bins_pad)``; ``mt`` is
-    the bf2 stack ``[F0; F1; F0]`` (bf16) for ``mel_precision="bf2"`` or
-    the f32 projection for ``"highest"``. The DFT dot is one ``torch.matmul``
-    in ``dot_dtype``: float32 as in the JAX kernel, or float64, which sums
-    the exact bf16 x bf16 products with no rounding that reaches float32 —
-    the exact value the float32 versions are held against."""
+    ``m_big`` is the bf16 K-stack whose block ``blk`` pairs with signal
+    slice ``pair_i[blk]``; its columns are re in ``[0, n_bins_pad)`` and
+    im in ``[n_bins_pad, 2*n_bins_pad)`` (split), or one component each
+    when ``n_bins_pad`` is 0 (N-packed: power is ``y*y`` per column).
+    ``mt`` is the bf2 stack ``[F0; F1; F0]`` (bf16) for
+    ``mel_precision="bf2"`` or the f32 projection for ``"highest"``. The
+    DFT dot is one ``torch.matmul`` in ``dot_dtype``: float32 as in the
+    JAX kernel, or float64, which sums the exact bf16 x bf16 products with
+    no rounding that reaches float32 — the exact value the float32
+    versions are held against."""
     b = samples.shape[0]
     if n_frames <= 0:
         return samples.new_zeros((b, 0, n_mels))
-    frames = frame_signal(samples.to(torch.float32), pack, hop, n_frames,
-                          offset)  # [B, nf, pack]
+    x = samples.to(torch.float32)
+    start = offset + pack_off
+    need = start + (n_frames - 1) * hop + pack
+    if x.shape[-1] < need:
+        x = torch.nn.functional.pad(x, (0, need - x.shape[-1]))
+    frames = x[:, start:need].unfold(-1, pack, hop)  # [B, nf, pack]
     # the bf16 residual cascade: slice i rounds what slices < i left
     residual = frames
     slices = []
@@ -65,9 +143,12 @@ def sig_mel_reference(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
     # zero pad rows past the real blocks contribute nothing
     xcat = torch.cat([slices[i] for i in pair_i], dim=-1).to(dot_dtype)
     y = (xcat @ m_big[: xcat.shape[-1]].to(dot_dtype)).to(torch.float32)
-    re = y[..., :n_bins_pad]
-    im = y[..., n_bins_pad : 2 * n_bins_pad]
-    power = re * re + im * im
+    if n_bins_pad:
+        re = y[..., :n_bins_pad]
+        im = y[..., n_bins_pad : 2 * n_bins_pad]
+        power = re * re + im * im
+    else:
+        power = y * y
     if mel_precision == "bf2":
         p0 = power.to(torch.bfloat16)
         p1 = (power - p0.to(torch.float32)).to(torch.bfloat16)
@@ -77,12 +158,7 @@ def sig_mel_reference(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
         energy = power @ mt.to(torch.float32)
     else:
         raise ValueError("mel_precision must be 'bf2' or 'highest'")
-    # the row max runs over every padded mel column, as in the JAX kernel
-    # (a pad column's energy is 0 and its log sits at the floor)
-    log_mel = log10_accurate(torch.clamp_min(energy, LOG10_FLOOR))
-    raw = log_mel.amax(dim=-1, keepdim=True)
-    vals = (torch.maximum(log_mel, raw - 8.0) + 4.0) * 0.25
-    return vals[..., :n_mels].contiguous()
+    return out_vals(energy, out_mode, guard)[..., :n_mels].contiguous()
 
 
 @functools.cache
@@ -90,23 +166,26 @@ def _bound() -> ctypes.CDLL:
     lib = build.load("sig_mel").lib
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.melspec_sig_mel.argtypes = [
-        p, ll, ll, i, i, i,   # x, batch, T, n_frames, hop, offset
-        p, i, i, p, i, i,     # m_big, W, pack, blocks, n_blocks, ks
-        p, i, i, i,           # mt, n_mels, n_mels_pad, bf2
-        p, p,                 # out, stream
+        p, ll, ll, i, i, i, i,  # x, batch, T, n_frames, hop, offset, tile
+        p, i, i, i,             # m_big, W, pack, pack_off
+        p, i, i, i,             # blocks, n_blocks, ks, npow
+        p, i, i, i,             # mt, n_mels, n_mels_pad, bf2
+        i, ctypes.c_float,      # out_mode, guard
+        p, p,                   # out, stream
     ]
     lib.melspec_sig_mel.restype = ctypes.c_int
-    lib.melspec_sig_mel_smem_bytes.argtypes = [i, i, i, i]
+    lib.melspec_sig_mel_smem_bytes.argtypes = [i, i, i, i, i, i]
     lib.melspec_sig_mel_smem_bytes.restype = ctypes.c_longlong
     lib.melspec_cuda_error_string.argtypes = [ctypes.c_int]
     lib.melspec_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _smem_bytes(ks: int, hop: int, pack: int, n_mels_pad: int) -> int:
+def _smem_bytes(ks: int, hop: int, pack: int, pack_off: int, npow: int,
+                n_mels_pad: int) -> int:
     """Dynamic shared memory one K1 block needs (asks the built kernel)."""
-    return int(_bound().melspec_sig_mel_smem_bytes(ks, hop, pack,
-                                                   n_mels_pad))
+    return int(_bound().melspec_sig_mel_smem_bytes(ks, hop, pack, pack_off,
+                                                   npow, n_mels_pad))
 
 
 def block_order(pair_i) -> list:
@@ -119,30 +198,35 @@ def block_order(pair_i) -> list:
     return [(blk, i) for blk, i, j in sorted(ij, key=lambda t: -(t[1] + t[2]))]
 
 
-@functools.lru_cache(maxsize=16)
-def _block_table(pair_i: tuple, device: torch.device) -> torch.Tensor:
+@functools.lru_cache(maxsize=32)
+def block_table(pair_i: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(block_order(pair_i), dtype=torch.int32,
                         device=device)
 
 
-def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
-            n_bins_pad, n_mels, mel_precision) -> torch.Tensor:
-    global launches
+def check_head(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
+               mt: torch.Tensor, *, ks: int, pack: int, pack_off: int,
+               n_bins_pad: int, n_mels: int, mel_precision: str,
+               out_mode: str, what: str) -> tuple:
+    """Validate one head's arguments for K1 or K2; returns ``(pair_i as
+    ints, npow, n_mels_pad, bf2)``."""
     dev = samples.device
     if samples.dtype != torch.float32 or samples.dim() != 2:
-        raise ValueError("K1 takes a [B, T] float32 signal")
+        raise ValueError(f"{what} takes a [B, T] float32 signal")
     if m_big.dtype != torch.bfloat16 or m_big.device != dev:
         raise ValueError("m_big must be a bf16 tensor on the signal's device")
     width = m_big.shape[1]
-    n_pow = WIDTH // 2
-    if (width, n_bins_pad) != (WIDTH, n_pow):
+    if width != WIDTH or n_bins_pad not in (0, WIDTH // 2):
         raise NotImplementedError(
-            f"K1 takes {WIDTH} DFT columns split into re|im halves (fft "
-            f"258..512); got width {width}, split {n_bins_pad}")
-    bf2 = mel_precision == "bf2"
+            f"{what} takes {WIDTH} DFT columns, split into re|im halves or "
+            f"N-packed; got width {width}, split {n_bins_pad}")
+    npow = WIDTH if n_bins_pad == 0 else n_bins_pad
     if mel_precision not in ("bf2", "highest"):
         raise ValueError("mel_precision must be 'bf2' or 'highest'")
-    want = (torch.bfloat16, 3 * n_pow) if bf2 else (torch.float32, n_pow)
+    if out_mode not in OUT_MODES:
+        raise ValueError(f"out_mode must be one of {OUT_MODES}")
+    bf2 = mel_precision == "bf2"
+    want = (torch.bfloat16, 3 * npow) if bf2 else (torch.float32, npow)
     if (mt.dtype, mt.shape[0]) != want or mt.device != dev:
         raise ValueError(f"mt must be {want[0]} with {want[1]} rows on the "
                          f"signal's device; got {mt.dtype} {tuple(mt.shape)}")
@@ -151,16 +235,35 @@ def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
         raise ValueError("mt's columns must be n_mels padded to 128")
     pair_i = tuple(int(i) for i in pair_i)
     if not (0 < len(pair_i) <= MAX_BLOCKS and 0 < ks <= MAX_SLICES
-            and max(pair_i) < ks and min(pair_i) >= 0
-            and len(pair_i) * pack <= m_big.shape[0]):
-        raise ValueError(f"K1 takes <= {MAX_BLOCKS} K blocks of "
+            and max(pair_i) < ks and min(pair_i) >= 0 and pack > 0
+            and pack_off >= 0 and len(pair_i) * pack <= m_big.shape[0]):
+        raise ValueError(f"{what} takes <= {MAX_BLOCKS} K blocks of "
                          f"<= {MAX_SLICES} signal slices; got pair_i "
-                         f"{pair_i}, ks {ks}")
-    smem = _smem_bytes(ks, hop, pack, n_mels_pad)
+                         f"{pair_i}, ks {ks}, pack {pack}")
+    return pair_i, npow, n_mels_pad, bf2
+
+
+def raise_for(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.melspec_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
+
+
+def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
+            n_bins_pad, n_mels, mel_precision, pack_off, out_mode,
+            guard) -> torch.Tensor:
+    global launches
+    dev = samples.device
+    pair_i, npow, n_mels_pad, bf2 = check_head(
+        samples, m_big, pair_i, mt, ks=ks, pack=pack, pack_off=pack_off,
+        n_bins_pad=n_bins_pad, n_mels=n_mels, mel_precision=mel_precision,
+        out_mode=out_mode, what="K1")
+    smem = _smem_bytes(ks, hop, pack, pack_off, npow, n_mels_pad)
     if smem > MAX_SMEM_BYTES:
         raise NotImplementedError(
             f"K1 needs {smem} bytes of shared memory for hop {hop}, "
-            f"{pack} taps; a block has {MAX_SMEM_BYTES}")
+            f"{pack} taps at {pack_off}, {npow} power columns; a block has "
+            f"{MAX_SMEM_BYTES}")
     b, t = samples.shape
     out = torch.empty((b, n_frames, n_mels), dtype=torch.float32, device=dev)
     if b == 0 or n_frames <= 0:
@@ -168,18 +271,17 @@ def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
     samples = samples.contiguous()
     m_big = m_big.contiguous()
     mt = mt.contiguous()
-    blocks = _block_table(pair_i, dev)
+    blocks = block_table(pair_i, dev)
     lib = _bound()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.melspec_sig_mel(
-            samples.data_ptr(), b, t, n_frames, hop, offset,
-            m_big.data_ptr(), width, pack, blocks.data_ptr(), len(pair_i), ks,
-            mt.data_ptr(), n_mels, n_mels_pad, int(bf2),
+            samples.data_ptr(), b, t, n_frames, hop, offset, TILE_FRAMES,
+            m_big.data_ptr(), WIDTH, pack, pack_off, blocks.data_ptr(),
+            len(pair_i), ks, npow, mt.data_ptr(), n_mels, n_mels_pad,
+            int(bf2), OUT_MODES.index(out_mode), clamped_guard(guard),
             out.data_ptr(), stream)
-    if rc != 0:
-        msg = lib.melspec_cuda_error_string(rc).decode()
-        raise RuntimeError(f"K1 (sig_mel) launch failed: {msg} ({rc})")
+    raise_for(lib, rc, "K1 (sig_mel)")
     launches += 1
     return out
 
@@ -187,7 +289,8 @@ def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
 def sig_mel(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
             mt: torch.Tensor, *, ks: int, n_frames: int, hop: int,
             offset: int, pack: int, n_bins_pad: int, n_mels: int,
-            mel_precision: str = "bf2") -> torch.Tensor:
+            mel_precision: str = "bf2", pack_off: int = 0,
+            out_mode: str = "whisper", guard: float = 0.0) -> torch.Tensor:
     """K1 on a CUDA signal, its plain version on a CPU one (same
     arguments as ``sig_mel_reference``). On the CPU the DFT dot is summed
     exactly (float64): the f32 sum of a CPU BLAS changes with its thread
@@ -195,7 +298,8 @@ def sig_mel(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
     than the accuracy gates allow."""
     kw = dict(ks=ks, n_frames=n_frames, hop=hop, offset=offset, pack=pack,
               n_bins_pad=n_bins_pad, n_mels=n_mels,
-              mel_precision=mel_precision)
+              mel_precision=mel_precision, pack_off=pack_off,
+              out_mode=out_mode, guard=guard)
     if samples.device.type == "cuda":
         return _launch(samples, m_big, pair_i, mt, **kw)
     if samples.device.type == "cpu":

@@ -1,0 +1,239 @@
+"""NeMo/Parakeet-style batch log-mel frontend (port of
+``melspec_tpu.ops.batch_logmel``).
+
+The reference's ``BatchLogMelSpectrogram`` (``src/mel.rs:172-433``) as
+batched tensor code over ``[..., T]``:
+
+- optional preemphasis over the whole waveform ``y[n] = x[n] - c*x[n-1]``,
+  ``y[0] = x[0]``;
+- ``center=True`` zero-pads ``n_fft/2`` on both sides (zeros, not
+  reflect);
+- ``len // hop + 1`` frames when centered, ``(len - n_fft) // hop + 1``
+  otherwise;
+- symmetric Hann of ``win_length`` centered inside ``n_fft``;
+- power over all ``n_fft//2 + 1`` bins, Slaney filterbank,
+  ``ln(energy + guard)``;
+- feature-major output ``[..., n_mels, padded_frames]`` with ``pad_to``
+  column padding, and optional per-feature mean/std normalization over
+  the valid frames (``max(valid - 1, 1)`` variance denominator, ``std +
+  1e-5``).
+
+``fft_impl``: ``"sig"`` runs kernel K1 in its ``ln_guard`` mode over the
+N-packed 512-column head, contracting only the ``win_length`` taps inside
+the window (``pack_off = (n_fft - win) // 2``); ``"rdft"`` and ``"fft"``
+run as plain PyTorch; ``"auto"`` picks ``"sig"`` on CUDA where the config
+qualifies, ``"rdft"`` on the CPU. ``"hp"`` raises (ROADMAP.md item 12).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from melspec_tpu_torch._device import full_f32, resolve_device
+from melspec_tpu_torch.config import BatchLogMelConfig
+from melspec_tpu_torch.kernels.sig_mel import SigHead, sig_mel
+from melspec_tpu_torch.ops import dft, framing
+from melspec_tpu_torch.ops.fastmath import ln_best
+from melspec_tpu_torch.ops.fbank import HP_NOT_PORTED
+from melspec_tpu_torch.ops.filterbank import mel_filterbank
+from melspec_tpu_torch.ops.mel_kernel import (_sig_frontend_matrices,
+                                              bf2_stack, sig_geometry)
+from melspec_tpu_torch.ops.windows import hann_centered
+
+
+def pad_len(length: int, pad_to: int) -> int:
+    """Round ``length`` up to a multiple of ``pad_to`` (0 = no padding)."""
+    if pad_to == 0:
+        return length
+    return -(-length // pad_to) * pad_to
+
+
+def nemo_filters(config: BatchLogMelConfig) -> np.ndarray:
+    return mel_filterbank(float(config.sample_rate), config.n_fft,
+                          config.n_mels, f_min=config.f_min,
+                          f_max=config.effective_f_max, htk=config.htk,
+                          norm=config.norm)
+
+
+@functools.lru_cache(maxsize=8)
+def sig_head(config: BatchLogMelConfig) -> SigHead:
+    """NeMo's K1 head on the CPU: centered frames are zero outside the
+    ``win_length`` window, so each K block keeps only that interior
+    (``pack = win``, ``pack_off = (n_fft - win) // 2``); ``npack="auto"``
+    N-packs the 257-bin head into 512 columns; bf2 projection;
+    ``ln(e + guard)``."""
+    pack_off = (config.n_fft - config.win_length) // 2
+    m_big, pair_i, mt, n_bins_pad, _, _, _ = _sig_frontend_matrices(
+        config.n_fft, config.fft_bins,
+        hann_centered(config.n_fft, config.win_length), nemo_filters(config),
+        ks=3, km=3, cutoff=2, pack=config.win_length, pack_off=pack_off)
+    return SigHead(m_big, pair_i, bf2_stack(mt), n_bins_pad,
+                   config.win_length, config.n_mels, pack_off=pack_off,
+                   out_mode="ln_guard", guard=float(config.log_zero_guard))
+
+
+class BatchLogMel:
+    """NeMo-style frontend for one config on one device.
+
+    ``compute(samples)`` takes ``[T]`` or ``[B, T]`` float32 and returns
+    ``[..., n_mels, padded_frames]`` in the pipeline dtype. ``matrices``
+    replaces the host-built K1 head of the ``"sig"`` route.
+    ``device=None`` means CUDA."""
+
+    def __init__(self, config: BatchLogMelConfig = BatchLogMelConfig(),
+                 dtype=torch.float32, fft_impl: str = "auto", device=None,
+                 matrices: SigHead | None = None):
+        self.device = resolve_device(device)
+        geom = sig_geometry(config.n_fft, config.hop_length)
+        if fft_impl == "auto":
+            eligible = (self.device.type == "cuda" and geom is not None
+                        and dtype == torch.float32)
+            fft_impl = "sig" if eligible else "rdft"
+        if fft_impl == "hp":
+            raise NotImplementedError(HP_NOT_PORTED)
+        if fft_impl not in ("rdft", "fft", "sig"):
+            raise ValueError(
+                "fft_impl must be 'auto', 'rdft', 'fft', 'hp' or 'sig'"
+            )
+        if fft_impl == "sig":
+            if geom is None:
+                raise ValueError(
+                    "fft_impl='sig': no macro-row geometry for this "
+                    "(n_fft, hop_length)"
+                )
+            if dtype != torch.float32:
+                raise ValueError("fft_impl='sig' is float32-only")
+        self.config = config
+        self.dtype = dtype
+        self.fft_impl = fft_impl
+        self.fft_bins = config.fft_bins
+
+        filters = nemo_filters(config)
+        self._filters_np = filters
+        self.filters_t = torch.as_tensor(filters.T, dtype=dtype,
+                                         device=self.device)
+        self._window_np = hann_centered(config.n_fft, config.win_length)
+        self.window = torch.as_tensor(self._window_np, dtype=dtype,
+                                      device=self.device)
+        self.sig_head = None
+        if fft_impl == "sig":
+            head = sig_head(config) if matrices is None else matrices
+            self.sig_head = head.to(self.device)
+
+    @property
+    def filters(self) -> np.ndarray:
+        return self._filters_np
+
+    def num_frames(self, sample_len: int) -> int:
+        if self.config.center:
+            return framing.num_frames_centered(sample_len,
+                                               self.config.hop_length)
+        return framing.num_frames_batch(sample_len, self.config.n_fft,
+                                        self.config.hop_length)
+
+    def _compute(self, x: torch.Tensor) -> torch.Tensor:
+        """Features of ``x [..., T]`` (on the device, pipeline dtype)."""
+        cfg = self.config
+        n = x.shape[-1]
+        if cfg.preemphasis != 0.0:
+            prev = torch.cat([x[..., :1] * 0.0, x[..., :-1]], dim=-1)
+            x = x - cfg.preemphasis * prev  # y[0] = x[0]: prev[0] is 0
+        valid = self.num_frames(n)
+        if cfg.center:
+            pad = cfg.n_fft // 2
+            x = torch.nn.functional.pad(x, (pad, pad))
+        # the framing needs this many samples
+        needed = (valid - 1) * cfg.hop_length + cfg.n_fft
+        if x.shape[-1] < needed:
+            x = torch.nn.functional.pad(x, (0, needed - x.shape[-1]))
+
+        if self.fft_impl == "sig":
+            # K1: framing, windowed rDFT, power, filterbank and
+            # ln(x + guard) in one launch
+            h = self.sig_head
+            lead = x.shape[:-1]
+            mel = sig_mel(x.reshape((-1, x.shape[-1])).to(torch.float32),
+                          h.m_big, h.pair_i, h.mt, ks=3, n_frames=valid,
+                          hop=cfg.hop_length, offset=0, **h.kw())
+            feats = mel.transpose(-1, -2).reshape(
+                lead + (cfg.n_mels, valid)).to(self.dtype)
+            return self._norm_and_pad(feats, valid)
+
+        frames = framing.frame_signal(x, cfg.n_fft, cfg.hop_length, valid)
+        xw = frames * self.window
+        with full_f32():
+            if self.fft_impl == "rdft":
+                power = dft.rdft_power(xw, cfg.n_fft, self.fft_bins,
+                                       dtype=self.dtype)
+            else:
+                spec = torch.fft.rfft(xw, dim=-1)
+                power = (spec.real ** 2 + spec.imag ** 2).to(self.dtype)
+            energy = power @ self.filters_t
+        feats = ln_best(energy + cfg.log_zero_guard, self.dtype)
+        feats = feats.transpose(-1, -2)  # [..., n_mels, valid]
+        return self._norm_and_pad(feats, valid)
+
+    def _norm_and_pad(self, feats: torch.Tensor, valid: int) -> torch.Tensor:
+        cfg = self.config
+        if cfg.normalize_per_feature:
+            mean = feats.mean(dim=-1, keepdim=True)
+            denom = max(valid - 1, 1)
+            var = ((feats - mean) ** 2).sum(dim=-1, keepdim=True) / denom
+            std = torch.sqrt(var) + 1e-5
+            feats = (feats - mean) / std
+        padded = pad_len(valid, cfg.pad_to)
+        if padded > valid:
+            feats = torch.nn.functional.pad(feats, (0, padded - valid))
+        return feats
+
+    def compute(self, samples) -> torch.Tensor:
+        x = torch.as_tensor(samples, device=self.device)
+        if x.shape[-1] == 0:
+            return torch.zeros(x.shape[:-1] + (self.config.n_mels, 0),
+                               dtype=self.dtype, device=self.device)
+        return self._compute(x.to(self.dtype))
+
+    def compute_flat(self, samples) -> tuple[np.ndarray, int, int]:
+        """Flat row-major output and ``(rows, cols)``, the reference's
+        ``compute_flat_with_scratch`` return (``src/mel.rs:321-385``)."""
+        feats = self.compute(samples).cpu().numpy().astype(np.float32)
+        rows, cols = feats.shape[-2], feats.shape[-1]
+        return feats.reshape(feats.shape[:-2] + (rows * cols,)), rows, cols
+
+
+def mel_tensor(frames: np.ndarray, n_mels: int):
+    """Flat feature-major mel frames packaged for an ONNX-style ASR
+    runtime: ``(features [1, n_mels, T] float32, lengths [1] int64)``
+    (reference ``src/mel.rs:420-433``)."""
+    frames = np.asarray(frames, dtype=np.float32).reshape(-1)
+    num_frames = frames.size // n_mels
+    audio = frames[: n_mels * num_frames].reshape(1, n_mels, num_frames)
+    lengths = np.asarray([num_frames], dtype=np.int64)
+    return audio, lengths
+
+
+def run_asr_session(model, frames, n_mels: int,
+                    audio_key: str = "audio_signal",
+                    length_key: str = "length"):
+    """Run an ONNX Runtime ASR session on packaged mel features:
+    ``session.run(None, {audio_key: mel [1, n_mels, T] f32, length_key:
+    [T] i64})``. ``model`` is a session (anything with ``.run(names,
+    feeds)``) or a path to a ``.onnx`` model, for which ``onnxruntime`` is
+    imported here; without it the call raises an ``ImportError`` that
+    says what to install."""
+    audio, lengths = mel_tensor(frames, n_mels)
+    feeds = {audio_key: audio, length_key: lengths}
+    if hasattr(model, "run"):
+        return model.run(None, feeds)
+    try:
+        import onnxruntime as ort
+    except ImportError as e:
+        raise ImportError(
+            "run_asr_session(path) needs the optional 'onnxruntime' "
+            "package (pip install onnxruntime); alternatively pass an "
+            "already-constructed session object"
+        ) from e
+    return ort.InferenceSession(str(model)).run(None, feeds)

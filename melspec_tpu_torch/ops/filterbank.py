@@ -1,10 +1,12 @@
-"""Slaney/HTK mel filterbank, built on the host in float64 (numpy copy of
-``melspec_tpu.ops.filterbank``'s whisper part; within 1e-7 of librosa and
-of the whisper GGML filters, ``testdata/filterbanks_golden.npz``)."""
+"""Mel filterbanks, built on the host in float64 (numpy copy of
+``melspec_tpu.ops.filterbank``): Slaney/HTK (whisper, NeMo; within 1e-7
+of librosa and of the whisper GGML filters,
+``testdata/filterbanks_golden.npz``) and Kaldi's."""
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -100,4 +102,85 @@ def mel_filterbank(
         weights = weights * enorm[:, None]
 
     return weights
+
+
+def kaldi_hz_to_mel(hz: float) -> float:
+    """Kaldi mel scale ``1127 ln(1 + hz/700)`` (``src/fbank.rs:303-307``)."""
+    return 1127.0 * np.log(1.0 + hz / 700.0)
+
+
+def kaldi_mel_to_hz(mel: float) -> float:
+    """Inverse Kaldi mel scale (``src/fbank.rs:309-313``)."""
+    return 700.0 * (np.exp(mel / 1127.0) - 1.0)
+
+
+def kaldi_filterbank(
+    sample_rate: float,
+    fft_size: int,
+    num_mel_bins: int,
+    low_freq: float = 20.0,
+    high_freq: float = 0.0,
+) -> np.ndarray:
+    """Kaldi-style mel filterbank ``[num_mel_bins, fft_size//2+1]``
+    (float64): not area-normalized, rising edge on ``(left, center]``,
+    falling on ``(center, right)`` (``src/fbank.rs:249-301``)."""
+    if high_freq == 0.0:
+        high_freq = sample_rate / 2.0
+    num_fft_bins = fft_size // 2 + 1
+
+    mel_low = kaldi_hz_to_mel(low_freq)
+    mel_high = kaldi_hz_to_mel(high_freq)
+    mel_points = mel_low + (mel_high - mel_low) * np.arange(
+        num_mel_bins + 2, dtype=np.float64
+    ) / (num_mel_bins + 1)
+    hz_points = 700.0 * (np.exp(mel_points / 1127.0) - 1.0)
+
+    freqs = np.arange(num_fft_bins, dtype=np.float64) * sample_rate / fft_size
+    filters = np.zeros((num_mel_bins, num_fft_bins), dtype=np.float64)
+
+    for m in range(num_mel_bins):
+        left, center, right = hz_points[m], hz_points[m + 1], hz_points[m + 2]
+        if center <= left or right <= center:
+            continue  # degenerate filter
+        rising = (freqs > left) & (freqs <= center)
+        falling = (freqs > center) & (freqs < right)
+        filters[m, rising] = (freqs[rising] - left) / (center - left)
+        filters[m, falling] = (right - freqs[falling]) / (right - center)
+
+    return filters
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseFilterbankView:
+    """Introspection view over a dense filterbank, the reference's
+    ``SparseMelFilterbank`` metadata (``src/mel.rs:41-104``): nonzero
+    ``(bin, weight)`` pairs per mel row. Compute always uses the dense
+    matrix."""
+
+    rows: Tuple[Tuple[Tuple[int, float], ...], ...]
+    fft_bins: int
+
+    @classmethod
+    def from_dense(cls, filters: np.ndarray) -> "SparseFilterbankView":
+        filters = np.asarray(filters)
+        rows: List[Tuple[Tuple[int, float], ...]] = []
+        for row in filters:
+            nz = np.nonzero(row != 0.0)[0]
+            rows.append(tuple((int(b), float(row[b])) for b in nz))
+        return cls(rows=tuple(rows), fft_bins=int(filters.shape[1]))
+
+    @property
+    def n_mels(self) -> int:
+        return len(self.rows)
+
+    @property
+    def non_zero_weights(self) -> int:
+        return sum(len(r) for r in self.rows)
+
+    @property
+    def dense_weights(self) -> int:
+        return self.n_mels * self.fft_bins
+
+    def weights_for_mel(self, mel_idx: int) -> Tuple[Tuple[int, float], ...]:
+        return self.rows[mel_idx]
 

@@ -24,15 +24,16 @@ import numpy as np
 import torch
 
 from melspec_tpu_torch._device import as_signal, resolve_device
-from melspec_tpu_torch.kernels.sig_mel import sig_mel, sig_mel_reference
+from melspec_tpu_torch.kernels.sig_mel import (SigHead, sig_mel,
+                                               sig_mel_reference)
 from melspec_tpu_torch.ops import dft, framing
 from melspec_tpu_torch.ops.filterbank import mel_filterbank
 from melspec_tpu_torch.ops.hp_dft import bf16_round_slices
 from melspec_tpu_torch.ops.windows import hann_periodic
 
 __all__ = [
-    "SigMatrices", "sig_geometry", "sig_mel_reference", "whisper_mel_pallas",
-    "whisper_mel_sig",
+    "SigHead", "SigMatrices", "sig_geometry", "sig_mel_reference",
+    "whisper_head", "whisper_mel_pallas", "whisper_mel_sig",
 ]
 
 LANES = 128
@@ -65,19 +66,22 @@ def sig_packed_im_bins(fft_size: int, n_bins: int) -> list:
 
 
 def _sig_stack_combined(csw: np.ndarray, ks: int, km: int, cutoff: int,
-                        pack: int):
+                        pack: int | None = None, pack_off: int = 0):
     """Cut the float64 spectral matrix ``[k_pad, width]`` into rounded-bf16
     planes and K-stack the kept slice pairs ``(i, j)``, ``i + j <=
-    cutoff``, i-major; each block keeps its ``pack`` real rows and the
-    stack is padded to a multiple of 128 rows. Returns ``(m_big bf16
+    cutoff``, i-major; each block keeps its ``pack`` real rows starting
+    at row ``pack_off`` (all ``k_pad`` rows when ``pack`` is None) and
+    the stack is padded to a multiple of 128 rows. Returns ``(m_big bf16
     [K_tot, width], pair_i)``."""
+    k_rows = csw.shape[0] if pack is None else pack
+    k_lo = pack_off if pack is not None else 0
     planes = bf16_round_slices(csw, km)
     pair_i = []
     blocks = []
     for i in range(ks):
         for j in range(min(cutoff - i, km - 1) + 1):
             pair_i.append(i)
-            blocks.append(planes[j][:pack])
+            blocks.append(planes[j][k_lo : k_lo + k_rows])
     stack = torch.cat(blocks, dim=0)
     k_tot = -(-stack.shape[0] // LANES) * LANES
     if k_tot != stack.shape[0]:
@@ -95,33 +99,83 @@ def bf2_stack(mt) -> torch.Tensor:
 
 def _sig_frontend_matrices(fft_size: int, n_bins: int, window: np.ndarray,
                            filters: np.ndarray, ks: int, km: int,
-                           cutoff: int):
-    """K1's matrices for any windowed-rDFT -> power -> filterbank
-    frontend: the K-stacked bf16 plane matrix with ``window`` folded in,
-    its pair order, and the float64 projection from ``filters [n_mels,
-    >= n_bins]``.
+                           cutoff: int, pack: int | None = None,
+                           pack_off: int = 0, npack: str | bool = "auto",
+                           preproc: np.ndarray | None = None):
+    """K1's and K2's matrices for any windowed-rDFT -> power ->
+    filterbank frontend (whisper mel, NeMo log-mel, Kaldi fbank): the
+    K-stacked bf16 plane matrix with ``window`` folded in, its pair
+    order, and the float64 projection from ``filters [n_mels, >=
+    n_bins]``. Bit for bit the JAX function's matrices.
 
-    The columns are the JAX builder's SPLIT layout (its ``npack=False``):
-    re in ``[0, n_bins_pad)`` and im in ``[n_bins_pad, 2*n_bins_pad)``
-    with ``mt [n_bins_pad, n_mels_pad]``. The JAX builder's N-packed
-    layout, which it picks where it is narrower (fft 320), is not ported
-    yet. Returns ``(m_big, pair_i, mt, n_bins_pad, n_mels_pad, k_pad)``."""
+    Two column layouts (``npack``; ``"auto"`` picks the narrower):
+
+    - SPLIT (``npack=False``): re in ``[0, n_bins_pad)``, im in
+      ``[n_bins_pad, 2*n_bins_pad)``; power is ``re*re + im*im`` and
+      ``mt`` is ``[n_bins_pad, n_mels_pad]``.
+    - N-PACKED (``npack=True``): re columns for every bin, then im columns
+      only for bins whose sin column is not identically zero (not DC, not
+      Nyquist); power is ``y*y`` per column and ``mt [n_cols_pad,
+      n_mels_pad]`` holds each filter row twice (once per component), so
+      the re/im add rides the projection. A 257-bin head (fft 512) takes
+      512 columns instead of 768.
+
+    ``window`` may be shorter than ``fft_size`` (Kaldi's 400-in-512
+    frame). ``preproc`` left-folds a per-frame linear map ``[taps,
+    taps_src]`` into the spectral rows (Kaldi's DC removal and
+    preemphasis); a rectangular one widens the frame to ``taps_src`` raw
+    samples (NeMo's cross-frame preemphasis). ``pack`` / ``pack_off``
+    keep rows ``[pack_off, pack_off + pack)`` of each K block.
+
+    Returns ``(m_big, pair_i, mt, n_bins_pad, n_mels_pad, k_pad, npack)``
+    where ``n_bins_pad`` is the split point, 0 when packed."""
     n_mels = filters.shape[0]
     n_bins_pad = -(-n_bins // LANES) * LANES
     n_mels_pad = -(-n_mels // LANES) * LANES
     k_pad = -(-fft_size // LANES) * LANES
 
+    im_bins = sig_packed_im_bins(fft_size, n_bins)
+    n_cols_pad = -(-(n_bins + len(im_bins)) // LANES) * LANES
+    if npack == "auto":
+        npack = n_cols_pad < 2 * n_bins_pad
+
     cos_m, msin_m = dft.rdft_matrices(fft_size, n_bins)
     w = np.asarray(window, np.float64)[:, None]
     taps = w.shape[0]
+    if pack_off and taps < fft_size:
+        # a short window writes rows [0, taps) while pack_off keeps rows
+        # [pack_off, pack_off + pack): real rows would drop silently
+        raise ValueError(
+            "pack_off > 0 requires a full fft_size-length window"
+        )
+    cwf = w * cos_m[:taps]  # [taps, n_bins] float64, window folded
+    swf = w * msin_m[:taps]
+    if preproc is not None:
+        pre_t = np.asarray(preproc, np.float64).T
+        cwf = pre_t @ cwf
+        swf = pre_t @ swf
+        # the spectral rows now index RAW window positions
+        taps = cwf.shape[0]
+        k_pad = max(k_pad, -(-taps // LANES) * LANES)
     filt = np.asarray(filters, np.float64)[:, :n_bins].T  # [n_bins, n_mels]
-    csw = np.zeros((k_pad, 2 * n_bins_pad))
-    csw[:taps, :n_bins] = w * cos_m[:taps]
-    csw[:taps, n_bins_pad : n_bins_pad + n_bins] = w * msin_m[:taps]
-    mt = np.zeros((n_bins_pad, n_mels_pad))
-    mt[:n_bins, :n_mels] = filt
-    m_big, pair_i = _sig_stack_combined(csw, ks, km, cutoff, fft_size)
-    return m_big, pair_i, mt, n_bins_pad, n_mels_pad, k_pad
+    if npack:
+        csw = np.zeros((k_pad, n_cols_pad))
+        csw[:taps, :n_bins] = cwf
+        csw[:taps, n_bins : n_bins + len(im_bins)] = swf[:, im_bins]
+        mt = np.zeros((n_cols_pad, n_mels_pad))
+        mt[:n_bins, :n_mels] = filt
+        mt[n_bins : n_bins + len(im_bins), :n_mels] = filt[im_bins]
+    else:
+        csw = np.zeros((k_pad, 2 * n_bins_pad))
+        csw[:taps, :n_bins] = cwf
+        csw[:taps, n_bins_pad : n_bins_pad + n_bins] = swf
+        mt = np.zeros((n_bins_pad, n_mels_pad))
+        mt[:n_bins, :n_mels] = filt
+    m_big, pair_i = _sig_stack_combined(
+        csw, ks, km, cutoff, pack=fft_size if pack is None else pack,
+        pack_off=pack_off)
+    return (m_big, pair_i, mt, 0 if npack else n_bins_pad, n_mels_pad,
+            k_pad, npack)
 
 
 @functools.lru_cache(maxsize=8)
@@ -130,12 +184,14 @@ def _sig_device_matrices(fft_size: int, n_mels: int, sampling_rate: float,
     """Whisper instantiation (the projection zeroes bins >= fft/2), plus
     the bf2 mel stack. The JAX function's tuple less its ``npack``, as
     CPU tensors: ``(m_big, pair_i, mt f32, mt_bf2, n_bins_pad, n_mels_pad,
-    k_pad)``."""
+    k_pad)``. Always the split layout: the kernels take 512 columns, and
+    where JAX's "auto" would pack a whisper head (fft 320: 384 columns)
+    the split layout keeps that width."""
     half = fft_size // 2
     filters = mel_filterbank(sampling_rate, fft_size, n_mels)
-    m_big, pair_i, mt, n_bins_pad, n_mels_pad, k_pad = \
+    m_big, pair_i, mt, n_bins_pad, n_mels_pad, k_pad, _ = \
         _sig_frontend_matrices(fft_size, half, hann_periodic(fft_size),
-                               filters, ks, km, cutoff)
+                               filters, ks, km, cutoff, npack=False)
     mt_bf2 = bf2_stack(mt)
     return (m_big, pair_i, torch.as_tensor(mt, dtype=torch.float32), mt_bf2,
             n_bins_pad, n_mels_pad, k_pad)
@@ -167,6 +223,17 @@ def sig_matrices(fft_size: int, n_mels: int, sampling_rate: float, ks: int,
     m_big, pair_i, mt, mt_bf2, n_bins_pad, _, _ = _sig_device_matrices(
         fft_size, n_mels, float(sampling_rate), ks, ks, cutoff)
     return SigMatrices(m_big, pair_i, mt, mt_bf2, n_bins_pad).to(device)
+
+
+def whisper_head(fft_size: int, n_mels: int, sampling_rate: float,
+                 device: torch.device, pack_off: int = 0) -> SigHead:
+    """The whisper frontend (bf2 projection, (ks, cutoff) = (3, 2)) as a
+    head of K2, contracting taps ``[pack_off, pack_off + fft_size)`` of
+    each frame."""
+    mats = sig_matrices(fft_size, n_mels, float(sampling_rate), 3, 2,
+                        device)
+    return SigHead(mats.m_big, mats.pair_i, mats.mt_bf2, mats.n_bins_pad,
+                   fft_size, n_mels, pack_off=pack_off)
 
 
 def whisper_mel_sig(

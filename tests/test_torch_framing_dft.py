@@ -107,15 +107,18 @@ def test_best_logs_defer_to_torch_beyond_f32(name, exact):
 
 
 def test_kernel_log_constants_match_fastmath():
-    """csrc/sig_mel.cu carries log10_accurate's constants as hex literals;
-    they must be the Python float32 values bit for bit."""
+    """csrc/sig_common.cuh (the device code of K1 and K2) carries
+    log10_accurate's and ln_accurate's constants as hex literals; they
+    must be the Python float32 values bit for bit."""
     src = (Path(fastmath.__file__).resolve().parents[1] / "csrc"
-           / "sig_mel.cu").read_text()
+           / "sig_common.cuh").read_text()
     lit = dict(re.findall(r"constexpr float (k\w+) = (0x[0-9a-fp.+-]+)f;",
                           src))
     c7, c5, c3, c1 = fastmath.series_coefficients(float(fastmath._INV_LN10))
+    l7, l5, l3, l1 = fastmath.series_coefficients(1.0)
     want = {"kLog10Of2": fastmath._LOG10_2, "kC7": c7, "kC5": c5,
-            "kC3": c3, "kC1": c1}
+            "kC3": c3, "kC1": c1, "kLn2": fastmath._LN2, "kLnC7": l7,
+            "kLnC5": l5, "kLnC3": l3, "kLnC1": l1}
     for k, v in want.items():
         assert np.float32(float.fromhex(lit[k])) == v, k
     e_round = re.search(r"constexpr int kERound = (0x[0-9A-Fa-f]+);", src)

@@ -26,9 +26,14 @@ def test_import_and_cpu_call_load_no_jax():
     code = (
         "import sys, numpy as np\n"
         "import melspec_tpu_torch\n"
+        "import melspec_tpu_torch.parallel.sharding as sh\n"
+        "import melspec_tpu_torch.ops.sig_multihead as mh\n"
         "from melspec_tpu_torch import whisper_mel_sig\n"
         "out = whisper_mel_sig(np.zeros(4000, np.float32), device='cpu')\n"
         "assert tuple(out.shape) == (23, 80), out.shape\n"
+        "step = sh.sharded_frontend_step(device='cpu')\n"
+        "res = step(np.zeros((1, 4000), np.float32))\n"
+        "assert len(res) == 8 and mh.WhisperKaldiNemoFused\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0].startswith('jax')\n"
         "             or m.split('.')[0] == 'melspec_tpu')\n"
@@ -68,7 +73,14 @@ def no_cuda(monkeypatch):
     lambda x: mt.compute_mel_spectrogram(x, 400, 160, 80, 16000.0),
     lambda x: mt.compute_streaming_mel(x, 400, 160, 80, 16000.0),
     lambda x: mt.whisper_mel_sig(x, device="cuda"),
-], ids=["sig", "pallas", "pipeline", "compute", "streaming", "cuda"])
+    lambda x: mt.Fbank(),
+    lambda x: mt.Mfcc(),
+    lambda x: mt.BatchLogMel(),
+    lambda x: mt.WhisperKaldiFused(),
+    lambda x: mt.WhisperKaldiNemoFused(),
+    lambda x: mt.sharded_frontend_step(),
+], ids=["sig", "pallas", "pipeline", "compute", "streaming", "cuda", "fbank",
+        "mfcc", "nemo", "fused", "trihead", "step"])
 def test_default_device_raises_without_cuda(no_cuda, call):
     before = sig_mel.launches
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -97,8 +109,10 @@ def test_import_builds_nothing():
     """Kernels build at their first launch, never at import."""
     code = ("import melspec_tpu_torch, melspec_tpu_torch.kernels.sig_mel as k\n"
             "import melspec_tpu_torch.kernels.resample as r\n"
+            "import melspec_tpu_torch.kernels.sig_multi as m\n"
             "import sys; sys.exit(0 if not k._bound.cache_info().currsize\n"
-            "         and not r._bound.cache_info().currsize else 1)\n")
+            "         and not r._bound.cache_info().currsize\n"
+            "         and not m._bound.cache_info().currsize else 1)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr

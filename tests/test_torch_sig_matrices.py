@@ -37,18 +37,22 @@ def test_device_matrices_bit_identical_to_jax(fft, n_mels, ks, cutoff):
 
 
 def test_split_layout_at_fft320_bit_identical_to_jax():
-    """Where JAX would N-pack (fft 320: 384 columns < 2 * 256), the port
-    builds the split layout, bit for bit JAX's ``npack=False``."""
+    """Where JAX's "auto" would N-pack a whisper head (fft 320: 384
+    columns < 2 * 256), the port's whisper matrices keep the split layout
+    (the kernels take 512 columns), bit for bit JAX's ``npack=False``."""
     fb = mel_filterbank(16000.0, 320, 80)
     want = jmk._sig_frontend_matrices(320, 160, hann_periodic(320), fb,
                                       3, 3, 2, npack=False)
     got = mel_kernel._sig_frontend_matrices(320, 160, hann_periodic(320), fb,
-                                            3, 3, 2)
+                                            3, 3, 2, npack=False)
     np.testing.assert_array_equal(_bits(got[0]), _bits(want[0]))
     assert got[0].shape[1] == 512
     assert got[1] == want[1]
     np.testing.assert_array_equal(got[2], want[2])
-    assert got[3:6] == want[3:6]
+    assert got[3:7] == want[3:7]
+    whisper = mel_kernel._sig_device_matrices(320, 80, 16000.0, 3, 3, 2)
+    np.testing.assert_array_equal(_bits(whisper[0]), _bits(want[0]))
+    assert whisper[4] == 256
 
 
 def test_bf16_round_slices_match_ml_dtypes_double_rounding():
@@ -106,6 +110,25 @@ def test_from_jax_matrices_round_trip(form):
     a = mel_kernel.whisper_mel_sig(x, device="cpu", matrices=mats)
     b = mel_kernel.whisper_mel_sig(x, device="cpu")
     assert torch.equal(a, b)
+
+
+def test_from_jax_n_packed_set():
+    """An N-packed JAX set (JAX packs its fft-320 whisper head into 384
+    columns) converts with split point 0 and drives the plain version to
+    the split layout's output within the bf2 projection's rounding."""
+    m_big, pair_i, mt, mt_bf2, _, _, _, npack = jmk._sig_device_matrices(
+        320, 80, 16000.0, 3, 3, 2)
+    assert npack is True
+    mats = convert.from_jax_sig_matrices(np.asarray(m_big), pair_i,
+                                         np.asarray(mt), np.asarray(mt_bf2))
+    assert mats.n_bins_pad == 0 and mats.m_big.shape[1] == 384
+    np.testing.assert_array_equal(_bits(mats.m_big), _bits(m_big))
+    x = (np.random.default_rng(5).normal(size=(2, 6000)) * 0.2).astype(
+        np.float32)
+    packed = mel_kernel.whisper_mel_sig(x, 320, 160, device="cpu",
+                                        matrices=mats)
+    split = mel_kernel.whisper_mel_sig(x, 320, 160, device="cpu")
+    assert float((packed - split).abs().max()) <= 1e-5
 
 
 def test_from_jax_rejects_inconsistent_shapes():
