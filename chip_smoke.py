@@ -5,11 +5,12 @@
 
 Builds every CUDA kernel of the port from the sources in this checkout
 (K1 ``csrc/sig_mel.cu``, K2 ``csrc/sig_multi.cu``, K3/K4
-``csrc/resample.cu``, one ``nvcc`` each, started together), holds each
-against its plain PyTorch version on the card, checks the accuracy gates
-through the kernels, and drives the port's three main paths at full
-width, with launch counts (zeroed just before each path, read just after)
-that show each went through its kernels:
+``csrc/resample.cu``, K5-K8 ``csrc/framed_mel.cu``, one ``nvcc`` each,
+started together), holds each against its plain PyTorch version on the
+card, checks the accuracy gates through the kernels, and drives the
+port's four main paths at full width, with launch counts (zeroed just
+before each path, read just after) that show each went through its
+kernels:
 
 - the batch path: raw ``[B, T]`` audio -> whisper large-v3 log-mel through
   ``WhisperMelPipeline.mel_batch`` (K1);
@@ -24,7 +25,15 @@ that show each went through its kernels:
   ``sharded_frontend_step`` at whisper large-v3 + Kaldi fbank + NeMo
   log-mel defaults (K2 with whisper, Kaldi and the VAD; K1 in ln_guard
   for NeMo), and 64 x 10 s at the JAX defaults, after K1's ln modes and
-  K2 (two and three heads) are held against their plain versions.
+  K2 (two and three heads) are held against their plain versions;
+- the precision dial: ``whisper_mel_pallas(x, 400, 160, 128, impl=...)``
+  on 64 x 30 s for each of bf3 / hp8 / hp_bf16 / f32 (K5 / K6 / K7 / K8,
+  one launch each, K1 none), after K5-K8 are held against their plain
+  versions (float32 and float64 dots) on 64 ragged 10 s clips and on
+  8 clips at 1024/256/80/22050 and pass the JFK gates; then the auto
+  routes that K1 refuses (whisper 1024/256 at 22.05 kHz: the pipeline's
+  bf3 power and K5; 8 kHz Kaldi fbank and NeMo log-mel: rdft), each held
+  against its float64 or plain result.
 
 Each phase prints one JSON line. Any failure raises and the script exits
 non-zero without its last line; on success the last line is
@@ -52,7 +61,8 @@ sys.path.insert(0, str(ROOT))
 from melspec_tpu_torch import (WHISPER_LARGE_V3, WhisperMelPipeline,  # noqa: E402
                                compute_streaming_mel, read_wav_f32le,
                                whisper_mel_sig)
-from melspec_tpu_torch.kernels import build, sig_mel, sig_multi  # noqa: E402
+from melspec_tpu_torch.kernels import (build, framed_mel,  # noqa: E402
+                                       sig_mel, sig_multi)
 from melspec_tpu_torch.kernels import resample as kres  # noqa: E402
 from melspec_tpu_torch.config import (BatchLogMelConfig,  # noqa: E402
                                       DetectionSettings, FbankConfig,
@@ -97,6 +107,34 @@ K1_SOURCE = "melspec_tpu_torch/csrc/sig_mel.cu"
 K1_REPLACES = "melspec_tpu/ops/mel_kernel.py:1547"
 K2_SOURCE = "melspec_tpu_torch/csrc/sig_multi.cu"
 K2_REPLACES = "melspec_tpu/ops/sig_multihead.py:151"
+FRAMED_SOURCE = "melspec_tpu_torch/csrc/framed_mel.cu"
+FRAMED_REPLACES = {"K5": "melspec_tpu/ops/mel_kernel.py:467",
+                   "K6": "melspec_tpu/ops/mel_kernel.py:314",
+                   "K7": "melspec_tpu/ops/mel_kernel.py:2060",
+                   "K8": "melspec_tpu/ops/mel_kernel.py:2104"}
+# the dense int8 tensor-core rate of the same data sheet (K6's type)
+PEAK_INT8_OPS = 1979e12
+# the precision dial: the JFK gates of tests/test_mel_kernel.py through
+# K5-K8 (K8: the fused route's 1e-5); K6 and K7 against their plain
+# versions at 1e-6 (their DFTs are exact integers and equal the plain
+# version's bit for bit; only the f32 projection's order differs); K5
+# and K8 against the exact result (float64 dot) at max(1e-5, the f32
+# floor measured in the run) and against the plain version at that plus
+# the floor, as K1. The main path is 64 x 30 s at 400/160/128.
+FRAMED_JFK = {"bf3": 1e-5, "hp8": 2e-6, "hp_bf16": 1e-6, "f32": 1e-5}
+OZAKI_TOL = 1e-6
+FRAMED_B, FRAMED_SECONDS = 64, 30.0
+# the second check shape (planes of 512 bins, four chunks): 8 ragged 10 s
+# clips at 22.05 kHz; the auto routes' clips are 30 s long
+FRAMED_22K_B, FRAMED_22K_T = 8, 10 * 22050 + 37
+AUTO_SECONDS = 30
+# the auto routes that K1 refuses, against their float64 routes: whisper
+# mel at the fused routes' 2e-5, NeMo at LN_TOL; Kaldi fbank (its f32 rdft
+# and hp routes) at the JAX package's bar between its Kaldi hp route and
+# float64 (tests/test_fbank.py:124), with hp closer on average than rdft,
+# as that test holds
+AUTO_TOL = 2e-5
+KALDI_F32_TOL = 2e-3
 # the ln heads' (Kaldi, NeMo) bar against the exact result: the JAX
 # package's cross-route bar, raised to the f32 floor measured in the run
 # (ln turns the relative error of a near-silent bin into absolute error);
@@ -237,10 +275,12 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    built = build.load_all(["sig_mel", "resample", "sig_multi"])
+    built = build.load_all(["sig_mel", "resample", "sig_multi",
+                            "framed_mel"])
     seconds = time.perf_counter() - t0
     report = {name: [ln.strip() for ln in b.log.splitlines()
-                     if "registers" in ln or "spill" in ln]
+                     if "registers" in ln or "spill" in ln
+                     or "Compiling entry" in ln]
               for name, b in built.items()}
     emit("build", kernels=sorted(built), seconds=round(seconds, 3),
          ptxas=report)
@@ -473,11 +513,12 @@ def zero_counts() -> None:
     sig_mel.launches = 0
     sig_multi.launches = 0
     kres.launches.update(K3=0, K4=0)
+    framed_mel.launches.update(dict.fromkeys(framed_mel.launches, 0))
 
 
 def read_counts() -> dict:
     return {"K1": sig_mel.launches, "K2": sig_multi.launches,
-            **kres.launches}
+            **kres.launches, **framed_mel.launches}
 
 
 def speechlike(rng, s: int, n: int, rate: int) -> np.ndarray:
@@ -531,7 +572,7 @@ def drive_fleet(dev, rate, s, fft_impl, ticks, hops, seed, sit_out=None,
     seg, cur = np.zeros(s, int), np.zeros(s, int)
     st, pst = front.init(), plain.init()
     recs, wall, k1_rows = [], [], []
-    launches = dict.fromkeys(("K1", "K2", "K3", "K4"), 0)
+    launches = dict.fromkeys(read_counts(), 0)
     torch.cuda.synchronize()
     for t in range(ticks):
         if t == reset_at:
@@ -1183,6 +1224,267 @@ def phase_frontend_step(dev, k2: dict) -> dict:
     return dict(counts=counts, k2_times=k2_times, steps=out)
 
 
+def framed_mats(impl: str, fft: int, n_mels: int, sr: float, dev):
+    ks, cutoff = mel_kernel.pallas_schedule(impl)
+    return mel_kernel.framed_matrices(impl, fft, n_mels, sr, ks, cutoff, dev)
+
+
+def framed_held(got, fr, mats, n_mels: int) -> dict:
+    """A framed kernel's output ``[B, n_frames, n_mels]`` against its plain
+    version (f32 dot) and the exact result (float64 dot) on the same
+    frames ``fr`` (``mel_kernel.framed_input``'s, padded rows dropped)."""
+    rows = got.numel() // n_mels
+    plain, exact = (framed_mel.framed_mel_reference(
+        fr, mats, n_mels=n_mels, dot_dtype=dt)[:rows].reshape(got.shape)
+        for dt in (torch.float32, torch.float64))
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{mats.impl} output is not finite")
+    return dict(impl=mats.impl, vs_plain=max_abs(got, plain),
+                vs_exact=max_abs(got, exact),
+                plain_vs_exact=max_abs(plain, exact))
+
+
+def framed_bars(rows) -> dict:
+    """Each scheme's bars from the f32 floor of its ``rows``."""
+    bars = {}
+    for impl in framed_mel.IMPLS:
+        floor = max(r["plain_vs_exact"] for r in rows if r["impl"] == impl)
+        if impl in ("hp8", "hp_bf16"):
+            bars[impl] = dict(f32_floor=floor, vs_exact=OZAKI_TOL,
+                              vs_plain=OZAKI_TOL)
+        else:
+            bar = max(K1_TOL, floor)
+            bars[impl] = dict(f32_floor=floor, vs_exact=bar,
+                              vs_plain=bar + floor)
+    return bars
+
+
+def framed_check(rows, bars, what: str) -> None:
+    for r in rows:
+        b = bars[r["impl"]]
+        if r["vs_exact"] > b["vs_exact"] or r["vs_plain"] > b["vs_plain"]:
+            raise AssertionError(f"{what}: {r} over its bars {b}")
+        if r["impl"] in ("hp8", "hp_bf16") and r["plain_vs_exact"]:
+            raise AssertionError(f"{what}: the Ozaki plain version's f32 "
+                                 f"and float64 dots differ: {r}")
+
+
+def phase_framed_vs_plain(dev) -> list:
+    """K5-K8 through ``whisper_mel_pallas`` against their plain versions
+    (f32 and float64 dots) on 64 ragged 10 s clips at 400/160/128 and 8
+    clips at 1024/256/80/22050 (planes of 512 bins: four chunks), both
+    framings; then the JFK gates through the kernels. These launches are
+    not counted."""
+    rng = np.random.default_rng(SEED + 80)
+    rows = []
+    for b, t, fft, hop, n_mels, sr in [
+            (FRAMED_B, CHECK_T, 400, 160, 128, 16000.0),
+            (FRAMED_22K_B, FRAMED_22K_T, 1024, 256, 80, 22050.0)]:
+        x = signal(rng, b, t, dev)
+        for streaming in (False, True):
+            fr, _ = mel_kernel.framed_input(x, fft, hop, streaming)
+            for impl in framed_mel.IMPLS:
+                got = mel_kernel.whisper_mel_pallas(
+                    x, fft, hop, n_mels, sr, streaming=streaming, impl=impl,
+                    device=dev)
+                rows.append(dict(config=[fft, hop, n_mels, sr], shape=[b, t],
+                                 streaming=streaming, **framed_held(
+                                     got, fr, framed_mats(impl, fft, n_mels,
+                                                          sr, dev), n_mels)))
+            del fr
+    bars = framed_bars(rows)
+    jfk = read_wav_f32le(TESTDATA / "jfk_f32le.wav")
+    golden = np.load(TESTDATA / "rust_jfk_golden.npy")
+    gates = {}
+    for impl in framed_mel.IMPLS:
+        got = mel_kernel.whisper_mel_pallas(jfk, 512, 160, 80, 16000.0,
+                                            streaming=True, impl=impl,
+                                            device=dev).T.cpu().numpy()
+        gates[impl] = dict(max_abs_err=float(np.abs(got - golden).max()),
+                           bar=FRAMED_JFK[impl])
+    emit("framed_vs_plain", bars=bars, jfk_gates=gates,
+         max_abs_err={impl: {k: max(r[k] for r in rows if r["impl"] == impl)
+                             for k in ("vs_plain", "vs_exact",
+                                       "plain_vs_exact")}
+                      for impl in framed_mel.IMPLS}, cases=rows)
+    framed_check(rows, bars, "framed vs plain")
+    failed = [k for k, g in gates.items()
+              if not g["max_abs_err"] <= g["bar"]]
+    if failed:
+        raise AssertionError(f"JFK gates through K5-K8 failed: {failed}")
+    return rows
+
+
+def framed_work(mats, taps: int, n_mels: int, frames: int) -> dict:
+    """Operations of one framed call over ``frames`` frames, the
+    function's work: each kept slice pair's taps against the DFT columns
+    that are not identically zero, at the scheme's type (bf16, int8 or
+    float32); then one re + im add per bin with an im column and the
+    float32 projection over the bins."""
+    cw, sw = mel_kernel._build_matrices(taps, n_mels, 16000.0)[:2]
+    re_cols = int((cw != 0).any(axis=0).sum())
+    im_cols = int((sw != 0).any(axis=0).sum())
+    pairs = sum(1 for i in range(mats.ks) for j in range(mats.ks)
+                if i + j <= mats.cutoff)
+    return dict(pairs=pairs,
+                dft_ops=frames * pairs * 2 * taps * (re_cols + im_cols),
+                f32_ops=frames * (im_cols + 2 * re_cols * n_mels))
+
+
+def framed_bound(mats, fr, out, taps: int, n_mels: int) -> dict:
+    w = framed_work(mats, taps, n_mels, fr.shape[0])
+    rate = {"bf3": PEAK_BF16_FLOPS, "hp8": PEAK_INT8_OPS,
+            "hp_bf16": PEAK_BF16_FLOPS, "f32": PEAK_F32_FLOPS}[mats.impl]
+    nbytes = (fr.numel() * 4 + out.numel() * 4 + mats.mt.numel() * 4
+              + sum(m.numel() * m.element_size() for m in mats.planes))
+    t_ops = (w["dft_ops"] / rate + w["f32_ops"] / PEAK_F32_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return dict(w, bytes=nbytes, bound_ops_ms=t_ops, bound_bytes_ms=t_bytes,
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_framed_main_path(dev, rows) -> dict:
+    """The precision dial's main path at full width:
+    ``whisper_mel_pallas(x, 400, 160, 128, impl=...)`` on 64 x 30 s for
+    each framed impl, counts zeroed just before the call and read just
+    after (that kernel 1, K1 0), the output held against the plain
+    version and the exact result to the bars of ``rows`` and this run;
+    then the kernel alone on the same frames (ms, CUDA events), the whole
+    call, the plain version, the cuFFT + matmul composition and the
+    bound. Then the auto routes that K1 refuses, at their own configs."""
+    rng = np.random.default_rng(SEED + 90)
+    c = WHISPER_LARGE_V3
+    x = signal(rng, FRAMED_B, int(FRAMED_SECONDS * c.sampling_rate), dev)
+    fr, nf = mel_kernel.framed_input(x, c.fft_size, c.hop_size)
+    lib_ms = time_ms(library_mel(x, c.fft_size, c.hop_size, c.n_mels))
+    out, counts, main_rows = {}, {}, []
+    for impl in framed_mel.IMPLS:
+        name = framed_mel.KERNEL[impl]
+        torch.cuda.synchronize()
+        zero_counts()
+        got = mel_kernel.whisper_mel_pallas(x, c.fft_size, c.hop_size,
+                                            c.n_mels, c.sampling_rate,
+                                            impl=impl, device=dev)
+        torch.cuda.synchronize()
+        counts[impl] = cnt = read_counts()
+        if tuple(got.shape) != (FRAMED_B, nf, c.n_mels):
+            raise AssertionError(f"{impl}: shape {tuple(got.shape)}")
+        mats = framed_mats(impl, c.fft_size, c.n_mels, c.sampling_rate, dev)
+        errs = framed_held(got, fr, mats, c.n_mels)
+        main_rows.append(errs)
+        del got
+
+        def kernel():
+            return framed_mel.framed_mel(fr, mats, n_mels=c.n_mels,
+                                         taps=c.fft_size)
+
+        k_out = kernel()
+        out[impl] = dict(
+            kernel=name, shape=list(x.shape), frames=FRAMED_B * nf,
+            launches=cnt, errs=errs, ms=time_ms(kernel),
+            call_ms=time_ms(lambda: mel_kernel.whisper_mel_pallas(
+                x, c.fft_size, c.hop_size, c.n_mels, c.sampling_rate,
+                impl=impl, device=dev)),
+            plain_ms=time_ms(lambda: framed_mel.framed_mel_reference(
+                fr, mats, n_mels=c.n_mels), reps=3, warmup=1),
+            library_composition_ms=lib_ms,
+            **framed_bound(mats, fr, k_out, c.fft_size, c.n_mels))
+        out[impl]["x_real_time"] = (FRAMED_B * FRAMED_SECONDS
+                                    / (out[impl]["call_ms"] / 1e3))
+        del k_out
+        emit(f"framed_main_path_{impl}", **out[impl])
+        others = [k for k in framed_mel.KERNEL.values() if k != name]
+        if cnt[name] != 1 or cnt["K1"] or any(cnt[k] for k in others):
+            raise AssertionError(f"{impl} main path launches: {cnt}")
+    bars = framed_bars(rows + main_rows)
+    framed_check(main_rows, bars, "framed main path")
+    del fr
+    auto, auto_counts = phase_framed_auto_routes(dev, rng, bars)
+    return dict(times=out, counts=counts, rows=main_rows, bars=bars,
+                auto=auto, auto_counts=auto_counts)
+
+
+def phase_framed_auto_routes(dev, rng, bars) -> tuple:
+    """The configs whose heads K1 refuses, on their auto routes:
+    ``WhisperMelPipeline(1024, 256, 80, 22050.0).mel_batch`` (the bf3
+    power, plain PyTorch) and ``whisper_mel_pallas(impl=None)`` (K5) on 64
+    x 30 s at 22.05 kHz, ``Fbank(FbankConfig(sample_rate=8000.0))`` and
+    the 8 kHz ``BatchLogMel`` on 64 x 30 s at 8 kHz (rdft); each against
+    its float64 route, K5 against its plain version, and the 8 kHz fbank's
+    hp route (plain PyTorch) against float64 beside rdft."""
+    res, counts = {}, {}
+    x = signal(rng, FRAMED_B, AUTO_SECONDS * 22050, dev)
+    pipe = WhisperMelPipeline(1024, 256, 80, 22050.0, device=dev)
+    f64 = WhisperMelPipeline(1024, 256, 80, 22050.0, dtype=torch.float64,
+                             fft_impl="rdft", device=dev).mel_batch(x.double())
+    zero_counts()
+    got = pipe.mel_batch(x)
+    torch.cuda.synchronize()
+    counts["pipeline_1024"] = read_counts()
+    res["pipeline_1024"] = dict(fft_impl=pipe.fft_impl,
+                                vs_f64=max_abs(got.double(), f64))
+    zero_counts()
+    got = mel_kernel.whisper_mel_pallas(x, 1024, 256, 80, 22050.0,
+                                        device=dev)
+    torch.cuda.synchronize()
+    counts["auto_1024"] = read_counts()
+    fr, _ = mel_kernel.framed_input(x, 1024, 256)
+    k5 = framed_held(got, fr, framed_mats("bf3", 1024, 80, 22050.0, dev), 80)
+    res["auto_1024"] = dict(k5, vs_f64=max_abs(got.double(), f64))
+    del fr, got, f64
+    x8 = signal(rng, FRAMED_B, AUTO_SECONDS * 8000, dev)
+    ncfg = BatchLogMelConfig(sample_rate=8000, n_fft=256, win_length=200,
+                             hop_length=80)
+    for name, front, ref in (
+            ("fbank_8k", Fbank(FbankConfig(sample_rate=8000.0), device=dev),
+             Fbank(FbankConfig(sample_rate=8000.0), dtype=torch.float64,
+                   device=dev)),
+            ("nemo_8k", BatchLogMel(ncfg, device=dev),
+             BatchLogMel(ncfg, dtype=torch.float64, device=dev))):
+        zero_counts()
+        got = front.compute(x8)
+        torch.cuda.synchronize()
+        counts[name] = read_counts()
+        want = ref.compute(x8.double())
+        res[name] = dict(fft_impl=front.fft_impl, shape=list(got.shape),
+                         vs_f64=max_abs(got.double(), want),
+                         mean_vs_f64=float((got.double() - want).abs().mean()))
+        if name == "fbank_8k":
+            hp = Fbank(FbankConfig(sample_rate=8000.0), fft_impl="hp",
+                       device=dev).compute(x8).double()
+            res["fbank_8k_hp"] = dict(
+                vs_f64=max_abs(hp, want),
+                mean_vs_f64=float((hp - want).abs().mean()))
+    emit("framed_auto_routes", shape_22k=list(x.shape),
+         shape_8k=list(x8.shape), launches=counts, bars=dict(
+             whisper_vs_f64=AUTO_TOL, nemo_vs_f64=LN_TOL,
+             kaldi_vs_f64=KALDI_F32_TOL, k5=bars["bf3"]), **res)
+    fails = []
+    if res["pipeline_1024"]["fft_impl"] != "bf3" or any(
+            counts["pipeline_1024"].values()):
+        fails.append("pipeline_1024 route")
+    k5_counts = {k: v for k, v in counts["auto_1024"].items() if v}
+    if k5_counts != {"K5": 1}:
+        fails.append(f"auto_1024 launches {k5_counts}")
+    if any(res[k]["fft_impl"] != "rdft" or any(counts[k].values())
+           for k in ("fbank_8k", "nemo_8k")):
+        fails.append("8 kHz routes")
+    if max(res["pipeline_1024"]["vs_f64"],
+           res["auto_1024"]["vs_f64"]) > AUTO_TOL:
+        fails.append("whisper 1024 vs float64")
+    kal, kal_hp = res["fbank_8k"], res["fbank_8k_hp"]
+    if (max(kal["vs_f64"], kal_hp["vs_f64"]) > KALDI_F32_TOL
+            or kal_hp["mean_vs_f64"] >= kal["mean_vs_f64"]
+            or res["nemo_8k"]["vs_f64"] > LN_TOL):
+        fails.append("8 kHz vs float64")
+    framed_check([res["auto_1024"]], bars, "auto K5")
+    if fails:
+        raise AssertionError(f"auto routes: {fails}")
+    return res, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1204,10 +1506,15 @@ def main() -> int:
     ln = phase_k1_ln_modes(dev)
     k2 = phase_k2(dev, rows, ln["rows"])
     front = phase_frontend_step(dev, k2)
+    framed_rows = phase_framed_vs_plain(dev)
+    dial = phase_framed_main_path(dev, framed_rows)
     vs_plain = max(r["vs_plain"] for r in rows + ln["rows"])
     by_path = {"batch": {"K1": main["launches"]}, **serving,
                "frontend": front["counts"]["large_v3_30s"],
-               "frontend_80": front["counts"]["jax_defaults_10s"]}
+               "frontend_80": front["counts"]["jax_defaults_10s"],
+               **{f"dial_{k}": v for k, v in dial["counts"].items()},
+               **dial["auto_counts"]}
+    framed_all = framed_rows + dial["rows"] + [dial["auto"]["auto_1024"]]
 
     def launches(name):
         return sum(c.get(name, 0) for c in by_path.values())
@@ -1257,8 +1564,26 @@ def main() -> int:
              launches_by_path={k: v["K4"] for k, v in serving.items()},
              ms=bulk["ms"]["k4"], ms_bf3=bulk["ms"]["k4_bf3"],
              plain_ms=bulk["ms"]["k4_plain"],
-             bound_ops_bf3_ms=bulk["bound_ops_bf3_ms"])]}),
-          flush=True)
+             bound_ops_bf3_ms=bulk["bound_ops_bf3_ms"])] + [{
+        "name": t["kernel"], "route": "cuda", "source": FRAMED_SOURCE,
+        "replaces": FRAMED_REPLACES[t["kernel"]], "impl": impl,
+        "launches": launches(t["kernel"]),
+        "launches_by_path": {k: v.get(t["kernel"], 0)
+                             for k, v in by_path.items()
+                             if v.get(t["kernel"], 0)},
+        "max_abs_err": max(r["vs_plain"] for r in framed_all
+                           if r["impl"] == impl),
+        "max_abs_vs_plain": max(r["vs_plain"] for r in framed_all
+                                if r["impl"] == impl),
+        "max_abs_vs_exact": max(r["vs_exact"] for r in framed_all
+                                if r["impl"] == impl),
+        "f32_floor": dial["bars"][impl]["f32_floor"],
+        "ms": t["ms"], "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None,
+        "library_composition_ms": t["library_composition_ms"],
+        "shape": [t["frames"], 512],
+    } for impl, t in dial["times"].items()]}), flush=True)
     emit("done", seconds=round(time.perf_counter() - t0, 1))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

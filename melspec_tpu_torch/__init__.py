@@ -7,8 +7,9 @@ mel -> streaming VAD -> u8 records for many streams at once), held
 against the JAX package on identical inputs. The kernels are written by
 hand in CUDA C++ for Hopper: K1 (``csrc/sig_mel.cu``, one frontend's
 fused features), K2 (``csrc/sig_multi.cu``, several frontends over one
-staging of the signal) and K3/K4 (``csrc/resample.cu``, the resampler),
-each built with ``nvcc`` at its first launch; on the CPU the same
+staging of the signal), K3/K4 (``csrc/resample.cu``, the resampler) and
+K5-K8 (``csrc/framed_mel.cu``, the precision dial of
+``whisper_mel_pallas``), each built with ``nvcc`` at its first launch; on the CPU the same
 functions run their plain PyTorch versions. Every entry point takes
 ``device=None``, meaning CUDA: a host without CUDA raises unless the
 caller asks for ``device="cpu"``.
@@ -22,14 +23,16 @@ __version__ = "0.1.0"
 from melspec_tpu_torch.config import (WHISPER_LARGE_V3, BatchLogMelConfig,
                                       DetectionSettings, FbankConfig,
                                       MelConfig, MfccConfig)
-from melspec_tpu_torch.convert import (from_jax_frontend_state,
+from melspec_tpu_torch.convert import (from_jax_framed_matrices,
+                                       from_jax_frontend_state,
                                        from_jax_head, from_jax_sig_matrices,
                                        from_jax_source_rate_state)
 from melspec_tpu_torch.io.wav import read_wav_f32le
 from melspec_tpu_torch.ops.batch_logmel import (BatchLogMel, mel_tensor,
                                                 run_asr_session)
 from melspec_tpu_torch.ops.fbank import Fbank
-from melspec_tpu_torch.ops.mel_kernel import (SigHead, SigMatrices,
+from melspec_tpu_torch.ops.mel_kernel import (FramedMatrices, SigHead,
+                                              SigMatrices,
                                               whisper_mel_pallas,
                                               whisper_mel_sig)
 from melspec_tpu_torch.ops.mfcc import Mfcc
@@ -60,6 +63,7 @@ __all__ = [
     "DetectionSettings",
     "Fbank",
     "FbankConfig",
+    "FramedMatrices",
     "MelConfig",
     "Mfcc",
     "MfccConfig",
@@ -81,6 +85,7 @@ __all__ = [
     "compute_mel_spectrogram",
     "compute_streaming_mel",
     "dequantize",
+    "from_jax_framed_matrices",
     "from_jax_frontend_state",
     "from_jax_head",
     "from_jax_sig_matrices",

@@ -10,7 +10,11 @@ the port's ``SigMatrices`` for ``whisper_mel_sig(matrices=...)``.
 projection, the split point and the contracted taps, e.g. JAX's
 ``Fbank._sig_m_big`` / ``_sig_pair_i`` / ``_sig_mt``) and returns a
 ``SigHead`` for the ``matrices=`` argument of ``Fbank``, ``BatchLogMel``
-and the fused frontends.
+and the fused frontends. ``from_jax_framed_matrices`` takes the tuple of
+one of the precision dial's builders (``_bf3_device_matrices``,
+``_hp8_device_matrices``, ``_hp_device_matrices``,
+``_f32_device_matrices``) and returns ``FramedMatrices`` for
+``whisper_mel_pallas(impl=..., matrices=...)``.
 
 A live serving fleet's state crosses over too: ``from_jax_frontend_state``
 and ``from_jax_source_rate_state`` take a JAX ``FrontendState`` or
@@ -25,7 +29,8 @@ import numpy as np
 import torch
 
 from melspec_tpu_torch._device import resolve_device
-from melspec_tpu_torch.ops.mel_kernel import SigHead, SigMatrices
+from melspec_tpu_torch.ops.mel_kernel import (FramedMatrices, SigHead,
+                                              SigMatrices, pallas_schedule)
 from melspec_tpu_torch.streaming.multistream import MultiStreamState
 from melspec_tpu_torch.streaming.resample import MultiResampleState
 from melspec_tpu_torch.streaming.serving import (FrontendState,
@@ -88,6 +93,43 @@ def from_jax_head(m_big, pair_i, mt, n_bins_pad: int, pack: int,
     return SigHead(big, tuple(int(i) for i in pair_i), proj, int(n_bins_pad),
                    int(pack), int(n_mels), pack_off=int(pack_off),
                    out_mode=out_mode, guard=float(guard))
+
+
+def from_jax_framed_matrices(impl: str, *mats, hp_n_slices: int | None = None,
+                             hp_max_pair_sum: int | None = None
+                             ) -> FramedMatrices:
+    """The tuple a JAX builder returns, converted to numpy, -> the port's
+    ``FramedMatrices`` (CPU tensors, bit for bit) for
+    ``whisper_mel_pallas(impl=impl, matrices=...)``:
+
+    - ``"bf3"``: ``_bf3_device_matrices(...)`` = ``(slice_mats, mt, ...)``,
+      bf16 planes;
+    - ``"hp8"``: ``_hp8_device_matrices(...)``, int8 planes;
+    - ``"hp_bf16"``: ``_hp_device_matrices(...)`` = ``(cs, ss, mt, ...)``;
+    - ``"f32"``: ``_f32_device_matrices(...)`` = ``(cw, sw, mt, ...)``.
+
+    Trailing ints (the pads) are ignored. The slice schedule is
+    ``whisper_mel_pallas``'s for the same ``hp_n_slices`` /
+    ``hp_max_pair_sum``, and must match the matrices' slice count."""
+    if impl not in ("bf3", "hp8", "hp_bf16", "f32"):
+        raise ValueError("impl must be 'bf3', 'hp8', 'hp_bf16' or 'f32'")
+    ks, cutoff = pallas_schedule(impl, hp_n_slices, hp_max_pair_sum)
+    if impl in ("bf3", "hp8"):
+        slice_mats, mt = mats[0], mats[1]
+        conv = (_bf16 if impl == "bf3" else
+                (lambda a: torch.from_numpy(np.array(a, dtype=np.int8))))
+        planes = tuple(conv(m) for m in slice_mats)
+        if len(planes) != ks:
+            raise ValueError(f"{len(planes)} slice matrices for ks {ks}")
+    elif impl == "hp_bf16":
+        planes, mt = (_bf16(mats[0]), _bf16(mats[1])), mats[2]
+    else:
+        planes = tuple(torch.tensor(np.asarray(m, dtype=np.float32))
+                       for m in mats[:2])
+        mt = mats[2]
+    return FramedMatrices(impl, planes,
+                          torch.tensor(np.asarray(mt, dtype=np.float32)),
+                          ks, cutoff)
 
 
 def _leaf(arr, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:

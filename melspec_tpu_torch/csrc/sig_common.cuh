@@ -3,7 +3,8 @@
 // into bf16 slices, the slice-pair DFT dot of one head, and one head's
 // epilogue (power, projection, output values). Both kernels call the same
 // functions, so a head of K2 with K1's matrices and block order computes
-// K1's output bit for bit.
+// K1's output bit for bit. K5-K8 (framed_mel.cu) take the logarithms and
+// the whisper norm of a log row from here too.
 //
 // One block owns 64 frames of one clip (8 warps x 8 frames). A head's DFT
 // dot keeps a 64 x 512 tile of float32 accumulators in registers (each
@@ -138,6 +139,27 @@ __device__ __forceinline__ void stage_span(const float* xb, long long T,
       sx[i * span + u] = h;
       r = __fsub_rn(r, __bfloat162float(h));
     }
+  }
+}
+
+// The whisper norm of one frame's log10 row lg[0, nmp) by one warp: the
+// row max over every padded column (a pad column's log sits at the floor),
+// then (max(v, max - 8) + 4) / 4 for the first n_mels columns, stored to o
+// (unless null) and, with keep, back into lg.
+__device__ __forceinline__ void whisper_norm_row(float* lg, int nmp,
+                                                 int n_mels, float* o,
+                                                 bool keep) {
+  const int lane = threadIdx.x & 31;
+  float mx = lg[lane];
+  for (int m = lane + 32; m < nmp; m += 32) mx = max_nan(mx, lg[m]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = max_nan(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  const float lo = __fsub_rn(mx, 8.0f);
+  for (int m = lane; m < n_mels; m += 32) {
+    const float v = __fmul_rn(__fadd_rn(max_nan(lg[m], lo), 4.0f), 0.25f);
+    if (o) o[m] = v;
+    if (keep) lg[m] = v;
   }
 }
 
@@ -380,20 +402,12 @@ __device__ __forceinline__ void head_epilogue(const Head& h, const Acc& acc,
   // row max, whisper norm, store
   for (int f = 0; f < kFramesPerWarp; ++f) {
     const int row = f0 + f;
-    float* lg = slg + row * nmp;
-    float mx = lg[lane];
-    for (int m = lane + 32; m < nmp; m += 32) mx = max_nan(mx, lg[m]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx = max_nan(mx, __shfl_xor_sync(0xffffffffu, mx, off));
     const int k = k0 + row;
-    const float lo = __fsub_rn(mx, 8.0f);
-    float* o = h.out + (static_cast<long long>(b) * n_frames + k) * h.n_mels;
-    for (int m = lane; m < h.n_mels; m += 32) {
-      const float v = __fmul_rn(__fadd_rn(max_nan(lg[m], lo), 4.0f), 0.25f);
-      if (k < n_frames) o[m] = v;
-      if (keep_vals) lg[m] = v;
-    }
+    whisper_norm_row(slg + row * nmp, nmp, h.n_mels,
+                     k < n_frames ? h.out + (static_cast<long long>(b) *
+                                                 n_frames + k) * h.n_mels
+                                  : nullptr,
+                     keep_vals);
   }
 }
 

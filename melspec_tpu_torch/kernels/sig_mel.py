@@ -204,6 +204,40 @@ def block_table(pair_i: tuple, device: torch.device) -> torch.Tensor:
                         device=device)
 
 
+def _width_refusal(width: int, n_bins_pad: int, what: str) -> str | None:
+    """Why K1 and K2 refuse a head of ``width`` DFT columns split at
+    ``n_bins_pad`` (0: N-packed), or None."""
+    if width != WIDTH or n_bins_pad not in (0, WIDTH // 2):
+        return (f"{what} takes {WIDTH} DFT columns, split into re|im halves "
+                f"or N-packed; got width {width}, split {n_bins_pad}")
+    return None
+
+
+def _smem_refusal(ks: int, hop: int, pack: int, pack_off: int, npow: int,
+                  n_mels_pad: int) -> str | None:
+    """Why K1 refuses a head for its shared memory (asks the built
+    kernel), or None."""
+    smem = _smem_bytes(ks, hop, pack, pack_off, npow, n_mels_pad)
+    if smem > MAX_SMEM_BYTES:
+        return (f"K1 needs {smem} bytes of shared memory for hop {hop}, "
+                f"{pack} taps at {pack_off}, {npow} power columns; a block "
+                f"has {MAX_SMEM_BYTES}")
+    return None
+
+
+def k1_accepts(head: SigHead, *, hop: int, ks: int = 3) -> bool:
+    """Whether K1 takes ``head`` at ``hop`` with ``ks`` signal slices: the
+    width and split check of ``check_head`` and the shared-memory check of
+    the launch, the same functions the launch applies. The auto routes
+    pick K1 only where this holds."""
+    width, split = head.m_big.shape[1], head.n_bins_pad
+    if _width_refusal(width, split, "K1") is not None:
+        return False
+    npow = WIDTH if split == 0 else split
+    return _smem_refusal(ks, hop, head.pack, head.pack_off, npow,
+                         head.mt.shape[1]) is None
+
+
 def check_head(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
                mt: torch.Tensor, *, ks: int, pack: int, pack_off: int,
                n_bins_pad: int, n_mels: int, mel_precision: str,
@@ -215,11 +249,9 @@ def check_head(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
         raise ValueError(f"{what} takes a [B, T] float32 signal")
     if m_big.dtype != torch.bfloat16 or m_big.device != dev:
         raise ValueError("m_big must be a bf16 tensor on the signal's device")
-    width = m_big.shape[1]
-    if width != WIDTH or n_bins_pad not in (0, WIDTH // 2):
-        raise NotImplementedError(
-            f"{what} takes {WIDTH} DFT columns, split into re|im halves or "
-            f"N-packed; got width {width}, split {n_bins_pad}")
+    refusal = _width_refusal(m_big.shape[1], n_bins_pad, what)
+    if refusal is not None:
+        raise NotImplementedError(refusal)
     npow = WIDTH if n_bins_pad == 0 else n_bins_pad
     if mel_precision not in ("bf2", "highest"):
         raise ValueError("mel_precision must be 'bf2' or 'highest'")
@@ -258,12 +290,9 @@ def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
         samples, m_big, pair_i, mt, ks=ks, pack=pack, pack_off=pack_off,
         n_bins_pad=n_bins_pad, n_mels=n_mels, mel_precision=mel_precision,
         out_mode=out_mode, what="K1")
-    smem = _smem_bytes(ks, hop, pack, pack_off, npow, n_mels_pad)
-    if smem > MAX_SMEM_BYTES:
-        raise NotImplementedError(
-            f"K1 needs {smem} bytes of shared memory for hop {hop}, "
-            f"{pack} taps at {pack_off}, {npow} power columns; a block has "
-            f"{MAX_SMEM_BYTES}")
+    refusal = _smem_refusal(ks, hop, pack, pack_off, npow, n_mels_pad)
+    if refusal is not None:
+        raise NotImplementedError(refusal)
     b, t = samples.shape
     out = torch.empty((b, n_frames, n_mels), dtype=torch.float32, device=dev)
     if b == 0 or n_frames <= 0:

@@ -20,9 +20,11 @@ batched tensor code over ``[..., T]``:
 
 ``fft_impl``: ``"sig"`` runs kernel K1 in its ``ln_guard`` mode over the
 N-packed 512-column head, contracting only the ``win_length`` taps inside
-the window (``pack_off = (n_fft - win) // 2``); ``"rdft"`` and ``"fft"``
-run as plain PyTorch; ``"auto"`` picks ``"sig"`` on CUDA where the config
-qualifies, ``"rdft"`` on the CPU. ``"hp"`` raises (ROADMAP.md item 12).
+the window (``pack_off = (n_fft - win) // 2``); ``"rdft"``, ``"fft"`` and
+``"hp"`` (the exact Ozaki split with the window folded in,
+``ops/hp_dft.py``) run as plain PyTorch; ``"auto"`` picks ``"sig"`` on
+CUDA where the config qualifies and K1 takes its head
+(``auto_fft_impl``), ``"rdft"`` otherwise.
 """
 
 from __future__ import annotations
@@ -34,11 +36,11 @@ import torch
 
 from melspec_tpu_torch._device import full_f32, resolve_device
 from melspec_tpu_torch.config import BatchLogMelConfig
-from melspec_tpu_torch.kernels.sig_mel import SigHead, sig_mel
+from melspec_tpu_torch.kernels.sig_mel import SigHead, k1_accepts, sig_mel
 from melspec_tpu_torch.ops import dft, framing
 from melspec_tpu_torch.ops.fastmath import ln_best
-from melspec_tpu_torch.ops.fbank import HP_NOT_PORTED
 from melspec_tpu_torch.ops.filterbank import mel_filterbank
+from melspec_tpu_torch.ops.hp_dft import hp_rdft_power_windowed
 from melspec_tpu_torch.ops.mel_kernel import (_sig_frontend_matrices,
                                               bf2_stack, sig_geometry)
 from melspec_tpu_torch.ops.windows import hann_centered
@@ -75,6 +77,19 @@ def sig_head(config: BatchLogMelConfig) -> SigHead:
                    out_mode="ln_guard", guard=float(config.log_zero_guard))
 
 
+def auto_fft_impl(config: BatchLogMelConfig, dtype, device) -> str:
+    """``fft_impl="auto"`` on ``device``: ``"sig"`` on CUDA where the
+    config qualifies (macro-row geometry, float32) and K1 takes its head
+    (``k1_accepts``), else ``"rdft"``. The head is built on the CPU; no
+    kernel runs."""
+    eligible = (torch.device(device).type == "cuda"
+                and sig_geometry(config.n_fft, config.hop_length) is not None
+                and dtype == torch.float32)
+    if eligible and k1_accepts(sig_head(config), hop=config.hop_length):
+        return "sig"
+    return "rdft"
+
+
 class BatchLogMel:
     """NeMo-style frontend for one config on one device.
 
@@ -89,12 +104,8 @@ class BatchLogMel:
         self.device = resolve_device(device)
         geom = sig_geometry(config.n_fft, config.hop_length)
         if fft_impl == "auto":
-            eligible = (self.device.type == "cuda" and geom is not None
-                        and dtype == torch.float32)
-            fft_impl = "sig" if eligible else "rdft"
-        if fft_impl == "hp":
-            raise NotImplementedError(HP_NOT_PORTED)
-        if fft_impl not in ("rdft", "fft", "sig"):
+            fft_impl = auto_fft_impl(config, dtype, self.device)
+        if fft_impl not in ("rdft", "fft", "hp", "sig"):
             raise ValueError(
                 "fft_impl must be 'auto', 'rdft', 'fft', 'hp' or 'sig'"
             )
@@ -163,13 +174,17 @@ class BatchLogMel:
             return self._norm_and_pad(feats, valid)
 
         frames = framing.frame_signal(x, cfg.n_fft, cfg.hop_length, valid)
-        xw = frames * self.window
         with full_f32():
-            if self.fft_impl == "rdft":
-                power = dft.rdft_power(xw, cfg.n_fft, self.fft_bins,
-                                       dtype=self.dtype)
+            if self.fft_impl == "hp":
+                # the window folded into the sliced matrices
+                power = hp_rdft_power_windowed(
+                    frames.to(torch.float32), self._window_np, cfg.n_fft,
+                    self.fft_bins).to(self.dtype)
+            elif self.fft_impl == "rdft":
+                power = dft.rdft_power(frames * self.window, cfg.n_fft,
+                                       self.fft_bins, dtype=self.dtype)
             else:
-                spec = torch.fft.rfft(xw, dim=-1)
+                spec = torch.fft.rfft(frames * self.window, dim=-1)
                 power = (spec.real ** 2 + spec.imag ** 2).to(self.dtype)
             energy = power @ self.filters_t
         feats = ln_best(energy + cfg.log_zero_guard, self.dtype)

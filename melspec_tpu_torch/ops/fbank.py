@@ -16,10 +16,11 @@ its Kaldi edge cases kept exactly:
 
 ``fft_impl``: ``"sig"`` runs kernel K1 in its ``ln_floor`` mode with the
 N-packed 512-column head and the whole per-frame preprocessing folded into
-its matrices; ``"rdft"`` (DFT as matmuls) and ``"fft"`` (``torch.fft``)
-run as plain PyTorch; ``"auto"`` picks ``"sig"`` on CUDA where the
-config qualifies, ``"rdft"`` on the CPU. ``"hp"`` needs ``ops/hp_dft.py``'s
-precision paths (ROADMAP.md item 12) and raises.
+its matrices; ``"rdft"`` (DFT as matmuls), ``"fft"`` (``torch.fft``) and
+``"hp"`` (the exact Ozaki split with the Povey window folded in,
+``ops/hp_dft.py``) run as plain PyTorch; ``"auto"`` picks ``"sig"`` on
+CUDA where the config qualifies and K1 takes its head
+(``auto_fft_impl``), ``"rdft"`` otherwise.
 """
 
 from __future__ import annotations
@@ -31,17 +32,16 @@ import torch
 
 from melspec_tpu_torch._device import full_f32, resolve_device
 from melspec_tpu_torch.config import FbankConfig
-from melspec_tpu_torch.kernels.sig_mel import SigHead, sig_mel
+from melspec_tpu_torch.kernels.sig_mel import SigHead, k1_accepts, sig_mel
 from melspec_tpu_torch.ops import dft, framing
 from melspec_tpu_torch.ops.fastmath import ln_best
 from melspec_tpu_torch.ops.filterbank import kaldi_filterbank
+from melspec_tpu_torch.ops.hp_dft import hp_rdft_power_windowed
 from melspec_tpu_torch.ops.mel_kernel import (_sig_frontend_matrices,
                                               bf2_stack, sig_geometry)
 from melspec_tpu_torch.ops.windows import povey
 
 F32_EPSILON = 1.1920929e-07
-HP_NOT_PORTED = ("fft_impl='hp' needs the slice-precision DFT paths of "
-                 "ops/hp_dft.py, not ported yet (ROADMAP.md, open item 12)")
 
 
 def kaldi_preproc_matrix(frame_len: int, preemphasis: float) -> np.ndarray:
@@ -80,6 +80,22 @@ def sig_head(config: FbankConfig) -> SigHead:
                    guard=energy_floor(config))
 
 
+def auto_fft_impl(config: FbankConfig, dtype, device) -> str:
+    """``fft_impl="auto"`` on ``device``: ``"sig"`` on CUDA where the
+    config qualifies (macro-row geometry, power spectra, log output,
+    float32) and K1 takes its head (``k1_accepts``), else ``"rdft"``. The
+    head is built on the CPU; no kernel runs."""
+    eligible = (torch.device(device).type == "cuda"
+                and sig_geometry(config.frame_length_samples,
+                                 config.frame_shift_samples) is not None
+                and config.use_power and config.use_log_fbank
+                and dtype == torch.float32)
+    if eligible and k1_accepts(sig_head(config),
+                               hop=config.frame_shift_samples):
+        return "sig"
+    return "rdft"
+
+
 class Fbank:
     """Kaldi fbank extractor for one config on one device.
 
@@ -96,13 +112,8 @@ class Fbank:
         geom = sig_geometry(config.frame_length_samples,
                             config.frame_shift_samples)
         if fft_impl == "auto":
-            eligible = (self.device.type == "cuda" and geom is not None
-                        and config.use_power and config.use_log_fbank
-                        and dtype == torch.float32)
-            fft_impl = "sig" if eligible else "rdft"
-        if fft_impl == "hp":
-            raise NotImplementedError(HP_NOT_PORTED)
-        if fft_impl not in ("rdft", "fft", "sig"):
+            fft_impl = auto_fft_impl(config, dtype, self.device)
+        if fft_impl not in ("rdft", "fft", "hp", "sig"):
             raise ValueError(
                 "fft_impl must be 'auto', 'rdft', 'fft', 'hp' or 'sig'"
             )
@@ -194,7 +205,12 @@ class Fbank:
 
         xw = y * self.window
         with full_f32():
-            if self.fft_impl == "rdft":
+            if self.fft_impl == "hp":
+                # the Povey window folded into the sliced matrices
+                power = hp_rdft_power_windowed(
+                    y.to(torch.float32), self._window_np, self.fft_size,
+                    self.fft_bins).to(self.dtype)
+            elif self.fft_impl == "rdft":
                 # the zero pad to fft_size is implicit: the rDFT matrices
                 # are evaluated over the first frame_len samples only
                 cos_m, msin_m = dft.rdft_matrices(self.fft_size,

@@ -1,17 +1,24 @@
-"""Whisper log-mel through kernel K1, the signal-input sig route (port of
-the sig part of ``melspec_tpu.ops.mel_kernel``).
+"""Whisper log-mel through the fused kernels (port of
+``melspec_tpu.ops.mel_kernel``): the signal-input sig route on K1 and the
+precision dial's framed routes on K5-K8.
 
-The host builders make K1's device matrices exactly as the JAX package
-does: the window-folded real-DFT matrix is cut into rounded-bf16 planes
-and K-stacked in slice-pair order (``m_big``, ``pair_i``), next to the mel
-projection in f32 (``mt``) and as a 2-slice bf16 stack (``mt_bf2``).
-``whisper_mel_sig`` runs K1 (``kernels/sig_mel.py``) on a CUDA signal and
-its plain PyTorch version on a CPU one.
+The host builders make the device matrices exactly as the JAX package
+does. For K1 the window-folded real-DFT matrix is cut into rounded-bf16
+planes and K-stacked in slice-pair order (``m_big``, ``pair_i``), next to
+the mel projection in f32 (``mt``) and as a 2-slice bf16 stack
+(``mt_bf2``). For K5-K8 it is cut per scheme into rounded-bf16 planes
+(bf3), int8 7-bit planes (hp8), integer-valued bf16 planes (hp_bf16) or
+kept in float32 (f32). ``whisper_mel_sig`` runs K1
+(``kernels/sig_mel.py``) and ``whisper_mel_pallas`` any of the five
+(``kernels/framed_mel.py`` for K5-K8) on a CUDA signal, and their plain
+PyTorch versions on a CPU one.
 
-Not carried over from the JAX function: ``interpret`` (no interpret mode
+Not carried over from the JAX functions: ``interpret`` (no interpret mode
 for a CUDA kernel), ``input_mode`` / ``flat_rows`` and the macro-row
-``row_w`` / ``phases`` / ``rows_tile`` geometry, and the ``_pad_for_flat``
-batch padding — all TPU tiling. K1 frames any ``[B, T]`` signal as it is.
+``row_w`` / ``phases`` / ``rows_tile`` geometry, the ``_pad_for_flat``
+batch padding and the framed kernels' 256- and 512-frame tiles — all TPU
+tiling. K1 frames any ``[B, T]`` signal as it is; the framed route pads
+the frame count to ``TILE_FRAMES``, the Hopper kernel's tile.
 """
 
 from __future__ import annotations
@@ -24,15 +31,19 @@ import numpy as np
 import torch
 
 from melspec_tpu_torch._device import as_signal, resolve_device
-from melspec_tpu_torch.kernels.sig_mel import (SigHead, sig_mel,
+from melspec_tpu_torch.kernels.framed_mel import (IMPLS, TILE_FRAMES,
+                                                  FramedMatrices, framed_mel)
+from melspec_tpu_torch.kernels.sig_mel import (SigHead, k1_accepts, sig_mel,
                                                sig_mel_reference)
 from melspec_tpu_torch.ops import dft, framing
 from melspec_tpu_torch.ops.filterbank import mel_filterbank
-from melspec_tpu_torch.ops.hp_dft import bf16_round_slices
+from melspec_tpu_torch.ops.hp_dft import bf16_round_slices, matrix_slices
 from melspec_tpu_torch.ops.windows import hann_periodic
 
 __all__ = [
-    "SigHead", "SigMatrices", "sig_geometry", "sig_mel_reference",
+    "FramedMatrices", "SigHead", "SigMatrices", "TILE_FRAMES",
+    "framed_input", "framed_matrices", "pallas_schedule",
+    "resolve_pallas_impl", "sig_geometry", "sig_mel_reference",
     "whisper_head", "whisper_mel_pallas", "whisper_mel_sig",
 ]
 
@@ -276,8 +287,8 @@ def whisper_mel_sig(
         n_frames = framing.num_frames_batch(x.shape[-1], fft_size, hop_size)
     if sig_geometry(fft_size, hop_size, offset) is None:
         raise ValueError(
-            "no macro-row geometry for this (fft, hop); the JAX package "
-            "routes it to whisper_mel_pallas(impl='bf3'), not ported yet"
+            "no macro-row geometry for this (fft, hop); use "
+            "whisper_mel_pallas(impl='bf3'), as the JAX package does"
         )
     if mel_precision not in ("bf2", "highest"):
         raise ValueError("mel_precision must be 'bf2' or 'highest'")
@@ -298,6 +309,208 @@ def whisper_mel_sig(
     return out[0] if squeeze else out
 
 
+
+
+# --------------------------------------------------------------------------
+# The precision dial: framed routes on K5-K8. Host builders in float64,
+# bit for bit the JAX package's (CPU tensors), cached per device.
+
+
+def _build_matrices(fft_size: int, n_mels: int, sampling_rate: float):
+    """Window-folded DFT matrices ``[k_pad, n_bins_pad]`` and the padded
+    mel projection ``[n_bins_pad, n_mels_pad]`` (float64 host build, cast
+    by the caller): ``(cw, sw, mt, n_bins_pad, n_mels_pad, k_pad)``."""
+    half = fft_size // 2  # the whisper projection zeroes bins >= fft/2
+    n_bins_pad = -(-half // LANES) * LANES
+    n_mels_pad = -(-n_mels // LANES) * LANES
+    k_pad = -(-fft_size // LANES) * LANES
+    cos_m, msin_m = dft.rdft_matrices(fft_size, half)
+    window = hann_periodic(fft_size)
+    cw = np.zeros((k_pad, n_bins_pad))
+    sw = np.zeros((k_pad, n_bins_pad))
+    cw[:fft_size, :half] = window[:, None] * cos_m
+    sw[:fft_size, :half] = window[:, None] * msin_m
+    filters = mel_filterbank(sampling_rate, fft_size, n_mels)
+    mt = np.zeros((n_bins_pad, n_mels_pad))
+    mt[:half, :n_mels] = filters[:, :half].T
+    return cw, sw, mt, n_bins_pad, n_mels_pad, k_pad
+
+
+def _matrix_slices_i8(mat, n_slices: int) -> list:
+    """7-bit integer slices CLIPPED to the int8 range: int8 cannot hold
+    +-128, which the window-folded DFT matrices hit (``|w*cos| = 1`` on the
+    frame-centre row); the clipped remainder flows into the next plane's
+    residual."""
+    out = []
+    residual = np.asarray(mat, np.float64).copy()
+    for _ in range(n_slices):
+        t = np.clip(np.trunc(residual * 128.0), -127.0, 127.0)
+        residual = residual * 128.0 - t
+        out.append(t.astype(np.int8))
+    return out
+
+
+def _hp8_plane_widths(ks: int, km: int, cutoff: int) -> list:
+    """Number of matrix planes signal slice ``i`` pairs with; slices past
+    ``cutoff`` pair with nothing, so ``ks`` is clamped."""
+    return [min(cutoff - i, km - 1) + 1 for i in range(min(ks, cutoff + 1))]
+
+
+@functools.lru_cache(maxsize=8)
+def _hp8_device_matrices(fft_size: int, n_mels: int, sampling_rate: float,
+                         ks: int, km: int, cutoff: int):
+    """Per signal slice ``i`` its int8 plane concat ``[cos_0 .. cos_J |
+    sin_0 .. sin_J]``, ``J = n_p(i) - 1``: ``(slice_mats, mt f32,
+    n_bins_pad, n_mels_pad, k_pad)``."""
+    cw, sw, mt, n_bins_pad, n_mels_pad, k_pad = _build_matrices(
+        fft_size, n_mels, sampling_rate)
+    cos_planes = _matrix_slices_i8(cw, km)
+    sin_planes = _matrix_slices_i8(sw, km)
+    slice_mats = tuple(
+        torch.from_numpy(np.concatenate(cos_planes[:n_p] + sin_planes[:n_p],
+                                        axis=1))
+        for n_p in _hp8_plane_widths(ks, km, cutoff))
+    return (slice_mats, torch.as_tensor(mt, dtype=torch.float32), n_bins_pad,
+            n_mels_pad, k_pad)
+
+
+@functools.lru_cache(maxsize=8)
+def _bf3_device_matrices(fft_size: int, n_mels: int, sampling_rate: float,
+                         ks: int, km: int, cutoff: int):
+    """The bf3 scheme's per-slice bf16 plane concats (layout of
+    ``_hp8_device_matrices``); the window is folded into the float64
+    matrices before slicing."""
+    cw, sw, mt, n_bins_pad, n_mels_pad, k_pad = _build_matrices(
+        fft_size, n_mels, sampling_rate)
+    cos_planes = bf16_round_slices(cw, km)
+    sin_planes = bf16_round_slices(sw, km)
+    slice_mats = tuple(torch.cat(cos_planes[:n_p] + sin_planes[:n_p], dim=1)
+                       for n_p in _hp8_plane_widths(ks, km, cutoff))
+    return (slice_mats, torch.as_tensor(mt, dtype=torch.float32), n_bins_pad,
+            n_mels_pad, k_pad)
+
+
+@functools.lru_cache(maxsize=8)
+def _hp_device_matrices(fft_size: int, n_mels: int, sampling_rate: float,
+                        n_slices: int):
+    """The integer-valued bf16 cos and sin planes side by side: ``(cs, ss,
+    mt f32, n_bins_pad, n_mels_pad, k_pad)``."""
+    cw, sw, mt, n_bins_pad, n_mels_pad, k_pad = _build_matrices(
+        fft_size, n_mels, sampling_rate)
+
+    def planes(m):
+        return torch.from_numpy(np.concatenate(matrix_slices(m, n_slices),
+                                               axis=1)).to(torch.bfloat16)
+
+    return (planes(cw), planes(sw), torch.as_tensor(mt, dtype=torch.float32),
+            n_bins_pad, n_mels_pad, k_pad)
+
+
+@functools.lru_cache(maxsize=8)
+def _f32_device_matrices(fft_size: int, n_mels: int, sampling_rate: float):
+    cw, sw, mt, n_bins_pad, n_mels_pad, k_pad = _build_matrices(
+        fft_size, n_mels, sampling_rate)
+    f32 = functools.partial(torch.as_tensor, dtype=torch.float32)
+    return f32(cw), f32(sw), f32(mt), n_bins_pad, n_mels_pad, k_pad
+
+
+def pallas_schedule(impl: str, hp_n_slices: int | None = None,
+                    hp_max_pair_sum: int | None = None) -> tuple:
+    """``(ks, cutoff)`` of a framed ``impl``: the JAX defaults (bf3 (3, 2),
+    hp8 (4, 4), hp_bf16 (5, 5)) unless given, with ``ks`` clamped to
+    ``cutoff + 1`` (slices past the pair-sum budget pair with nothing);
+    f32 has one slice."""
+    if impl == "f32":
+        return 1, 0
+    ks, cutoff = {"bf3": (3, 2), "hp8": (4, 4), "hp_bf16": (5, 5)}[impl]
+    ks = ks if hp_n_slices is None else hp_n_slices
+    cutoff = cutoff if hp_max_pair_sum is None else hp_max_pair_sum
+    return min(ks, cutoff + 1), cutoff
+
+
+@functools.lru_cache(maxsize=16)
+def framed_matrices(impl: str, fft_size: int, n_mels: int,
+                    sampling_rate: float, ks: int, cutoff: int,
+                    device: torch.device) -> FramedMatrices:
+    """``impl``'s matrices for the slice schedule ``(ks, cutoff)`` (as many
+    matrix planes as signal slices, as the JAX package builds them),
+    cached on ``device``."""
+    sr = float(sampling_rate)
+    if impl == "bf3":
+        slice_mats, mt, *_ = _bf3_device_matrices(fft_size, n_mels, sr, ks,
+                                                  ks, cutoff)
+        mats = FramedMatrices("bf3", slice_mats, mt, ks, cutoff)
+    elif impl == "hp8":
+        slice_mats, mt, *_ = _hp8_device_matrices(fft_size, n_mels, sr, ks,
+                                                  ks, cutoff)
+        mats = FramedMatrices("hp8", slice_mats, mt, ks, cutoff)
+    elif impl == "hp_bf16":
+        cs, ss, mt, *_ = _hp_device_matrices(fft_size, n_mels, sr, ks)
+        mats = FramedMatrices("hp_bf16", (cs, ss), mt, ks, cutoff)
+    elif impl == "f32":
+        cw, sw, mt, *_ = _f32_device_matrices(fft_size, n_mels, sr)
+        mats = FramedMatrices("f32", (cw, sw), mt)
+    else:
+        raise ValueError(f"impl must be one of {IMPLS}")
+    return mats.to(device)
+
+
+def framed_input(x: torch.Tensor, fft_size: int, hop_size: int,
+                 streaming: bool = False) -> tuple:
+    """The framed kernels' input (the framing and padding of JAX's
+    ``_framed_pallas_mel``): ``x [B, T]`` framed at ``hop_size`` in batch
+    framing, or in streaming framing (offset ``streaming_frame_offset``,
+    up to the last whole hop), as ``(frames [total_pad, k_pad],
+    n_frames)``: the ``B * n_frames`` frames padded to the matrices'
+    128-row multiple of taps and their count to ``TILE_FRAMES``."""
+    n = x.shape[-1]
+    if streaming:
+        offset = framing.streaming_frame_offset(fft_size, hop_size)
+        n_frames = framing.num_frames_streaming(n, fft_size, hop_size)
+        x = x[:, offset : (n // hop_size) * hop_size]
+    else:
+        n_frames = framing.num_frames_batch(n, fft_size, hop_size)
+    n_frames = max(n_frames, 0)
+    total = x.shape[0] * n_frames
+    total_pad = -(-total // TILE_FRAMES) * TILE_FRAMES
+    needed = (n_frames - 1) * hop_size + fft_size
+    if x.shape[-1] < needed:
+        x = torch.nn.functional.pad(x, (0, needed - x.shape[-1]))
+    frames = framing.frame_signal(x, fft_size, hop_size, n_frames).reshape(
+        total, fft_size)
+    k_pad = -(-fft_size // LANES) * LANES
+    frames = torch.nn.functional.pad(
+        frames, (0, k_pad - fft_size, 0, total_pad - total))
+    return frames, n_frames
+
+
+def resolve_pallas_impl(fft_size: int, hop_size: int, n_mels: int,
+                        sampling_rate: float, *, streaming: bool = False,
+                        hp: bool = False, hp_n_slices: int | None = None,
+                        hp_max_pair_sum: int | None = None,
+                        device=None) -> str:
+    """``whisper_mel_pallas``'s ``impl=None``: ``"hp_bf16"`` with ``hp``;
+    else ``"sig"`` where the macro-row geometry applies and, on CUDA, K1
+    takes the config's head (``kernels/sig_mel.py::k1_accepts``: 512 DFT
+    columns, a span within a block's shared memory); else ``"bf3"``. The
+    head is built on the CPU; no kernel runs."""
+    if hp:
+        return "hp_bf16"
+    off = framing.streaming_frame_offset(fft_size, hop_size) if streaming \
+        else 0
+    if sig_geometry(fft_size, hop_size, off) is None:
+        return "bf3"
+    if torch.device("cuda" if device is None else device).type != "cuda":
+        return "sig"
+    ks = 3 if hp_n_slices is None else hp_n_slices
+    cutoff = 2 if hp_max_pair_sum is None else hp_max_pair_sum
+    mats = sig_matrices(fft_size, n_mels, float(sampling_rate), ks, cutoff,
+                        torch.device("cpu"))
+    head = SigHead(mats.m_big, mats.pair_i, mats.mt_bf2, mats.n_bins_pad,
+                   fft_size, n_mels)
+    return "sig" if k1_accepts(head, hop=hop_size, ks=ks) else "bf3"
+
+
 def whisper_mel_pallas(
     samples,
     fft_size: int = 400,
@@ -310,36 +523,64 @@ def whisper_mel_pallas(
     hp_max_pair_sum: int | None = None,
     impl: str | None = None,
     device=None,
+    matrices=None,
 ) -> torch.Tensor:
-    """Whisper log-mel via the fused kernel, by the JAX function's name.
-    ``impl=None`` resolves as in JAX: ``"sig"`` wherever the geometry
-    applies (every standard config), else ``"bf3"``; ``hp=True`` means
-    ``"hp_bf16"``. Only ``"sig"`` (K1) is ported; ``"bf3"``, ``"hp8"``,
-    ``"hp_bf16"`` and ``"f32"`` are kernels K5-K8 of ROADMAP.md and
-    raise ``NotImplementedError``."""
+    """Whisper log-mel via a fused kernel, by the JAX function's name.
+    ``samples`` ``[T]`` or ``[B, T]`` -> ``[n_frames, n_mels]`` / ``[B,
+    n_frames, n_mels]`` float32 on ``device``; ``streaming=True`` gives
+    the streaming-equivalent frames in the same frame-major layout.
+
+    ``impl`` picks the kernel (``None``: ``resolve_pallas_impl``):
+
+    - ``"sig"``: K1, the signal-input kernel (``whisper_mel_sig``);
+    - ``"bf3"``: K5, rounded-bf16 3-slice pairs with the window folded
+      into the sliced matrices (default (3, 2));
+    - ``"hp8"``: K6, int8 Ozaki split, exact integer groups (default (4,
+      4));
+    - ``"hp_bf16"``: K7, the integer-bf16 Ozaki split (default (5, 5));
+      also ``hp=True``;
+    - ``"f32"``: K8, plain float32 DFT.
+
+    ``(hp_n_slices, hp_max_pair_sum)`` override the slice schedule ``(ks,
+    cutoff)``. ``matrices`` replaces the host-built matrices: a
+    ``SigMatrices`` for ``"sig"``, a ``FramedMatrices`` of the same
+    ``impl`` otherwise (for example the JAX package's, through
+    ``convert.from_jax_framed_matrices``)."""
+    dev = resolve_device(device)
     if impl is None:
-        if hp:
-            impl = "hp_bf16"
-        else:
-            off_ = (framing.streaming_frame_offset(fft_size, hop_size)
-                    if streaming else 0)
-            impl = "sig" if sig_geometry(fft_size, hop_size,
-                                         off_) is not None else "bf3"
-    if impl not in ("sig", "bf3", "hp8", "hp_bf16", "f32"):
+        impl = resolve_pallas_impl(
+            fft_size, hop_size, n_mels, sampling_rate, streaming=streaming,
+            hp=hp, hp_n_slices=hp_n_slices, hp_max_pair_sum=hp_max_pair_sum,
+            device=dev)
+    if impl not in ("sig",) + IMPLS:
         raise ValueError(
             "impl must be 'sig', 'bf3', 'hp8', 'hp_bf16' or 'f32'"
         )
-    if impl != "sig":
-        kernel = {"bf3": "K5", "hp8": "K6", "hp_bf16": "K7", "f32": "K8"}
-        raise NotImplementedError(
-            f"whisper_mel_pallas(impl={impl!r}) needs kernel "
-            f"{kernel[impl]}, which is not ported yet (ROADMAP.md, TPU "
-            f"kernels to port)"
+    if impl == "sig":
+        return whisper_mel_sig(
+            samples, fft_size, hop_size, n_mels, sampling_rate,
+            streaming=streaming,
+            ks=3 if hp_n_slices is None else hp_n_slices,
+            cutoff=2 if hp_max_pair_sum is None else hp_max_pair_sum,
+            device=dev, matrices=matrices,
         )
-    return whisper_mel_sig(
-        samples, fft_size, hop_size, n_mels, sampling_rate,
-        streaming=streaming,
-        ks=3 if hp_n_slices is None else hp_n_slices,
-        cutoff=2 if hp_max_pair_sum is None else hp_max_pair_sum,
-        device=device,
-    )
+    if matrices is not None and (not isinstance(matrices, FramedMatrices)
+                                 or matrices.impl != impl):
+        raise ValueError(f"matrices must be FramedMatrices of impl {impl!r}")
+    x = as_signal(samples, dev)
+    squeeze = x.dim() == 1
+    if squeeze:
+        x = x[None]
+    frames, n_frames = framed_input(x, fft_size, hop_size, streaming)
+    batch = x.shape[0]
+    if n_frames == 0 or batch == 0:
+        out = torch.zeros((batch, n_frames, n_mels), dtype=torch.float32,
+                          device=dev)
+        return out[0] if squeeze else out
+    ks, cutoff = pallas_schedule(impl, hp_n_slices, hp_max_pair_sum)
+    mats = (framed_matrices(impl, fft_size, n_mels, float(sampling_rate), ks,
+                            cutoff, dev)
+            if matrices is None else matrices.to(dev))
+    out = framed_mel(frames, mats, n_mels=n_mels, taps=fft_size)
+    out = out[: batch * n_frames].reshape(batch, n_frames, n_mels)
+    return out[0] if squeeze else out

@@ -10,9 +10,12 @@ zeroes FFT bins >= fft_size/2; ``log10(max(energy, 1e-10))``; whisper norm
 
 ``WhisperMelPipeline(fft_impl=...)``: ``"sig"`` runs kernel K1 (framing,
 bf16 slice-pair DFT, projection, log and norm in one launch per batch
-chunk); ``"rdft"`` (DFT as f32/f64 matmuls) and ``"fft"``
-(``torch.fft.rfft``) run as plain PyTorch; ``"auto"`` picks ``"sig"`` on
-CUDA and ``"fft"`` on the CPU, as the JAX package picks by backend.
+chunk); ``"rdft"`` (DFT as f32/f64 matmuls), ``"fft"``
+(``torch.fft.rfft``), ``"hp"`` (the exact integer Ozaki split) and
+``"bf3"`` (rounded-bf16 slice pairs; both ``ops/hp_dft.py``) run as plain
+PyTorch. ``"auto"`` picks ``"fft"`` on the CPU and, on CUDA, ``"sig"``
+where K1 takes the config (``auto_fft_impl``), else ``"bf3"``, as the JAX
+package picks by backend.
 """
 
 from __future__ import annotations
@@ -24,16 +27,16 @@ import numpy as np
 import torch
 
 from melspec_tpu_torch._device import resolve_device
+from melspec_tpu_torch.kernels.sig_mel import k1_accepts
 from melspec_tpu_torch.ops import dft, framing
 from melspec_tpu_torch.ops.fastmath import log10_best
 from melspec_tpu_torch.ops.filterbank import mel_filterbank
-from melspec_tpu_torch.ops.mel_kernel import sig_geometry, whisper_mel_sig
+from melspec_tpu_torch.ops.hp_dft import bf3_rdft_power, hp_rdft_power
+from melspec_tpu_torch.ops.mel_kernel import (sig_geometry, whisper_head,
+                                              whisper_mel_sig)
 from melspec_tpu_torch.ops.windows import hann_periodic
 
 LOG10_FLOOR = 1e-10
-_NOT_PORTED = ("fft_impl={!r} needs the slice-precision DFT paths of "
-               "ops/hp_dft.py, not ported yet (ROADMAP.md, open item 12); "
-               "use 'sig', 'rdft' or 'fft'")
 
 
 def _frames_budget_bytes() -> int:
@@ -96,6 +99,24 @@ def log_mel_from_power(power: torch.Tensor, filters_t: torch.Tensor,
     return log10_best(torch.clamp_min(energy, LOG10_FLOOR), dtype)
 
 
+def auto_fft_impl(fft_size: int, hop_size: int, n_mels: int,
+                  sampling_rate: float, dtype, device) -> str:
+    """``fft_impl="auto"`` on ``device``: ``"fft"`` on the CPU; on CUDA
+    ``"sig"`` where the macro-row geometry applies, the dtype is float32
+    and K1 takes the config's head (``k1_accepts``: 512 DFT columns, a
+    span within a block's shared memory), else ``"bf3"``. The head is
+    built on the CPU; no kernel runs."""
+    if torch.device(device).type != "cuda":
+        return "fft"
+    off = framing.streaming_frame_offset(fft_size, hop_size)
+    if sig_geometry(fft_size, hop_size, off) is None \
+            or dtype != torch.float32:
+        return "bf3"
+    head = whisper_head(fft_size, n_mels, float(sampling_rate),
+                        torch.device("cpu"))
+    return "sig" if k1_accepts(head, hop=hop_size) else "bf3"
+
+
 class WhisperMelPipeline:
     """Whisper log-mel frontend for one (fft, hop, n_mels, sr) config on
     one device.
@@ -107,7 +128,8 @@ class WhisperMelPipeline:
       ring-buffer output (frames offset by ``ceil(fft/hop)*hop - fft``),
       feature-major ``[..., n_mels, n_frames]``.
 
-    ``device=None`` means CUDA and raises where there is none.
+    ``hp_n_slices`` / ``hp_max_pair_sum`` set the ``"hp"`` route's slice
+    schedule. ``device=None`` means CUDA and raises where there is none.
     """
 
     def __init__(
@@ -119,21 +141,15 @@ class WhisperMelPipeline:
         dtype=torch.float32,
         fft_impl: str = "auto",
         device=None,
+        hp_n_slices: int = 5,
+        hp_max_pair_sum: int = 5,
     ):
         self.device = resolve_device(device)
         off = framing.streaming_frame_offset(fft_size, hop_size)
-        sig_ok = (sig_geometry(fft_size, hop_size, off) is not None
-                  and dtype == torch.float32)
         if fft_impl == "auto":
-            if self.device.type == "cuda":
-                # the JAX package's choice on an accelerator: the fused
-                # kernel where its geometry applies, "bf3" otherwise
-                fft_impl = "sig" if sig_ok else "bf3"
-            else:
-                fft_impl = "fft"
-        if fft_impl in ("hp", "bf3"):
-            raise NotImplementedError(_NOT_PORTED.format(fft_impl))
-        if fft_impl not in ("rdft", "fft", "sig"):
+            fft_impl = auto_fft_impl(fft_size, hop_size, n_mels,
+                                     sampling_rate, dtype, self.device)
+        if fft_impl not in ("rdft", "fft", "hp", "bf3", "sig"):
             raise ValueError(
                 "fft_impl must be 'auto', 'rdft', 'fft', 'hp', 'bf3' or 'sig'"
             )
@@ -145,6 +161,8 @@ class WhisperMelPipeline:
                 )
             if dtype != torch.float32:
                 raise ValueError("fft_impl='sig' is float32-only")
+        self.hp_n_slices = hp_n_slices
+        self.hp_max_pair_sum = hp_max_pair_sum
         self.fft_size = fft_size
         self.hop_size = hop_size
         self.n_mels = n_mels
@@ -166,6 +184,15 @@ class WhisperMelPipeline:
         return self._filters_np
 
     def _power(self, frames: torch.Tensor) -> torch.Tensor:
+        if self.fft_impl == "hp":
+            # window folded into the sliced matrices (exact signal path)
+            return hp_rdft_power(
+                frames.to(torch.float32), self.fft_size, self.half,
+                n_slices=self.hp_n_slices,
+                max_pair_sum=self.hp_max_pair_sum, hann_windowed=True)
+        if self.fft_impl == "bf3":
+            return bf3_rdft_power(frames.to(torch.float32), self.fft_size,
+                                  self.half, hann_windowed=True)
         xw = frames.to(self.dtype) * self.window
         if self.fft_impl == "rdft":
             return dft.rdft_power(xw, self.fft_size, self.half,

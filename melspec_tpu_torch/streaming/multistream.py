@@ -9,12 +9,13 @@ at offset ``hop``, so a bulk push is one framed computation:
 - ``fft_impl="rdft"``: windowed frames times the f64-built cos / -sin
   matrices in f32 ``torch.matmul`` (TF32 off), power, filterbank, log10,
   whisper norm;
+- ``fft_impl="bf3"``: the rounded-bf16 slice-pair power of
+  ``hp_dft.bf3_rdft_power`` with the window folded into the sliced
+  matrices (plain PyTorch on every device), then the rdft route's
+  filterbank, log10 and norm; per hop and in bulk;
 - ``fft_impl="sig"``: kernel K1 (``kernels/sig_mel.py``) at
   ``offset=hop`` over the concat, ``n_frames=H``, bf2 mel numerics (the
   plain version on the CPU).
-
-``"bf3"`` needs ``hp_dft.bf3_rdft_power``, not ported yet (ROADMAP.md
-item 12), and raises.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from melspec_tpu_torch.config import MelConfig
 from melspec_tpu_torch.kernels.sig_mel import sig_mel
 from melspec_tpu_torch.ops import dft, framing
 from melspec_tpu_torch.ops.filterbank import mel_filterbank
+from melspec_tpu_torch.ops.hp_dft import bf3_rdft_power
 from melspec_tpu_torch.ops.mel_kernel import sig_geometry, sig_matrices
 from melspec_tpu_torch.ops.spectrogram import log_mel_from_power, whisper_norm
 from melspec_tpu_torch.ops.windows import hann_periodic
@@ -56,10 +58,6 @@ class MultiStreamMel:
                  dtype=torch.float32, fft_impl: str = "rdft", device=None):
         if fft_impl not in ("rdft", "bf3", "sig"):
             raise ValueError("fft_impl must be 'rdft', 'bf3' or 'sig'")
-        if fft_impl == "bf3":
-            raise NotImplementedError(
-                "fft_impl='bf3' needs hp_dft.bf3_rdft_power, not ported yet "
-                "(ROADMAP.md, open item 12); use 'rdft' or 'sig'")
         self.device = resolve_device(device)
         self.config = config
         self.n_streams = n_streams
@@ -92,7 +90,11 @@ class MultiStreamMel:
 
     def _power(self, frames: torch.Tensor) -> torch.Tensor:
         """``|rfft|^2`` of RAW (unwindowed) frames ``[..., fft]`` over the
-        first ``fft//2`` bins (rdft)."""
+        first ``fft//2`` bins, per the configured route (rdft or bf3)."""
+        if self.fft_impl == "bf3":
+            return bf3_rdft_power(frames.to(torch.float32),
+                                  self.config.fft_size, self.half,
+                                  hann_windowed=True)
         xw = frames * self.window
         with full_f32():
             re = xw @ self.cos_m

@@ -178,7 +178,7 @@ class MultiStreamFrontend:
     ``record_norm``: ``"whisper"`` quantizes the whisper-normalized mel
     (this repo's interchange; ``docs/PARITY.md``), ``"log10"`` the
     unnormalized log10 column as the reference wasm binding does
-    (``src/wasm.rs:110-114``), rdft only. The VAD consumes the normalized
+    (``src/wasm.rs:110-114``), rdft or bf3. The VAD consumes the normalized
     frames in both modes, as the reference's detector does.
     """
 

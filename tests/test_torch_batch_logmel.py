@@ -173,8 +173,11 @@ def test_shapes_batch_and_empty():
     want = jbl.BatchLogMel(dtype=jnp.float64).compute_flat(batch[0])
     assert (rows, cols) == want[1:]
     np.testing.assert_allclose(flat, want[0], atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        bl.BatchLogMel(fft_impl="hp", device="cpu")
+    hp = bl.BatchLogMel(cfg, fft_impl="hp", device="cpu").compute(batch)
+    want = jbl.BatchLogMel(JConfig(
+        n_mels=128, preemphasis=0.97, log_zero_guard=2.0 ** -24,
+        normalize_per_feature=True), fft_impl="hp").compute(batch)
+    assert np.abs(hp.numpy() - np.asarray(want)).max() <= CROSS_ROUTE
     with pytest.raises(ValueError):
         bl.BatchLogMel(dtype=torch.float64, fft_impl="sig", device="cpu")
 

@@ -207,8 +207,10 @@ def test_synthetic_golden():
 
 def test_routes_and_validation():
     assert fbank.Fbank(device="cpu").fft_impl == "rdft"  # auto on the CPU
-    with pytest.raises(NotImplementedError, match="item 12"):
-        fbank.Fbank(fft_impl="hp", device="cpu")
+    x = _signal(23, (2, 8000))
+    hp = fbank.Fbank(fft_impl="hp", device="cpu").compute(x).numpy()
+    want = np.asarray(jfbank.Fbank(JFbankConfig(), fft_impl="hp").compute(x))
+    assert np.abs(hp - want).max() <= CROSS_ROUTE
     with pytest.raises(ValueError):
         fbank.Fbank(FbankConfig(use_power=False), fft_impl="sig",
                     device="cpu")

@@ -129,9 +129,18 @@ def test_pallas_resolves_to_sig():
     (dict(impl="f32"), "K8"),
 ])
 def test_pallas_unported_kernels_raise(kw, kernel):
-    with pytest.raises(NotImplementedError, match=kernel):
-        mel_kernel.whisper_mel_pallas(np.zeros(4000, np.float32), device=CPU,
-                                      **kw)
+    """Each framed ``impl`` runs its kernel (``kernel``) or, on the CPU, its
+    plain version, held against JAX's kernel in interpret mode: K6/K7
+    (exact DFTs) at 1e-6, K5/K8 at 2e-5."""
+    from melspec_tpu_torch.kernels.framed_mel import KERNEL
+
+    assert KERNEL[kw.get("impl", "hp_bf16")] == kernel
+    x = _noise(21, (4000,))
+    want = np.asarray(jmk.whisper_mel_pallas(x, interpret=True, **kw))
+    got = mel_kernel.whisper_mel_pallas(x, device=CPU, **kw).numpy()
+    assert got.shape == want.shape == (23, 80)
+    tol = 1e-6 if kernel in ("K6", "K7") else 2e-5
+    assert np.abs(got - want).max() <= tol
 
 
 def _pipes(fft_impl, dtype):
@@ -185,10 +194,15 @@ def test_compute_functions_match_jax(fn, fft_impl):
 
 
 def test_pipeline_auto_and_unported_impls():
+    """The CPU's auto route, the hp and bf3 routes against JAX's (hp at
+    1e-6, bf3 at 2e-5), and the refusals."""
     assert spectrogram.WhisperMelPipeline(device=CPU).fft_impl == "fft"
-    for impl in ("hp", "bf3"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            spectrogram.WhisperMelPipeline(fft_impl=impl, device=CPU)
+    x = _noise(22, (2, 5000))
+    for impl, tol in (("hp", 1e-6), ("bf3", 2e-5)):
+        port = spectrogram.WhisperMelPipeline(fft_impl=impl, device=CPU)
+        ref = jsp.WhisperMelPipeline(fft_impl=impl)
+        assert np.abs(port.mel_batch(x).numpy()
+                      - np.asarray(ref.mel_batch(x))).max() <= tol
     with pytest.raises(ValueError, match="float32-only"):
         spectrogram.WhisperMelPipeline(fft_impl="sig", dtype=torch.float64,
                                        device=CPU)

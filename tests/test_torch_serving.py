@@ -132,8 +132,13 @@ def test_multistream_mel_refusals():
     with pytest.raises(NotImplementedError, match="bulk path"):
         sig.push_many(sig.init(), np.zeros((2, 3, 160), np.float32),
                       scan=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        MultiStreamMel(CFG, 2, fft_impl="bf3", device=CPU)
+    bf3 = MultiStreamMel(CFG, 2, fft_impl="bf3", device=CPU)
+    ref = jms.MultiStreamMel(JCFG, 2, fft_impl="bf3")
+    x = np.random.default_rng(24).normal(size=(2, 5, 160)).astype(
+        np.float32) * 0.2
+    got, want = (m.push_many(m.init(), x) for m in (bf3, ref))
+    np.testing.assert_array_equal(got[2], np.asarray(want[2]))
+    assert np.abs(got[1] - np.asarray(want[1])).max() <= 2e-5
     with pytest.raises(ValueError, match="fft_impl must be"):
         MultiStreamMel(CFG, 2, fft_impl="fft", device=CPU)
     with pytest.raises(ValueError, match="float32-only"):
@@ -147,7 +152,8 @@ def test_multistream_mel_refusals():
 
 
 @pytest.mark.parametrize("fft_impl,record_norm", [
-    ("rdft", "whisper"), ("rdft", "log10"), ("sig", "whisper")])
+    ("rdft", "whisper"), ("rdft", "log10"), ("sig", "whisper"),
+    ("bf3", "log10"), ("bf3", "whisper")])
 def test_frontend_matches_jax(fft_impl, record_norm):
     s = 4
     port = MultiStreamFrontend(CFG, s, settings=SET, fft_impl=fft_impl,
