@@ -5,12 +5,12 @@
 
 Builds every CUDA kernel of the port from the sources in this checkout
 (K1 ``csrc/sig_mel.cu``, K2 ``csrc/sig_multi.cu``, K3/K4
-``csrc/resample.cu``, K5-K8 ``csrc/framed_mel.cu``, one ``nvcc`` each,
-started together), holds each against its plain PyTorch version on the
-card, checks the accuracy gates through the kernels, and drives the
-port's four main paths at full width, with launch counts (zeroed just
-before each path, read just after) that show each went through its
-kernels:
+``csrc/resample.cu``, K5-K8 ``csrc/framed_mel.cu``, P1
+``csrc/load_probe.cu``, one ``nvcc`` each, started together), holds each
+against its plain PyTorch version on the card, checks the accuracy gates
+through the kernels, and drives the port's main paths at full width,
+with launch counts (zeroed just before each path, read just after) that
+show each went through its kernels:
 
 - the batch path: raw ``[B, T]`` audio -> whisper large-v3 log-mel through
   ``WhisperMelPipeline.mel_batch`` (K1);
@@ -33,7 +33,19 @@ kernels:
   8 clips at 1024/256/80/22050 and pass the JFK gates; then the auto
   routes that K1 refuses (whisper 1024/256 at 22.05 kHz: the pipeline's
   bf3 power and K5; 8 kHz Kaldi fbank and NeMo log-mel: rdft), each held
-  against its float64 or plain result.
+  against its float64 or plain result;
+- the VAD and wire-record path: after K1's quant and VAD epilogues are
+  held against K1's own mel (records bit-equal to ``quantize_frames``, raw
+  equal to ``classify_columns``, tile-boundary columns included) and
+  their plain versions, 64 x 30 s through ``whisper_mel_vad_sig`` ->
+  ``streaming_decision_fields_batched(raw=...)`` -> per-frame decisions
+  with ``VadFrameTiming`` timestamps, and ``whisper_mel_quantized`` -> u8
+  records -> TGA (K1 once with each epilogue), at 128 and 80 mels;
+- the TEN-VAD eval: ``evaluate_testset_batched`` on the 30 vendored files
+  in both presets, held to the published macro digits, and the same files
+  through K1's VAD epilogue;
+- P1, the signal-load probe (``load_probe.run``): flat rows and K1's
+  spans copied through shared memory, each mode exact, with its GB/s.
 
 Each phase prints one JSON line. Any failure raises and the script exits
 non-zero without its last line; on success the last line is
@@ -62,11 +74,14 @@ from melspec_tpu_torch import (WHISPER_LARGE_V3, WhisperMelPipeline,  # noqa: E4
                                compute_streaming_mel, read_wav_f32le,
                                whisper_mel_sig)
 from melspec_tpu_torch.kernels import (build, framed_mel,  # noqa: E402
-                                       sig_mel, sig_multi)
+                                       load_probe, sig_mel, sig_multi)
 from melspec_tpu_torch.kernels import resample as kres  # noqa: E402
 from melspec_tpu_torch.config import (BatchLogMelConfig,  # noqa: E402
                                       DetectionSettings, FbankConfig,
-                                      MelConfig)
+                                      MelConfig, VadFrameTiming)
+from melspec_tpu_torch.io.tga import (interleave_frames,  # noqa: E402
+                                      parse_tga_8bit, tga_8bit_data,
+                                      to_array2)
 from melspec_tpu_torch.ops import batch_logmel  # noqa: E402
 from melspec_tpu_torch.ops import framing, mel_kernel  # noqa: E402
 from melspec_tpu_torch.ops.batch_logmel import BatchLogMel  # noqa: E402
@@ -77,7 +92,10 @@ from melspec_tpu_torch.ops.resample import (_phase_matrix,  # noqa: E402
                                             resample_poly)
 from melspec_tpu_torch.ops.sig_multihead import (  # noqa: E402
     WhisperKaldiFused, WhisperKaldiNemoFused)
-from melspec_tpu_torch.ops.vad import classify_columns  # noqa: E402
+from melspec_tpu_torch.ops.quant import (dequantize_tensor,  # noqa: E402
+                                         quantize_frames)
+from melspec_tpu_torch.ops.vad import (  # noqa: E402
+    boundary_columns, classify_columns, streaming_decision_fields_batched)
 from melspec_tpu_torch.ops.windows import (hann_centered,  # noqa: E402
                                            hann_periodic, povey)
 from melspec_tpu_torch.parallel.sharding import (  # noqa: E402
@@ -86,6 +104,9 @@ from melspec_tpu_torch.streaming.resample import (  # noqa: E402
     MultiStreamResampler)
 from melspec_tpu_torch.streaming.serving import (  # noqa: E402
     MultiStreamFrontend, calibrate_fft_impl, shared_frontend)
+from melspec_tpu_torch.utils import vad_eval  # noqa: E402
+from melspec_tpu_torch.utils.timing import (  # noqa: E402
+    device_time_ms as time_ms)
 
 TESTDATA = ROOT / "testdata"
 # K1 is held against the exact result (its plain version with the DFT dot
@@ -98,9 +119,9 @@ TESTDATA = ROOT / "testdata"
 K1_TOL = 1e-5
 SEED = 0
 # published peaks of one H100 SXM (NVIDIA data sheet, 700 W): dense bf16
-# tensor-core rate and HBM3 bandwidth
+# tensor-core rate and HBM3 bandwidth (P1's denominator)
 PEAK_BF16_FLOPS = 989e12
-PEAK_HBM_BYTES = 3.35e12
+PEAK_HBM_BYTES = load_probe.PEAK_HBM_BYTES
 # and the float32 rate outside the tensor cores (K3/K4 "highest")
 PEAK_F32_FLOPS = 67e12
 K1_SOURCE = "melspec_tpu_torch/csrc/sig_mel.cu"
@@ -168,27 +189,28 @@ VA_FLIP_BUDGET = 2
 FLEET, FLEET_TICKS, TICK_HOPS = 256, 50, 4
 FLEET_8K, FLEET_8K_TICKS = 64, 30
 BULK_HOPS = 500
+# K1's epilogues: the quant records equal quantize_frames of K1's mel bit
+# for bit and the VAD raw classify_columns of it exactly; against the
+# plain version lo and hi hold K1's vs-plain bar and q one step. The VAD
+# and wire-record path runs at 64 x 30 s; the TEN-VAD eval holds the
+# reference's published macro digits (tests/test_vad_eval.py), which the
+# port's batched route on the CPU also gives (bf3 power, float32 fields)
+WIRE_B, WIRE_SECONDS = 64, 30.0
+EDGE_SETTINGS = {"default": DetectionSettings(),
+                 "min_y0": DetectionSettings(min_y=0),
+                 "min_mel200": DetectionSettings(min_mel=200),
+                 "low_thr": DetectionSettings(min_energy=0.1, min_y=1)}
+TEN_VAD_DIGITS = {
+    "balanced": dict(precision=0.8751, recall=0.8785, f1=0.8566, fpr=0.3946),
+    "high-f1": dict(precision=0.8165, recall=0.9635, f1=0.8769, fpr=0.6459)}
+P1_SOURCE = "melspec_tpu_torch/csrc/load_probe.cu"
+P1_REPLACES = "tools/hbm_reshape_probe.py:47"
+# Sobel gradient of one (frame, row): gx and gy 7 operations each, g2 3
+SOBEL_OPS = 17
 
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
-
-
-def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
-    """Median over ``reps`` runs of one call's device time (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
 
 
 def signal(rng, b: int, t: int, dev) -> torch.Tensor:
@@ -276,7 +298,7 @@ def phase_device() -> str:
 def phase_build() -> None:
     t0 = time.perf_counter()
     built = build.load_all(["sig_mel", "resample", "sig_multi",
-                            "framed_mel"])
+                            "framed_mel", "load_probe"])
     seconds = time.perf_counter() - t0
     report = {name: [ln.strip() for ln in b.log.splitlines()
                      if "registers" in ln or "spill" in ln
@@ -511,14 +533,19 @@ def tick_device_ms(front, st, x: torch.Tensor, **kw) -> float:
 
 def zero_counts() -> None:
     sig_mel.launches = 0
+    sig_mel.epilogue_launches.update(quant=0, vad=0)
     sig_multi.launches = 0
     kres.launches.update(K3=0, K4=0)
     framed_mel.launches.update(dict.fromkeys(framed_mel.launches, 0))
+    load_probe.launches.update(dict.fromkeys(load_probe.launches, 0))
 
 
 def read_counts() -> dict:
     return {"K1": sig_mel.launches, "K2": sig_multi.launches,
-            **kres.launches, **framed_mel.launches}
+            **kres.launches, **framed_mel.launches,
+            "K1_quant": sig_mel.epilogue_launches["quant"],
+            "K1_vad": sig_mel.epilogue_launches["vad"],
+            "P1": sum(load_probe.launches.values())}
 
 
 def speechlike(rng, s: int, n: int, rate: int) -> np.ndarray:
@@ -1024,8 +1051,7 @@ def phase_k2(dev, rows, ln_rows) -> dict:
         nf = (framing.num_frames_centered(t, 160) if tri
               else framing.num_frames_batch(t, 400, 160))
         f_w = framing.num_frames_batch(t, 400, 160)
-        vad = (sig_multi.vad_threshold(settings.min_energy),
-               min(settings.min_mel, mc.n_mels - 2))
+        vad = sig_mel.vad_args(settings, mc.n_mels)
         outs, counts = sig_multi.sig_multi(xin, front.heads, ks=3,
                                            n_frames=nf, hop=160, vad=vad)
         k1_mel = whisper_mel_sig(x, 400, 160, mc.n_mels, device=dev)
@@ -1034,7 +1060,7 @@ def phase_k2(dev, rows, ln_rows) -> dict:
             head0_equal_k1=bool(torch.equal(outs[0][:, :f_w], k1_mel)),
             kaldi_equal_k1=bool(torch.equal(outs[1][:, :f_w], k1_kaldi)),
             counts_equal=bool(torch.equal(
-                counts, sig_multi.tile_vad_counts(outs[0], *vad))))
+                counts, sig_mel.tile_vad_counts(outs[0], *vad))))
         for h, head in enumerate(front.heads):
             r = held(outs[h], xin, head, nf, 160)
             (whisper_rows if h == 0 else head_rows).append(r)
@@ -1206,8 +1232,7 @@ def phase_frontend_step(dev, k2: dict) -> dict:
     fused = WhisperKaldiFused(WHISPER_LARGE_V3, device=dev)
     x = signal(rng, STEP_B, int(STEP_SECONDS * 16000), dev)
     nf = framing.num_frames_batch(x.shape[-1], 400, 160)
-    vad = (sig_multi.vad_threshold(settings.min_energy),
-           min(settings.min_mel, WHISPER_LARGE_V3.n_mels - 2))
+    vad = sig_mel.vad_args(settings, WHISPER_LARGE_V3.n_mels)
     kw = dict(ks=3, n_frames=nf, hop=160, vad=vad)
     outs, cnt = sig_multi.sig_multi(x, fused.heads, **kw)
     flops = sum(head_work(h, STEP_B * nf) for h in fused.heads)
@@ -1485,6 +1510,344 @@ def phase_framed_auto_routes(dev, rng, bars) -> tuple:
     return res, counts
 
 
+def quant_held(q, lo, hi, x, mats, n_mels, offset, nf) -> dict:
+    """K1's quant records against the plain version's (f32 dot) and the
+    exact one's (float64 dot) on the same signal."""
+    kw = dict(ks=3, n_frames=nf, hop=160, offset=offset, pack=400,
+              n_bins_pad=mats.n_bins_pad, n_mels=n_mels)
+    pq, plo, phi = sig_mel.sig_mel_quantized_reference(
+        x, mats.m_big, mats.pair_i, mats.mt_bf2, **kw)
+    _, elo, ehi = sig_mel.sig_mel_quantized_reference(
+        x, mats.m_big, mats.pair_i, mats.mt_bf2, dot_dtype=torch.float64,
+        **kw)
+    return dict(range_vs_plain=max(max_abs(lo, plo), max_abs(hi, phi)),
+                range_plain_vs_exact=max(max_abs(plo, elo),
+                                         max_abs(phi, ehi)),
+                q_max_step=int((q.int() - pq.int()).abs().max())
+                if q.numel() else 0)
+
+
+def phase_k1_epilogues_vs_plain(dev, rows) -> dict:
+    """K1's quant and VAD epilogues at 1, 7 and 64 clips and on JFK, fft
+    400/160, 80 and 128 mels, batch and streaming framing: the quant
+    records bit-equal to quantize_frames of K1's own mel from
+    whisper_mel_sig on the same input and within K1's vs-plain bar (q one
+    step) of the plain version; the VAD raw equal to classify_columns of
+    K1's own mel in four settings (default and the three edge settings of
+    tests/test_vad_batched_device.py), tile-boundary columns included,
+    with the VAD route's mel equal to whisper_mel_sig's; zero input
+    quantizes to zeros; clips of 1 and 2 frames return the real mel."""
+    rng = np.random.default_rng(SEED + 100)
+    jfk = torch.from_numpy(read_wav_f32le(TESTDATA / "jfk_f32le.wav"))[None]
+    inputs = [("1x30s", signal(rng, 1, 30 * 16000, dev)),
+              ("7xragged", signal(rng, 7, 48123, dev)),
+              ("64x10s", signal(rng, STEP_B, CHECK_T, dev)),
+              ("jfk", jfk.to(dev))]
+    bar = tolerances(rows)["vs_plain"]
+    cases, fails = [], []
+    for n_mels in (80, 128):
+        mats = mel_kernel.sig_matrices(400, n_mels, 16000.0, 3, 2, dev)
+        for streaming in (False, True):
+            for name, x in inputs:
+                offset, nf = k1_grid(x.shape[-1], 400, 160, streaming)
+                mel = whisper_mel_sig(x, 400, 160, n_mels,
+                                      streaming=streaming, device=dev)
+                q, lo, hi = mel_kernel.whisper_mel_quantized(
+                    x, 400, 160, n_mels, streaming=streaming, device=dev)
+                wq, wlo, whi = quantize_frames(mel)
+                case = dict(input=name, shape=list(x.shape), n_mels=n_mels,
+                            streaming=streaming, frames=nf,
+                            quant_equal=bool(torch.equal(q, wq)
+                                             and torch.equal(lo, wlo)
+                                             and torch.equal(hi, whi)),
+                            **quant_held(q, lo, hi, x, mats, n_mels, offset,
+                                         nf))
+                vad = {}
+                for sname, settings in EDGE_SETTINGS.items():
+                    vmel, raw = mel_kernel.whisper_mel_vad_sig(
+                        x, settings, 400, 160, n_mels, streaming=streaming,
+                        device=dev)
+                    vad[sname] = dict(
+                        mel_equal=bool(torch.equal(vmel, mel)),
+                        raw_equal=bool(torch.equal(raw, classify_columns(
+                            vmel.transpose(-1, -2), settings))),
+                        active_share=float(raw.float().mean()))
+                case["vad"] = vad
+                case["boundary_columns"] = len(boundary_columns(
+                    nf, max(nf - 2, 0), sig_mel.TILE_FRAMES))
+                cases.append(case)
+                if (not case["quant_equal"] or case["range_vs_plain"] > bar
+                        or case["q_max_step"] > 1
+                        or not all(v["mel_equal"] and v["raw_equal"]
+                                   for v in vad.values())):
+                    fails.append(case)
+    q0, lo0, hi0 = mel_kernel.whisper_mel_quantized(
+        torch.zeros((2, 8000), device=dev), device=dev)
+    zero_ok = not bool(q0.any()) and bool(torch.equal(lo0, hi0))
+    short = {}
+    for n in (400, 560):  # one and two frames
+        y = signal(rng, 3, n, dev)
+        mel, raw = mel_kernel.whisper_mel_vad_sig(y, DetectionSettings(),
+                                                  device=dev)
+        want = whisper_mel_sig(y, device=dev)
+        short[n] = dict(frames=mel.shape[1], raw_shape=list(raw.shape),
+                        mel_equal=bool(torch.equal(mel, want)),
+                        nonzero=bool(mel.abs().max() > 0))
+    torch.cuda.synchronize()
+    worst = dict(range_vs_plain=max(c["range_vs_plain"] for c in cases),
+                 range_plain_vs_exact=max(c["range_plain_vs_exact"]
+                                          for c in cases),
+                 q_max_step=max(c["q_max_step"] for c in cases))
+    emit("k1_epilogues_vs_plain", bar_range_vs_plain=bar, worst=worst,
+         n_cases=len(cases), n_quant_equal=sum(c["quant_equal"]
+                                                 for c in cases),
+         n_vad_equal=sum(v["raw_equal"] for c in cases
+                         for v in c["vad"].values()),
+         zero_input_all_zero=zero_ok, short_clips=short, cases=cases)
+    if (fails or not zero_ok
+            or not all(v["mel_equal"] and v["nonzero"] and v["raw_shape"]
+                       == [3, 0] for v in short.values())):
+        raise AssertionError(f"K1 epilogues: {fails}, zero {zero_ok}, "
+                             f"short {short}")
+    return dict(worst=worst, bar=bar)
+
+
+def epilogue_bound(head, x, frames: int, n_mels: int, epilogue) -> dict:
+    """K1's whisper bound with an epilogue: the head's operations (plus the
+    epilogue's float32 ones at the SIMT rate) against the bytes of the
+    signal, the matrices and the route's outputs: the float mel (4 *
+    n_mels a frame), the quant records (n_mels + 8) or the mel and the
+    counts (4 * n_mels + 4)."""
+    flops = head_work(head, frames)
+    nbytes = (x.numel() * 4 + head.m_big.numel() * 2
+              + head.mt.numel() * head.mt.element_size())
+    f32_ops = 0
+    if epilogue == "quant":
+        nbytes += frames * (n_mels + 8)
+        f32_ops = frames * (5 * n_mels + 1)
+    else:
+        nbytes += frames * 4 * n_mels
+        if epilogue == "vad":
+            nbytes += frames * 4
+            f32_ops = frames * SOBEL_OPS * (n_mels - 2)
+    t_ops = (flops / PEAK_BF16_FLOPS + f32_ops / PEAK_F32_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return dict(flops=flops, f32_ops=f32_ops, bytes=nbytes,
+                bound_ops_ms=t_ops, bound_bytes_ms=t_bytes,
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_vad_wire_path(dev, rows) -> dict:
+    """The VAD and wire-record path at full width, 64 x 30 s of speech-like
+    audio at whisper large-v3 windows, 128 mels and then 80: counts zeroed
+    just before and read just after one pass of whisper_mel_vad_sig ->
+    streaming_decision_fields_batched(raw=...) -> per-frame decisions with
+    VadFrameTiming timestamps, and whisper_mel_quantized -> records of
+    clip 0 -> dequantized -> tga_8bit_data (K1 twice: once with each
+    epilogue). Held: raw equal to classify_columns of the route's mel,
+    records bit-equal to quantize_frames of it, the TGA blob parsing back
+    within the two quantization steps. The VAD epilogue's error on this
+    input: K1's counts against tile_vad_counts of the route's mel (exact)
+    and that mel against the plain version's (K1's vs-plain bar). Then the
+    ms of each call (CUDA events) beside whisper_mel_sig alone, and the
+    kernel alone with each epilogue beside its bound."""
+    rng = np.random.default_rng(SEED + 110)
+    settings = DetectionSettings()
+    timing = VadFrameTiming(400, 160, 16000.0)
+    bar = tolerances(rows)["vs_plain"]
+    out = {}
+    for n_mels in (128, 80):
+        x = torch.from_numpy(speechlike(rng, WIRE_B,
+                                        int(WIRE_SECONDS * 16000),
+                                        16000)).to(dev)
+        torch.cuda.synchronize()
+        zero_counts()
+        mel, raw = mel_kernel.whisper_mel_vad_sig(x, settings, 400, 160,
+                                                  n_mels, device=dev)
+        fields = streaming_decision_fields_batched(None, settings, raw=raw)
+        active = fields["active"].cpu().numpy()
+        first = settings.min_x - 1
+        stamps = [timing.timestamps_for_frame(first + i)
+                  for i in range(active.shape[1])]
+        q, lo, hi = mel_kernel.whisper_mel_quantized(x, 400, 160, n_mels,
+                                                     device=dev)
+        rec = dequantize_tensor(q[0], lo[0, :, None], hi[0, :, None])
+        blob = tga_8bit_data(interleave_frames([rec.T.cpu().numpy()]),
+                             n_mels)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        nf = mel.shape[1]
+        img = to_array2(parse_tga_8bit(blob), n_mels)
+        per_frame_step = float(((hi[0] - lo[0]) / 255.0).max())
+        tga_step = float((img.max() - img.min()) / 255.0)
+        tga_err = float(np.abs(img - mel[0].T.cpu().numpy()).max())
+        wq, wlo, whi = quantize_frames(mel)
+        checks = dict(
+            raw_equal=bool(torch.equal(raw, classify_columns(
+                mel.transpose(-1, -2), settings))),
+            quant_equal=bool(torch.equal(q, wq) and torch.equal(lo, wlo)
+                             and torch.equal(hi, whi)),
+            mel_finite=bool(torch.isfinite(mel).all()),
+            tga_bytes=len(blob), tga_width=int(img.shape[1]),
+            tga_max_abs_vs_mel=tga_err,
+            tga_bar=(per_frame_step + tga_step) / 2 + 1e-6,
+            decisions=int(active.size),
+            active_share=float(active.mean()),
+            stamps_first=[stamps[0].start_ms, stamps[0].center_ms,
+                          stamps[0].end_ms],
+            stamps_last=[stamps[-1].start_ms, stamps[-1].center_ms,
+                         stamps[-1].end_ms])
+        mats = mel_kernel.sig_matrices(400, n_mels, 16000.0, 3, 2, dev)
+        head = mel_kernel.whisper_head(400, n_mels, 16000.0, dev)
+        kw = dict(ks=3, n_frames=nf, hop=160, offset=0, pack=400,
+                  n_bins_pad=mats.n_bins_pad, n_mels=n_mels)
+        vad = sig_mel.vad_args(settings, n_mels)
+        k_mel, k_counts = sig_mel.sig_mel_vad(
+            x, mats.m_big, mats.pair_i, mats.mt_bf2, vad=vad, **kw)
+        p_mel, p_counts = sig_mel.sig_mel_vad_reference(
+            x, mats.m_big, mats.pair_i, mats.mt_bf2, vad=vad, **kw)
+        torch.cuda.synchronize()
+        vad_err = dict(
+            route_mel_equal=bool(torch.equal(k_mel, mel)),
+            counts_vs_own_mel=max_abs(
+                k_counts, sig_mel.tile_vad_counts(mel, *vad)),
+            mel_vs_plain=max_abs(mel, p_mel), bar_mel_vs_plain=bar,
+            frames_counts_vs_plain=int((k_counts != p_counts).sum()))
+        vad_err["max_abs_err"] = max(vad_err["counts_vs_own_mel"],
+                                     vad_err["mel_vs_plain"])
+        del k_mel, k_counts, p_mel, p_counts
+        frames = WIRE_B * nf
+        ms = dict(
+            whisper_mel_sig=time_ms(lambda: whisper_mel_sig(
+                x, 400, 160, n_mels, device=dev)),
+            whisper_mel_vad_sig=time_ms(lambda: mel_kernel.whisper_mel_vad_sig(
+                x, settings, 400, 160, n_mels, device=dev)),
+            decision_fields=time_ms(lambda: streaming_decision_fields_batched(
+                None, settings, raw=raw)),
+            whisper_mel_quantized=time_ms(
+                lambda: mel_kernel.whisper_mel_quantized(x, 400, 160, n_mels,
+                                                         device=dev)),
+            k1=time_ms(lambda: sig_mel.sig_mel(x, mats.m_big, mats.pair_i,
+                                               mats.mt_bf2, **kw)),
+            k1_vad=time_ms(lambda: sig_mel.sig_mel_vad(
+                x, mats.m_big, mats.pair_i, mats.mt_bf2, vad=vad, **kw)),
+            k1_quant=time_ms(lambda: sig_mel.sig_mel_quantized(
+                x, mats.m_big, mats.pair_i, mats.mt_bf2, **kw)),
+            plain_vad=time_ms(lambda: sig_mel.sig_mel_vad_reference(
+                x, mats.m_big, mats.pair_i, mats.mt_bf2, vad=vad, **kw),
+                reps=3, warmup=1),
+            plain_quant=time_ms(lambda: sig_mel.sig_mel_quantized_reference(
+                x, mats.m_big, mats.pair_i, mats.mt_bf2, **kw),
+                reps=3, warmup=1))
+        bounds = {e: epilogue_bound(head, x, frames, n_mels, e)
+                  for e in (None, "quant", "vad")}
+        out[n_mels] = dict(shape=list(x.shape), n_mels=n_mels, frames=frames,
+                           launches=counts, checks=checks,
+                           vad_err=vad_err, ms=ms,
+                           x_real_time_vad=WIRE_B * WIRE_SECONDS
+                           / (ms["whisper_mel_vad_sig"] / 1e3),
+                           x_real_time_quant=WIRE_B * WIRE_SECONDS
+                           / (ms["whisper_mel_quantized"] / 1e3),
+                           bound={str(k): v for k, v in bounds.items()})
+        emit(f"vad_wire_path_{n_mels}", **out[n_mels])
+        if (counts["K1"] != 2 or counts["K1_quant"] != 1
+                or counts["K1_vad"] != 1 or not checks["raw_equal"]
+                or not checks["quant_equal"] or not checks["mel_finite"]
+                or tga_err > checks["tga_bar"]
+                or checks["tga_width"] != nf
+                or not vad_err["route_mel_equal"]
+                or vad_err["counts_vs_own_mel"] != 0
+                or vad_err["mel_vs_plain"] > bar):
+            raise AssertionError(f"VAD wire path {n_mels}: {counts} "
+                                 f"{checks} {vad_err}")
+    return out
+
+
+def phase_ten_vad_eval(dev) -> dict:
+    """The TEN-VAD eval on the card: evaluate_testset_batched over the 30
+    vendored files in both presets (the bf3 power and float32 fields, one
+    batched pass), its macro metrics held to the published digits, its
+    wall time (host clock, warm) and RTFx. Then the same 30 files through
+    K1's VAD epilogue (whisper_mel_vad_sig on the padded batch, one
+    launch) and the decision fields: how many per-frame decisions differ
+    from the eval route's, and the macro metrics they give (a
+    measurement, not a gate)."""
+    testset = TESTDATA / "ten-vad"
+    wavs, clips, rate, labels = vad_eval.load_testset(testset)
+    x = torch.from_numpy(vad_eval.batch_clips(clips)).to(dev)
+    out = {}
+    for name in ("balanced", "high-f1"):
+        opts, settings = vad_eval.preset(name)
+        zero_counts()
+        t0 = time.perf_counter()
+        total, rows = vad_eval.evaluate_testset_batched(
+            testset, opts, settings, warmup=True, device=dev)
+        wall_s = time.perf_counter() - t0
+        counts = read_counts()
+        mm = vad_eval.macro_metrics(rows)
+        got = {k: round(mm[k], 4) for k in TEN_VAD_DIGITS[name]}
+
+        def decisions(fields):
+            masks = []
+            for i, clip in enumerate(clips):
+                n_dec = (framing.num_frames_batch(len(clip), 400, 160)
+                         - settings.min_x + 1)
+                masks.append(vad_eval.speech_mask(
+                    {k: v[i] for k, v in fields.items()}, n_dec, opts))
+            return masks
+
+        pipe = WhisperMelPipeline(400, 160, opts.n_mels, float(rate),
+                                  fft_impl="bf3", device=dev)
+        eval_fields = streaming_decision_fields_batched(
+            pipe.mel_batch(x).transpose(-1, -2), settings)
+        zero_counts()
+        _, raw = mel_kernel.whisper_mel_vad_sig(x, settings, 400, 160,
+                                                opts.n_mels, device=dev)
+        k1_fields = streaming_decision_fields_batched(None, settings,
+                                                      raw=raw)
+        k1_counts = read_counts()
+        ev = decisions({k: v.cpu().numpy() for k, v in eval_fields.items()})
+        k1 = decisions({k: v.cpu().numpy() for k, v in k1_fields.items()})
+        k1_rows = []
+        for i, wav in enumerate(wavs):
+            times_s = vad_eval.decision_times_s(len(k1[i]), settings, opts,
+                                                rate)
+            pp = vad_eval._postprocess_mask(k1[i], times_s, 160 / rate, opts)
+            k1_rows.append(vad_eval.FileResult(
+                wav, 0.0, 0.0, vad_eval._metrics(
+                    pp, vad_eval._labels_mask(labels[i], times_s))))
+        k1_mm = vad_eval.macro_metrics(k1_rows)
+        out[name] = dict(
+            files=len(rows), macro={k: mm[k] for k in TEN_VAD_DIGITS[name]},
+            published=TEN_VAD_DIGITS[name], launches=counts,
+            wall_s=wall_s, speed=vad_eval.speed_metrics(rows),
+            decisions=int(sum(len(m) for m in ev)),
+            k1_vad_decisions_differing=int(sum(int((a != b).sum())
+                                               for a, b in zip(ev, k1))),
+            k1_vad_launches=k1_counts,
+            k1_vad_macro={k: k1_mm[k] for k in TEN_VAD_DIGITS[name]})
+        emit(f"ten_vad_eval_{name}", **out[name])
+        if got != TEN_VAD_DIGITS[name] or len(rows) != 30:
+            raise AssertionError(f"TEN-VAD {name}: {got} vs "
+                                 f"{TEN_VAD_DIGITS[name]}")
+    return out
+
+
+def phase_load_probe(dev) -> dict:
+    """P1, the signal-load probe, through its own entry point
+    (load_probe.run at 64 x 30 s): counts zeroed just before and read
+    just after; each mode exact, its GB/s against 3.35 TB/s."""
+    torch.cuda.synchronize()
+    zero_counts()
+    results = load_probe.run(dev, fail_fast=True, timer=time_ms)
+    counts = dict(load_probe.launches)
+    emit("load_probe", launches=counts, modes=results)
+    if not all(r["ok"] for r in results) or not all(counts.values()):
+        raise AssertionError(f"P1: {results} {counts}")
+    return dict(modes={r["mode"]: r for r in results}, counts=counts)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1508,17 +1871,41 @@ def main() -> int:
     front = phase_frontend_step(dev, k2)
     framed_rows = phase_framed_vs_plain(dev)
     dial = phase_framed_main_path(dev, framed_rows)
+    epi = phase_k1_epilogues_vs_plain(dev, rows)
+    wire = phase_vad_wire_path(dev, rows)
+    ten_vad = phase_ten_vad_eval(dev)
+    probe = phase_load_probe(dev)
     vs_plain = max(r["vs_plain"] for r in rows + ln["rows"])
     by_path = {"batch": {"K1": main["launches"]}, **serving,
                "frontend": front["counts"]["large_v3_30s"],
                "frontend_80": front["counts"]["jax_defaults_10s"],
                **{f"dial_{k}": v for k, v in dial["counts"].items()},
-               **dial["auto_counts"]}
+               **dial["auto_counts"],
+               **{f"vad_wire_{k}": v["launches"] for k, v in wire.items()},
+               **{f"ten_vad_{k}": v["launches"]
+                  for k, v in ten_vad.items()},
+               "load_probe": {"P1": sum(probe["counts"].values())}}
     framed_all = framed_rows + dial["rows"] + [dial["auto"]["auto_1024"]]
 
     def launches(name):
         return sum(c.get(name, 0) for c in by_path.values())
 
+    w128 = wire[128]
+    epilogues = {e: dict(launches=launches(f"K1_{e}"),
+                         ms=w128["ms"][f"k1_{e}"],
+                         call_ms=w128["ms"][call],
+                         whisper_ms=w128["ms"]["k1"],
+                         plain_ms=w128["ms"][f"plain_{e}"],
+                         bound_ms=w128["bound"][e]["bound_ms"],
+                         bound_by=w128["bound"][e]["bound_by"],
+                         shape=w128["shape"], n_mels=128)
+                 for e, call in (("quant", "whisper_mel_quantized"),
+                                 ("vad", "whisper_mel_vad_sig"))}
+    epilogues["quant"]["max_abs_err"] = epi["worst"]["range_vs_plain"]
+    epilogues["quant"]["q_max_step"] = epi["worst"]["q_max_step"]
+    epilogues["vad"]["max_abs_err"] = max(w["vad_err"]["max_abs_err"]
+                                          for w in wire.values())
+    flat_span = probe["modes"]["flat_span"]
     rs_err = max(max(r["vs_plain"] for r in rs_rows),
                  bulk["errs"]["k4_vs_plain"])
     common = dict(route="cuda", source=RS_SOURCE, max_abs_err=rs_err,
@@ -1544,6 +1931,7 @@ def main() -> int:
                                            "bound_by",
                                            "library_composition_ms")}
                      for k, v in ln["times"].items()},
+        "epilogues": epilogues,
     }, {
         "name": "K2", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES, "launches": launches("K2"),
@@ -1583,7 +1971,20 @@ def main() -> int:
         "library_ms": None,
         "library_composition_ms": t["library_composition_ms"],
         "shape": [t["frames"], 512],
-    } for impl, t in dial["times"].items()]}), flush=True)
+    } for impl, t in dial["times"].items()] + [{
+        "name": "P1", "route": "cuda", "source": P1_SOURCE,
+        "replaces": P1_REPLACES, "launches": launches("P1"),
+        "launches_by_mode": probe["counts"],
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in probe["modes"].values()),
+        "ms": flat_span["ms"], "plain_ms": flat_span["plain_ms"],
+        "bound_ms": flat_span["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "shape": flat_span["shape"],
+        "modes": {m: {f: r[f] for f in ("ms", "plain_ms", "gb_per_s",
+                                        "share_of_peak", "bound_ms",
+                                        "shape")}
+                  for m, r in probe["modes"].items()},
+    }]}), flush=True)
     emit("done", seconds=round(time.perf_counter() - t0, 1))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Frontend configuration (a copy of ``melspec_tpu.config``'s
 ``MelConfig``, its named whisper configs, the NeMo, Kaldi fbank and MFCC
-configs and the VAD's ``DetectionSettings``; the port keeps its own copy
-so that it imports nothing of the JAX package)."""
+configs, the VAD's ``DetectionSettings`` and its timestamps,
+``VadFrameTiming`` / ``VoiceActivityTimestamps``; the port keeps its own
+copy so that it imports nothing of the JAX package)."""
 
 from __future__ import annotations
 
@@ -196,3 +197,35 @@ class DetectionSettings:
     min_y: int = 11
     min_x: int = 5
     min_mel: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class VadFrameTiming:
+    """Maps STFT frame indices to start/center/end milliseconds
+    (reference ``src/vad.rs:90-117``)."""
+
+    fft_size: int
+    hop_size: int
+    sampling_rate: float
+
+    def timestamps_for_frame(self, frame_index: int) -> "VoiceActivityTimestamps":
+        start_sample = frame_index * self.hop_size
+        center_sample = start_sample + self.fft_size // 2
+        end_sample = start_sample + self.fft_size
+
+        def to_ms(sample: int) -> int:
+            # round half away from zero (Rust f64::round), not banker's
+            return int(math.floor((sample / self.sampling_rate) * 1000.0 + 0.5))
+
+        return VoiceActivityTimestamps(
+            start_ms=to_ms(start_sample),
+            center_ms=to_ms(center_sample),
+            end_ms=to_ms(end_sample),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class VoiceActivityTimestamps:
+    start_ms: int
+    center_ms: int
+    end_ms: int

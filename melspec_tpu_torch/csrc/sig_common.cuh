@@ -1,10 +1,12 @@
 // Device code shared by K1 (sig_mel.cu) and K2 (sig_multi.cu): the tile
 // geometry, the accurate logarithms, the staging of a tile's signal span
-// into bf16 slices, the slice-pair DFT dot of one head, and one head's
-// epilogue (power, projection, output values). Both kernels call the same
-// functions, so a head of K2 with K1's matrices and block order computes
-// K1's output bit for bit. K5-K8 (framed_mel.cu) take the logarithms and
-// the whisper norm of a log row from here too.
+// into bf16 slices, the slice-pair DFT dot of one head, one head's
+// epilogue (power, projection, output values) and the two epilogues that
+// read a whisper head's normalized tile (Sobel VAD counts, u8 wire
+// records). Both kernels call the same functions, so a head of K2 with
+// K1's matrices and block order computes K1's output bit for bit, and the
+// two count VAD edges with one piece of code. K5-K8 (framed_mel.cu) take
+// the logarithms and the whisper norm of a log row from here too.
 //
 // One block owns 64 frames of one clip (8 warps x 8 frames). A head's DFT
 // dot keeps a 64 x 512 tile of float32 accumulators in registers (each
@@ -399,15 +401,119 @@ __device__ __forceinline__ void head_epilogue(const Head& h, const Acc& acc,
   if (h.out_mode != kWhisper) return;
   __syncwarp();
 
-  // row max, whisper norm, store
+  // row max, whisper norm, store (a null h.out stores nothing: the quant
+  // route writes records, not the float mel)
   for (int f = 0; f < kFramesPerWarp; ++f) {
     const int row = f0 + f;
     const int k = k0 + row;
     whisper_norm_row(slg + row * nmp, nmp, h.n_mels,
-                     k < n_frames ? h.out + (static_cast<long long>(b) *
-                                                 n_frames + k) * h.n_mels
-                                  : nullptr,
+                     k < n_frames && h.out
+                         ? h.out + (static_cast<long long>(b) * n_frames + k) *
+                                       h.n_mels
+                         : nullptr,
                      keep_vals);
+  }
+}
+
+// Sobel VAD counts of one tile (ops/mel_kernel.py::_sig_vad_counts) from
+// the normalized whisper values v[x][y] = vals[x * nmp + y], x the tile's
+// frame, y the mel row: per frame x the count of rows y in [start_y,
+// n_mels - 2) whose 3x3 patch (frames x .. x+2, rows y .. y+2) has a
+// squared gradient >= thr, written to counts[b * n_frames + k0 + x]. The
+// expression order is ops/vad.py::sobel_gradient_sq's, each operation
+// rounded. The last two frames of a tile need the next tile: they get 0
+// here and the caller recomputes them from the mel output; the clip's last
+// two frames have no patch and get 0. One warp per frame, the rows over
+// its lanes.
+__device__ __forceinline__ void vad_counts(const float* vals, int nmp,
+                                           int n_mels, int start_y,
+                                           float thr, int b, int k0,
+                                           int n_frames, int* counts) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int x = warp; x < kTileFrames; x += kWarps) {
+    int cnt = 0;
+    // a patch must lie inside the tile and inside the clip's frames
+    if (x < kTileFrames - 2 && k0 + x + 2 < n_frames) {
+      const float* r0 = vals + x * nmp;
+      const float* r1 = r0 + nmp;
+      const float* r2 = r1 + nmp;
+      for (int y = start_y + lane; y < n_mels - 2; y += 32) {
+        const float gx = __fsub_rn(
+            __fadd_rn(__fadd_rn(r2[y], __fmul_rn(2.0f, r2[y + 1])),
+                      r2[y + 2]),
+            __fadd_rn(__fadd_rn(r0[y], __fmul_rn(2.0f, r0[y + 1])),
+                      r0[y + 2]));
+        const float gy = __fsub_rn(
+            __fadd_rn(__fadd_rn(r0[y + 2], __fmul_rn(2.0f, r1[y + 2])),
+                      r2[y + 2]),
+            __fadd_rn(__fadd_rn(r0[y], __fmul_rn(2.0f, r1[y])), r2[y]));
+        const float g2 = __fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy));
+        cnt += g2 >= thr;
+      }
+    }
+    cnt = __reduce_add_sync(0xffffffffu, cnt);
+    const int k = k0 + x;
+    if (lane == 0 && k < n_frames)
+      counts[static_cast<long long>(b) * n_frames + k] = cnt;
+  }
+}
+
+// min / max that keep a NaN, like torch.amin / torch.amax
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+
+// The u8 wire record of each of the tile's frames
+// (ops/mel_kernel.py::_sig_quant_vals, default expression tree) from the
+// normalized whisper values vals[x * nmp + m], m < n_mels: lo = min, hi =
+// max over the frame's n_mels values, scale = 255 / (hi - lo), scaled =
+// (v - lo) * scale, y = clamp(trunc(2 * scaled), 0, 511), q = min((y + 1)
+// >> 1, 255). For scaled = k + f >= 0, trunc(2 * scaled) = 2k + (f >=
+// 0.5) (the doubling is exact), so q is round-half-up, bit-equal to
+// ops/quant.py::quantize_frames' floor / frac >= 0.5 / isnan / clip chain.
+// Each operation is rounded to nearest (the _rn intrinsics; the build has
+// no --use_fast_math, so the division is IEEE). trunc is __float2int_rz,
+// PTX cvt.rzi.s32.f32, which saturates: +inf (a denormal range whose scale
+// overflows) becomes INT_MAX, clamped to 511, q = 255 as the float clip
+// gives. NaN (hi == lo: 0 * inf) is tested explicitly and gives q = 0,
+// as the host's isnan -> 0 does. Writes q[b, k, :n_mels], lo[b, k],
+// hi[b, k] for the tile's frames k < n_frames; one warp per frame.
+__device__ __forceinline__ void quant_records(const float* vals, int nmp,
+                                              int n_mels, int b, int k0,
+                                              int n_frames, unsigned char* q,
+                                              float* lo_out, float* hi_out) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int x = warp; x < kTileFrames; x += kWarps) {
+    const int k = k0 + x;
+    if (k >= n_frames) break;
+    const float* v = vals + x * nmp;
+    float lo = v[lane < n_mels ? lane : 0];
+    float hi = lo;
+    for (int m = lane + 32; m < n_mels; m += 32) {
+      lo = min_nan(lo, v[m]);
+      hi = max_nan(hi, v[m]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      lo = min_nan(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+      hi = max_nan(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+    }
+    const float scale = __fdiv_rn(255.0f, __fsub_rn(hi, lo));
+    const long long row = static_cast<long long>(b) * n_frames + k;
+    unsigned char* qr = q + row * n_mels;
+    for (int m = lane; m < n_mels; m += 32) {
+      const float t = __fmul_rn(__fmul_rn(__fsub_rn(v[m], lo), scale), 2.0f);
+      int y = t != t ? 0 : __float2int_rz(t);
+      y = y < 0 ? 0 : (y > 511 ? 511 : y);
+      const int qv = (y + 1) >> 1;
+      qr[m] = static_cast<unsigned char>(qv < 255 ? qv : 255);
+    }
+    if (lane == 0) {
+      lo_out[row] = lo;
+      hi_out[row] = hi;
+    }
   }
 }
 

@@ -12,12 +12,9 @@
 // ln_floor), written as one [B, n_frames, n_mels_h] float32 output per
 // head. A head with K1's matrices and block order gives K1's output bit
 // for bit. Head 0 (whisper) can carry the Sobel VAD epilogue
-// (ops/mel_kernel.py::_sig_vad_counts): per frame x of the tile, the
-// count of mel rows y in [start_y, n_mels - 2) whose 3x3 patch of the
-// normalized values (frames x .. x+2, rows y .. y+2) has a squared
-// gradient >= thr, int32 [B, n_frames]. The last two frames of a tile
-// need the next tile; they get 0 here and the caller recomputes them
-// from the mel output. The clip's last two frames have no patch and get 0.
+// (sig_common.cuh::vad_counts, K1's VAD epilogue too): per frame the count
+// of mel rows with a squared gradient >= thr, int32 [B, n_frames], 0 on
+// the last two frames of each tile, which the caller recomputes.
 //
 // What bounds it: operations, as for K1: each head's DFT dot is thousands
 // of FLOPs per byte of signal and output. The staged slices persist across
@@ -49,44 +46,6 @@ struct Params {
   int vad_start_y;
 };
 
-// Sobel counts of the tile from the normalized whisper values v[x][y] =
-// vals[x * nmp + y]; a(dt, dm) = v[x + dt][y + dm]. The expression order
-// is ops/vad.py::sobel_gradient_sq's, each operation rounded.
-__device__ __forceinline__ void vad_counts(const Params& p,
-                                           const float* vals, int b,
-                                           int k0) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int nmp = p.heads[0].n_mels_pad;
-  const int n_mels = p.heads[0].n_mels;
-  for (int x = warp; x < kTileFrames; x += kWarps) {
-    int cnt = 0;
-    // a patch must lie inside the tile and inside the clip's frames
-    if (x < kTileFrames - 2 && k0 + x + 2 < p.n_frames) {
-      const float* r0 = vals + x * nmp;
-      const float* r1 = r0 + nmp;
-      const float* r2 = r1 + nmp;
-      for (int y = p.vad_start_y + lane; y < n_mels - 2; y += 32) {
-        const float gx = __fsub_rn(
-            __fadd_rn(__fadd_rn(r2[y], __fmul_rn(2.0f, r2[y + 1])),
-                      r2[y + 2]),
-            __fadd_rn(__fadd_rn(r0[y], __fmul_rn(2.0f, r0[y + 1])),
-                      r0[y + 2]));
-        const float gy = __fsub_rn(
-            __fadd_rn(__fadd_rn(r0[y + 2], __fmul_rn(2.0f, r1[y + 2])),
-                      r2[y + 2]),
-            __fadd_rn(__fadd_rn(r0[y], __fmul_rn(2.0f, r1[y])), r2[y]));
-        const float g2 = __fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy));
-        cnt += g2 >= p.vad_thr;
-      }
-    }
-    cnt = __reduce_add_sync(0xffffffffu, cnt);
-    const int k = k0 + x;
-    if (lane == 0 && k < p.n_frames)
-      p.vad[static_cast<long long>(b) * p.n_frames + k] = cnt;
-  }
-}
-
 __global__ void __launch_bounds__(kThreads, 1)
     sig_multi_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -111,7 +70,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     head_epilogue(hd, acc, work, f0, b, k0, p.n_frames, vad);
     if (vad) {
       __syncthreads();  // the tile's normalized rows, from every warp
-      vad_counts(p, log_tile(work, hd.npow), b, k0);
+      vad_counts(log_tile(work, hd.npow), hd.n_mels_pad, hd.n_mels,
+                 p.vad_start_y, p.vad_thr, b, k0, p.n_frames, p.vad);
     }
     // the next head's dot opens with a barrier before it writes work
   }

@@ -1,5 +1,5 @@
-"""Float32-LE mono WAV reader (copy of ``melspec_tpu.io.wav.read_wav_f32le``
-and the RIFF walk it needs)."""
+"""WAV readers (copies of ``melspec_tpu.io.wav``'s ``read_wav_f32le``,
+``read_wav`` and ``read_wav_mono`` and the RIFF walk they need)."""
 
 from __future__ import annotations
 
@@ -53,3 +53,42 @@ def read_wav_f32le(path: Union[str, Path]) -> np.ndarray:
     payload = wav_bytes[offset : offset + size]
     n = len(payload) // 4
     return np.frombuffer(payload[: n * 4], dtype="<f4").copy()
+
+
+def read_wav(path: Union[str, Path]) -> Tuple[np.ndarray, int]:
+    """Read a WAV (16-bit PCM or 32-bit float, any channel count) ->
+    (f32 samples ``[n, channels]``, rate). Other widths raise instead of
+    being silently misdecoded."""
+    wav_bytes = Path(path).read_bytes()
+    tag, channels, rate, bits = _read_fmt(wav_bytes)
+    if channels < 1:
+        raise ValueError(f"{path}: fmt declares {channels} channels")
+    offset, size = _find_chunk(wav_bytes, (b"data",))
+    payload = wav_bytes[offset : offset + size]
+    if tag == 1:  # integer PCM
+        if bits not in (0, 16):
+            raise ValueError(
+                f"{path}: {bits}-bit PCM unsupported (16-bit only)"
+            )
+        data = np.frombuffer(payload[: (len(payload) // 2) * 2], dtype="<i2")
+        data = data.astype(np.float32) / 32768.0
+    elif tag == 3:  # IEEE float
+        if bits not in (0, 32):
+            raise ValueError(
+                f"{path}: {bits}-bit float unsupported (32-bit only)"
+            )
+        data = np.frombuffer(payload[: (len(payload) // 4) * 4],
+                             dtype="<f4").copy()
+    else:
+        raise ValueError(f"unsupported WAV format tag {tag}")
+    n = len(data) // channels
+    return data[: n * channels].reshape(n, channels), rate
+
+
+def read_wav_mono(path: Union[str, Path]) -> Tuple[np.ndarray, int]:
+    """Read a mono WAV (16-bit PCM, or 32-bit float) -> (f32 samples, rate).
+    Multi-channel files raise."""
+    data, rate = read_wav(path)
+    if data.shape[1] != 1:
+        raise ValueError(f"{path} is not mono (channels={data.shape[1]})")
+    return data[:, 0], rate

@@ -5,10 +5,14 @@ picks between them by the device the signal lies on.
 Replaces ``melspec_tpu/ops/mel_kernel.py::_pallas_sig_mel`` (body
 ``_sig_mel_tile_kernel``) in its output modes ``whisper`` (log10 + the
 whisper norm), ``ln_guard`` (NeMo) and ``ln_floor`` (Kaldi), with split
-or N-packed DFT columns and a tap offset ``pack_off``. ``sig_mel``
-launches the kernel for a CUDA tensor (or raises) and runs
-``sig_mel_reference`` only for a CPU tensor. ``launches`` counts kernel
-launches; nothing else adds to it.
+or N-packed DFT columns and a tap offset ``pack_off``, and with the
+whisper mode's two epilogues: the per-frame u8 wire record
+(``sig_mel_quantized``) and the Sobel VAD counts (``sig_mel_vad``). Each
+wrapper launches the kernel for a CUDA tensor (or raises) and runs its
+plain version (``sig_mel_reference``, ``sig_mel_quantized_reference``,
+``sig_mel_vad_reference``) only for a CPU tensor. ``launches`` counts
+kernel launches and ``epilogue_launches`` those that ran an epilogue;
+nothing else adds to them.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import torch
 
 from melspec_tpu_torch.kernels import build
 from melspec_tpu_torch.ops.fastmath import ln_accurate, log10_accurate
+from melspec_tpu_torch.ops.quant import quantize_frames
+from melspec_tpu_torch.ops.vad import sobel_gradient_sq
 
 LOG10_FLOOR = 1e-10
 # the smallest normal float32: ln_accurate's bit decomposition takes
@@ -40,6 +46,7 @@ WIDTH = 512
 TILE_FRAMES = 64
 
 launches = 0
+epilogue_launches = {"quant": 0, "vad": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,6 +168,60 @@ def sig_mel_reference(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
     return out_vals(energy, out_mode, guard)[..., :n_mels].contiguous()
 
 
+def sig_mel_quantized_reference(samples: torch.Tensor, m_big: torch.Tensor,
+                                pair_i, mt: torch.Tensor, **kw) -> tuple:
+    """The quant epilogue's plain version: the whisper mel of
+    ``sig_mel_reference`` (same arguments) quantized per frame by
+    ``ops/quant.quantize_frames``: ``(q [B, F, n_mels] u8, lo [B, F], hi
+    [B, F])``."""
+    return quantize_frames(sig_mel_reference(samples, m_big, pair_i, mt,
+                                             **kw))
+
+
+def vad_threshold(min_energy: float) -> float:
+    """The squared-gradient threshold as the comparison uses it: ``g2 >=
+    min_energy**2`` between float32 values."""
+    return float(np.float32(min_energy * min_energy))
+
+
+def vad_args(settings, n_mels: int) -> tuple:
+    """The VAD epilogue's ``vad = (thr, start_y)`` for K1 and K2 from
+    ``DetectionSettings``: the squared threshold and the first mel row,
+    clamped so that at least one 3-row Sobel patch fits."""
+    return (vad_threshold(settings.min_energy),
+            min(int(settings.min_mel), n_mels - 2))
+
+
+def tile_vad_counts(mel: torch.Tensor, thr: float,
+                    start_y: int) -> torch.Tensor:
+    """The VAD epilogue's output from the whisper values ``mel [B, F,
+    n_mels]``: per frame ``x`` the number of mel rows ``y`` in
+    ``[start_y, n_mels - 2)`` whose squared Sobel gradient over frames
+    ``x .. x+2`` is ``>= thr``, int32 ``[B, F]``. Like the kernels (K1
+    and K2), which see one tile of ``TILE_FRAMES`` frames at a time, it
+    gives 0 for the last two frames of every tile and of the clip."""
+    b, f, _ = mel.shape
+    counts = torch.zeros((b, f), dtype=torch.int32, device=mel.device)
+    if f > 2:
+        g2 = sobel_gradient_sq(mel.transpose(-1, -2))[..., start_y:, :]
+        counts[:, : f - 2] = (g2 >= thr).sum(dim=-2, dtype=torch.int32)
+    edge = torch.arange(f, device=mel.device) % TILE_FRAMES >= TILE_FRAMES - 2
+    counts[:, edge] = 0
+    return counts
+
+
+def sig_mel_vad_reference(samples: torch.Tensor, m_big: torch.Tensor,
+                          pair_i, mt: torch.Tensor, *, vad: tuple,
+                          **kw) -> tuple:
+    """The VAD epilogue's plain version: the whisper mel of
+    ``sig_mel_reference`` (same arguments) and ``tile_vad_counts`` of it
+    at ``vad = (thr, start_y)``: ``(mel [B, F, n_mels], counts [B, F]
+    int32)``, the classification ``classify_columns`` thresholds, with
+    the kernel's tile-boundary zeros."""
+    mel = sig_mel_reference(samples, m_big, pair_i, mt, **kw)
+    return mel, tile_vad_counts(mel, *vad)
+
+
 @functools.cache
 def _bound() -> ctypes.CDLL:
     lib = build.load("sig_mel").lib
@@ -171,7 +232,9 @@ def _bound() -> ctypes.CDLL:
         p, i, i, i,             # blocks, n_blocks, ks, npow
         p, i, i, i,             # mt, n_mels, n_mels_pad, bf2
         i, ctypes.c_float,      # out_mode, guard
-        p, p,                   # out, stream
+        p, p, p, p,             # out, q, lo, hi
+        p, ctypes.c_float, i,   # vad, vad_thr, vad_start_y
+        p,                      # stream
     ]
     lib.melspec_sig_mel.restype = ctypes.c_int
     lib.melspec_sig_mel_smem_bytes.argtypes = [i, i, i, i, i, i]
@@ -282,26 +345,51 @@ def raise_for(lib, rc: int, what: str) -> None:
 
 
 def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
-            n_bins_pad, n_mels, mel_precision, pack_off, out_mode,
-            guard) -> torch.Tensor:
+            n_bins_pad, n_mels, mel_precision, pack_off, out_mode, guard,
+            epilogue: str | None = None, vad: tuple = (0.0, 0)) -> tuple:
+    """One K1 launch. ``epilogue``: None (the float mel), ``"quant"`` (the
+    u8 records ``q, lo, hi`` and no float mel) or ``"vad"`` (the mel and
+    the Sobel counts at ``vad = (thr, start_y)``). Returns the outputs as
+    a tuple."""
     global launches
     dev = samples.device
     pair_i, npow, n_mels_pad, bf2 = check_head(
         samples, m_big, pair_i, mt, ks=ks, pack=pack, pack_off=pack_off,
         n_bins_pad=n_bins_pad, n_mels=n_mels, mel_precision=mel_precision,
         out_mode=out_mode, what="K1")
+    if epilogue is not None and out_mode != "whisper":
+        raise ValueError("K1's epilogues run on the whisper mode")
+    if epilogue == "vad" and n_mels < 3:
+        raise ValueError("the Sobel VAD needs n_mels >= 3")
     refusal = _smem_refusal(ks, hop, pack, pack_off, npow, n_mels_pad)
     if refusal is not None:
         raise NotImplementedError(refusal)
     b, t = samples.shape
-    out = torch.empty((b, n_frames, n_mels), dtype=torch.float32, device=dev)
+    out = q = lo = hi = counts = None
+    if epilogue == "quant":
+        q = torch.empty((b, n_frames, n_mels), dtype=torch.uint8, device=dev)
+        lo = torch.empty((b, n_frames), dtype=torch.float32, device=dev)
+        hi = torch.empty_like(lo)
+        outs = (q, lo, hi)
+    else:
+        out = torch.empty((b, n_frames, n_mels), dtype=torch.float32,
+                          device=dev)
+        outs = (out,)
+        if epilogue == "vad":
+            counts = torch.empty((b, n_frames), dtype=torch.int32,
+                                 device=dev)
+            outs = (out, counts)
     if b == 0 or n_frames <= 0:
-        return out
+        return outs
     samples = samples.contiguous()
     m_big = m_big.contiguous()
     mt = mt.contiguous()
     blocks = block_table(pair_i, dev)
     lib = _bound()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.melspec_sig_mel(
@@ -309,10 +397,22 @@ def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
             m_big.data_ptr(), WIDTH, pack, pack_off, blocks.data_ptr(),
             len(pair_i), ks, npow, mt.data_ptr(), n_mels, n_mels_pad,
             int(bf2), OUT_MODES.index(out_mode), clamped_guard(guard),
-            out.data_ptr(), stream)
+            ptr(out), ptr(q), ptr(lo), ptr(hi), ptr(counts), vad[0],
+            int(vad[1]), stream)
     raise_for(lib, rc, "K1 (sig_mel)")
     launches += 1
-    return out
+    if epilogue is not None:
+        epilogue_launches[epilogue] += 1
+    return outs
+
+
+def _on_device(samples: torch.Tensor, kernel, plain):
+    """The kernel on a CUDA signal, the plain version on a CPU one."""
+    if samples.device.type == "cuda":
+        return kernel()
+    if samples.device.type == "cpu":
+        return plain()
+    raise ValueError(f"unsupported device {samples.device}")
 
 
 def sig_mel(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
@@ -329,9 +429,49 @@ def sig_mel(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
               n_bins_pad=n_bins_pad, n_mels=n_mels,
               mel_precision=mel_precision, pack_off=pack_off,
               out_mode=out_mode, guard=guard)
-    if samples.device.type == "cuda":
-        return _launch(samples, m_big, pair_i, mt, **kw)
-    if samples.device.type == "cpu":
-        return sig_mel_reference(samples, m_big, pair_i, mt,
-                                 dot_dtype=torch.float64, **kw)
-    raise ValueError(f"unsupported device {samples.device}")
+    return _on_device(
+        samples, lambda: _launch(samples, m_big, pair_i, mt, **kw)[0],
+        lambda: sig_mel_reference(samples, m_big, pair_i, mt,
+                                  dot_dtype=torch.float64, **kw))
+
+
+def sig_mel_quantized(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
+                      mt: torch.Tensor, *, ks: int, n_frames: int, hop: int,
+                      offset: int, pack: int, n_bins_pad: int, n_mels: int,
+                      mel_precision: str = "bf2") -> tuple:
+    """K1 in whisper mode with the quant epilogue on a CUDA signal, its
+    plain version on a CPU one (float64 DFT dot, as ``sig_mel``): ``(q
+    [B, n_frames, n_mels] u8, lo [B, n_frames], hi [B, n_frames])``, each
+    frame's record of ``quantize_frames``; the kernel writes no float
+    mel."""
+    kw = dict(ks=ks, n_frames=n_frames, hop=hop, offset=offset, pack=pack,
+              n_bins_pad=n_bins_pad, n_mels=n_mels,
+              mel_precision=mel_precision)
+    return _on_device(
+        samples,
+        lambda: _launch(samples, m_big, pair_i, mt, pack_off=0,
+                        out_mode="whisper", guard=0.0, epilogue="quant",
+                        **kw),
+        lambda: sig_mel_quantized_reference(samples, m_big, pair_i, mt,
+                                            dot_dtype=torch.float64, **kw))
+
+
+def sig_mel_vad(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
+                mt: torch.Tensor, *, ks: int, n_frames: int, hop: int,
+                offset: int, pack: int, n_bins_pad: int, n_mels: int,
+                vad: tuple, mel_precision: str = "bf2") -> tuple:
+    """K1 in whisper mode with the Sobel VAD epilogue on a CUDA signal,
+    its plain version on a CPU one (float64 DFT dot): ``(mel [B,
+    n_frames, n_mels], counts [B, n_frames] int32)`` at ``vad = (thr,
+    start_y)``; the counts of each tile's last two frames are 0 (see
+    ``tile_vad_counts``)."""
+    kw = dict(ks=ks, n_frames=n_frames, hop=hop, offset=offset, pack=pack,
+              n_bins_pad=n_bins_pad, n_mels=n_mels,
+              mel_precision=mel_precision)
+    return _on_device(
+        samples,
+        lambda: _launch(samples, m_big, pair_i, mt, pack_off=0,
+                        out_mode="whisper", guard=0.0, epilogue="vad",
+                        vad=vad, **kw),
+        lambda: sig_mel_vad_reference(samples, m_big, pair_i, mt, vad=vad,
+                                      dot_dtype=torch.float64, **kw))

@@ -24,39 +24,14 @@ from melspec_tpu_torch.kernels.sig_mel import (MAX_SMEM_BYTES, OUT_MODES,
                                                TILE_FRAMES, SigHead,
                                                block_table, check_head,
                                                clamped_guard, raise_for,
-                                               sig_mel_reference)
-from melspec_tpu_torch.ops.vad import sobel_gradient_sq
+                                               sig_mel_reference,
+                                               tile_vad_counts)
 
-__all__ = ["TILE_FRAMES", "sig_multi", "sig_multi_reference",
-           "tile_vad_counts"]
+__all__ = ["TILE_FRAMES", "sig_multi", "sig_multi_reference"]
 
 MAX_HEADS = 4
 
 launches = 0
-
-
-def vad_threshold(min_energy: float) -> float:
-    """The squared-gradient threshold as the comparison uses it: ``g2 >=
-    min_energy**2`` between float32 values."""
-    return float(np.float32(min_energy * min_energy))
-
-
-def tile_vad_counts(mel: torch.Tensor, thr: float,
-                    start_y: int) -> torch.Tensor:
-    """The VAD epilogue's output from the head-0 values ``mel [B, F,
-    n_mels]``: per frame ``x`` the number of mel rows ``y`` in
-    ``[start_y, n_mels - 2)`` whose squared Sobel gradient over frames
-    ``x .. x+2`` is ``>= thr``, int32 ``[B, F]``. Like the kernel, which
-    sees one tile of ``TILE_FRAMES`` frames at a time, it gives 0 for the
-    last two frames of every tile and of the clip."""
-    b, f, _ = mel.shape
-    counts = torch.zeros((b, f), dtype=torch.int32, device=mel.device)
-    if f > 2:
-        g2 = sobel_gradient_sq(mel.transpose(-1, -2))[..., start_y:, :]
-        counts[:, : f - 2] = (g2 >= thr).sum(dim=-2, dtype=torch.int32)
-    edge = torch.arange(f, device=mel.device) % TILE_FRAMES >= TILE_FRAMES - 2
-    counts[:, edge] = 0
-    return counts
 
 
 def sig_multi_reference(samples: torch.Tensor, heads: Sequence[SigHead], *,

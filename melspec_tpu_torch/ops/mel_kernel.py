@@ -1,6 +1,7 @@
 """Whisper log-mel through the fused kernels (port of
-``melspec_tpu.ops.mel_kernel``): the signal-input sig route on K1 and the
-precision dial's framed routes on K5-K8.
+``melspec_tpu.ops.mel_kernel``): the signal-input sig route on K1 (with
+its u8 wire-record and Sobel VAD epilogues, ``whisper_mel_quantized`` and
+``whisper_mel_vad_sig``) and the precision dial's framed routes on K5-K8.
 
 The host builders make the device matrices exactly as the JAX package
 does. For K1 the window-folded real-DFT matrix is cut into rounded-bf16
@@ -14,11 +15,13 @@ kept in float32 (f32). ``whisper_mel_sig`` runs K1
 PyTorch versions on a CPU one.
 
 Not carried over from the JAX functions: ``interpret`` (no interpret mode
-for a CUDA kernel), ``input_mode`` / ``flat_rows`` and the macro-row
-``row_w`` / ``phases`` / ``rows_tile`` geometry, the ``_pad_for_flat``
-batch padding and the framed kernels' 256- and 512-frame tiles — all TPU
-tiling. K1 frames any ``[B, T]`` signal as it is; the framed route pads
-the frame count to ``TILE_FRAMES``, the Hopper kernel's tile.
+for a CUDA kernel), the quant epilogue's ``qabl`` ablations,
+``input_mode`` / ``flat_rows`` and the macro-row ``row_w`` / ``phases`` /
+``rows_tile`` geometry, the ``_pad_for_flat`` batch padding and the framed
+kernels' 256- and 512-frame tiles — all TPU tiling. K1 frames any ``[B,
+T]`` signal as it is, and its VAD epilogue's tile-boundary columns follow
+its own 64-frame tile; the framed route pads the frame count to
+``TILE_FRAMES``, the Hopper kernel's tile.
 """
 
 from __future__ import annotations
@@ -31,11 +34,16 @@ import numpy as np
 import torch
 
 from melspec_tpu_torch._device import as_signal, resolve_device
+from melspec_tpu_torch.config import DetectionSettings
 from melspec_tpu_torch.kernels.framed_mel import (IMPLS, TILE_FRAMES,
                                                   FramedMatrices, framed_mel)
+from melspec_tpu_torch.kernels.sig_mel import TILE_FRAMES as TILE_K1
 from melspec_tpu_torch.kernels.sig_mel import (SigHead, k1_accepts, sig_mel,
-                                               sig_mel_reference)
+                                               sig_mel_quantized,
+                                               sig_mel_reference, sig_mel_vad,
+                                               vad_args)
 from melspec_tpu_torch.ops import dft, framing
+from melspec_tpu_torch.ops.vad import fix_raw
 from melspec_tpu_torch.ops.filterbank import mel_filterbank
 from melspec_tpu_torch.ops.hp_dft import bf16_round_slices, matrix_slices
 from melspec_tpu_torch.ops.windows import hann_periodic
@@ -44,7 +52,8 @@ __all__ = [
     "FramedMatrices", "SigHead", "SigMatrices", "TILE_FRAMES",
     "framed_input", "framed_matrices", "pallas_schedule",
     "resolve_pallas_impl", "sig_geometry", "sig_mel_reference",
-    "whisper_head", "whisper_mel_pallas", "whisper_mel_sig",
+    "whisper_head", "whisper_mel_pallas", "whisper_mel_quantized",
+    "whisper_mel_sig", "whisper_mel_vad_sig",
 ]
 
 LANES = 128
@@ -247,6 +256,42 @@ def whisper_head(fft_size: int, n_mels: int, sampling_rate: float,
                    fft_size, n_mels, pack_off=pack_off)
 
 
+def _k1_input(samples, fft_size: int, hop_size: int, streaming: bool,
+              device, what: str) -> tuple:
+    """``samples`` ``[T]`` or ``[B, T]`` as a 2-D signal on the resolved
+    device and K1's frame grid: ``(x [B, T], squeeze, offset, n_frames)``;
+    ``streaming`` offsets the frames by ``ceil(fft/hop)*hop - fft``.
+    Raises for a config without the JAX package's macro-row geometry."""
+    x = as_signal(samples, resolve_device(device))
+    squeeze = x.dim() == 1
+    if squeeze:
+        x = x[None]
+    offset = 0
+    if streaming:
+        offset = framing.streaming_frame_offset(fft_size, hop_size)
+        n_frames = framing.num_frames_streaming(x.shape[-1], fft_size,
+                                                hop_size)
+    else:
+        n_frames = framing.num_frames_batch(x.shape[-1], fft_size, hop_size)
+    if sig_geometry(fft_size, hop_size, offset) is None:
+        raise ValueError(
+            f"no macro-row geometry for this (fft, hop); {what}, as the "
+            "JAX package does"
+        )
+    return x, squeeze, offset, n_frames
+
+
+def _sig_kw(ks: int, fft_size: int, hop_size: int, n_mels: int,
+            offset: int, n_frames: int, mats: SigMatrices,
+            mel_precision: str) -> dict:
+    """K1's arguments for the whisper head of ``mats``."""
+    if mel_precision not in ("bf2", "highest"):
+        raise ValueError("mel_precision must be 'bf2' or 'highest'")
+    return dict(ks=ks, n_frames=n_frames, hop=hop_size,
+                offset=offset, pack=fft_size, n_bins_pad=mats.n_bins_pad,
+                n_mels=n_mels, mel_precision=mel_precision)
+
+
 def whisper_mel_sig(
     samples,
     fft_size: int = 400,
@@ -273,42 +318,109 @@ def whisper_mel_sig(
     the 1e-5 JFK gate (1.0e-3 in the JAX package's measurement).
     ``matrices`` replaces the host-built matrices (for example with the
     JAX package's, through ``convert.from_jax_sig_matrices``)."""
-    dev = resolve_device(device)
-    x = as_signal(samples, dev)
-    squeeze = x.dim() == 1
-    if squeeze:
-        x = x[None]
-    offset = 0
-    if streaming:
-        offset = framing.streaming_frame_offset(fft_size, hop_size)
-        n_frames = framing.num_frames_streaming(x.shape[-1], fft_size,
-                                                hop_size)
-    else:
-        n_frames = framing.num_frames_batch(x.shape[-1], fft_size, hop_size)
-    if sig_geometry(fft_size, hop_size, offset) is None:
-        raise ValueError(
-            "no macro-row geometry for this (fft, hop); use "
-            "whisper_mel_pallas(impl='bf3'), as the JAX package does"
-        )
+    x, squeeze, offset, n_frames = _k1_input(
+        samples, fft_size, hop_size, streaming, device,
+        "use whisper_mel_pallas(impl='bf3')")
     if mel_precision not in ("bf2", "highest"):
         raise ValueError("mel_precision must be 'bf2' or 'highest'")
     if n_frames <= 0 or x.shape[0] == 0:
         out = torch.zeros((x.shape[0], max(n_frames, 0), n_mels),
-                          dtype=torch.float32, device=dev)
+                          dtype=torch.float32, device=x.device)
         return out[0] if squeeze else out
     mats = (sig_matrices(fft_size, n_mels, float(sampling_rate), ks, cutoff,
                          x.device)
             if matrices is None else matrices.to(x.device))
-    out = sig_mel(
-        x, mats.m_big, mats.pair_i,
-        mats.mt_bf2 if mel_precision == "bf2" else mats.mt,
-        ks=ks, n_frames=n_frames, hop=hop_size, offset=offset,
-        pack=fft_size, n_bins_pad=mats.n_bins_pad, n_mels=n_mels,
-        mel_precision=mel_precision,
-    )
+    out = sig_mel(x, mats.m_big, mats.pair_i,
+                  mats.mt_bf2 if mel_precision == "bf2" else mats.mt,
+                  **_sig_kw(ks, fft_size, hop_size, n_mels, offset, n_frames,
+                            mats, mel_precision))
     return out[0] if squeeze else out
 
 
+def whisper_mel_quantized(
+    samples,
+    fft_size: int = 400,
+    hop_size: int = 160,
+    n_mels: int = 80,
+    sampling_rate: float = 16000.0,
+    streaming: bool = False,
+    ks: int = 3,
+    cutoff: int = 2,
+    mel_precision: str = "bf2",
+    device=None,
+) -> tuple:
+    """Whisper log-mel emitted directly as per-frame 8-bit wire records
+    through K1's quant epilogue: ``(q [B, F, n_mels] uint8, lo [B, F] f32,
+    hi [B, F] f32)`` (1-D input: unbatched), on ``device``.
+
+    The reference's live path quantizes every emitted mel column with its
+    own min/max range before shipping it (``src/wasm.rs:95-145``, the
+    ``min | max | u8[n_mels]`` record). K1 quantizes each frame while its
+    normalized row is still in shared memory, bit-equal to
+    ``ops.quant.quantize_frames`` of ``whisper_mel_sig``'s mel on the same
+    input, and writes ``n_mels + 8`` bytes a frame where the float mel
+    takes ``4 * n_mels``. Same geometry and arguments as
+    ``whisper_mel_sig``; on a CPU signal the plain version runs."""
+    x, squeeze, offset, n_frames = _k1_input(
+        samples, fft_size, hop_size, streaming, device,
+        "quantize whisper_mel_pallas's output with quantize_frames instead")
+    if n_frames <= 0 or x.shape[0] == 0:
+        nf = max(n_frames, 0)
+        q = torch.zeros((x.shape[0], nf, n_mels), dtype=torch.uint8,
+                        device=x.device)
+        z = torch.zeros((x.shape[0], nf), dtype=torch.float32,
+                        device=x.device)
+        return (q[0], z[0], z[0]) if squeeze else (q, z, z)
+    mats = sig_matrices(fft_size, n_mels, float(sampling_rate), ks, cutoff,
+                        x.device)
+    kw = _sig_kw(ks, fft_size, hop_size, n_mels, offset, n_frames, mats,
+                 mel_precision)
+    q, lo, hi = sig_mel_quantized(
+        x, mats.m_big, mats.pair_i,
+        mats.mt_bf2 if mel_precision == "bf2" else mats.mt, **kw)
+    return (q[0], lo[0], hi[0]) if squeeze else (q, lo, hi)
+
+
+def whisper_mel_vad_sig(
+    samples,
+    settings: DetectionSettings,
+    fft_size: int = 400,
+    hop_size: int = 160,
+    n_mels: int = 80,
+    sampling_rate: float = 16000.0,
+    streaming: bool = False,
+    device=None,
+) -> tuple:
+    """Whisper log-mel and the raw Sobel VAD column activity from one K1
+    launch with the VAD epilogue: ``(mel [..., F, n_mels], raw [..., F-2]
+    bool)``, ``raw`` equal to ``classify_columns(mel.T, settings)`` (the
+    reference's per-column decision input, ``src/vad.rs:373-415``).
+
+    K1 counts each frame's edges on the tile it holds in shared memory;
+    the two columns whose 3-frame patch crosses each boundary of its
+    ``TILE_FRAMES``-frame tiles are recomputed here from the mel output
+    (``ops.vad.fix_raw``). A clip of 1-2 frames has no Sobel column: it
+    returns ``whisper_mel_sig``'s real mel and an empty ``raw``. On a CPU
+    signal the plain version runs."""
+    x, squeeze, offset, n_frames = _k1_input(
+        samples, fft_size, hop_size, streaming, device,
+        "compute the mel with whisper_mel_pallas and classify_columns "
+        "separately")
+    if n_mels < 3:
+        raise ValueError("Sobel VAD needs n_mels >= 3")
+    if n_frames < 3 or x.shape[0] == 0:
+        mel = whisper_mel_sig(x, fft_size, hop_size, n_mels, sampling_rate,
+                              streaming=streaming, device=x.device)
+        raw = torch.zeros((x.shape[0], 0), dtype=torch.bool, device=x.device)
+        return (mel[0], raw[0]) if squeeze else (mel, raw)
+    mats = sig_matrices(fft_size, n_mels, float(sampling_rate), 3, 2,
+                        x.device)
+    kw = _sig_kw(3, fft_size, hop_size, n_mels, offset, n_frames, mats,
+                 "bf2")
+    mel, counts = sig_mel_vad(x, mats.m_big, mats.pair_i, mats.mt_bf2,
+                              vad=vad_args(settings, n_mels), **kw)
+    raw = fix_raw(counts, mel, n_frames, n_frames - 2, settings, TILE_K1)
+    return (mel[0], raw[0]) if squeeze else (mel, raw)
 
 
 # --------------------------------------------------------------------------

@@ -59,7 +59,11 @@ def quantize_frames(
     frames = frames.to(torch.float32)
     lo = frames.amin(dim=-1)
     hi = frames.amax(dim=-1)
-    scale = 255.0 / (hi - lo)
+    # a true division, as JAX's and the reference's: torch computes
+    # ``scalar / tensor`` as ``reciprocal(tensor) * scalar``, which rounds
+    # twice and can move a value across a .5 tie
+    span = hi - lo
+    scale = torch.full_like(span, 255.0) / span
     scaled = (frames - lo[..., None]) * scale[..., None]
     fl = torch.floor(scaled)
     rounded = fl + (scaled - fl >= 0.5).to(torch.float32)

@@ -30,14 +30,14 @@ from melspec_tpu_torch._device import as_signal, resolve_device
 from melspec_tpu_torch.config import (BatchLogMelConfig, DetectionSettings,
                                       FbankConfig, MelConfig)
 from melspec_tpu_torch.kernels import sig_multi
-from melspec_tpu_torch.kernels.sig_mel import SigHead
+from melspec_tpu_torch.kernels.sig_mel import SigHead, vad_args
 from melspec_tpu_torch.ops import framing
 from melspec_tpu_torch.ops.batch_logmel import BatchLogMel, nemo_filters
 from melspec_tpu_torch.ops.fbank import Fbank
 from melspec_tpu_torch.ops.mel_kernel import (_sig_frontend_matrices,
                                               bf2_stack, sig_geometry,
                                               whisper_head)
-from melspec_tpu_torch.ops.vad import classify_columns
+from melspec_tpu_torch.ops.vad import fix_raw
 from melspec_tpu_torch.ops.windows import hann_centered
 
 __all__ = ["WhisperKaldiFused", "WhisperKaldiNemoFused", "head_subset"]
@@ -57,33 +57,6 @@ def head_subset(head: SigHead, blocks: Sequence[int]) -> SigHead:
     rows = torch.nn.functional.pad(rows, (0, 0, 0, k_sub - rows.shape[0]))
     return dataclasses.replace(
         head, m_big=rows, pair_i=tuple(head.pair_i[b] for b in blocks))
-
-
-def _boundary_columns(n_frames: int, n_cols: int) -> list:
-    """VAD columns whose 3-frame patch crosses one of K2's tile
-    boundaries: the kernel cannot classify them."""
-    tile = sig_multi.TILE_FRAMES
-    tiles = -(-n_frames // tile)
-    return [x for k in range(1, tiles) for x in (k * tile - 2, k * tile - 1)
-            if x < n_cols]
-
-
-def _fix_raw(counts: torch.Tensor, mel: torch.Tensor, n_frames: int,
-             n_cols: int, settings: DetectionSettings) -> torch.Tensor:
-    """Raw Sobel activity ``[B, n_cols]`` from K2's counts, with the
-    tile-boundary columns recomputed from the mel output."""
-    raw = counts[:, :n_cols] >= int(settings.min_y)
-    bidx = _boundary_columns(n_frames, n_cols)
-    if bidx:
-        tri = torch.stack([mel[:, x : x + 3, :] for x in bidx], dim=1)
-        raw[:, bidx] = classify_columns(tri.transpose(-1, -2),
-                                        settings)[..., 0]
-    return raw
-
-
-def _vad_args(settings: DetectionSettings, n_mels: int) -> tuple:
-    return (sig_multi.vad_threshold(settings.min_energy),
-            min(int(settings.min_mel), n_mels - 2))
 
 
 class WhisperKaldiFused:
@@ -155,8 +128,9 @@ class WhisperKaldiFused:
     def compute_with_vad(self, samples, settings: DetectionSettings) -> tuple:
         n_mels = self.mel_config.n_mels
         (mel, fbank), counts, n_frames = self._run(
-            self._signal(samples), _vad_args(settings, n_mels))
-        raw = _fix_raw(counts, mel, n_frames, max(n_frames - 2, 0), settings)
+            self._signal(samples), vad_args(settings, n_mels))
+        raw = fix_raw(counts, mel, n_frames, max(n_frames - 2, 0), settings,
+                      sig_multi.TILE_FRAMES)
         return mel, self._cmn(fbank), raw
 
 
@@ -257,8 +231,9 @@ class WhisperKaldiNemoFused(WhisperKaldiFused):
     def compute_with_vad(self, samples, settings: DetectionSettings) -> tuple:
         x = self._signal(samples)
         (mel, fbank, nemo_raw), counts, n_frames = self._run(
-            x, _vad_args(settings, self.mel_config.n_mels))
-        raw = _fix_raw(counts, mel, n_frames,
-                       max(self._batch_frames(x.shape[-1]) - 2, 0), settings)
+            x, vad_args(settings, self.mel_config.n_mels))
+        raw = fix_raw(counts, mel, n_frames,
+                      max(self._batch_frames(x.shape[-1]) - 2, 0), settings,
+                      sig_multi.TILE_FRAMES)
         mel, fbank, feats = self._finish(mel, fbank, nemo_raw, x.shape[-1])
         return mel, fbank, feats, raw

@@ -167,8 +167,11 @@ def test_shapes_batch_and_empty():
     f64 = bl.BatchLogMel(dtype=torch.float64, device="cpu")
     batch = _signal(3, (3, 4800), 1.0)
     got = f64.compute(batch)
+    # batched and 1-D routes run the DFT product at other row counts, and
+    # the CPU BLAS may sum them in another order (rows differ by up to
+    # 6.7e-15 on some machines): a float64 bar, not equality
     for i in range(3):
-        assert torch.equal(got[i], f64.compute(batch[i]))
+        assert (got[i] - f64.compute(batch[i])).abs().max() <= 1e-12
     flat, rows, cols = f64.compute_flat(batch[0])
     want = jbl.BatchLogMel(dtype=jnp.float64).compute_flat(batch[0])
     assert (rows, cols) == want[1:]

@@ -147,13 +147,13 @@ def test_k2_vs_plain_and_vad_counts(dev, tri):
     xin = (torch.nn.functional.pad(x, (front._nemo_pad, 0)) if tri else x)
     nf = (framing.num_frames_centered(x.shape[-1], 160) if tri
           else framing.num_frames_batch(x.shape[-1], 400, 160))
-    vad = (sig_multi.vad_threshold(SETTINGS.min_energy), 0)
+    vad = (sig_mel.vad_threshold(SETTINGS.min_energy), 0)
     outs, counts = sig_multi.sig_multi(xin, front.heads, ks=3, n_frames=nf,
                                        hop=160, vad=vad)
     torch.cuda.synchronize()
     for h, got in zip(front.heads, outs):
         _held(got, xin, h, n_frames=nf, hop=160)
-    assert torch.equal(counts, sig_multi.tile_vad_counts(outs[0], *vad))
+    assert torch.equal(counts, sig_mel.tile_vad_counts(outs[0], *vad))
     res = front.compute_with_vad(x, SETTINGS)
     mel, raw = res[0], res[-1]
     assert torch.equal(raw, classify_columns(mel.transpose(-1, -2),

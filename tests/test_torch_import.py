@@ -12,6 +12,8 @@ import torch
 
 import melspec_tpu_torch as mt
 from melspec_tpu_torch.kernels import sig_mel
+from melspec_tpu_torch.ops.mel_kernel import whisper_mel_vad_sig
+from melspec_tpu_torch.utils import vad_eval
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "melspec_tpu_torch"
@@ -34,6 +36,14 @@ def test_import_and_cpu_call_load_no_jax():
         "step = sh.sharded_frontend_step(device='cpu')\n"
         "res = step(np.zeros((1, 4000), np.float32))\n"
         "assert len(res) == 8 and mh.WhisperKaldiNemoFused\n"
+        "import melspec_tpu_torch.utils.vad_eval as ve\n"
+        "import melspec_tpu_torch.kernels.load_probe as lp\n"
+        "from melspec_tpu_torch.ops.mel_kernel import whisper_mel_vad_sig\n"
+        "mel, raw = whisper_mel_vad_sig(np.zeros(4000, np.float32),\n"
+        "                               melspec_tpu_torch.DetectionSettings(),\n"
+        "                               device='cpu')\n"
+        "assert tuple(raw.shape) == (21,) and ve.preset and lp.run\n"
+        "assert melspec_tpu_torch.tga_8bit_data(np.ones(160), 80)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0].startswith('jax')\n"
         "             or m.split('.')[0] == 'melspec_tpu')\n"
@@ -79,8 +89,14 @@ def no_cuda(monkeypatch):
     lambda x: mt.WhisperKaldiFused(),
     lambda x: mt.WhisperKaldiNemoFused(),
     lambda x: mt.sharded_frontend_step(),
+    lambda x: mt.whisper_mel_quantized(x),
+    lambda x: whisper_mel_vad_sig(x, mt.DetectionSettings()),
+    lambda x: vad_eval.evaluate_testset_batched(
+        ROOT / "testdata" / "ten-vad", vad_eval.EvalOptions(),
+        mt.DetectionSettings()),
 ], ids=["sig", "pallas", "pipeline", "compute", "streaming", "cuda", "fbank",
-        "mfcc", "nemo", "fused", "trihead", "step"])
+        "mfcc", "nemo", "fused", "trihead", "step", "quantized", "vad_sig",
+        "vad_eval"])
 def test_default_device_raises_without_cuda(no_cuda, call):
     before = sig_mel.launches
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -110,9 +126,11 @@ def test_import_builds_nothing():
     code = ("import melspec_tpu_torch, melspec_tpu_torch.kernels.sig_mel as k\n"
             "import melspec_tpu_torch.kernels.resample as r\n"
             "import melspec_tpu_torch.kernels.sig_multi as m\n"
+            "import melspec_tpu_torch.kernels.load_probe as p\n"
             "import sys; sys.exit(0 if not k._bound.cache_info().currsize\n"
             "         and not r._bound.cache_info().currsize\n"
-            "         and not m._bound.cache_info().currsize else 1)\n")
+            "         and not m._bound.cache_info().currsize\n"
+            "         and not p._bound.cache_info().currsize else 1)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr

@@ -15,11 +15,11 @@ from melspec_tpu.ops import sig_multihead as jmh
 from melspec_tpu_torch import convert
 from melspec_tpu_torch.config import (BatchLogMelConfig, DetectionSettings,
                                       FbankConfig, MelConfig)
-from melspec_tpu_torch.kernels import sig_multi
+from melspec_tpu_torch.kernels import sig_mel, sig_multi
 from melspec_tpu_torch.ops import sig_multihead as mh
 from melspec_tpu_torch.ops.batch_logmel import BatchLogMel
 from melspec_tpu_torch.ops.mel_kernel import whisper_mel_sig
-from melspec_tpu_torch.ops.vad import classify_columns
+from melspec_tpu_torch.ops.vad import boundary_columns, classify_columns
 
 TILE = sig_multi.TILE_FRAMES
 # B = 5 and a ragged T spanning 3 tiles of K2 plus 11 frames
@@ -99,7 +99,7 @@ def test_raw_vad_equals_classify_columns(outs, which):
     assert torch.equal(raw, classify_columns(mel.transpose(-1, -2),
                                              DetectionSettings(**SETTINGS)))
     # the columns K2 cannot classify itself: every tile boundary
-    bidx = mh._boundary_columns(mel.shape[1], mel.shape[1] - 2)
+    bidx = boundary_columns(mel.shape[1], mel.shape[1] - 2, TILE)
     assert len(bidx) == 6
     # against JAX: its own mel gives its own raw; the two mels differ
     # within 2e-5, which may flip a column at the threshold
@@ -138,7 +138,7 @@ def test_plain_version_f32_dot_within_floor(x):
     fused = mh.WhisperKaldiFused(device="cpu")
     xt = torch.from_numpy(x)
     nf = (SHAPE[1] - 400) // 160 + 1
-    vad = (sig_multi.vad_threshold(0.5), 0)
+    vad = (sig_mel.vad_threshold(0.5), 0)
     f32, counts = sig_multi.sig_multi_reference(xt, fused.heads, ks=3,
                                                 n_frames=nf, hop=160,
                                                 vad=vad)
@@ -146,7 +146,7 @@ def test_plain_version_f32_dot_within_floor(x):
                                    hop=160)
     assert float((f32[0] - exact[0]).abs().max()) <= WHISPER_BAR
     assert float((f32[1] - exact[1]).abs().max()) <= CROSS_ROUTE
-    assert torch.equal(counts, sig_multi.tile_vad_counts(f32[0], *vad))
+    assert torch.equal(counts, sig_mel.tile_vad_counts(f32[0], *vad))
     edge = torch.arange(nf) % TILE >= TILE - 2
     assert not counts[:, edge].any() and not counts[:, -2:].any()
 

@@ -71,6 +71,19 @@ def test_quantize_frames_bit_exact_with_jax_and_host():
             assert (lo[i, j].item(), hi[i, j].item()) == (rng.min, rng.max)
 
 
+def test_quantize_frames_divides_like_jax():
+    """scale = 255 / (hi - lo) is one IEEE division, as in JAX and the
+    host quantizer: for this range, 255 * (1 / range) is one ulp off, and
+    the value 0.0031842298 then rounds to 1 instead of 2."""
+    bits = np.asarray([0, 1057657827, 995143299], np.uint32)
+    frame = np.tile(bits.view(np.float32), (2, 1))
+    q, lo, hi = quant.quantize_frames(torch.from_numpy(frame))
+    jq, _, _ = jquant.quantize_frames_jnp(jnp.asarray(frame))
+    want, _ = quant.quantize(frame[0])
+    assert q[0].tolist() == want.tolist() == [0, 255, 2]
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+
+
 def test_host_quantize_matches_jax():
     frames = _frames_with_ties()
     for frame in frames.reshape(-1, 80):

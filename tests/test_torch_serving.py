@@ -7,9 +7,11 @@ Bars: valid flags exact; mels, lo and hi <= 2e-5 (the f32 floor of two
 summation orders, PERF.md); q within one quantization step; at most one
 VAD decision flip per test (JAX's own budget for two separately computed
 mels, ``tests/test_serving.py``). At 8 kHz a frame's minimum (lo) lies in
-the anti-alias filter's stopband, above 4 kHz; there both packages are
-also held against a float64 witness (float64 ``resample_poly`` into a
-float64 rdft frontend).
+the anti-alias filter's stopband, above 4 kHz, where the two packages'
+float32 resamplers differ by more than that floor: there each package is
+held against a float64 witness (float64 ``resample_poly`` into a float64
+rdft frontend) at ``STOPBAND_BAR``, and the two against each other at
+twice that bar, the distance the triangle inequality allows.
 """
 
 import numpy as np
@@ -46,12 +48,27 @@ def _chunks(rng, s, h, width):
     return (rng.normal(size=(s, h, width)) * 0.3).astype(np.float32)
 
 
-class _Records:
-    """Compares tick outputs against JAX's and counts VAD flips."""
+# lo at 8 kHz against the float64 witness, per resample precision
+# (test_8k_stopband_minimum_against_float64). Measured on the CPU over four
+# seeds: "highest" within 4.3e-5 for both packages, "bf3" within 1.35e-3.
+STOPBAND_BAR = {"highest": 6e-5, "bf3": 2e-3}
+# Port against JAX at 8 kHz in "highest": each package lies within
+# STOPBAND_F64 of the float64 witness (4.3e-5 measured, above), so the two
+# lie within twice that of each other. Measured over eight seeds of
+# test_source_rate_frontend_matches_jax's ticks: lo up to 2.73e-5 (kernel
+# route) and 1.93e-5 (auto), hi up to 2.4e-7; at 48 kHz lo up to 2.3e-6.
+STOPBAND_F64 = 4.5e-5
 
-    def __init__(self):
+
+class _Records:
+    """Compares tick outputs against JAX's and counts VAD flips. ``lo_bar``
+    bounds the frame minima: the f32 floor where they lie in the passband,
+    twice ``STOPBAND_F64`` where they lie in the resampler's stopband."""
+
+    def __init__(self, lo_bar: float = 2e-5):
         self.checked = 0
         self.flips = 0
+        self.lo_bar = lo_bar
 
     def check(self, got, want):
         q, lo, hi, va, valid = got
@@ -59,7 +76,7 @@ class _Records:
         assert q.dtype == np.uint8 and q.shape == jq.shape
         np.testing.assert_array_equal(valid, jvalid)
         v = valid
-        assert np.abs(lo[v] - jlo[v]).max(initial=0) <= 2e-5
+        assert np.abs(lo[v] - jlo[v]).max(initial=0) <= self.lo_bar
         assert np.abs(hi[v] - jhi[v]).max(initial=0) <= 2e-5
         assert np.abs(q[v].astype(int) - jq[v].astype(int)).max(
             initial=0) <= 1
@@ -203,7 +220,7 @@ def test_source_rate_frontend_matches_jax(rate, impl, s, hops):
     for _ in range(2):
         jst = ref.push_many(jst, _chunks(rng, s, hops, ref.hop_src))[0]
     pst = from_jax_source_rate_state(jst, device=CPU)
-    rec = _Records()
+    rec = _Records(2 * STOPBAND_F64 if rate == 8000 else 2e-5)
     for t in range(3):
         x = _chunks(rng, s, hops, ref.hop_src)
         active = np.ones(s, bool)
@@ -218,9 +235,8 @@ def test_source_rate_frontend_matches_jax(rate, impl, s, hops):
     rec.done(3 * s * hops - hops - 2)
 
 
-@pytest.mark.parametrize("precision,bar", [("highest", 6e-5),
-                                           ("bf3", 2e-3)])
-def test_8k_stopband_minimum_against_float64(precision, bar):
+@pytest.mark.parametrize("precision", ["highest", "bf3"])
+def test_8k_stopband_minimum_against_float64(precision):
     """lo at 8 kHz (a stopband bin) from the port's plain K4 and from
     JAX's kernel (interpret mode), each against a float64 witness:
     float64 ``resample_poly`` of the same stream into a float64 rdft
@@ -254,8 +270,8 @@ def test_8k_stopband_minimum_against_float64(precision, bar):
     spur = port.rs.spurious_out // CFG.hop_size
     wlo = wlo[:, 2 * hops - spur: 5 * hops - spur]
     assert valid.all() and lo.shape == wlo.shape
-    assert np.abs(lo - wlo).max() <= bar
-    assert np.abs(jlo - wlo).max() <= bar
+    assert np.abs(lo - wlo).max() <= STOPBAND_BAR[precision]
+    assert np.abs(jlo - wlo).max() <= STOPBAND_BAR[precision]
 
 
 @pytest.mark.parametrize("rate,n_streams", [(48000, 3), (8000, 2)])
