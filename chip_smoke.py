@@ -25,15 +25,19 @@ show each went through its kernels:
   ``sharded_frontend_step`` at whisper large-v3 + Kaldi fbank + NeMo
   log-mel defaults (K2 with whisper, Kaldi and the VAD; K1 in ln_guard
   for NeMo), and 64 x 10 s at the JAX defaults, after K1's ln modes and
-  K2 (two and three heads) are held against their plain versions;
+  K2 (two and three heads) are held against their plain versions, and K1
+  at the 256- and 1024-column heads (whisper at 8 kHz, 256/96, 22.05 kHz,
+  48 kHz where it fits; Kaldi and NeMo at 8 kHz) and K2 on the 8 kHz
+  whisper + Kaldi pair against K1 (phase k1_widths);
 - the precision dial: ``whisper_mel_pallas(x, 400, 160, 128, impl=...)``
   on 64 x 30 s for each of bf3 / hp8 / hp_bf16 / f32 (K5 / K6 / K7 / K8,
   one launch each, K1 none), after K5-K8 are held against their plain
   versions (float32 and float64 dots) on 64 ragged 10 s clips and on
   8 clips at 1024/256/80/22050 and pass the JFK gates; then the auto
-  routes that K1 refuses (whisper 1024/256 at 22.05 kHz: the pipeline's
-  bf3 power and K5; 8 kHz Kaldi fbank and NeMo log-mel: rdft), each held
-  against its float64 or plain result;
+  routes of the 256- and 1024-column heads (whisper 1024/256 at 22.05
+  kHz through the pipeline and ``whisper_mel_pallas(impl=None)``, 8 kHz
+  Kaldi fbank and NeMo log-mel), which take K1 wherever ``k1_accepts``
+  holds, each held against its float64 and plain result;
 - the VAD and wire-record path: after K1's quant and VAD epilogues are
   held against K1's own mel (records bit-equal to ``quantize_frames``, raw
   equal to ``classify_columns``, tile-boundary columns included) and
@@ -57,6 +61,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -86,6 +91,8 @@ from melspec_tpu_torch.ops import batch_logmel  # noqa: E402
 from melspec_tpu_torch.ops import framing, mel_kernel  # noqa: E402
 from melspec_tpu_torch.ops.batch_logmel import BatchLogMel  # noqa: E402
 from melspec_tpu_torch.ops.fbank import Fbank  # noqa: E402
+from melspec_tpu_torch.ops.fbank import \
+    sig_head as fbank_sig_head  # noqa: E402
 from melspec_tpu_torch.ops.filterbank import (kaldi_filterbank,  # noqa: E402
                                               mel_filterbank)
 from melspec_tpu_torch.ops.resample import (_phase_matrix,  # noqa: E402
@@ -128,6 +135,8 @@ K1_SOURCE = "melspec_tpu_torch/csrc/sig_mel.cu"
 K1_REPLACES = "melspec_tpu/ops/mel_kernel.py:1547"
 K2_SOURCE = "melspec_tpu_torch/csrc/sig_multi.cu"
 K2_REPLACES = "melspec_tpu/ops/sig_multihead.py:151"
+# K1's and K2's DFT instruction (csrc/sig_common.cuh::dft_chunk)
+DFT_MMA = "wgmma m64n128k16"
 FRAMED_SOURCE = "melspec_tpu_torch/csrc/framed_mel.cu"
 FRAMED_REPLACES = {"K5": "melspec_tpu/ops/mel_kernel.py:467",
                    "K6": "melspec_tpu/ops/mel_kernel.py:314",
@@ -207,6 +216,18 @@ P1_SOURCE = "melspec_tpu_torch/csrc/load_probe.cu"
 P1_REPLACES = "tools/hbm_reshape_probe.py:47"
 # Sobel gradient of one (frame, row): gx and gy 7 operations each, g2 3
 SOBEL_OPS = 17
+# K1 at the widths other than 512 (phase k1_widths): whisper configs of
+# the JAX package's tests/test_configs_broad.py, and Kaldi and NeMo at 8
+# kHz (256-column heads); all but 960/480 must be accepted, that one
+# where its span fits a block's shared memory
+WIDTH_B = 8
+WIDTH_CONFIGS = [("whisper_8k", 200, 80, 80, 8000.0),
+                 ("whisper_256_96", 256, 96, 32, 16000.0),
+                 ("whisper_1024_256", 1024, 256, 80, 22050.0),
+                 ("whisper_960_480", 960, 480, 40, 48000.0)]
+WIDTH_MUST_ACCEPT = ("whisper_8k", "whisper_256_96", "whisper_1024_256")
+NEMO_8K = BatchLogMelConfig(sample_rate=8000, n_fft=256, win_length=200,
+                            hop_length=80)
 
 
 def emit(phase: str, **fields) -> None:
@@ -301,11 +322,53 @@ def phase_build() -> None:
                             "framed_mel", "load_probe"])
     seconds = time.perf_counter() - t0
     report = {name: [ln.strip() for ln in b.log.splitlines()
-                     if "registers" in ln or "spill" in ln
-                     or "Compiling entry" in ln]
+                     if ("registers" in ln or "spill" in ln
+                         or "Compiling entry" in ln) and "C7519" not in ln]
               for name, b in built.items()}
+    sass = tensor_core_sass(["sig_mel", "sig_multi"])
     emit("build", kernels=sorted(built), seconds=round(seconds, 3),
-         ptxas=report)
+         ptxas=report, ptxas_c7519=ptxas_c7519(built), sass=sass)
+    missing = [(name, op) for name, ops in sass.items()
+               for op, r in ops.items() if not r["count"]]
+    if missing:
+        raise AssertionError(f"no tensor-core instructions: {missing}")
+
+
+def ptxas_c7519(built) -> dict:
+    """Per library and kernel instance, the count of ptxas's C7519 lines
+    ("warpgroup.arrive is injected ... to allow use of registers in
+    GMMA": the compiler serialized wgmma's around register operands)."""
+    out = {}
+    for name, b in built.items():
+        counts = {}
+        for ln in b.log.splitlines():
+            if "C7519" not in ln:
+                continue
+            m = re.search(
+                r"in function '[^']*?\d+([a-z_]+_kernel(?:I\w*?E)?)E*vN", ln)
+            fn = m.group(1) if m else "?"
+            counts[fn] = counts.get(fn, 0) + 1
+        out[name] = counts
+    return out
+
+
+def tensor_core_sass(names) -> dict:
+    """Per built library, the count of its warpgroup (HGMMA) and warp
+    (HMMA) tensor-core instructions in ``cuobjdump -sass``, with one line
+    of each: K1 and K2 run their DFT and projection there."""
+    tool = Path(build.find_nvcc()).with_name("cuobjdump")
+    out = {}
+    for name in names:
+        sass = subprocess.run([str(tool), "-sass", str(build._target(name))],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout.splitlines()
+        out[name] = {}
+        for op in ("HGMMA", "HMMA"):
+            lines = [ln.split(";")[0].split("*/")[-1].strip()
+                     for ln in sass if f" {op}." in ln]
+            out[name][op] = dict(count=len(lines),
+                                 example=lines[0] if lines else None)
+    return out
 
 
 def phase_k1_vs_plain(dev) -> dict:
@@ -412,7 +475,7 @@ def phase_main_path(dev, rows) -> dict:
                                    3, 2, dev)
     kw = dict(ks=3, n_frames=nf, hop=c.hop_size, offset=0, pack=c.fft_size,
               n_bins_pad=mats.n_bins_pad, n_mels=c.n_mels,
-              mel_precision="bf2")
+              mel_precision="bf2", live=mats.live)
     pipe_ms = time_ms(lambda: pipe.mel_batch(x))
     k1_ms = time_ms(lambda: sig_mel.sig_mel(x, mats.m_big, mats.pair_i,
                                             mats.mt_bf2, **kw))
@@ -423,8 +486,11 @@ def phase_main_path(dev, rows) -> dict:
     lib_err = float((lib() - out).abs().max())
 
     frames = b * nf
-    flops = head_work(mel_kernel.whisper_head(c.fft_size, c.n_mels,
-                                              c.sampling_rate, dev), frames)
+    head = mel_kernel.whisper_head(c.fft_size, c.n_mels, c.sampling_rate, dev)
+    flops = head_work(head, frames)
+    layout = k1_layout(head, c.hop_size)
+    l2 = dict(block_frames=layout[0], chunk_cols=layout[1],
+              **l2_bytes_counted([head], c.hop_size, b, nf, layout))
     nbytes = (x.numel() * 4 + mats.m_big.numel() * 2
               + mats.mt_bf2.numel() * 2 + out.numel() * 4)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
@@ -436,7 +502,8 @@ def phase_main_path(dev, rows) -> dict:
          x_real_time=audio_s / (pipe_ms / 1e3), plain_ms=plain_ms,
          library_composition_ms=lib_ms,
          library_composition_max_abs_vs_k1=lib_err,
-         flops=flops, bytes=nbytes, bound_ops_ms=t_ops, bound_bytes_ms=t_bytes)
+         flops=flops, bytes=nbytes, bound_ops_ms=t_ops, bound_bytes_ms=t_bytes,
+         share_of_bound=max(t_ops, t_bytes) / k1_ms, **l2)
 
     # the JAX bench's shape, for shape parity: 64 x 10 s at 80 mels
     x80 = signal(rng, 64, 10 * 16000, dev)
@@ -449,7 +516,7 @@ def phase_main_path(dev, rows) -> dict:
     return dict(launches=launches, errs=errs, ms=k1_ms, plain_ms=plain_ms,
                 bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                library_composition_ms=lib_ms)
+                library_composition_ms=lib_ms, **l2)
 
 
 def rs_exact(sig, up, down, q):
@@ -863,7 +930,8 @@ def phase_bulk(dev, rows) -> dict:
         return sig_mel.sig_mel(
             mel_sig, mats.m_big, mats.pair_i, mats.mt_bf2, ks=3,
             n_frames=hops, hop=c.hop_size, offset=c.hop_size,
-            pack=c.fft_size, n_bins_pad=mats.n_bins_pad, n_mels=c.n_mels)
+            pack=c.fft_size, n_bins_pad=mats.n_bins_pad, n_mels=c.n_mels,
+            live=mats.live)
 
     k1_errs = compare(k1(), mel_sig, c.fft_size, c.hop_size, c.n_mels,
                       c.hop_size, hops, dev)
@@ -919,6 +987,48 @@ def head_bytes(heads, x, outs) -> int:
     return (x.numel() * 4 + sum(o.numel() * o.element_size() for o in outs)
             + sum(h.m_big.numel() * 2 + h.mt.numel() * h.mt.element_size()
                   for h in heads))
+
+
+def l2_bytes_counted(heads, hop: int, batch: int, n_frames: int,
+                     layout: tuple) -> dict:
+    """The bytes one launch of K1 (one head) or K2 (several) requests
+    from L2, counted from the kernels' loads (csrc/sig_common.cuh), not
+    measured: per block of ``layout = (frames, chunk columns)``, its
+    signal span (float32) and, per head, every live DFT column of every K
+    block's taps (bf16; zero-filled rows and dead columns are not read)
+    and the projection rows of each column chunk's live power columns
+    (three bf16 stacks, or one float32 matrix)."""
+    frames, cols = layout
+    blocks = batch * -(-n_frames // frames)
+    span = max((frames - 1) * hop + h.pack_off + -(-h.pack // 32) * 32
+               for h in heads)
+    per_block = span * 4
+    for h in heads:
+        split = h.n_bins_pad != 0
+        cp = cols // 2 if split else cols
+        per_block += len(h.pair_i) * h.pack * h.live * (2 if split else 1) * 2
+        nmp = h.mt.shape[1]
+        for c0 in range(0, h.live, cp):
+            k = min(cp, h.live - c0)
+            per_block += (3 * -(-k // 16) * 16 * nmp * 2
+                          if h.mel_precision == "bf2" else k * nmp * 4)
+    return dict(blocks=blocks, l2_bytes_counted_per_block=per_block,
+                l2_bytes_counted=blocks * per_block)
+
+
+def k1_layout(head, hop: int, ks: int = 3) -> tuple:
+    """``(frames per block, DFT columns per chunk)`` of K1's layout for
+    ``head`` (asks the kernel)."""
+    width = head.m_big.shape[1]
+    npow = width if head.n_bins_pad == 0 else head.n_bins_pad
+    return sig_mel.block_layout(ks, hop, head.pack, head.pack_off, width,
+                                npow, head.mt.shape[1])[1:]
+
+
+def k2_layout(heads, hop: int, ks: int = 3) -> tuple:
+    """As ``k1_layout``, for K2's heads."""
+    layout = sig_multi.block_layout(ks, hop, *sig_multi._layout(heads))
+    return layout[1], layout[3]
 
 
 def library_nemo(x, cfg):
@@ -1022,6 +1132,100 @@ def phase_k1_ln_modes(dev) -> dict:
     if failed or not jfk_k1 <= KALDI_JFK_GATE:
         raise AssertionError(f"K1 ln modes: {failed}, JFK {jfk_k1}")
     return dict(rows=rows, times=times)
+
+
+def phase_k1_widths(dev, rows, ln_rows) -> dict:
+    """K1 on the heads that are not 512 columns wide, at ``WIDTH_B``
+    ragged clips of 10 s at each config's rate, through the entry points
+    (``whisper_mel_sig`` batch and streaming, ``Fbank`` / ``BatchLogMel``
+    on their sig route): whisper 200/80 at 8 kHz, 256/96, 1024/256 at
+    22.05 kHz and 960/480 at 48 kHz, Kaldi fbank and NeMo log-mel at 8
+    kHz, each against its plain version and the exact result at K1's bars
+    (whisper) or the ln bars, where ``k1_accepts`` holds; a refused config
+    is listed with its shared-memory figure. The JFK clip through each
+    whisper config against its float64 route. Then K2 on the 8 kHz
+    whisper + Kaldi pair, both heads ``torch.equal`` to K1 and the VAD
+    counts to ``tile_vad_counts`` of head 0."""
+    rng = np.random.default_rng(SEED + 55)
+    jfk = read_wav_f32le(TESTDATA / "jfk_f32le.wav")
+    cases, w_rows, l_rows, refused = [], [], [], {}
+    for name, fft, hop, n_mels, sr in WIDTH_CONFIGS:
+        head = mel_kernel.whisper_head(fft, n_mels, sr, dev)
+        width = head.m_big.shape[1]
+        layout = sig_mel.block_layout(3, hop, fft, 0, width,
+                                      head.n_bins_pad, head.mt.shape[1])
+        if not sig_mel.k1_accepts(head, hop=hop):
+            refused[name] = dict(width=width, smem_bytes=layout[0],
+                                 limit=sig_mel.MAX_SMEM_BYTES)
+            continue
+        t = int(10 * sr) + 37
+        x = signal(rng, WIDTH_B, t, dev)
+        for streaming in (False, True):
+            got = whisper_mel_sig(x, fft, hop, n_mels, sr,
+                                  streaming=streaming, device=dev)
+            r = dict(name=name, width=width, block_frames=layout[1],
+                     streaming=streaming, shape=[WIDTH_B, t],
+                     **held(got, x, head, got.shape[1], hop,
+                            k1_grid(t, fft, hop, streaming)[0]))
+            cases.append(r)
+            w_rows.append(r)
+        f64 = WhisperMelPipeline(fft, hop, n_mels, sr, dtype=torch.float64,
+                                 fft_impl="rdft", device=dev)
+        xj = torch.as_tensor(jfk, device=dev)[None]
+        cases[-1]["jfk_vs_f64"] = max_abs(
+            whisper_mel_sig(xj, fft, hop, n_mels, sr, device=dev).double(),
+            f64.mel_batch(xj.double()))
+    for name, front in (
+            ("kaldi_8k", Fbank(FbankConfig(sample_rate=8000.0,
+                                           apply_cmn=False),
+                               fft_impl="sig", device=dev)),
+            ("nemo_8k", BatchLogMel(NEMO_8K, fft_impl="sig", device=dev))):
+        h = front.sig_head
+        t = 10 * 8000 + 37
+        x = signal(rng, WIDTH_B, t, dev)
+        nemo = name == "nemo_8k"
+        got = front.compute(x)
+        if nemo:
+            got = got.transpose(-1, -2)
+            x = torch.nn.functional.pad(x, (NEMO_8K.n_fft // 2,) * 2)
+        r = dict(name=name, width=h.m_big.shape[1],
+                 block_frames=k1_layout(h, 80)[0], shape=[WIDTH_B, t],
+                 **held(got, x, h, front.num_frames(t), 80))
+        cases.append(r)
+        l_rows.append(r)
+    wbars = tolerances(rows + w_rows)
+    lbars = ln_bars(ln_rows + l_rows)
+
+    # K2 on the 8 kHz pair against K1, bit for bit
+    mc8 = MelConfig(200, 80, 80, 8000.0)
+    kc8 = FbankConfig(sample_rate=8000.0, apply_cmn=False)
+    fused = WhisperKaldiFused(mc8, kc8, device=dev)
+    x = signal(rng, WIDTH_B, 10 * 8000 + 37, dev)
+    nf = framing.num_frames_batch(x.shape[-1], 200, 80)
+    vad = sig_mel.vad_args(DetectionSettings(), 80)
+    outs, counts = sig_multi.sig_multi(x, fused.heads, ks=3, n_frames=nf,
+                                       hop=80, vad=vad)
+    k2 = dict(
+        heads="whisper_kaldi_8k", block_frames=k2_layout(fused.heads, 80)[0],
+        head0_equal_k1=bool(torch.equal(
+            outs[0], whisper_mel_sig(x, 200, 80, 80, 8000.0, device=dev))),
+        kaldi_equal_k1=bool(torch.equal(
+            outs[1], Fbank(kc8, fft_impl="sig", device=dev).compute(x))),
+        counts_equal=bool(torch.equal(
+            counts, sig_mel.tile_vad_counts(outs[0], *vad))))
+    emit("k1_widths", whisper_bars=wbars, ln_bars=lbars, refused=refused,
+         k2_8k=k2, cases=cases)
+    bad = [r["name"] for r in w_rows
+           if r["vs_exact"] > wbars["vs_exact"]
+           or r["vs_plain"] > wbars["vs_plain"]
+           or r.get("jfk_vs_f64", 0.0) > K1_TOL]
+    bad += [r["name"] for r in l_rows if r["vs_exact"] > lbars["vs_exact"]
+            or r["vs_plain"] > lbars["vs_plain"]]
+    bad += [n for n in WIDTH_MUST_ACCEPT if n in refused]
+    if bad or not all(v for k, v in k2.items() if k.endswith("equal_k1")
+                      or k == "counts_equal"):
+        raise AssertionError(f"K1 widths: {bad}, K2 8 kHz {k2}")
+    return dict(rows=w_rows, ln_rows=l_rows, refused=refused, k2=k2)
 
 
 def phase_k2(dev, rows, ln_rows) -> dict:
@@ -1236,6 +1440,7 @@ def phase_frontend_step(dev, k2: dict) -> dict:
     kw = dict(ks=3, n_frames=nf, hop=160, vad=vad)
     outs, cnt = sig_multi.sig_multi(x, fused.heads, **kw)
     flops = sum(head_work(h, STEP_B * nf) for h in fused.heads)
+    layout = k2_layout(fused.heads, 160)
     lib = library_multi(x, WHISPER_LARGE_V3, FbankConfig(apply_cmn=False),
                         settings)
     k2_times = dict(
@@ -1244,7 +1449,10 @@ def phase_frontend_step(dev, k2: dict) -> dict:
         plain_ms=time_ms(lambda: sig_multi.sig_multi_reference(
             x, fused.heads, **kw), reps=3, warmup=1),
         library_composition_ms=time_ms(lib),
-        **bound(flops, head_bytes(fused.heads, x, list(outs) + [cnt])))
+        **bound(flops, head_bytes(fused.heads, x, list(outs) + [cnt])),
+        **dict(zip(("block_frames", "chunk_cols"), layout)),
+        **l2_bytes_counted(fused.heads, 160, STEP_B, nf, layout))
+    k2_times["share_of_bound"] = k2_times["bound_ms"] / k2_times["ms"]
     emit("k2_times", **k2_times)
     return dict(counts=counts, k2_times=k2_times, steps=out)
 
@@ -1370,7 +1578,7 @@ def framed_bound(mats, fr, out, taps: int, n_mels: int) -> dict:
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_framed_main_path(dev, rows) -> dict:
+def phase_framed_main_path(dev, rows, k1_rows) -> dict:
     """The precision dial's main path at full width:
     ``whisper_mel_pallas(x, 400, 160, 128, impl=...)`` on 64 x 30 s for
     each framed impl, counts zeroed just before the call and read just
@@ -1378,7 +1586,8 @@ def phase_framed_main_path(dev, rows) -> dict:
     version and the exact result to the bars of ``rows`` and this run;
     then the kernel alone on the same frames (ms, CUDA events), the whole
     call, the plain version, the cuFFT + matmul composition and the
-    bound. Then the auto routes that K1 refuses, at their own configs."""
+    bound. Then the auto routes of the 256- and 1024-column heads, at
+    their own configs."""
     rng = np.random.default_rng(SEED + 90)
     c = WHISPER_LARGE_V3
     x = signal(rng, FRAMED_B, int(FRAMED_SECONDS * c.sampling_rate), dev)
@@ -1426,21 +1635,26 @@ def phase_framed_main_path(dev, rows) -> dict:
     bars = framed_bars(rows + main_rows)
     framed_check(main_rows, bars, "framed main path")
     del fr
-    auto, auto_counts = phase_framed_auto_routes(dev, rng, bars)
+    auto, auto_counts = phase_framed_auto_routes(dev, rng, k1_rows)
     return dict(times=out, counts=counts, rows=main_rows, bars=bars,
                 auto=auto, auto_counts=auto_counts)
 
 
-def phase_framed_auto_routes(dev, rng, bars) -> tuple:
-    """The configs whose heads K1 refuses, on their auto routes:
-    ``WhisperMelPipeline(1024, 256, 80, 22050.0).mel_batch`` (the bf3
-    power, plain PyTorch) and ``whisper_mel_pallas(impl=None)`` (K5) on 64
-    x 30 s at 22.05 kHz, ``Fbank(FbankConfig(sample_rate=8000.0))`` and
-    the 8 kHz ``BatchLogMel`` on 64 x 30 s at 8 kHz (rdft); each against
-    its float64 route, K5 against its plain version, and the 8 kHz fbank's
-    hp route (plain PyTorch) against float64 beside rdft."""
+def phase_framed_auto_routes(dev, rng, rows) -> tuple:
+    """The auto routes of configs whose heads are not 512 columns wide,
+    which K1 now takes wherever ``k1_accepts`` holds:
+    ``WhisperMelPipeline(1024, 256, 80, 22050.0).mel_batch`` and
+    ``whisper_mel_pallas(impl=None)`` on 64 x 30 s at 22.05 kHz,
+    ``Fbank(FbankConfig(sample_rate=8000.0))`` and the 8 kHz
+    ``BatchLogMel`` on 64 x 30 s at 8 kHz; counts zeroed before each call
+    and read after it (K1 once where it accepts, else the old bf3 / rdft
+    routes with no launch), each against its float64 route, K1 against its
+    plain version and the exact result at the bars of ``rows``, and the 8
+    kHz fbank's hp route (plain PyTorch) against float64 beside rdft."""
     res, counts = {}, {}
     x = signal(rng, FRAMED_B, AUTO_SECONDS * 22050, dev)
+    head = mel_kernel.whisper_head(1024, 80, 22050.0, dev)
+    k1_1024 = sig_mel.k1_accepts(head, hop=256)
     pipe = WhisperMelPipeline(1024, 256, 80, 22050.0, device=dev)
     f64 = WhisperMelPipeline(1024, 256, 80, 22050.0, dtype=torch.float64,
                              fft_impl="rdft", device=dev).mel_batch(x.double())
@@ -1455,17 +1669,19 @@ def phase_framed_auto_routes(dev, rng, bars) -> tuple:
                                         device=dev)
     torch.cuda.synchronize()
     counts["auto_1024"] = read_counts()
-    fr, _ = mel_kernel.framed_input(x, 1024, 256)
-    k5 = framed_held(got, fr, framed_mats("bf3", 1024, 80, 22050.0, dev), 80)
-    res["auto_1024"] = dict(k5, vs_f64=max_abs(got.double(), f64))
-    del fr, got, f64
+    nf = framing.num_frames_batch(x.shape[-1], 1024, 256)
+    res["auto_1024"] = dict(held(got, x, head, nf, 256),
+                            vs_f64=max_abs(got.double(), f64))
+    del got, f64
     x8 = signal(rng, FRAMED_B, AUTO_SECONDS * 8000, dev)
     ncfg = BatchLogMelConfig(sample_rate=8000, n_fft=256, win_length=200,
                              hop_length=80)
+    fcfg = FbankConfig(sample_rate=8000.0)
+    heads8 = {"fbank_8k": fbank_sig_head(fcfg),
+              "nemo_8k": batch_logmel.sig_head(ncfg)}
     for name, front, ref in (
-            ("fbank_8k", Fbank(FbankConfig(sample_rate=8000.0), device=dev),
-             Fbank(FbankConfig(sample_rate=8000.0), dtype=torch.float64,
-                   device=dev)),
+            ("fbank_8k", Fbank(fcfg, device=dev),
+             Fbank(fcfg, dtype=torch.float64, device=dev)),
             ("nemo_8k", BatchLogMel(ncfg, device=dev),
              BatchLogMel(ncfg, dtype=torch.float64, device=dev))):
         zero_counts()
@@ -1474,37 +1690,46 @@ def phase_framed_auto_routes(dev, rng, bars) -> tuple:
         counts[name] = read_counts()
         want = ref.compute(x8.double())
         res[name] = dict(fft_impl=front.fft_impl, shape=list(got.shape),
+                         k1_accepts=sig_mel.k1_accepts(heads8[name], hop=80),
                          vs_f64=max_abs(got.double(), want),
                          mean_vs_f64=float((got.double() - want).abs().mean()))
         if name == "fbank_8k":
-            hp = Fbank(FbankConfig(sample_rate=8000.0), fft_impl="hp",
-                       device=dev).compute(x8).double()
-            res["fbank_8k_hp"] = dict(
-                vs_f64=max_abs(hp, want),
-                mean_vs_f64=float((hp - want).abs().mean()))
+            for impl in ("hp", "rdft"):
+                other = Fbank(fcfg, fft_impl=impl,
+                              device=dev).compute(x8).double()
+                res[f"fbank_8k_{impl}"] = dict(
+                    vs_f64=max_abs(other, want),
+                    mean_vs_f64=float((other - want).abs().mean()))
     emit("framed_auto_routes", shape_22k=list(x.shape),
          shape_8k=list(x8.shape), launches=counts, bars=dict(
              whisper_vs_f64=AUTO_TOL, nemo_vs_f64=LN_TOL,
-             kaldi_vs_f64=KALDI_F32_TOL, k5=bars["bf3"]), **res)
+             kaldi_vs_f64=KALDI_F32_TOL, k1=tolerances(rows)),
+         k1_accepts_1024=k1_1024, **res)
     fails = []
-    if res["pipeline_1024"]["fft_impl"] != "bf3" or any(
-            counts["pipeline_1024"].values()):
+    k1_only = {"K1": 1}
+    want_1024 = k1_only if k1_1024 else {}
+    for key in ("pipeline_1024", "auto_1024"):
+        if {k: v for k, v in counts[key].items() if v} != want_1024:
+            fails.append(f"{key} launches {counts[key]}")
+    if res["pipeline_1024"]["fft_impl"] != ("sig" if k1_1024 else "bf3"):
         fails.append("pipeline_1024 route")
-    k5_counts = {k: v for k, v in counts["auto_1024"].items() if v}
-    if k5_counts != {"K5": 1}:
-        fails.append(f"auto_1024 launches {k5_counts}")
-    if any(res[k]["fft_impl"] != "rdft" or any(counts[k].values())
-           for k in ("fbank_8k", "nemo_8k")):
-        fails.append("8 kHz routes")
+    for key in ("fbank_8k", "nemo_8k"):
+        k1 = res[key]["k1_accepts"]
+        if (res[key]["fft_impl"] != ("sig" if k1 else "rdft")
+                or {k: v for k, v in counts[key].items() if v}
+                != (k1_only if k1 else {})):
+            fails.append(f"{key} route {res[key]['fft_impl']} {counts[key]}")
     if max(res["pipeline_1024"]["vs_f64"],
            res["auto_1024"]["vs_f64"]) > AUTO_TOL:
         fails.append("whisper 1024 vs float64")
     kal, kal_hp = res["fbank_8k"], res["fbank_8k_hp"]
     if (max(kal["vs_f64"], kal_hp["vs_f64"]) > KALDI_F32_TOL
-            or kal_hp["mean_vs_f64"] >= kal["mean_vs_f64"]
+            or kal_hp["mean_vs_f64"] >= res["fbank_8k_rdft"]["mean_vs_f64"]
             or res["nemo_8k"]["vs_f64"] > LN_TOL):
         fails.append("8 kHz vs float64")
-    framed_check([res["auto_1024"]], bars, "auto K5")
+    if k1_1024:
+        check([res["auto_1024"]], tolerances(rows + [res["auto_1024"]]),
+              "auto K1 1024")
     if fails:
         raise AssertionError(f"auto routes: {fails}")
     return res, counts
@@ -1514,7 +1739,7 @@ def quant_held(q, lo, hi, x, mats, n_mels, offset, nf) -> dict:
     """K1's quant records against the plain version's (f32 dot) and the
     exact one's (float64 dot) on the same signal."""
     kw = dict(ks=3, n_frames=nf, hop=160, offset=offset, pack=400,
-              n_bins_pad=mats.n_bins_pad, n_mels=n_mels)
+              n_bins_pad=mats.n_bins_pad, n_mels=n_mels, live=mats.live)
     pq, plo, phi = sig_mel.sig_mel_quantized_reference(
         x, mats.m_big, mats.pair_i, mats.mt_bf2, **kw)
     _, elo, ehi = sig_mel.sig_mel_quantized_reference(
@@ -1701,7 +1926,7 @@ def phase_vad_wire_path(dev, rows) -> dict:
         mats = mel_kernel.sig_matrices(400, n_mels, 16000.0, 3, 2, dev)
         head = mel_kernel.whisper_head(400, n_mels, 16000.0, dev)
         kw = dict(ks=3, n_frames=nf, hop=160, offset=0, pack=400,
-                  n_bins_pad=mats.n_bins_pad, n_mels=n_mels)
+                  n_bins_pad=mats.n_bins_pad, n_mels=n_mels, live=mats.live)
         vad = sig_mel.vad_args(settings, n_mels)
         k_mel, k_counts = sig_mel.sig_mel_vad(
             x, mats.m_big, mats.pair_i, mats.mt_bf2, vad=vad, **kw)
@@ -1868,14 +2093,17 @@ def main() -> int:
     rows = rows + [bulk["k1_serving_errs"]]
     ln = phase_k1_ln_modes(dev)
     k2 = phase_k2(dev, rows, ln["rows"])
+    widths = phase_k1_widths(dev, rows, ln["rows"])
     front = phase_frontend_step(dev, k2)
     framed_rows = phase_framed_vs_plain(dev)
-    dial = phase_framed_main_path(dev, framed_rows)
+    dial = phase_framed_main_path(dev, framed_rows, rows)
     epi = phase_k1_epilogues_vs_plain(dev, rows)
     wire = phase_vad_wire_path(dev, rows)
     ten_vad = phase_ten_vad_eval(dev)
     probe = phase_load_probe(dev)
-    vs_plain = max(r["vs_plain"] for r in rows + ln["rows"])
+    k1_rows = rows + widths["rows"] + [dial["auto"]["auto_1024"]]
+    k1_ln_rows = ln["rows"] + widths["ln_rows"]
+    vs_plain = max(r["vs_plain"] for r in k1_rows + k1_ln_rows)
     by_path = {"batch": {"K1": main["launches"]}, **serving,
                "frontend": front["counts"]["large_v3_30s"],
                "frontend_80": front["counts"]["jax_defaults_10s"],
@@ -1885,7 +2113,7 @@ def main() -> int:
                **{f"ten_vad_{k}": v["launches"]
                   for k, v in ten_vad.items()},
                "load_probe": {"P1": sum(probe["counts"].values())}}
-    framed_all = framed_rows + dial["rows"] + [dial["auto"]["auto_1024"]]
+    framed_all = framed_rows + dial["rows"]
 
     def launches(name):
         return sum(c.get(name, 0) for c in by_path.values())
@@ -1919,13 +2147,18 @@ def main() -> int:
         "replaces": K1_REPLACES, "launches": launches("K1"),
         "launches_by_path": {k: v.get("K1", 0) for k, v in by_path.items()},
         "max_abs_err": vs_plain, "max_abs_vs_plain": vs_plain,
-        "max_abs_vs_exact": max(r["vs_exact"] for r in rows + ln["rows"]),
-        "f32_floor": max(r["plain_vs_exact"] for r in rows),
-        "f32_floor_ln": max(r["plain_vs_exact"] for r in ln["rows"]),
+        "max_abs_vs_exact": max(r["vs_exact"]
+                                for r in k1_rows + k1_ln_rows),
+        "f32_floor": max(r["plain_vs_exact"] for r in k1_rows),
+        "f32_floor_ln": max(r["plain_vs_exact"] for r in k1_ln_rows),
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "share_of_bound": main["bound_ms"] / main["ms"],
         "library_ms": None,
         "library_composition_ms": main["library_composition_ms"],
+        **{k: main[k] for k in ("block_frames", "chunk_cols")},
+        "dft_mma": DFT_MMA,
+        "widths_refused": widths["refused"],
         "serving_bulk_ms": bulk["k1_serving_ms"],
         "ln_modes": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
                                            "bound_by",
@@ -1942,6 +2175,9 @@ def main() -> int:
         "bound_by": front["k2_times"]["bound_by"], "library_ms": None,
         "library_composition_ms": front["k2_times"]["library_composition_ms"],
         "shape": front["k2_times"]["shape"],
+        **{k: front["k2_times"][k] for k in ("share_of_bound",
+                                             "block_frames", "chunk_cols")},
+        "dft_mma": DFT_MMA,
     }, dict(common, name="K3", replaces=K3_REPLACES,
             launches=launches("K3"),
             launches_by_path={k: v["K3"] for k, v in serving.items()},

@@ -30,7 +30,8 @@ import torch
 
 from melspec_tpu_torch._device import resolve_device
 from melspec_tpu_torch.ops.mel_kernel import (FramedMatrices, SigHead,
-                                              SigMatrices, pallas_schedule)
+                                              SigMatrices, live_columns,
+                                              pallas_schedule)
 from melspec_tpu_torch.streaming.multistream import MultiStreamState
 from melspec_tpu_torch.streaming.resample import MultiResampleState
 from melspec_tpu_torch.streaming.serving import (FrontendState,
@@ -65,8 +66,9 @@ def from_jax_sig_matrices(m_big, pair_i, mt, mt_bf2) -> SigMatrices:
         raise ValueError(f"inconsistent shapes for split or N-packed "
                          f"columns: m_big {tuple(big.shape)}, mt "
                          f"{tuple(mt_t.shape)}, mt_bf2 {tuple(bf2.shape)}")
-    return SigMatrices(big, tuple(int(i) for i in pair_i), mt_t, bf2,
-                       0 if n_pow == width else n_pow)
+    split = 0 if n_pow == width else n_pow
+    return SigMatrices(big, tuple(int(i) for i in pair_i), mt_t, bf2, split,
+                       live_columns(big, split))
 
 
 def from_jax_head(m_big, pair_i, mt, n_bins_pad: int, pack: int,

@@ -1,18 +1,62 @@
 // Device code shared by K1 (sig_mel.cu) and K2 (sig_multi.cu): the tile
-// geometry, the accurate logarithms, the staging of a tile's signal span
-// into bf16 slices, the slice-pair DFT dot of one head, one head's
-// epilogue (power, projection, output values) and the two epilogues that
-// read a whisper head's normalized tile (Sobel VAD counts, u8 wire
-// records). Both kernels call the same functions, so a head of K2 with
-// K1's matrices and block order computes K1's output bit for bit, and the
-// two count VAD edges with one piece of code. K5-K8 (framed_mel.cu) take
-// the logarithms and the whisper norm of a log row from here too.
+// layouts, the accurate logarithms, the staging of a tile's signal span
+// into bf16 slices, one head's run (slice-pair DFT and bf2 projection on
+// the tensor cores, power, output values) and the two epilogues that read
+// a whisper head's normalized tile (Sobel VAD counts, u8 wire records).
+// Both kernels call the same functions in the same order, so a head of K2
+// with K1's matrices and block order computes K1's output bit for bit,
+// and the two count VAD edges with one piece of code. K5-K8
+// (framed_mel.cu) take the logarithms and the whisper norm of a log row
+// from here too.
 //
-// One block owns 64 frames of one clip (8 warps x 8 frames). A head's DFT
-// dot keeps a 64 x 512 tile of float32 accumulators in registers (each
-// thread 8 frames x 16 columns: column 4*lane + 128*j + e), streaming its
-// m_big rows through shared memory in chunks of 32 rows, the next chunk
-// prefetched into registers while the current one is used.
+// Replaces the TPU kernels' shared body (melspec_tpu/ops/mel_kernel.py::
+// _sig_mel_tile_kernel: _sig_xcat, _sig_project, _sig_out_vals), whose
+// DFT and projection are bf16 x bf16 -> f32 matrix-unit dots. Here they
+// run on the tensor cores too: the DFT as wgmma m64n128k16, the bf2
+// projection as mma.sync m16n8k16, both with float32 accumulation.
+//
+// What bounds it: operations (2.46 MFLOP of DFT a frame at whisper
+// 400/160 against 640 bytes of new signal), then the L2 reads of m_big:
+// every block reads each live column of every K block once, about 1.9 MB
+// at 400/160 (6 blocks x 400 rows x 400 live of 512 columns x 2 bytes),
+// whatever its frame count. The design:
+//   - A block owns 128 frames of one clip (Lay<0>: each of the two
+//     warpgroups takes 64 frames and all 128 columns of a chunk), or 64
+//     (Lay<1>: each warpgroup takes all 64 frames and half of a 256-column
+//     chunk) where the 128-frame span does not fit in shared memory or a
+//     head has more than 128 padded mel columns. Either way a k16 step of
+//     the DFT is one wgmma m64n128k16 per warpgroup, A from registers, B
+//     from the ring by descriptor, and a thread holds 64 float32 DFT
+//     accumulators; the larger tile halves the m_big bytes per frame.
+//   - The tile's signal span is staged once as ks bf16 slices in shared
+//     memory, cut into hop-long segments whose row stride is padded to 8
+//     mod 16 elements: frame f's taps start in segment f, so the 8 frame
+//     rows of an A fragment fall on 8 distinct bank groups. An A fragment
+//     is read as 32-bit tap pairs where the hop and the head's pack_off
+//     are even, else as 16-bit taps (the NeMo tri-head's pack_off of 257):
+//     two compiled paths.
+//   - The DFT columns are walked in chunks (Lay<0>: 128 columns, Lay<1>:
+//     256; split: half re columns with their im columns, each warpgroup's
+//     re columns beside their im columns; N-packed: all single). A chunk's
+//     m_big rows stream through a 4-stage cp.async ring of 32-row stages,
+//     stored as wgmma's core matrices of 8 rows x 16 bytes, each warp's
+//     copies laid out to land on distinct banks; the walk loads the next
+//     step's A fragments while the current step's wgmma's run. Columns
+//     past a head's live count, which the host passes, are not read.
+//   - The chunk's power goes to shared memory as bf16 p0 | p1 (or
+//     float32), and the bf2 projection [p0 | p0 | p1] @ [F0; F1; F0] of
+//     its rows runs on mma.sync (kWM warp rows of 32 frames x kWN warp
+//     columns), the projection rows staged through the same ring,
+//     accumulating the energy [tile, nmp] in registers (64 floats a thread
+//     at most) across chunks. The "highest" (f32)
+//     projection stays float32 FMAs. Shared memory and registers do not
+//     depend on the head's width: 256-, 512- and 1024-column heads differ
+//     in their chunk count only.
+//   - After the last chunk: logs, the whisper norm or the ln modes, and
+//     the epilogues on the normalized tile.
+//   Sum order: every output sums the head's K blocks in the given order
+//   and each block's taps in ascending k16 steps, then the projection's
+//   power columns in ascending k16 steps, whatever the layout.
 
 #pragma once
 
@@ -24,13 +68,45 @@ namespace sigk {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kFramesPerWarp = 8;
-constexpr int kTileFrames = kWarps * kFramesPerWarp;  // 64 frames per block
-constexpr int kChunk = 32;      // rows of m_big staged per step
-constexpr int kMaxBlocks = 16;  // K blocks (slice pairs)
+// the tile of the VAD counts' zeros (the last two frames of every 64) and
+// of P1's spans; a block's frames are a multiple of it
+constexpr int kTileFrames = 64;
+constexpr int kChunk = 32;       // m_big rows per ring stage
+constexpr int kMaxBlocks = 16;   // K blocks (slice pairs)
 constexpr int kMaxSlices = 4;
-constexpr int kW = 512;         // DFT columns of a head
-constexpr int kNG = kW / 128;   // groups of 128 columns
+constexpr int kMaxNmp = 256;
+constexpr long long kSmemLimit = 232448;  // a block's shared memory
+// a block's static shared memory: the shared copy of a head's block table
+constexpr int kStaticSmem = 4 * 2 * kMaxBlocks;
+// the DFT's wgmma: B (a ring stage) is N contiguous, stored as core
+// matrices of 8 K rows x 8 columns (128 bytes), 4 along K (a 32-row
+// stage) for each 8 columns; the 512 bytes of each 8 columns are padded
+// to 528, so that neighbouring column groups start on different banks
+constexpr int kTnspB = 1;
+constexpr unsigned kCoreK = 128;  // bytes between core matrices along K
+constexpr unsigned kCoreN = 528;  // bytes between core matrices along N
+constexpr unsigned kLbo = kCoreK;
+constexpr unsigned kSbo = kCoreN;
+
+// The block layouts: C = 0 holds 128 frames, C = 1 64. The DFT: warpgroup
+// w takes frames [w * kWgFrames, + 64) and ring columns [w * kWgCols,
+// + 128) of a chunk of kCols (Lay<0>: its own 64 frames and all 128
+// columns; Lay<1>: all 64 frames and half of 256 columns). The projection
+// and the outputs: kWM warp rows of 32 frames x kWN warp columns. A ring
+// stage holds 32 m_big rows of a chunk.
+template <int C>
+struct Lay {
+  static constexpr int kWM = C == 0 ? 4 : 2;
+  static constexpr int kSlots = 4;  // ring stages
+  static constexpr int kWN = kWarps / kWM;
+  static constexpr int kTile = 32 * kWM;       // frames per block
+  static constexpr int kCols = 64 * kWN;       // DFT columns per chunk
+  static constexpr int kWgFrames = C == 0 ? 64 : 0;
+  static constexpr int kWgCols = C == 0 ? 0 : 128;
+  static constexpr int kStageBytes = kCols / 8 * kCoreN;
+  static constexpr int kRingBytes = kSlots * kStageBytes;
+  static constexpr int kMaxMels = 8 * 8 * kWN;  // energy: 8 n8 tiles a warp
+};
 
 // ops/fastmath.py: _E_ROUND, float32(log10(2)), float32(ln(2)) and the
 // Horner coefficients float32(scale * (2/7, 2/5, 2/3, 2)) with scale
@@ -57,12 +133,14 @@ enum OutMode { kWhisper = 0, kLnGuard = 1, kLnFloor = 2 };
 // One head: its K-stacked DFT matrix, the order its K blocks are summed
 // in, the taps it contracts, its column layout, projection and output.
 struct Head {
-  const __nv_bfloat16* m_big;  // [K_tot, 512]
+  const __nv_bfloat16* m_big;  // [K_tot, width]
   const int* blocks;           // [n_blocks][2]: K block, its signal slice
   const void* mt;              // bf16 [3*npow, nmp] (bf2) or f32 [npow, nmp]
   float* out;                  // [B, n_frames, n_mels]
   int n_blocks, pack, pack_off;
-  int npow;                    // 256: split re|im halves; 512: N-packed
+  int width;                   // DFT columns: 256, 512 or 1024
+  int npow;                    // width / 2: split re|im halves; width: N-packed
+  int live;                    // power columns [0, live) may be nonzero
   int n_mels, n_mels_pad, bf2, out_mode;
   float guard;
 };
@@ -71,21 +149,46 @@ __host__ __device__ inline long long align16(long long n) {
   return (n + 15) / 16 * 16;
 }
 
-// staged samples of one tile: every head reads taps [pack_off, pack_off +
-// pack) of each frame, rounded up to whole chunks
-__host__ __device__ inline int span_len(int hop, int pack, int pack_off) {
-  return (kTileFrames - 1) * hop + pack_off +
-         (pack + kChunk - 1) / kChunk * kChunk;
+// staged samples of a tile of `tile` frames: every head reads taps
+// [pack_off, pack_off + pack) of each frame, rounded up to whole stages
+__host__ __device__ inline int span_len(int tile, int hop, int pack,
+                                        int pack_off) {
+  return (tile - 1) * hop + pack_off + (pack + kChunk - 1) / kChunk * kChunk;
 }
 
-// shared memory of one head's epilogue: its power tile, then its log tile
-__host__ __device__ inline long long epilogue_bytes(int npow, int nmp) {
-  return 4LL * kTileFrames * npow + 4LL * kTileFrames * nmp;
+// The staged span: samples u = seg * hop + pos at element seg * stride +
+// pos of each slice; the stride is the hop padded to 8 mod 16 elements
+struct Span {
+  int hop, stride, len;
+  int slice;  // elements of one slice
+};
+
+__host__ __device__ inline Span make_span(int hop, int len) {
+  Span s;
+  s.hop = hop;
+  s.stride = hop + ((8 - hop % 16) + 16) % 16;
+  s.len = len;
+  s.slice = (len + hop - 1) / hop * s.stride;
+  return s;
 }
 
-// the log tile [64][nmp] float32 of a head's epilogue
-__device__ __forceinline__ float* log_tile(unsigned char* work, int npow) {
-  return reinterpret_cast<float*>(work + 4LL * kTileFrames * npow);
+__host__ __device__ inline long long span_bytes(int ks, const Span& s) {
+  return align16(2LL * ks * s.slice);
+}
+
+// power columns of one chunk: all of its DFT columns (N-packed) or half
+template <int C>
+__host__ __device__ inline int chunk_pow(int width, int npow) {
+  return npow == width ? Lay<C>::kCols : Lay<C>::kCols / 2;
+}
+
+// shared memory after the span: the ring, then one chunk's power tile
+// (bf16 p0 and p1, or float32: 4 bytes a value either way); the log tile
+// [tile][nmp] of the epilogue reuses both
+template <int C>
+__host__ __device__ inline long long work_bytes(int width, int npow) {
+  return Lay<C>::kRingBytes +
+         4LL * Lay<C>::kTile * chunk_pow<C>(width, npow);
 }
 
 // the bf16 in the low / high half of a 32-bit word, widened to float32
@@ -126,20 +229,200 @@ __device__ __forceinline__ float ln_accurate(float x) {
   return log_series(x, kLnC7, kLnC5, kLnC3, kLnC1, kLn2);
 }
 
-// Stage samples s0 .. s0 + span - 1 of one clip and cascade them into ks
-// bf16 slices sx[i * span + u] (round to nearest even, as astype does; the
-// cascade is elementwise, so cascading the span equals cascading each
-// frame). Samples past the clip read as zero.
+// ---- tensor-core and copy primitives (sm_80+ PTX) -------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !ok (src is then not read)
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ unsigned lds32(unsigned addr) {
+  unsigned v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ unsigned lds16(unsigned addr) {
+  unsigned short v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr));
+  return v;
+}
+
+// c += a (16 x 16, row) . b (16 x 8, col), bf16 in, float32 accumulation
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
+                                    unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// byte offset of element col (bf16) of a swizzled row of row_bytes: the
+// row's 16-byte groups are permuted by the row's low three bits
+__device__ __forceinline__ int swz(int row, int row_bytes, int col) {
+  return row * row_bytes + ((((col >> 3) ^ (row & 7))) << 4) + (col & 7) * 2;
+}
+
+// ---- warpgroup mma (sm_90a) for the DFT ------------------------------------
+
+// The shared-memory matrix descriptor of wgmma for a no-swizzle layout of
+// core matrices (8 rows x 16 bytes, 128 contiguous bytes): start address,
+// then the byte offsets between core matrices along the leading and the
+// strided dimension
+__device__ __forceinline__ unsigned long long gmma_desc(unsigned addr,
+                                                        unsigned lbo,
+                                                        unsigned sbo) {
+  return static_cast<unsigned long long>((addr & 0x3FFFF) >> 4) |
+         static_cast<unsigned long long>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<unsigned long long>((sbo >> 4) & 0x3FFF) << 32;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of an accumulator across
+// an asynchronous wgmma
+__device__ __forceinline__ void wg_hold(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 128] += a (64 x 16: this warp's 16 rows in registers, as the
+// m16n8k16 A fragment) . B (16 x 128 bf16 in shared memory, N contiguous,
+// given by desc), float32 accumulation; asynchronous until wg_wait
+__device__ __forceinline__ void wgmma_128(float (&d)[64],
+                                          const unsigned (&a)[4],
+                                          unsigned long long desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %70, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %69;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "n"(kTnspB), "r"(1));
+}
+
+// Stage samples s0 .. s0 + len - 1 of one clip and cascade them into ks
+// bf16 slices (round to nearest even, as astype does; the cascade is
+// elementwise, so cascading the span equals cascading each frame), in the
+// segmented layout of Span. Samples past the clip read as zero. A thread
+// loads four samples at a time (one 16-byte load where the span start is
+// 16-byte aligned) and keeps four such loads in flight.
 __device__ __forceinline__ void stage_span(const float* xb, long long T,
-                                           long long s0, int span, int ks,
-                                           __nv_bfloat16* sx) {
-  for (int u = threadIdx.x; u < span; u += kThreads) {
-    const long long s = s0 + u;
-    float r = s < T ? __ldg(xb + s) : 0.0f;
-    for (int i = 0; i < ks; ++i) {
-      const __nv_bfloat16 h = __float2bfloat16_rn(r);
-      sx[i * span + u] = h;
-      r = __fsub_rn(r, __bfloat162float(h));
+                                           long long s0, const Span& sp,
+                                           int ks, __nv_bfloat16* sx) {
+  const float* src = xb + s0;
+  const bool vec = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+  for (int v0 = threadIdx.x; 4 * v0 < sp.len; v0 += 4 * kThreads) {
+    float4 v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int u = 4 * (v0 + i * kThreads);
+      if (vec && u + 3 < sp.len && s0 + u + 3 < T) {
+        v[i] = __ldg(reinterpret_cast<const float4*>(src + u));
+      } else {
+        float w[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          w[e] = u + e < sp.len && s0 + u + e < T ? __ldg(src + u + e)
+                                                  : 0.0f;
+        v[i] = make_float4(w[0], w[1], w[2], w[3]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int u = 4 * (v0 + i * kThreads);
+      if (u >= sp.len) break;
+      const float w[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+      const int seg = u / sp.hop;
+      const int at = seg * sp.stride + (u - seg * sp.hop);
+      if (u + 3 < sp.len && u + 3 - seg * sp.hop < sp.hop && (at & 3) == 0) {
+        // the four samples in one segment, 8-byte aligned: one store of
+        // four bf16 a slice
+        float r[4] = {w[0], w[1], w[2], w[3]};
+        for (int k = 0; k < ks; ++k) {
+          unsigned p[2] = {0, 0};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const __nv_bfloat16 h = __float2bfloat16_rn(r[e]);
+            p[e >> 1] |= static_cast<unsigned>(__bfloat16_as_ushort(h))
+                         << (16 * (e & 1));
+            r[e] = __fsub_rn(r[e], __bfloat162float(h));
+          }
+          *reinterpret_cast<uint2*>(sx + k * sp.slice + at) =
+              make_uint2(p[0], p[1]);
+        }
+        continue;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (u + e >= sp.len) break;
+        const int seg = (u + e) / sp.hop;
+        const int at = seg * sp.stride + (u + e - seg * sp.hop);
+        float r = w[e];
+        for (int k = 0; k < ks; ++k) {
+          const __nv_bfloat16 h = __float2bfloat16_rn(r);
+          sx[k * sp.slice + at] = h;
+          r = __fsub_rn(r, __bfloat162float(h));
+        }
+      }
     }
   }
 }
@@ -165,246 +448,475 @@ __device__ __forceinline__ void whisper_norm_row(float* lg, int nmp,
   }
 }
 
-using Acc = float[kFramesPerWarp][kNG * 4];
+// ---- one head -------------------------------------------------------------
 
-// y = sum_blk x_{slice(blk)} . m_big[blk*pack : (blk+1)*pack, :] over the
-// head's blocks in the given order, float32 FMAs in a fixed order. Frame
-// f0 + f of the tile reads slice taps at (f0 + f) * hop + pack_off. A
-// product of two bf16 values is exact in float32. sb is the [32, 512]
-// float32 chunk buffer; it is free again when this returns.
-__device__ __forceinline__ void dft_dot(const Head& h,
-                                        const __nv_bfloat16* sx, int span,
-                                        int hop, int f0, float* sb,
-                                        Acc& acc) {
-  constexpr int kVecPerRow = kW / 8;  // 16-byte vectors per m_big row
-  constexpr int kVecPerThread = kChunk * kVecPerRow / kThreads;
-  static_assert(kChunk * kVecPerRow % kThreads == 0, "chunk split");
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int cpb = (h.pack + kChunk - 1) / kChunk;  // chunks per K block
-  const int n_chunks = h.n_blocks * cpb;
-  uint4 pre[kVecPerThread];
-  auto fetch = [&](int c) {
-    const int nb = c / cpb;
-    const int blk = __ldg(h.blocks + 2 * nb);
-    const int t0 = (c - nb * cpb) * kChunk;
-#pragma unroll
-    for (int v = 0; v < kVecPerThread; ++v) {
-      const int idx = tid + v * kThreads;
-      const int r = idx / kVecPerRow;
-      const int cv = idx - r * kVecPerRow;
-      const int row = t0 + r;
-      pre[v] = row < h.pack
-                   ? __ldg(reinterpret_cast<const uint4*>(
-                               h.m_big + static_cast<long long>(
-                                             blk * h.pack + row) * kW) + cv)
-                   : make_uint4(0u, 0u, 0u, 0u);
-    }
-  };
-  auto stage = [&]() {
-#pragma unroll
-    for (int v = 0; v < kVecPerThread; ++v) {
-      const int idx = tid + v * kThreads;
-      const int r = idx / kVecPerRow;
-      const int cv = idx - r * kVecPerRow;
-      // a bf16 is the high half of its float32: widening is exact
-      const uint4 u = pre[v];
-      float4* dst = reinterpret_cast<float4*>(sb + r * kW + cv * 8);
-      dst[0] = make_float4(bf16_lo(u.x), bf16_hi(u.x),
-                           bf16_lo(u.y), bf16_hi(u.y));
-      dst[1] = make_float4(bf16_lo(u.z), bf16_hi(u.z),
-                           bf16_lo(u.w), bf16_hi(u.w));
-    }
-  };
+// A head's register tiles: [m16 tile of the warp][n8 tile][fragment].
+// Fragment e of an n8 tile sits at row g + 8 * (e >> 1), column 2q + (e &
+// 1) of the tile (g = lane / 4, q = lane % 4).
+using Frag = float[2][8][4];
 
-#pragma unroll
-  for (int f = 0; f < kFramesPerWarp; ++f)
-#pragma unroll
-    for (int j = 0; j < kNG * 4; ++j) acc[f][j] = 0.0f;
-
-  fetch(0);
-  for (int c = 0; c < n_chunks; ++c) {
-    __syncthreads();  // the span is staged; the last chunk is consumed
-    stage();
-    __syncthreads();
-    if (c + 1 < n_chunks) fetch(c + 1);
-    const int nb = c / cpb;
-    const int t0 = (c - nb * cpb) * kChunk;
-    const __nv_bfloat16* xs = sx + __ldg(h.blocks + 2 * nb + 1) * span +
-                              f0 * hop + h.pack_off + t0;
-#pragma unroll 2
-    for (int kk = 0; kk < kChunk; ++kk) {
-      float a[kFramesPerWarp];
-#pragma unroll
-      for (int f = 0; f < kFramesPerWarp; ++f)
-        a[f] = __bfloat162float(xs[f * hop + kk]);
-      const float4* brow = reinterpret_cast<const float4*>(sb + kk * kW);
-#pragma unroll
-      for (int j = 0; j < kNG; ++j) {
-        const float4 bv = brow[lane + 32 * j];
-#pragma unroll
-        for (int f = 0; f < kFramesPerWarp; ++f) {
-          acc[f][4 * j + 0] = fmaf(a[f], bv.x, acc[f][4 * j + 0]);
-          acc[f][4 * j + 1] = fmaf(a[f], bv.y, acc[f][4 * j + 1]);
-          acc[f][4 * j + 2] = fmaf(a[f], bv.z, acc[f][4 * j + 2]);
-          acc[f][4 * j + 3] = fmaf(a[f], bv.w, acc[f][4 * j + 3]);
-        }
-      }
-    }
-  }
-  __syncthreads();  // every warp is done with sb
+__device__ __forceinline__ bool split_head(const Head& h) {
+  return h.npow != h.width;
 }
 
-// One head's epilogue for the tile's 64 frames, from the register tile:
-// power (split: re^2 + im^2, re in columns [0, 256), im in [256, 512);
-// N-packed: y^2 per column) into shared memory, as bf16 slices p0 =
-// bf16(power), p1 = bf16(power - p0) for the bf2 projection [p0 | p0 | p1]
-// @ [F0; F1; F0] or as float32 for the f32 one; then the output values of
-// the head's mode. Whisper: log10_accurate(max(e, 1e-10)), the row max
-// over the padded mel columns, (max(v, max - 8) + 4) / 4; with keep_vals
-// the normalized row also stays in slg [64][nmp] for an epilogue that
-// follows. Each warp writes and reads only its own 8 rows.
-__device__ __forceinline__ void head_epilogue(const Head& h, const Acc& acc,
-                                              unsigned char* work, int f0,
-                                              int b, int k0, int n_frames,
-                                              bool keep_vals) {
-  const int lane = threadIdx.x & 31;
-  const int np = h.npow;
-  float* spf = reinterpret_cast<float*>(work);                 // [64][np]
-  __nv_bfloat16* sp0 = reinterpret_cast<__nv_bfloat16*>(work);  // [64][np]
-  __nv_bfloat16* sp1 = sp0 + kTileFrames * np;                  // [64][np]
-  auto store = [&](int row, int col, const float (&pw)[4]) {
-    if (h.bf2) {
-      unsigned short h0[4], h1[4];
+// The ring stages of one chunk: K block nb's rows t0 .. t0 + 31, the
+// blocks in the head's order, as wgmma's core matrices (kCoreK, kCoreN).
+// Columns past the live count and rows past the block's taps are
+// zero-filled, not read. Ring column group G (8 columns) holds, split, the
+// chunk's re group (G / 16) * 8 + G % 8 where G % 16 < 8, else the im
+// group of that re group, so each warpgroup's 128 ring columns hold its re
+// columns beside their im columns; N-packed, the chunk's group G. A warp's
+// copies of one pass land on distinct banks: 8 rows x 4 column groups a
+// pass (64 bytes of each row, four whole core matrices of the stage), a
+// thread the same row of groups 8 apart.
+template <int C>
+struct Filler {
+  using L = Lay<C>;
+  static constexpr int kGroups = L::kCols / 8;              // per ring row
+  static constexpr int kPer = kChunk * kGroups / kThreads;  // passes: 2, 4
+  static constexpr int kPassBytes = 8 * kCoreN;
+  const __nv_bfloat16* col;  // m_big column of this thread's first group
+  // columns from it to its group of pass i: (i & 1) * col_odd + (i >> 1) *
+  // col_hi (split: the im group, the next warpgroup's re group)
+  int col_odd, col_hi;
+  unsigned col_ok;  // bit i: pass i's group holds live columns
+  int r0;           // the ring row of this thread
+  unsigned dst0;    // its shared address in stage 0
+  int nb, t0;       // the next stage to fill
+
+  __device__ __forceinline__ Filler(const Head& h, int ch, unsigned ring) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int c = (warp >> 2) * 4 + (lane >> 3);
+    r0 = (warp & 3) * 8 + (lane & 7);
+    const bool split = split_head(h);
+    const int pcol = (split ? ch * (L::kCols / 2) : ch * L::kCols) + c * 8;
+    col = h.m_big + pcol;
+    col_odd = split ? h.npow : 64;
+    col_hi = split ? 64 : 128;
+    col_ok = 0;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const __nv_bfloat16 q0 = __float2bfloat16_rn(pw[e]);
-        const __nv_bfloat16 q1 =
-            __float2bfloat16_rn(__fsub_rn(pw[e], __bfloat162float(q0)));
-        h0[e] = __bfloat16_as_ushort(q0);
-        h1[e] = __bfloat16_as_ushort(q1);
+    for (int i = 0; i < kPer; ++i)
+      col_ok |= static_cast<unsigned>(
+                    pcol + (split ? (i >> 1) * 64 : i * 64) < h.live) << i;
+    dst0 = ring + c * kCoreN + r0 / 8 * kCoreK + (r0 % 8) * 16;
+    nb = 0;
+    t0 = 0;
+  }
+
+  // copy the next stage into ring slot `slot`, then step to the stage
+  // after it; past the last block this copies nothing
+  __device__ __forceinline__ void next(const Head& h, const int* tab,
+                                       int slot) {
+    if (nb < h.n_blocks) {
+      const long long base =
+          static_cast<long long>(tab[2 * nb] * h.pack + t0) * h.width;
+      const bool row_ok = t0 + r0 < h.pack;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const bool ok = ((col_ok >> i) & 1) && row_ok;
+        cp_async16(dst0 + slot * L::kStageBytes + i * kPassBytes,
+                   ok ? col + (i & 1) * col_odd + (i >> 1) * col_hi + base +
+                            static_cast<long long>(r0) * h.width
+                      : h.m_big,
+                   ok);
       }
-      *reinterpret_cast<uint2*>(sp0 + row * np + col) =
-          make_uint2(h0[0] | (unsigned(h0[1]) << 16),
-                     h0[2] | (unsigned(h0[3]) << 16));
-      *reinterpret_cast<uint2*>(sp1 + row * np + col) =
-          make_uint2(h1[0] | (unsigned(h1[1]) << 16),
-                     h1[2] | (unsigned(h1[3]) << 16));
-    } else {
-      *reinterpret_cast<float4*>(spf + row * np + col) =
-          make_float4(pw[0], pw[1], pw[2], pw[3]);
+      t0 += kChunk;
+      if (t0 >= h.pack) {
+        t0 = 0;
+        ++nb;
+      }
+    }
+    cp_async_commit();
+  }
+};
+
+// this thread's A register (taps t, t + 1 of one frame row) at element e
+// of the segmented span, pos = the tap's place in its segment
+template <bool kFast>
+__device__ __forceinline__ unsigned a_pair(unsigned xs, int e, int pos,
+                                           const Span& sp) {
+  if (kFast) return lds32(xs + 2 * e);
+  const int e1 = pos + 1 < sp.hop ? e + 1 : e - pos + sp.stride;
+  return lds16(xs + 2 * e) | (lds16(xs + 2 * e1) << 16);
+}
+
+// y[tile, chunk] = sum_blk x_{slice(blk)} . m_big[blk rows, chunk columns]
+// over the head's blocks in the given order, taps ascending in k16 steps,
+// bf16 wgmma with float32 accumulation. Each warpgroup takes 64 frames (a
+// warp 16 of them) and 128 ring columns of the chunk (Lay::kWgFrames,
+// kWgCols), so a k16 step is one m64n128k16 per warpgroup, A from
+// registers (the warp's tap pairs of the segmented span: frame f of the
+// tile reads slice taps at f * hop + pack_off), B from the ring stage by
+// descriptor. d[4j + e] is n8 tile j of the warpgroup's columns, fragment
+// e (as an mma tile). The ring is free again when this returns.
+template <int C, bool kFast>
+__device__ __forceinline__ void dft_chunk(const Head& h, const int* tab,
+                                          int ch, unsigned sx,
+                                          const Span& sp, unsigned ring,
+                                          float (&d)[64]) {
+  using L = Lay<C>;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.0f;
+  int roff[2];  // element offset of this thread's two frame rows
+  roff[0] = ((warp >> 2) * L::kWgFrames + (warp & 3) * 16 + g) * sp.stride;
+  roff[1] = roff[0] + 8 * sp.stride;
+  const int cpb = (h.pack + kChunk - 1) / kChunk;  // stages per K block
+  const int n_steps = h.n_blocks * cpb;
+  // this warpgroup's columns in a ring stage
+  const unsigned wg_cols = (warp >> 2) * (L::kWgCols / 8) * kCoreN;
+
+  __syncthreads();  // the ring and the span are ready for this chunk
+  // stage s's wgmma's run while stage s + 1 is set up; stages up to s +
+  // kSlots - 2 are in flight, and the fill of that stage reuses the slot
+  // of stage s - 2, whose wgmma's every warpgroup has waited for before
+  // the barrier. A alternates between two buffers: the next step's A is
+  // loaded as soon as the wgmma's that read its buffer are done, while
+  // this step's run
+  constexpr int kAhead = L::kSlots - 2;
+  Filler<C> fill(h, ch, ring);
+#pragma unroll
+  for (int i = 0; i < kAhead; ++i) fill.next(h, tab, i);
+  unsigned xs = sx;
+  int seg[2] = {0, 0}, pos[2] = {0, 0};
+  int nb = 0, t0 = 0, s = 0;
+  // the A fragments of the next step and its first tap row tt
+  auto load = [&](unsigned (&a)[2][4], int& tt) {
+    if (t0 == 0) {
+      xs = sx + 2 * tab[2 * nb + 1] * sp.slice;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int t = h.pack_off + 2 * q + 8 * hh;
+        seg[hh] = t / sp.hop;
+        pos[hh] = t - seg[hh] * sp.hop;
+      }
+    }
+    tt = t0;
+    t0 += kChunk;
+    if (t0 >= h.pack) {
+      t0 = 0;
+      ++nb;
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int dd = seg[hh] * sp.stride + pos[hh];
+#pragma unroll
+        for (int rw = 0; rw < 2; ++rw)
+          a[k][rw + 2 * hh] = a_pair<kFast>(xs, roff[rw] + dd, pos[hh], sp);
+        pos[hh] += 16;
+        while (pos[hh] >= sp.hop) {
+          pos[hh] -= sp.hop;
+          ++seg[hh];
+        }
+      }
     }
   };
+  auto step = [&](unsigned (&a)[2][4], int tt, unsigned (&next)[2][4],
+                  int& tt_next) {
+    cp_async_wait<kAhead - 1>();
+    __syncthreads();  // stage s landed; stage s - 2's wgmma's are done
+    fill.next(h, tab, (s + kAhead) % L::kSlots);
+    const unsigned st = ring + (s % L::kSlots) * L::kStageBytes + wg_cols;
+    wg_hold(d);
+    wg_fence();
+    wgmma_128(d, a[0], gmma_desc(st, kLbo, kSbo));
+    if (tt + 16 < h.pack)
+      wgmma_128(d, a[1], gmma_desc(st + 2 * kCoreK, kLbo, kSbo));
+    wg_commit();
+    wg_wait<1>();  // stage s - 1's wgmma's, and their A buffer, are done
+    wg_hold(d);
+    if (++s < n_steps) load(next, tt_next);
+  };
+  unsigned a0[2][4], a1[2][4];
+  int tt0 = 0, tt1 = 0;
+  if (n_steps > 0) load(a0, tt0);
+  while (s < n_steps) {
+    step(a0, tt0, a1, tt1);
+    if (s < n_steps) step(a1, tt1, a0, tt0);
+  }
+  wg_wait<0>();
+  wg_hold(d);
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+}
+
+// The chunk's power into shared memory: split re^2 + im^2, N-packed y^2
+// per column; bf2 as bf16 p0 = bf16(power) and p1 = bf16(power - p0),
+// each [tile][cp] with swizzled rows, else float32 [tile][cp]. Tile j of
+// d holds the warpgroup's power columns 8j .. 8j + 7 (split: re tiles
+// 0-7, their im tiles 8-15).
+template <int C>
+__device__ __forceinline__ void store_power(const Head& h,
+                                            const float (&d)[64],
+                                            unsigned char* pb) {
+  using L = Lay<C>;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const bool split = split_head(h);
+  const int cp = chunk_pow<C>(h.width, h.npow);
+  const int wg = warp >> 2;
+  const int col0 = wg * (split ? L::kWgCols / 2 : L::kWgCols);
 #pragma unroll
-  for (int f = 0; f < kFramesPerWarp; ++f) {
-    const int row = f0 + f;
-    if (np == kW) {
+  for (int j = 0; j < 16; ++j) {
+    if (split && j >= 8) continue;
+    const int col = col0 + j * 8 + 2 * q;
 #pragma unroll
-      for (int j = 0; j < kNG; ++j) {
-        float pw[4];
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = wg * L::kWgFrames + (warp & 3) * 16 + g + 8 * hh;
+      float pw[2];
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          pw[e] = __fmul_rn(acc[f][4 * j + e], acc[f][4 * j + e]);
-        store(row, 4 * lane + 128 * j, pw);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < kNG / 2; ++j) {
-        float pw[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float re = acc[f][4 * j + e];
-          const float im = acc[f][4 * (j + kNG / 2) + e];
-          pw[e] = __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
+      for (int e = 0; e < 2; ++e) {
+        const float y = d[4 * j + 2 * hh + e];
+        if (split) {
+          const float im = d[4 * (j + 8) + 2 * hh + e];
+          pw[e] = __fadd_rn(__fmul_rn(y, y), __fmul_rn(im, im));
+        } else {
+          pw[e] = __fmul_rn(y, y);
         }
-        store(row, 4 * lane + 128 * j, pw);
+      }
+      if (h.bf2) {
+        unsigned w0 = 0, w1 = 0;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const __nv_bfloat16 q0 = __float2bfloat16_rn(pw[e]);
+          const __nv_bfloat16 q1 =
+              __float2bfloat16_rn(__fsub_rn(pw[e], __bfloat162float(q0)));
+          w0 |= static_cast<unsigned>(__bfloat16_as_ushort(q0)) << (16 * e);
+          w1 |= static_cast<unsigned>(__bfloat16_as_ushort(q1)) << (16 * e);
+        }
+        const int at = swz(row, cp * 2, col);
+        *reinterpret_cast<unsigned*>(pb + at) = w0;
+        *reinterpret_cast<unsigned*>(pb + L::kTile * cp * 2 + at) = w1;
+      } else {
+        *reinterpret_cast<float2*>(
+            reinterpret_cast<float*>(pb) + row * cp + col) =
+            make_float2(pw[0], pw[1]);
       }
     }
   }
-  __syncwarp();
+}
 
-  // projection, 128 mel columns per pass
+// en[tile, nmp] += [p0 | p0 | p1] @ [F0; F1; F0] over the chunk's live
+// power rows: bf16 mma, the three row blocks of mt staged through the
+// ring in pieces; per k16 step p0 . F0, p0 . F1, p1 . F0 in that order
+template <int C>
+__device__ __forceinline__ void project_bf2(const Head& h, int ch,
+                                            const unsigned char* pb,
+                                            unsigned char* ring, Frag& en) {
+  using L = Lay<C>;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp / L::kWN, wn = warp % L::kWN;
+  const int cp = chunk_pow<C>(h.width, h.npow);
   const int nmp = h.n_mels_pad;
-  float* slg = log_tile(work, np);
-  for (int mb = 0; mb < nmp; mb += 128) {
-    float en[kFramesPerWarp][4];
+  const int ne = nmp / (8 * L::kWN);  // n8 tiles of a warp: 4 or 8
+  // rows of each of the three stacks a piece holds
+  const int rows_max = (L::kRingBytes / (6 * nmp)) & ~15;
+  const int vec = nmp / 8;  // 16-byte groups of a row
+  int kmax = h.live - ch * cp;
+  kmax = kmax < cp ? kmax : cp;
+  kmax = (kmax + 15) & ~15;
+  const __nv_bfloat16* F = static_cast<const __nv_bfloat16*>(h.mt);
+  const unsigned sring = smem_addr(ring);
+  const unsigned p0 = smem_addr(pb);
+  const unsigned p1 = p0 + L::kTile * cp * 2;
+  const int mi = lane >> 3;
+  const int lrow = (lane & 7) + ((mi & 1) << 3);
+  for (int k0 = 0; k0 < kmax; k0 += rows_max) {
+    const int rows = kmax - k0 < rows_max ? kmax - k0 : rows_max;
+    for (int v = tid; v < 3 * rows * vec; v += kThreads) {
+      const int rr = v / vec;
+      const int c = v - rr * vec;
+      const int s = rr / rows;
+      const int r = rr - s * rows;
+      const int srow = s * rows_max + r;
+      cp_async16(sring + srow * nmp * 2 + ((c ^ (srow & 7)) << 4),
+                 F + static_cast<long long>(s * h.npow + ch * cp + k0 + r) *
+                         nmp + c * 8,
+                 true);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int kk = 0; kk < rows; kk += 16) {
+      unsigned a0[2][4], a1[2][4];
 #pragma unroll
-    for (int f = 0; f < kFramesPerWarp; ++f)
+      for (int m = 0; m < 2; ++m) {
+        const int at = swz(wm * 32 + m * 16 + lrow, cp * 2,
+                           k0 + kk + ((mi >> 1) << 3));
+        ldsm_x4(a0[m], p0 + at);
+        ldsm_x4(a1[m], p1 + at);
+      }
 #pragma unroll
-      for (int q = 0; q < 4; ++q) en[f][q] = 0.0f;
-    if (h.bf2) {
-      const __nv_bfloat16* F = static_cast<const __nv_bfloat16*>(h.mt);
-      for (int c = 0; c < np; ++c) {
-        float a0[kFramesPerWarp], a1[kFramesPerWarp];
+      for (int jj = 0; jj < 4; ++jj) {
+        if (2 * jj >= ne) break;
+        const int n0 = wn * (nmp / L::kWN) + jj * 16;
+        unsigned b[3][4];
 #pragma unroll
-        for (int f = 0; f < kFramesPerWarp; ++f) {
-          a0[f] = __bfloat162float(sp0[(f0 + f) * np + c]);
-          a1[f] = __bfloat162float(sp1[(f0 + f) * np + c]);
-        }
+        for (int s = 0; s < 3; ++s)
+          ldsm_x4_t(b[s], sring + swz(s * rows_max + kk + lrow, nmp * 2,
+                                      n0 + ((mi >> 1) << 3)));
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int m = mb + lane + 32 * q;
-          const float g0 = __bfloat162float(F[c * nmp + m]);
-          const float g1 = __bfloat162float(F[(np + c) * nmp + m]);
-          const float g2 = __bfloat162float(F[(2 * np + c) * nmp + m]);
+        for (int m = 0; m < 2; ++m)
 #pragma unroll
-          for (int f = 0; f < kFramesPerWarp; ++f) {
-            en[f][q] = fmaf(a0[f], g0, en[f][q]);
-            en[f][q] = fmaf(a0[f], g1, en[f][q]);
-            en[f][q] = fmaf(a1[f], g2, en[f][q]);
+          for (int t = 0; t < 2; ++t) {
+            mma(en[m][2 * jj + t], a0[m], b[0][2 * t], b[0][2 * t + 1]);
+            mma(en[m][2 * jj + t], a0[m], b[1][2 * t], b[1][2 * t + 1]);
+            mma(en[m][2 * jj + t], a1[m], b[2][2 * t], b[2][2 * t + 1]);
+          }
+      }
+    }
+    __syncthreads();  // the ring holds the next piece or chunk next
+  }
+}
+
+// en += power @ mt (float32 [npow, nmp]) over the chunk's live power
+// rows, float32 FMAs in ascending row order
+template <int C>
+__device__ __forceinline__ void project_f32(const Head& h, int ch,
+                                            const unsigned char* pb,
+                                            Frag& en) {
+  using L = Lay<C>;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int wm = warp / L::kWN, wn = warp % L::kWN;
+  const int cp = chunk_pow<C>(h.width, h.npow);
+  const int nmp = h.n_mels_pad;
+  const int ne = nmp / (8 * L::kWN);
+  int kmax = h.live - ch * cp;
+  kmax = kmax < cp ? kmax : cp;
+  const float* F = static_cast<const float*>(h.mt);
+  const float* P = reinterpret_cast<const float*>(pb);
+  for (int c = 0; c < kmax; ++c) {
+    float pa[2][2];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        pa[m][hh] = P[(wm * 32 + m * 16 + g + 8 * hh) * cp + c];
+    const float* fr = F + static_cast<long long>(ch * cp + c) * nmp +
+                      wn * (nmp / L::kWN) + 2 * q;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j >= ne) break;
+      const float f0 = __ldg(fr + 8 * j);
+      const float f1 = __ldg(fr + 8 * j + 1);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        en[m][j][0] = fmaf(pa[m][0], f0, en[m][j][0]);
+        en[m][j][1] = fmaf(pa[m][0], f1, en[m][j][1]);
+        en[m][j][2] = fmaf(pa[m][1], f0, en[m][j][2]);
+        en[m][j][3] = fmaf(pa[m][1], f1, en[m][j][3]);
+      }
+    }
+  }
+}
+
+// One head over the block's frames: the chunk walk, then the output
+// values of the head's mode. Whisper: log10_accurate(max(e, 1e-10)) into
+// the log tile [tile][nmp] at work, the row max over the padded mel
+// columns, (max(v, max - 8) + 4) / 4; with keep_vals the normalized rows
+// stay in the log tile for an epilogue that follows (after a barrier). ln
+// modes: ln_accurate(e + guard) or ln_accurate(max(e, guard)) straight
+// from the registers. tab is a shared copy of the head's block table.
+template <int C>
+__device__ __forceinline__ void run_head(const Head& h, int* tab,
+                                         const __nv_bfloat16* sx,
+                                         const Span& sp, unsigned char* work,
+                                         int b, int k0, int n_frames,
+                                         bool keep_vals) {
+  using L = Lay<C>;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int wm = warp / L::kWN, wn = warp % L::kWN;
+  const int cp = chunk_pow<C>(h.width, h.npow);
+  unsigned char* pb = work + L::kRingBytes;
+  // the first chunk's barrier orders this copy before every use, and
+  // every use of an earlier head's table before it
+  if (threadIdx.x < 2 * h.n_blocks) tab[threadIdx.x] = __ldg(h.blocks +
+                                                            threadIdx.x);
+  const bool fast = ((sp.hop | h.pack_off) & 1) == 0;
+  Frag en;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) en[m][j][e] = 0.0f;
+  const int n_ch = (h.live + cp - 1) / cp;
+  for (int ch = 0; ch < n_ch; ++ch) {
+    float d[64];
+    if (fast)
+      dft_chunk<C, true>(h, tab, ch, smem_addr(sx), sp, smem_addr(work), d);
+    else
+      dft_chunk<C, false>(h, tab, ch, smem_addr(sx), sp, smem_addr(work), d);
+    store_power<C>(h, d, pb);
+    __syncthreads();  // the chunk's power, from every warp
+    if (h.bf2)
+      project_bf2<C>(h, ch, pb, work, en);
+    else
+      project_f32<C>(h, ch, pb, en);
+  }
+
+  const int nmp = h.n_mels_pad;
+  const int ne = nmp / (8 * L::kWN);
+  const int ncol = nmp / L::kWN;
+  if (h.out_mode != kWhisper) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int k = k0 + wm * 32 + m * 16 + g + 8 * hh;
+        if (k >= n_frames) continue;
+        float* o = h.out + (static_cast<long long>(b) * n_frames + k) *
+                               h.n_mels;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (j >= ne) break;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = wn * ncol + j * 8 + 2 * q + e;
+            if (col >= h.n_mels) continue;
+            const float v = en[m][j][2 * hh + e];
+            o[col] = ln_accurate(h.out_mode == kLnGuard
+                                     ? __fadd_rn(v, h.guard)
+                                     : max_nan(v, h.guard));
           }
         }
       }
-    } else {
-      const float* F = static_cast<const float*>(h.mt);
-      for (int c = 0; c < np; ++c) {
-        float a0[kFramesPerWarp];
-#pragma unroll
-        for (int f = 0; f < kFramesPerWarp; ++f)
-          a0[f] = spf[(f0 + f) * np + c];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float g = F[c * nmp + mb + lane + 32 * q];
-#pragma unroll
-          for (int f = 0; f < kFramesPerWarp; ++f)
-            en[f][q] = fmaf(a0[f], g, en[f][q]);
-        }
-      }
-    }
-    if (h.out_mode == kWhisper) {
-      // logs wait in shared memory until the row max is known
-#pragma unroll
-      for (int f = 0; f < kFramesPerWarp; ++f)
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          slg[(f0 + f) * nmp + mb + lane + 32 * q] =
-              log10_accurate(max_nan(en[f][q], kLogFloor));
-    } else {
-#pragma unroll
-      for (int f = 0; f < kFramesPerWarp; ++f) {
-        const int k = k0 + f0 + f;
-        if (k >= n_frames) continue;
-        float* o = h.out +
-                   (static_cast<long long>(b) * n_frames + k) * h.n_mels;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int m = mb + lane + 32 * q;
-          if (m >= h.n_mels) continue;
-          const float e = en[f][q];
-          o[m] = ln_accurate(h.out_mode == kLnGuard
-                                 ? __fadd_rn(e, h.guard)
-                                 : max_nan(e, h.guard));
-        }
-      }
-    }
+    return;
   }
-  if (h.out_mode != kWhisper) return;
-  __syncwarp();
-
+  // logs wait in shared memory until the row max is known
+  __syncthreads();  // every warp is done with the ring and power tile
+  float* slg = reinterpret_cast<float*>(work);
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = wm * 32 + m * 16 + g + 8 * hh;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j >= ne) break;
+        const int col = wn * ncol + j * 8 + 2 * q;
+        *reinterpret_cast<float2*>(slg + row * nmp + col) = make_float2(
+            log10_accurate(max_nan(en[m][j][2 * hh], kLogFloor)),
+            log10_accurate(max_nan(en[m][j][2 * hh + 1], kLogFloor)));
+      }
+    }
+  __syncthreads();
   // row max, whisper norm, store (a null h.out stores nothing: the quant
-  // route writes records, not the float mel)
-  for (int f = 0; f < kFramesPerWarp; ++f) {
-    const int row = f0 + f;
+  // route writes records, not the float mel); a warp per tile / 8 rows
+  for (int f = 0; f < L::kTile / kWarps; ++f) {
+    const int row = warp * (L::kTile / kWarps) + f;
     const int k = k0 + row;
     whisper_norm_row(slg + row * nmp, nmp, h.n_mels,
                      k < n_frames && h.out
@@ -415,26 +927,27 @@ __device__ __forceinline__ void head_epilogue(const Head& h, const Acc& acc,
   }
 }
 
-// Sobel VAD counts of one tile (ops/mel_kernel.py::_sig_vad_counts) from
-// the normalized whisper values v[x][y] = vals[x * nmp + y], x the tile's
-// frame, y the mel row: per frame x the count of rows y in [start_y,
-// n_mels - 2) whose 3x3 patch (frames x .. x+2, rows y .. y+2) has a
-// squared gradient >= thr, written to counts[b * n_frames + k0 + x]. The
-// expression order is ops/vad.py::sobel_gradient_sq's, each operation
-// rounded. The last two frames of a tile need the next tile: they get 0
-// here and the caller recomputes them from the mel output; the clip's last
-// two frames have no patch and get 0. One warp per frame, the rows over
-// its lanes.
+// Sobel VAD counts of one block's tile (ops/mel_kernel.py::_sig_vad_counts)
+// from the normalized whisper values v[x][y] = vals[x * nmp + y], x the
+// tile's frame, y the mel row: per frame x the count of rows y in
+// [start_y, n_mels - 2) whose 3x3 patch (frames x .. x+2, rows y .. y+2)
+// has a squared gradient >= thr, written to counts[b * n_frames + k0 + x].
+// The expression order is ops/vad.py::sobel_gradient_sq's, each operation
+// rounded. The last two frames of every 64 (kTileFrames) get 0, whatever
+// the block's tile, and the caller recomputes them from the mel output;
+// the clip's last two frames have no patch and get 0. One warp per frame,
+// the rows over its lanes.
+template <int C>
 __device__ __forceinline__ void vad_counts(const float* vals, int nmp,
                                            int n_mels, int start_y,
                                            float thr, int b, int k0,
                                            int n_frames, int* counts) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  for (int x = warp; x < kTileFrames; x += kWarps) {
+  for (int x = warp; x < Lay<C>::kTile; x += kWarps) {
     int cnt = 0;
-    // a patch must lie inside the tile and inside the clip's frames
-    if (x < kTileFrames - 2 && k0 + x + 2 < n_frames) {
+    // a patch must lie inside a 64-frame tile and inside the clip
+    if (x % kTileFrames < kTileFrames - 2 && k0 + x + 2 < n_frames) {
       const float* r0 = vals + x * nmp;
       const float* r1 = r0 + nmp;
       const float* r2 = r1 + nmp;
@@ -479,13 +992,14 @@ __device__ __forceinline__ float min_nan(float a, float b) {
 // gives. NaN (hi == lo: 0 * inf) is tested explicitly and gives q = 0,
 // as the host's isnan -> 0 does. Writes q[b, k, :n_mels], lo[b, k],
 // hi[b, k] for the tile's frames k < n_frames; one warp per frame.
+template <int C>
 __device__ __forceinline__ void quant_records(const float* vals, int nmp,
                                               int n_mels, int b, int k0,
                                               int n_frames, unsigned char* q,
                                               float* lo_out, float* hi_out) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  for (int x = warp; x < kTileFrames; x += kWarps) {
+  for (int x = warp; x < Lay<C>::kTile; x += kWarps) {
     const int k = k0 + x;
     if (k >= n_frames) break;
     const float* v = vals + x * nmp;
@@ -515,6 +1029,49 @@ __device__ __forceinline__ void quant_records(const float* vals, int nmp,
       hi_out[row] = hi;
     }
   }
+}
+
+// The layout of a launch: C = 0 (128-frame blocks) where every head has
+// at most Lay<0>::kMaxMels padded mel columns and the block's shared
+// memory fits, else C = 1 (64-frame blocks). `need(c)` is the block's
+// dynamic shared memory in layout c. Returns c and writes the block's
+// shared memory in that layout (dynamic + static); a caller refuses the
+// launch where it exceeds kSmemLimit.
+template <class Need>
+__host__ inline int pick_layout(int max_nmp, Need need, long long* bytes) {
+  if (max_nmp <= Lay<0>::kMaxMels) {
+    *bytes = need(0) + kStaticSmem;
+    if (*bytes <= kSmemLimit) return 0;
+  }
+  *bytes = need(1) + kStaticSmem;
+  return 1;
+}
+
+// Whether the kernels take a head's column layout and projection: 256,
+// 512 or 1024 DFT columns, split (npow = width / 2) or N-packed, a live
+// count in multiples of 8, up to kMaxNmp padded mel columns
+__host__ inline bool head_ok(int width, int npow, int live, int n_mels,
+                             int n_mels_pad) {
+  return (width == 256 || width == 512 || width == 1024) &&
+         (npow == width || npow == width / 2) && live >= 0 &&
+         live <= npow && live % 8 == 0 && n_mels > 0 &&
+         n_mels_pad % 128 == 0 && n_mels_pad <= kMaxNmp &&
+         n_mels <= n_mels_pad;
+}
+
+// frames per block of layout c
+__host__ __device__ inline int layout_frames(int c) {
+  return c == 0 ? Lay<0>::kTile : Lay<1>::kTile;
+}
+
+// DFT columns per chunk of layout c
+__host__ __device__ inline int layout_cols(int c) {
+  return c == 0 ? Lay<0>::kCols : Lay<1>::kCols;
+}
+
+// work_bytes of layout c
+__host__ inline long long layout_work_bytes(int c, int width, int npow) {
+  return c == 0 ? work_bytes<0>(width, npow) : work_bytes<1>(width, npow);
 }
 
 }  // namespace sigk

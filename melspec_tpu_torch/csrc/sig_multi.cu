@@ -2,13 +2,16 @@
 // the raw [B, T] float32 signal, one launch for the whole batch.
 //
 // Replaces the TPU kernel melspec_tpu/ops/sig_multihead.py::
-// _sig_multi_tile_kernel (launched by _pallas_sig_multi). A block owns 64
-// frames of one clip. It stages the tile's signal span and its bf16
-// residual cascade once, in shared memory, and keeps them there while it
-// runs each head in turn (device code in sig_common.cuh, shared with K1):
-// the head's slice-pair DFT dot over its own taps [pack_off, pack_off +
-// pack) of each frame and its own K blocks, its split or N-packed power,
-// its bf2 or f32 projection and its output mode (whisper, ln_guard,
+// _sig_multi_tile_kernel (launched by _pallas_sig_multi). A block owns 128
+// frames of one clip (64 where the span does not fit). It stages the
+// tile's signal span and its bf16 residual cascade once, in shared
+// memory, and keeps them there while it runs each head in turn
+// (sig_common.cuh::run_head, K1's code): the head's slice-pair DFT over
+// its own taps [pack_off, pack_off + pack) of each frame and its own K
+// blocks on the tensor cores (bf16 wgmma, float32 accumulation, its DFT
+// columns walked in chunks), its
+// split or N-packed power, its bf2 projection on the tensor cores (or
+// "highest" in float32 FMAs) and its output mode (whisper, ln_guard,
 // ln_floor), written as one [B, n_frames, n_mels_h] float32 output per
 // head. A head with K1's matrices and block order gives K1's output bit
 // for bit. Head 0 (whisper) can carry the Sobel VAD epilogue
@@ -16,12 +19,14 @@
 // of mel rows with a squared gradient >= thr, int32 [B, n_frames], 0 on
 // the last two frames of each tile, which the caller recomputes.
 //
-// What bounds it: operations, as for K1: each head's DFT dot is thousands
-// of FLOPs per byte of signal and output. The staged slices persist across
-// heads, so shared memory holds them plus the largest head's epilogue
-// tiles (power [64][npow] and logs [64][nmp]): 223 KB for whisper + an
-// N-packed Kaldi head + a NeMo head at hop 160 in 227 KB. Products run as
-// float32 FMAs on the SIMT cores, as in K1.
+// What bounds it: operations, as for K1 (each head's DFT is thousands of
+// FLOPs per byte of signal and output), then each head's m_big reads from
+// L2, one pass per block. The staged slices persist across heads, so
+// shared memory holds them plus one work region (the cp.async ring, 33 KB
+// in 128-frame blocks or 66 KB in 64-frame ones, and the widest head's
+// chunk power tile, 32 or 64 KB), which every head
+// reuses: 230,496 bytes for whisper + an N-packed Kaldi head at hop 160 in
+// 128-frame blocks.
 //
 // Plain C interface, built with nvcc and bound with ctypes
 // (melspec_tpu_torch/kernels/sig_multi.py). Every launch is followed by
@@ -38,89 +43,116 @@ constexpr int kMaxHeads = 4;
 struct Params {
   const float* x;  // [B, T]
   long long T;
-  int n_frames, hop, offset, ks, span, tiles, n_heads;
-  long long work;  // byte offset of the dot / epilogue region
+  int n_frames, offset, ks, tiles, n_heads;
+  Span span;
+  long long work;  // byte offset of the work region
   Head heads[kMaxHeads];
   int* vad;        // [B, n_frames] or null
   float vad_thr;
   int vad_start_y;
 };
 
+template <int C>
 __global__ void __launch_bounds__(kThreads, 1)
     sig_multi_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int warp = threadIdx.x >> 5;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int tab[2 * kMaxBlocks];
   const int b = blockIdx.x / p.tiles;
-  const int k0 = (blockIdx.x - b * p.tiles) * kTileFrames;
-  const int f0 = warp * kFramesPerWarp;
+  const int k0 = (blockIdx.x - b * p.tiles) * Lay<C>::kTile;
 
-  // layout: the span's ks bf16 slices, kept for every head, then the
-  // work region: one head's f32 m_big chunk during its dot, its power
-  // and log tiles during its epilogue
+  // layout: the span's ks bf16 slices, kept for every head, then the work
+  // region: one head's ring and power tile during its chunk walk, its log
+  // tile during its epilogue
   __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(smem);
   unsigned char* work = smem + p.work;
   stage_span(p.x + static_cast<long long>(b) * p.T, p.T,
-             p.offset + static_cast<long long>(k0) * p.hop, p.span, p.ks,
-             sx);
+             p.offset + static_cast<long long>(k0) * p.span.hop, p.span,
+             p.ks, sx);
   for (int h = 0; h < p.n_heads; ++h) {
     const Head& hd = p.heads[h];
     const bool vad = h == 0 && p.vad != nullptr;
-    Acc acc;
-    dft_dot(hd, sx, p.span, p.hop, f0, reinterpret_cast<float*>(work), acc);
-    head_epilogue(hd, acc, work, f0, b, k0, p.n_frames, vad);
+    run_head<C>(hd, tab, sx, p.span, work, b, k0, p.n_frames, vad);
     if (vad) {
       __syncthreads();  // the tile's normalized rows, from every warp
-      vad_counts(log_tile(work, hd.npow), hd.n_mels_pad, hd.n_mels,
-                 p.vad_start_y, p.vad_thr, b, k0, p.n_frames, p.vad);
+      vad_counts<C>(reinterpret_cast<const float*>(work), hd.n_mels_pad,
+                     hd.n_mels, p.vad_start_y, p.vad_thr, b, k0, p.n_frames,
+                     p.vad);
     }
-    // the next head's dot opens with a barrier before it writes work
+    // the next head's chunk walk opens with a barrier before it writes
+    // the work region
   }
 }
 
-// The staged samples per tile (the widest head's pack_off + pack, in whole
-// chunks) and the block's dynamic shared memory: the span's bf16 slices,
-// then a work region that holds one m_big chunk or any head's epilogue.
-long long layout(int ks, int hop, int n_heads, const int* packs,
-                 const int* pack_offs, const int* npows,
-                 const int* n_mels_pad, int* span) {
-  int s = 0;
-  long long work = 4LL * kChunk * kW;
-  for (int h = 0; h < n_heads; ++h) {
-    const int sh = span_len(hop, packs[h], pack_offs[h]);
-    const long long eh = epilogue_bytes(npows[h], n_mels_pad[h]);
-    s = sh > s ? sh : s;
-    work = eh > work ? eh : work;
-  }
-  *span = s;
-  return align16(2LL * ks * s) + work;
+// The block layout (sig_common.cuh::pick_layout) for the heads' integer
+// fields: the staged samples per tile (the widest head's pack_off + pack,
+// in whole ring stages), then a work region that holds the ring and any
+// head's power tile (and so any head's log tile). Returns the layout's
+// code, writes the span and the block's shared memory.
+int layout(int ks, int hop, int n_heads, const int* packs,
+           const int* pack_offs, const int* widths, const int* npows,
+           const int* nmps, Span* span, long long* bytes) {
+  auto span_of = [&](int c) {
+    int s = 0;
+    for (int h = 0; h < n_heads; ++h) {
+      const int sh = span_len(layout_frames(c), hop, packs[h], pack_offs[h]);
+      s = sh > s ? sh : s;
+    }
+    return make_span(hop, s);
+  };
+  auto need = [&](int c) {
+    long long work = 0;
+    for (int h = 0; h < n_heads; ++h) {
+      const long long wh = layout_work_bytes(c, widths[h], npows[h]);
+      work = wh > work ? wh : work;
+    }
+    return span_bytes(ks, span_of(c)) + work;
+  };
+  int max_nmp = 0;
+  for (int h = 0; h < n_heads; ++h)
+    max_nmp = nmps[h] > max_nmp ? nmps[h] : max_nmp;
+  const int c = pick_layout(max_nmp, need, bytes);
+  *span = span_of(c);
+  return c;
 }
 
 }  // namespace
 
 extern "C" {
 
-// The layout above for the heads' integer fields: returns the dynamic
-// shared memory of one block and writes the staged span to *span.
-long long melspec_sig_multi_smem_bytes(int ks, int hop, int n_heads,
-                                       const int* packs,
-                                       const int* pack_offs,
-                                       const int* npows,
-                                       const int* n_mels_pad, int* span) {
-  return layout(ks, hop, n_heads, packs, pack_offs, npows, n_mels_pad, span);
+// The layout above for the heads' integer fields: returns the shared
+// memory of one block and writes its frames (128 or 64), the staged
+// span's samples and the DFT columns of its chunks (128 or 256).
+long long melspec_sig_multi_layout(int ks, int hop, int n_heads,
+                                   const int* packs, const int* pack_offs,
+                                   const int* widths, const int* npows,
+                                   const int* nmps, int* block_frames,
+                                   int* span_samples, int* chunk_cols) {
+  if (hop <= 0 || n_heads <= 0 || n_heads > kMaxHeads) return -1;
+  Span s;
+  long long bytes;
+  const int c = layout(ks, hop, n_heads, packs, pack_offs, widths, npows,
+                       nmps, &s, &bytes);
+  *block_frames = layout_frames(c);
+  *span_samples = s.len;
+  *chunk_cols = layout_cols(c);
+  return bytes;
 }
 
-// One launch of K2. Per head h: m_bigs[h] bf16 [K_tot_h, 512], blocks[h]
-// int32 [n_blocks[h]][2], mts[h], outs[h] f32 [B, n_frames, n_mels[h]]
-// and the integer fields of sig_common.cuh's Head; tile_frames must be
-// the kernel's. Returns 0 or the cudaError_t of the launch
-// (cudaErrorInvalidValue for arguments the kernel does not take).
+// One launch of K2. Per head h: m_bigs[h] bf16 [K_tot_h, widths[h]],
+// blocks[h] int32 [n_blocks[h]][2], mts[h], outs[h] f32 [B, n_frames,
+// n_mels[h]] and the integer fields of sig_common.cuh's Head (lives[h]:
+// the power columns that may be nonzero); tile_frames is the tile of the
+// VAD counts' zeros and must be the kernel's. Returns 0 or the
+// cudaError_t of the launch (cudaErrorInvalidValue for arguments the
+// kernel does not take).
 int melspec_sig_multi(const float* x, long long batch, long long T,
                       int n_frames, int hop, int offset, int tile_frames,
                       int ks, int n_heads,
                       const void* const* m_bigs, const int* const* blocks,
                       const void* const* mts, float* const* outs,
                       const int* n_blocks, const int* packs,
-                      const int* pack_offs, const int* npows,
+                      const int* pack_offs, const int* widths,
+                      const int* npows, const int* lives,
                       const int* n_mels, const int* n_mels_pad,
                       const int* bf2, const int* out_modes,
                       const float* guards, int* vad, float vad_thr,
@@ -129,18 +161,7 @@ int melspec_sig_multi(const float* x, long long batch, long long T,
   if (hop <= 0 || offset < 0 || ks <= 0 || ks > kMaxSlices ||
       n_heads <= 0 || n_heads > kMaxHeads || tile_frames != kTileFrames)
     return cudaErrorInvalidValue;
-  const long long tiles = (n_frames + kTileFrames - 1) / kTileFrames;
-  const long long grid = batch * tiles;
-  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
   Params p;
-  p.x = x;
-  p.T = T;
-  p.n_frames = n_frames;
-  p.hop = hop;
-  p.offset = offset;
-  p.ks = ks;
-  p.tiles = static_cast<int>(tiles);
-  p.n_heads = n_heads;
   for (int h = 0; h < n_heads; ++h) {
     Head& hd = p.heads[h];
     hd.m_big = static_cast<const __nv_bfloat16*>(m_bigs[h]);
@@ -150,34 +171,52 @@ int melspec_sig_multi(const float* x, long long batch, long long T,
     hd.n_blocks = n_blocks[h];
     hd.pack = packs[h];
     hd.pack_off = pack_offs[h];
+    hd.width = widths[h];
     hd.npow = npows[h];
+    hd.live = lives[h];
     hd.n_mels = n_mels[h];
     hd.n_mels_pad = n_mels_pad[h];
     hd.bf2 = bf2[h];
     hd.out_mode = out_modes[h];
     hd.guard = guards[h];
     if (hd.pack <= 0 || hd.pack_off < 0 || hd.n_blocks <= 0 ||
-        hd.n_blocks > kMaxBlocks || hd.n_mels <= 0 ||
-        hd.n_mels_pad % 128 != 0 || hd.n_mels > hd.n_mels_pad ||
-        (hd.npow != kW && hd.npow != kW / 2) || hd.out_mode < kWhisper ||
-        hd.out_mode > kLnFloor)
+        hd.n_blocks > kMaxBlocks ||
+        !head_ok(hd.width, hd.npow, hd.live, hd.n_mels, hd.n_mels_pad) ||
+        hd.out_mode < kWhisper || hd.out_mode > kLnFloor ||
+        hd.out == nullptr ||
+        (reinterpret_cast<uintptr_t>(hd.m_big) |
+         reinterpret_cast<uintptr_t>(hd.mt)) % 16)
       return cudaErrorInvalidValue;
   }
-  const long long smem = layout(ks, hop, n_heads, packs, pack_offs, npows,
-                                n_mels_pad, &p.span);
-  p.work = align16(2LL * ks * p.span);
+  long long smem;
+  const int lay = layout(ks, hop, n_heads, packs, pack_offs, widths, npows,
+                         n_mels_pad, &p.span, &smem);
+  const int frames = layout_frames(lay);
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  const long long tiles = (n_frames + frames - 1) / frames;
+  const long long grid = batch * tiles;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  p.x = x;
+  p.T = T;
+  p.n_frames = n_frames;
+  p.offset = offset;
+  p.ks = ks;
+  p.tiles = static_cast<int>(tiles);
+  p.n_heads = n_heads;
+  p.work = span_bytes(ks, p.span);
   p.vad = vad;
   p.vad_thr = vad_thr;
   p.vad_start_y = vad_start_y;
   if (vad != nullptr && (p.heads[0].out_mode != kWhisper || vad_start_y < 0))
     return cudaErrorInvalidValue;
+  auto kernel = lay == 0 ? sig_multi_kernel<0> : sig_multi_kernel<1>;
+  const long long dyn = smem - kStaticSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      sig_multi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(dyn));
   if (err != cudaSuccess) return err;
-  sig_multi_kernel<<<static_cast<unsigned>(grid), kThreads,
-                     static_cast<size_t>(smem),
-                     static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<static_cast<unsigned>(grid), kThreads, static_cast<size_t>(dyn),
+           static_cast<cudaStream_t>(stream)>>>(p);
   return cudaGetLastError();
 }
 

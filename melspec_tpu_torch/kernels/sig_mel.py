@@ -34,15 +34,19 @@ LOG10_FLOOR = 1e-10
 # normal inputs only, so the ln modes clamp their guard to it
 MIN_NORMAL = 1.1754944e-38
 OUT_MODES = ("whisper", "ln_guard", "ln_floor")
-# dynamic shared memory a block may use on Hopper (227 KB)
+# shared memory a block may use on Hopper (227 KB)
 MAX_SMEM_BYTES = 232448
 MAX_BLOCKS = 16
 MAX_SLICES = 4
-# the kernels' DFT columns: re | im halves of 256 (split) or 512 single
-# components (N-packed)
-WIDTH = 512
-# frames of one clip per block; the kernels check that the caller's
-# value is theirs (csrc/sig_common.cuh: kTileFrames)
+# the kernels' DFT widths: re | im halves of width / 2 (split) or width
+# single components (N-packed), walked in column chunks; the energy tile
+# of up to 256 padded mel columns stays in registers
+WIDTHS = (256, 512, 1024)
+MAX_MELS_PAD = 256
+# the tile of the VAD epilogue's counts: 0 on the last two frames of every
+# TILE_FRAMES, whatever a block's frames (128 or 64, ``block_layout``);
+# the kernels check that the caller's value is theirs
+# (csrc/sig_common.cuh: kTileFrames)
 TILE_FRAMES = 64
 
 launches = 0
@@ -52,12 +56,15 @@ epilogue_launches = {"quant": 0, "vad": 0}
 @dataclasses.dataclass(frozen=True)
 class SigHead:
     """One frontend's device matrices and output, as K1 and each head of
-    K2 take them: ``m_big`` bf16 ``[K_tot, 512]`` whose block ``blk``
+    K2 take them: ``m_big`` bf16 ``[K_tot, width]`` whose block ``blk``
     pairs with signal slice ``pair_i[blk]``; ``mt`` the bf2 stack ``[F0;
     F1; F0]`` (bf16, ``mel_precision`` "bf2") or the f32 projection
     (``"highest"``); ``n_bins_pad`` the re|im split point (0: N-packed
     columns); the frame's contracted taps ``[pack_off, pack_off +
-    pack)``; ``n_mels`` output columns in ``out_mode`` with ``guard``."""
+    pack)``; ``n_mels`` output columns in ``out_mode`` with ``guard``;
+    ``live`` the power columns that can be nonzero (``live_columns``),
+    computed from ``m_big`` where the head is built (on the CPU) unless
+    given."""
 
     m_big: torch.Tensor
     pair_i: tuple
@@ -68,6 +75,12 @@ class SigHead:
     pack_off: int = 0
     out_mode: str = "whisper"
     guard: float = 0.0
+    live: int | None = None
+
+    def __post_init__(self):
+        if self.live is None:
+            object.__setattr__(self, "live",
+                               live_columns(self.m_big, self.n_bins_pad))
 
     @property
     def mel_precision(self) -> str:
@@ -79,7 +92,8 @@ class SigHead:
         return dict(pack=self.pack, pack_off=self.pack_off,
                     n_bins_pad=self.n_bins_pad, n_mels=self.n_mels,
                     mel_precision=self.mel_precision,
-                    out_mode=self.out_mode, guard=self.guard)
+                    out_mode=self.out_mode, guard=self.guard,
+                    live=self.live)
 
     def to(self, device) -> "SigHead":
         return dataclasses.replace(self, m_big=self.m_big.to(device),
@@ -113,6 +127,7 @@ def sig_mel_reference(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
                       offset: int, pack: int, n_bins_pad: int, n_mels: int,
                       mel_precision: str = "bf2", pack_off: int = 0,
                       out_mode: str = "whisper", guard: float = 0.0,
+                      live: int | None = None,
                       dot_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The JAX kernel's math written out in plain PyTorch, on whatever
     device ``samples`` lies on: ``samples [B, T]`` f32 -> ``[B, n_frames,
@@ -128,7 +143,8 @@ def sig_mel_reference(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
     DFT dot is one ``torch.matmul`` in ``dot_dtype``: float32 as in the
     JAX kernel, or float64, which sums the exact bf16 x bf16 products with
     no rounding that reaches float32 — the exact value the float32
-    versions are held against."""
+    versions are held against. ``live`` is K1's and not used here: the
+    plain version multiplies every column."""
     b = samples.shape[0]
     if n_frames <= 0:
         return samples.new_zeros((b, 0, n_mels))
@@ -228,8 +244,8 @@ def _bound() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.melspec_sig_mel.argtypes = [
         p, ll, ll, i, i, i, i,  # x, batch, T, n_frames, hop, offset, tile
-        p, i, i, i,             # m_big, W, pack, pack_off
-        p, i, i, i,             # blocks, n_blocks, ks, npow
+        p, i, i, i,             # m_big, width, pack, pack_off
+        p, i, i, i, i,          # blocks, n_blocks, ks, npow, live
         p, i, i, i,             # mt, n_mels, n_mels_pad, bf2
         i, ctypes.c_float,      # out_mode, guard
         p, p, p, p,             # out, q, lo, hi
@@ -237,18 +253,32 @@ def _bound() -> ctypes.CDLL:
         p,                      # stream
     ]
     lib.melspec_sig_mel.restype = ctypes.c_int
-    lib.melspec_sig_mel_smem_bytes.argtypes = [i, i, i, i, i, i]
-    lib.melspec_sig_mel_smem_bytes.restype = ctypes.c_longlong
+    lib.melspec_sig_mel_layout.argtypes = [i, i, i, i, i, i, i, p, p]
+    lib.melspec_sig_mel_layout.restype = ctypes.c_longlong
     lib.melspec_cuda_error_string.argtypes = [ctypes.c_int]
     lib.melspec_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _smem_bytes(ks: int, hop: int, pack: int, pack_off: int, npow: int,
-                n_mels_pad: int) -> int:
-    """Dynamic shared memory one K1 block needs (asks the built kernel)."""
-    return int(_bound().melspec_sig_mel_smem_bytes(ks, hop, pack, pack_off,
-                                                   npow, n_mels_pad))
+def block_layout(ks: int, hop: int, pack: int, pack_off: int, width: int,
+                 npow: int, n_mels_pad: int) -> tuple:
+    """``(shared memory bytes, frames per block, DFT columns per chunk)``
+    of the block layout K1 takes for a head (asks the built kernel, which
+    decides it): 128-frame blocks of 128-column chunks where they fit and
+    the head has at most 128 padded mel columns, else 64-frame blocks of
+    256-column chunks."""
+    frames, cols = ctypes.c_int(), ctypes.c_int()
+    smem = _bound().melspec_sig_mel_layout(ks, hop, pack, pack_off, width,
+                                           npow, n_mels_pad,
+                                           ctypes.byref(frames),
+                                           ctypes.byref(cols))
+    return int(smem), frames.value, cols.value
+
+
+def _smem_bytes(ks: int, hop: int, pack: int, pack_off: int, width: int,
+                npow: int, n_mels_pad: int) -> int:
+    """Shared memory one K1 block needs (asks the built kernel)."""
+    return block_layout(ks, hop, pack, pack_off, width, npow, n_mels_pad)[0]
 
 
 def block_order(pair_i) -> list:
@@ -267,20 +297,25 @@ def block_table(pair_i: tuple, device: torch.device) -> torch.Tensor:
                         device=device)
 
 
-def _width_refusal(width: int, n_bins_pad: int, what: str) -> str | None:
+def shape_refusal(width: int, n_bins_pad: int, n_mels_pad: int,
+                  what: str) -> str | None:
     """Why K1 and K2 refuse a head of ``width`` DFT columns split at
-    ``n_bins_pad`` (0: N-packed), or None."""
-    if width != WIDTH or n_bins_pad not in (0, WIDTH // 2):
-        return (f"{what} takes {WIDTH} DFT columns, split into re|im halves "
-                f"or N-packed; got width {width}, split {n_bins_pad}")
+    ``n_bins_pad`` (0: N-packed) with ``n_mels_pad`` projection columns,
+    or None."""
+    if width not in WIDTHS or n_bins_pad not in (0, width // 2):
+        return (f"{what} takes {WIDTHS} DFT columns, split into re|im "
+                f"halves or N-packed; got width {width}, split {n_bins_pad}")
+    if n_mels_pad > MAX_MELS_PAD:
+        return (f"{what} takes up to {MAX_MELS_PAD} padded mel columns; got "
+                f"{n_mels_pad}")
     return None
 
 
-def _smem_refusal(ks: int, hop: int, pack: int, pack_off: int, npow: int,
-                  n_mels_pad: int) -> str | None:
+def _smem_refusal(ks: int, hop: int, pack: int, pack_off: int, width: int,
+                  npow: int, n_mels_pad: int) -> str | None:
     """Why K1 refuses a head for its shared memory (asks the built
     kernel), or None."""
-    smem = _smem_bytes(ks, hop, pack, pack_off, npow, n_mels_pad)
+    smem = _smem_bytes(ks, hop, pack, pack_off, width, npow, n_mels_pad)
     if smem > MAX_SMEM_BYTES:
         return (f"K1 needs {smem} bytes of shared memory for hop {hop}, "
                 f"{pack} taps at {pack_off}, {npow} power columns; a block "
@@ -290,15 +325,35 @@ def _smem_refusal(ks: int, hop: int, pack: int, pack_off: int, npow: int,
 
 def k1_accepts(head: SigHead, *, hop: int, ks: int = 3) -> bool:
     """Whether K1 takes ``head`` at ``hop`` with ``ks`` signal slices: the
-    width and split check of ``check_head`` and the shared-memory check of
-    the launch, the same functions the launch applies. The auto routes
-    pick K1 only where this holds."""
+    shape check of ``check_head`` and the shared-memory check of the
+    launch, the same functions the launch applies. The auto routes pick
+    K1 only where this holds."""
     width, split = head.m_big.shape[1], head.n_bins_pad
-    if _width_refusal(width, split, "K1") is not None:
+    if shape_refusal(width, split, head.mt.shape[1], "K1") is not None:
         return False
-    npow = WIDTH if split == 0 else split
-    return _smem_refusal(ks, hop, head.pack, head.pack_off, npow,
+    npow = width if split == 0 else split
+    return _smem_refusal(ks, hop, head.pack, head.pack_off, width, npow,
                          head.mt.shape[1]) is None
+
+
+def live_columns(m_big: torch.Tensor, n_bins_pad: int) -> int:
+    """The power columns ``[0, live)`` of a head that can be nonzero,
+    rounded up to 8: past the last column whose re or im DFT column
+    (split) or whose own column (N-packed) holds a nonzero value, the
+    power is zero, and the kernels skip those columns. The host builders
+    call it once, on the CPU matrix (``SigHead``, ``SigMatrices``)."""
+    nz = (m_big != 0).any(dim=0)
+    if n_bins_pad:
+        nz = nz[:n_bins_pad] | nz[n_bins_pad : 2 * n_bins_pad]
+    idx = torch.nonzero(nz)
+    return -(-(int(idx.max()) + 1) // 8) * 8 if idx.numel() else 0
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (the kernels copy
+    m_big and mt rows in 16-byte pieces)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check_head(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
@@ -312,10 +367,10 @@ def check_head(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
         raise ValueError(f"{what} takes a [B, T] float32 signal")
     if m_big.dtype != torch.bfloat16 or m_big.device != dev:
         raise ValueError("m_big must be a bf16 tensor on the signal's device")
-    refusal = _width_refusal(m_big.shape[1], n_bins_pad, what)
+    refusal = shape_refusal(m_big.shape[1], n_bins_pad, mt.shape[-1], what)
     if refusal is not None:
         raise NotImplementedError(refusal)
-    npow = WIDTH if n_bins_pad == 0 else n_bins_pad
+    npow = m_big.shape[1] if n_bins_pad == 0 else n_bins_pad
     if mel_precision not in ("bf2", "highest"):
         raise ValueError("mel_precision must be 'bf2' or 'highest'")
     if out_mode not in OUT_MODES:
@@ -346,11 +401,13 @@ def raise_for(lib, rc: int, what: str) -> None:
 
 def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
             n_bins_pad, n_mels, mel_precision, pack_off, out_mode, guard,
-            epilogue: str | None = None, vad: tuple = (0.0, 0)) -> tuple:
-    """One K1 launch. ``epilogue``: None (the float mel), ``"quant"`` (the
-    u8 records ``q, lo, hi`` and no float mel) or ``"vad"`` (the mel and
-    the Sobel counts at ``vad = (thr, start_y)``). Returns the outputs as
-    a tuple."""
+            live, epilogue: str | None = None,
+            vad: tuple = (0.0, 0)) -> tuple:
+    """One K1 launch. ``live``: the power columns that can be nonzero
+    (None: every one). ``epilogue``: None (the float mel), ``"quant"``
+    (the u8 records ``q, lo, hi`` and no float mel) or ``"vad"`` (the mel
+    and the Sobel counts at ``vad = (thr, start_y)``). Returns the outputs
+    as a tuple."""
     global launches
     dev = samples.device
     pair_i, npow, n_mels_pad, bf2 = check_head(
@@ -361,7 +418,8 @@ def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
         raise ValueError("K1's epilogues run on the whisper mode")
     if epilogue == "vad" and n_mels < 3:
         raise ValueError("the Sobel VAD needs n_mels >= 3")
-    refusal = _smem_refusal(ks, hop, pack, pack_off, npow, n_mels_pad)
+    width = m_big.shape[1]
+    refusal = _smem_refusal(ks, hop, pack, pack_off, width, npow, n_mels_pad)
     if refusal is not None:
         raise NotImplementedError(refusal)
     b, t = samples.shape
@@ -382,8 +440,9 @@ def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
     if b == 0 or n_frames <= 0:
         return outs
     samples = samples.contiguous()
-    m_big = m_big.contiguous()
-    mt = mt.contiguous()
+    live = npow if live is None else live
+    m_big = aligned(m_big)
+    mt = aligned(mt)
     blocks = block_table(pair_i, dev)
     lib = _bound()
 
@@ -394,8 +453,8 @@ def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.melspec_sig_mel(
             samples.data_ptr(), b, t, n_frames, hop, offset, TILE_FRAMES,
-            m_big.data_ptr(), WIDTH, pack, pack_off, blocks.data_ptr(),
-            len(pair_i), ks, npow, mt.data_ptr(), n_mels, n_mels_pad,
+            m_big.data_ptr(), width, pack, pack_off, blocks.data_ptr(),
+            len(pair_i), ks, npow, live, mt.data_ptr(), n_mels, n_mels_pad,
             int(bf2), OUT_MODES.index(out_mode), clamped_guard(guard),
             ptr(out), ptr(q), ptr(lo), ptr(hi), ptr(counts), vad[0],
             int(vad[1]), stream)
@@ -419,16 +478,19 @@ def sig_mel(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
             mt: torch.Tensor, *, ks: int, n_frames: int, hop: int,
             offset: int, pack: int, n_bins_pad: int, n_mels: int,
             mel_precision: str = "bf2", pack_off: int = 0,
-            out_mode: str = "whisper", guard: float = 0.0) -> torch.Tensor:
+            out_mode: str = "whisper", guard: float = 0.0,
+            live: int | None = None) -> torch.Tensor:
     """K1 on a CUDA signal, its plain version on a CPU one (same
-    arguments as ``sig_mel_reference``). On the CPU the DFT dot is summed
+    arguments as ``sig_mel_reference``; ``live``, the head's
+    ``live_columns``, lets K1 skip the power columns that are zero, and
+    None has it multiply every one). On the CPU the DFT dot is summed
     exactly (float64): the f32 sum of a CPU BLAS changes with its thread
     count, and on near-silent mel bins that order alone can cost more
     than the accuracy gates allow."""
     kw = dict(ks=ks, n_frames=n_frames, hop=hop, offset=offset, pack=pack,
               n_bins_pad=n_bins_pad, n_mels=n_mels,
               mel_precision=mel_precision, pack_off=pack_off,
-              out_mode=out_mode, guard=guard)
+              out_mode=out_mode, guard=guard, live=live)
     return _on_device(
         samples, lambda: _launch(samples, m_big, pair_i, mt, **kw)[0],
         lambda: sig_mel_reference(samples, m_big, pair_i, mt,
@@ -438,7 +500,8 @@ def sig_mel(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
 def sig_mel_quantized(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
                       mt: torch.Tensor, *, ks: int, n_frames: int, hop: int,
                       offset: int, pack: int, n_bins_pad: int, n_mels: int,
-                      mel_precision: str = "bf2") -> tuple:
+                      mel_precision: str = "bf2",
+                      live: int | None = None) -> tuple:
     """K1 in whisper mode with the quant epilogue on a CUDA signal, its
     plain version on a CPU one (float64 DFT dot, as ``sig_mel``): ``(q
     [B, n_frames, n_mels] u8, lo [B, n_frames], hi [B, n_frames])``, each
@@ -446,7 +509,7 @@ def sig_mel_quantized(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
     mel."""
     kw = dict(ks=ks, n_frames=n_frames, hop=hop, offset=offset, pack=pack,
               n_bins_pad=n_bins_pad, n_mels=n_mels,
-              mel_precision=mel_precision)
+              mel_precision=mel_precision, live=live)
     return _on_device(
         samples,
         lambda: _launch(samples, m_big, pair_i, mt, pack_off=0,
@@ -459,7 +522,8 @@ def sig_mel_quantized(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
 def sig_mel_vad(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
                 mt: torch.Tensor, *, ks: int, n_frames: int, hop: int,
                 offset: int, pack: int, n_bins_pad: int, n_mels: int,
-                vad: tuple, mel_precision: str = "bf2") -> tuple:
+                vad: tuple, mel_precision: str = "bf2",
+                live: int | None = None) -> tuple:
     """K1 in whisper mode with the Sobel VAD epilogue on a CUDA signal,
     its plain version on a CPU one (float64 DFT dot): ``(mel [B,
     n_frames, n_mels], counts [B, n_frames] int32)`` at ``vad = (thr,
@@ -467,7 +531,7 @@ def sig_mel_vad(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
     ``tile_vad_counts``)."""
     kw = dict(ks=ks, n_frames=n_frames, hop=hop, offset=offset, pack=pack,
               n_bins_pad=n_bins_pad, n_mels=n_mels,
-              mel_precision=mel_precision)
+              mel_precision=mel_precision, live=live)
     return _on_device(
         samples,
         lambda: _launch(samples, m_big, pair_i, mt, pack_off=0,

@@ -21,13 +21,14 @@ import torch
 
 from melspec_tpu_torch.kernels import build
 from melspec_tpu_torch.kernels.sig_mel import (MAX_SMEM_BYTES, OUT_MODES,
-                                               TILE_FRAMES, SigHead,
+                                               TILE_FRAMES, SigHead, aligned,
                                                block_table, check_head,
                                                clamped_guard, raise_for,
+                                               shape_refusal,
                                                sig_mel_reference,
                                                tile_vad_counts)
 
-__all__ = ["TILE_FRAMES", "sig_multi", "sig_multi_reference"]
+__all__ = ["TILE_FRAMES", "k2_accepts", "sig_multi", "sig_multi_reference"]
 
 MAX_HEADS = 4
 
@@ -60,16 +61,83 @@ def _bound() -> ctypes.CDLL:
         p, ll, ll, i, i, i, i,  # x, batch, T, n_frames, hop, offset, tile
         i, i,                   # ks, n_heads
         p, p, p, p,             # m_bigs, blocks, mts, outs (arrays)
-        p, p, p, p, p, p, p, p, p,  # per-head int / float arrays
+        p, p, p, p, p, p,       # n_blocks, packs, pack_offs, widths,
+                                # npows, lives
+        p, p, p, p, p,          # n_mels, n_mels_pad, bf2, out_modes, guards
         p, ctypes.c_float, i,   # vad, vad_thr, vad_start_y
         p,                      # stream
     ]
     lib.melspec_sig_multi.restype = ctypes.c_int
-    lib.melspec_sig_multi_smem_bytes.argtypes = [i, i, i, p, p, p, p, p]
-    lib.melspec_sig_multi_smem_bytes.restype = ll
+    lib.melspec_sig_multi_layout.argtypes = [i, i, i, p, p, p, p, p, p, p,
+                                             p]
+    lib.melspec_sig_multi_layout.restype = ll
     lib.melspec_cuda_error_string.argtypes = [ctypes.c_int]
     lib.melspec_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _ints(values) -> ctypes.Array:
+    return (ctypes.c_int * len(values))(*values)
+
+
+def block_layout(ks: int, hop: int, packs, pack_offs, widths, npows,
+                 nmps) -> tuple:
+    """``(shared memory bytes, frames per block, staged span samples, DFT
+    columns per chunk)`` of the block layout K2 takes for the heads'
+    integer fields (asks the built kernel, which decides it, as K1's
+    ``block_layout``)."""
+    frames, span, cols = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    smem = _bound().melspec_sig_multi_layout(
+        ks, hop, len(packs), _ints(packs), _ints(pack_offs), _ints(widths),
+        _ints(npows), _ints(nmps), ctypes.byref(frames), ctypes.byref(span),
+        ctypes.byref(cols))
+    return int(smem), frames.value, span.value, cols.value
+
+
+def _smem_bytes(ks: int, hop: int, packs, pack_offs, widths, npows,
+                nmps) -> tuple:
+    """One K2 block's shared memory and staged span (samples) (asks the
+    built kernel)."""
+    smem, _, span, _ = block_layout(ks, hop, packs, pack_offs, widths,
+                                    npows, nmps)
+    return smem, span
+
+
+def _layout(heads: Sequence[SigHead]) -> tuple:
+    """``(packs, pack_offs, widths, npows, nmps)`` of the heads."""
+    widths = [h.m_big.shape[1] for h in heads]
+    return ([h.pack for h in heads], [h.pack_off for h in heads], widths,
+            [w if h.n_bins_pad == 0 else h.n_bins_pad
+             for h, w in zip(heads, widths)],
+            [h.mt.shape[-1] for h in heads])
+
+
+def _refusal(heads: Sequence[SigHead], ks: int, hop: int) -> str | None:
+    """Why K2 refuses these heads at ``hop`` with ``ks`` slices, or None:
+    the head count, each head's shape check and the shared-memory figure
+    of the built kernel, the checks the launch applies."""
+    if not 0 < len(heads) <= MAX_HEADS:
+        return f"K2 takes 1..{MAX_HEADS} heads; got {len(heads)}"
+    for h in heads:
+        refusal = shape_refusal(h.m_big.shape[1], h.n_bins_pad,
+                                h.mt.shape[-1], "K2")
+        if refusal is not None:
+            return refusal
+    smem, span = _smem_bytes(ks, hop, *_layout(heads))
+    if smem > MAX_SMEM_BYTES:
+        return (f"K2 needs {smem} bytes of shared memory (a span of {span} "
+                f"samples in {ks} bf16 slices kept for {len(heads)} heads, "
+                f"plus the ring and the widest head's power tile); a block "
+                f"has {MAX_SMEM_BYTES}")
+    return None
+
+
+def k2_accepts(heads: Sequence[SigHead], *, hop: int, ks: int = 3) -> bool:
+    """Whether K2 takes ``heads`` at ``hop`` with ``ks`` signal slices: the
+    refusals of the launch (head count, each head's DFT width and split,
+    shared memory). The fused frontends run on K2 only where this
+    holds."""
+    return _refusal(tuple(heads), ks, hop) is None
 
 
 def _launch(samples, heads, *, ks, n_frames, hop, offset, vad) -> tuple:
@@ -90,22 +158,10 @@ def _launch(samples, heads, *, ks, n_frames, hop, offset, vad) -> tuple:
     def arr(ctype, values):
         return (ctype * n)(*values)
 
-    packs = arr(ctypes.c_int, [h.pack for h in heads])
-    pack_offs = arr(ctypes.c_int, [h.pack_off for h in heads])
-    npows = arr(ctypes.c_int, [npow for _, npow, _, _ in checked])
-    nmps = arr(ctypes.c_int, [nmp for _, _, nmp, _ in checked])
-    lib = _bound()
-    # one block's staged span and shared memory, as the built kernel
-    # lays them out
-    span = ctypes.c_int()
-    smem = lib.melspec_sig_multi_smem_bytes(ks, hop, n, packs, pack_offs,
-                                            npows, nmps, ctypes.byref(span))
-    if smem > MAX_SMEM_BYTES:
-        raise NotImplementedError(
-            f"K2 needs {smem} bytes of shared memory (a span of {span.value} "
-            f"samples in {ks} bf16 slices kept for {len(heads)} heads, "
-            f"plus the widest head's power and log tiles); a block has "
-            f"{MAX_SMEM_BYTES}")
+    refusal = _refusal(heads, ks, hop)
+    if refusal is not None:
+        raise NotImplementedError(refusal)
+    packs, pack_offs, widths, npows, _ = _layout(heads)
     b, t = samples.shape
     outs = tuple(torch.empty((b, n_frames, h.n_mels), dtype=torch.float32,
                              device=dev) for h in heads)
@@ -114,9 +170,9 @@ def _launch(samples, heads, *, ks, n_frames, hop, offset, vad) -> tuple:
     if b == 0 or n_frames <= 0:
         return outs, counts
     samples = samples.contiguous()
-    keep = [(h.m_big.contiguous(), h.mt.contiguous(),
-             block_table(pair_i, dev))
+    keep = [(aligned(h.m_big), aligned(h.mt), block_table(pair_i, dev))
             for h, (pair_i, _, _, _) in zip(heads, checked)]
+    lib = _bound()
     vp, ci = ctypes.c_void_p, ctypes.c_int
     thr, start_y = vad if vad is not None else (0.0, 0)
     with torch.cuda.device(dev):
@@ -129,8 +185,10 @@ def _launch(samples, heads, *, ks, n_frames, hop, offset, vad) -> tuple:
             arr(vp, [mt.data_ptr() for _, mt, _ in keep]),
             arr(vp, [o.data_ptr() for o in outs]),
             arr(ci, [len(pi) for pi, _, _, _ in checked]),
-            packs, pack_offs, npows,
-            arr(ci, [h.n_mels for h in heads]), nmps,
+            _ints(packs), _ints(pack_offs), _ints(widths), _ints(npows),
+            _ints([h.live for h in heads]),
+            arr(ci, [h.n_mels for h in heads]),
+            arr(ci, [nmp for _, _, nmp, _ in checked]),
             arr(ci, [int(bf2) for _, _, _, bf2 in checked]),
             arr(ci, [OUT_MODES.index(h.out_mode) for h in heads]),
             arr(ctypes.c_float, [clamped_guard(h.guard) for h in heads]),

@@ -38,7 +38,8 @@ from melspec_tpu_torch.config import DetectionSettings
 from melspec_tpu_torch.kernels.framed_mel import (IMPLS, TILE_FRAMES,
                                                   FramedMatrices, framed_mel)
 from melspec_tpu_torch.kernels.sig_mel import TILE_FRAMES as TILE_K1
-from melspec_tpu_torch.kernels.sig_mel import (SigHead, k1_accepts, sig_mel,
+from melspec_tpu_torch.kernels.sig_mel import (SigHead, k1_accepts,
+                                               live_columns, sig_mel,
                                                sig_mel_quantized,
                                                sig_mel_reference, sig_mel_vad,
                                                vad_args)
@@ -204,9 +205,9 @@ def _sig_device_matrices(fft_size: int, n_mels: int, sampling_rate: float,
     """Whisper instantiation (the projection zeroes bins >= fft/2), plus
     the bf2 mel stack. The JAX function's tuple less its ``npack``, as
     CPU tensors: ``(m_big, pair_i, mt f32, mt_bf2, n_bins_pad, n_mels_pad,
-    k_pad)``. Always the split layout: the kernels take 512 columns, and
-    where JAX's "auto" would pack a whisper head (fft 320: 384 columns)
-    the split layout keeps that width."""
+    k_pad)``. Always the split layout: the kernels take 256-, 512- and
+    1024-column heads, and where JAX's "auto" would pack a whisper head
+    (fft 320: 384 columns) the split layout keeps a width they take."""
     half = fft_size // 2
     filters = mel_filterbank(sampling_rate, fft_size, n_mels)
     m_big, pair_i, mt, n_bins_pad, n_mels_pad, k_pad, _ = \
@@ -221,14 +222,16 @@ def _sig_device_matrices(fft_size: int, n_mels: int, sampling_rate: float,
 class SigMatrices:
     """K1's device matrices: ``m_big`` bf16 ``[K_tot, 2*n_bins_pad]``,
     ``pair_i``, ``mt`` f32 ``[n_bins_pad, n_mels_pad]``, ``mt_bf2`` bf16
-    ``[3*n_bins_pad, n_mels_pad]`` and the re|im split point
-    ``n_bins_pad``."""
+    ``[3*n_bins_pad, n_mels_pad]``, the re|im split point ``n_bins_pad``
+    and the power columns that can be nonzero (``live_columns`` of the
+    host matrix)."""
 
     m_big: torch.Tensor
     pair_i: tuple
     mt: torch.Tensor
     mt_bf2: torch.Tensor
     n_bins_pad: int
+    live: int
 
     def to(self, device) -> "SigMatrices":
         return dataclasses.replace(
@@ -242,7 +245,8 @@ def sig_matrices(fft_size: int, n_mels: int, sampling_rate: float, ks: int,
     """The whisper matrices for ``(ks, cutoff)``, cached on ``device``."""
     m_big, pair_i, mt, mt_bf2, n_bins_pad, _, _ = _sig_device_matrices(
         fft_size, n_mels, float(sampling_rate), ks, ks, cutoff)
-    return SigMatrices(m_big, pair_i, mt, mt_bf2, n_bins_pad).to(device)
+    return SigMatrices(m_big, pair_i, mt, mt_bf2, n_bins_pad,
+                       live_columns(m_big, n_bins_pad)).to(device)
 
 
 def whisper_head(fft_size: int, n_mels: int, sampling_rate: float,
@@ -253,7 +257,7 @@ def whisper_head(fft_size: int, n_mels: int, sampling_rate: float,
     mats = sig_matrices(fft_size, n_mels, float(sampling_rate), 3, 2,
                         device)
     return SigHead(mats.m_big, mats.pair_i, mats.mt_bf2, mats.n_bins_pad,
-                   fft_size, n_mels, pack_off=pack_off)
+                   fft_size, n_mels, pack_off=pack_off, live=mats.live)
 
 
 def _k1_input(samples, fft_size: int, hop_size: int, streaming: bool,
@@ -289,7 +293,7 @@ def _sig_kw(ks: int, fft_size: int, hop_size: int, n_mels: int,
         raise ValueError("mel_precision must be 'bf2' or 'highest'")
     return dict(ks=ks, n_frames=n_frames, hop=hop_size,
                 offset=offset, pack=fft_size, n_bins_pad=mats.n_bins_pad,
-                n_mels=n_mels, mel_precision=mel_precision)
+                n_mels=n_mels, mel_precision=mel_precision, live=mats.live)
 
 
 def whisper_mel_sig(
@@ -603,8 +607,9 @@ def resolve_pallas_impl(fft_size: int, hop_size: int, n_mels: int,
                         device=None) -> str:
     """``whisper_mel_pallas``'s ``impl=None``: ``"hp_bf16"`` with ``hp``;
     else ``"sig"`` where the macro-row geometry applies and, on CUDA, K1
-    takes the config's head (``kernels/sig_mel.py::k1_accepts``: 512 DFT
-    columns, a span within a block's shared memory); else ``"bf3"``. The
+    takes the config's head (``kernels/sig_mel.py::k1_accepts``: 256, 512
+    or 1024 DFT columns, a span within a block's shared memory); else
+    ``"bf3"``. The
     head is built on the CPU; no kernel runs."""
     if hp:
         return "hp_bf16"
@@ -619,7 +624,7 @@ def resolve_pallas_impl(fft_size: int, hop_size: int, n_mels: int,
     mats = sig_matrices(fft_size, n_mels, float(sampling_rate), ks, cutoff,
                         torch.device("cpu"))
     head = SigHead(mats.m_big, mats.pair_i, mats.mt_bf2, mats.n_bins_pad,
-                   fft_size, n_mels)
+                   fft_size, n_mels, live=mats.live)
     return "sig" if k1_accepts(head, hop=hop_size, ks=ks) else "bf3"
 
 

@@ -33,14 +33,17 @@ from melspec_tpu_torch.kernels import sig_multi
 from melspec_tpu_torch.kernels.sig_mel import SigHead, vad_args
 from melspec_tpu_torch.ops import framing
 from melspec_tpu_torch.ops.batch_logmel import BatchLogMel, nemo_filters
-from melspec_tpu_torch.ops.fbank import Fbank
+from melspec_tpu_torch.ops.fbank import sig_head as kaldi_head
 from melspec_tpu_torch.ops.mel_kernel import (_sig_frontend_matrices,
                                               bf2_stack, sig_geometry,
                                               whisper_head)
 from melspec_tpu_torch.ops.vad import fix_raw
 from melspec_tpu_torch.ops.windows import hann_centered
 
-__all__ = ["WhisperKaldiFused", "WhisperKaldiNemoFused", "head_subset"]
+__all__ = ["WhisperKaldiFused", "WhisperKaldiNemoFused", "check_k2",
+           "head_subset", "pair_heads"]
+
+CPU = torch.device("cpu")
 
 
 def head_subset(head: SigHead, blocks: Sequence[int]) -> SigHead:
@@ -57,6 +60,44 @@ def head_subset(head: SigHead, blocks: Sequence[int]) -> SigHead:
     rows = torch.nn.functional.pad(rows, (0, 0, 0, k_sub - rows.shape[0]))
     return dataclasses.replace(
         head, m_big=rows, pair_i=tuple(head.pair_i[b] for b in blocks))
+
+
+def pair_heads(mel_config: MelConfig, fbank_config: FbankConfig,
+               fbank_blocks: tuple | None = None) -> tuple:
+    """The whisper and Kaldi heads of ``WhisperKaldiFused`` on the CPU,
+    after its checks: one frame grid, the macro-row geometry, and Kaldi's
+    sig-route conditions (power spectra, log output). Raises
+    ``ValueError`` where the fused route does not apply."""
+    mc, kc = mel_config, fbank_config
+    if (mc.fft_size != kc.frame_length_samples
+            or mc.hop_size != kc.frame_shift_samples):
+        raise ValueError(
+            "fused whisper+kaldi needs one frame grid: whisper "
+            f"({mc.fft_size}, {mc.hop_size}) vs kaldi "
+            f"({kc.frame_length_samples}, {kc.frame_shift_samples})"
+        )
+    if sig_geometry(mc.fft_size, mc.hop_size) is None:
+        raise ValueError("no macro-row geometry for this frame grid")
+    if not (kc.use_power and kc.use_log_fbank):
+        raise ValueError("the fused Kaldi head computes log power fbank only")
+    k_head = kaldi_head(kc)
+    if fbank_blocks is not None:
+        k_head = head_subset(k_head, fbank_blocks)
+    return (whisper_head(mc.fft_size, mc.n_mels, mc.sampling_rate, CPU),
+            k_head)
+
+
+def check_k2(heads: Sequence[SigHead], hop: int, device) -> None:
+    """Raise ``ValueError`` where ``device`` is CUDA and K2 does not take
+    ``heads`` (``kernels/sig_multi.py::k2_accepts``), so that a caller
+    such as ``sharded_frontend_step`` takes the per-frontend routes, as
+    for a config without the fused route. On the CPU the plain version
+    takes any heads."""
+    if (torch.device(device).type == "cuda"
+            and not sig_multi.k2_accepts(heads, hop=hop)):
+        raise ValueError(
+            "K2 does not take these heads (DFT width or shared memory); "
+            "run the frontends separately")
 
 
 class WhisperKaldiFused:
@@ -79,29 +120,12 @@ class WhisperKaldiFused:
         self.device = resolve_device(device)
         self.mel_config = mel_config or MelConfig()
         self.fbank_config = fbank_config or FbankConfig(apply_cmn=True)
-        mc, kc = self.mel_config, self.fbank_config
-        if (mc.fft_size != kc.frame_length_samples
-                or mc.hop_size != kc.frame_shift_samples):
-            raise ValueError(
-                "fused whisper+kaldi needs one frame grid: whisper "
-                f"({mc.fft_size}, {mc.hop_size}) vs kaldi "
-                f"({kc.frame_length_samples}, {kc.frame_shift_samples})"
-            )
-        if sig_geometry(mc.fft_size, mc.hop_size) is None:
-            raise ValueError("no macro-row geometry for this frame grid")
-        # the Kaldi head is Fbank's own sig head (its checks included)
-        kaldi = Fbank(kc, fft_impl="sig", device=self.device)
+        mc = self.mel_config
+        heads = pair_heads(mc, self.fbank_config, fbank_blocks)
         if matrices is not None:
-            self.heads = tuple(h.to(self.device) for h in matrices)
-        else:
-            k_head = kaldi.sig_head
-            if fbank_blocks is not None:
-                k_head = head_subset(k_head, fbank_blocks)
-            self.heads = (
-                whisper_head(mc.fft_size, mc.n_mels, mc.sampling_rate,
-                             self.device),
-                k_head,
-            )
+            heads = tuple(matrices)
+        check_k2(heads, mc.hop_size, self.device)
+        self.heads = tuple(h.to(self.device) for h in heads)
 
     def _signal(self, samples) -> torch.Tensor:
         x = as_signal(samples, self.device)
@@ -200,6 +224,7 @@ class WhisperKaldiNemoFused(WhisperKaldiFused):
                                                    pack_off=self._nemo_pad)
                                for h in self.heads) + (
                 nemo_fold_head(nc).to(self.device),)
+        check_k2(self.heads, mc.hop_size, self.device)
 
     def _run(self, x: torch.Tensor, vad) -> tuple:
         mc = self.mel_config

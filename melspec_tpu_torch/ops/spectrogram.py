@@ -103,9 +103,9 @@ def auto_fft_impl(fft_size: int, hop_size: int, n_mels: int,
                   sampling_rate: float, dtype, device) -> str:
     """``fft_impl="auto"`` on ``device``: ``"fft"`` on the CPU; on CUDA
     ``"sig"`` where the macro-row geometry applies, the dtype is float32
-    and K1 takes the config's head (``k1_accepts``: 512 DFT columns, a
-    span within a block's shared memory), else ``"bf3"``. The head is
-    built on the CPU; no kernel runs."""
+    and K1 takes the config's head (``k1_accepts``: 256, 512 or 1024 DFT
+    columns, a span within a block's shared memory), else ``"bf3"``. The
+    head is built on the CPU; no kernel runs."""
     if torch.device(device).type != "cuda":
         return "fft"
     off = framing.streaming_frame_offset(fft_size, hop_size)

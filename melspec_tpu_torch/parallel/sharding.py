@@ -4,9 +4,10 @@
 One call computes, for a batch of clips: whisper log-mel, Kaldi fbank,
 the raw Sobel VAD and its smoothing, NeMo log-mel, the VAD aggregates
 over the valid frames, and the 8-bit quantization of the whole mel block.
-Where whisper and Kaldi share a frame grid (the defaults do), their
-spectral passes and the VAD run as one launch of kernel K2
-(``WhisperKaldiFused``); otherwise each frontend runs on its own
+Where whisper and Kaldi share a frame grid (the defaults do) and, on
+CUDA, K2 takes their heads (``frontend_route``), their spectral passes
+and the VAD run as one launch of kernel K2 (``WhisperKaldiFused``);
+otherwise each frontend runs on its own
 (``WhisperMelPipeline`` + ``Fbank`` + ``classify_columns``). NeMo runs
 through ``BatchLogMel``, on kernel K1 on CUDA.
 
@@ -27,11 +28,12 @@ from melspec_tpu_torch.config import (BatchLogMelConfig, DetectionSettings,
 from melspec_tpu_torch.ops.batch_logmel import BatchLogMel
 from melspec_tpu_torch.ops.fbank import Fbank
 from melspec_tpu_torch.ops.quant import quantize_tensor
-from melspec_tpu_torch.ops.sig_multihead import WhisperKaldiFused
+from melspec_tpu_torch.ops.sig_multihead import (WhisperKaldiFused, check_k2,
+                                                 pair_heads)
 from melspec_tpu_torch.ops.spectrogram import WhisperMelPipeline
 from melspec_tpu_torch.ops.vad import classify_columns, smooth_mask
 
-__all__ = ["sharded_frontend_step"]
+__all__ = ["frontend_route", "sharded_frontend_step"]
 
 
 def _world_size(group) -> int:
@@ -40,6 +42,22 @@ def _world_size(group) -> int:
     if group is None and not (dist.is_available() and dist.is_initialized()):
         return 1
     return dist.get_world_size(group)
+
+
+def frontend_route(mel_config: MelConfig, fbank_config: FbankConfig,
+                   device) -> str:
+    """The whisper + Kaldi route of ``sharded_frontend_step`` on
+    ``device``: ``"fused"`` (one K2 launch, ``WhisperKaldiFused``) where
+    the frontends share a frame grid with a sig geometry and, on CUDA,
+    K2 takes their heads; else ``"per_frontend"``, as JAX falls back
+    where its fused constructor raises. The heads are built on the CPU;
+    no kernel runs."""
+    try:
+        heads = pair_heads(mel_config, fbank_config)
+        check_k2(heads, mel_config.hop_size, device)
+    except ValueError:
+        return "per_frontend"
+    return "fused"
 
 
 def sharded_frontend_step(
@@ -74,13 +92,9 @@ def sharded_frontend_step(
     fbank_config = fbank_config or FbankConfig(apply_cmn=True)
     nemo = BatchLogMel(nemo_config, device=dev)
     fused = None
-    try:
+    if frontend_route(mel_config, fbank_config, dev) == "fused":
         fused = WhisperKaldiFused(mel_config, fbank_config, device=dev)
-    except ValueError:
-        # the frame grids differ, or the config has no sig geometry or
-        # no sig Kaldi head: the per-frontend route below
-        pass
-    if fused is None:
+    else:
         whisper = WhisperMelPipeline(
             mel_config.fft_size, mel_config.hop_size, mel_config.n_mels,
             float(mel_config.sampling_rate), device=dev)

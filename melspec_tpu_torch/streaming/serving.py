@@ -32,7 +32,8 @@ import torch
 
 from melspec_tpu_torch._device import resolve_device, stream_mask, to_host
 from melspec_tpu_torch.config import DetectionSettings, MelConfig
-from melspec_tpu_torch.ops.mel_kernel import sig_geometry
+from melspec_tpu_torch.kernels.sig_mel import k1_accepts
+from melspec_tpu_torch.ops.mel_kernel import sig_geometry, whisper_head
 from melspec_tpu_torch.ops.quant import quantize_frames
 from melspec_tpu_torch.ops.resample import validate_ratio
 from melspec_tpu_torch.ops.vad import streaming_decision_fields_batched
@@ -408,14 +409,19 @@ def calibrate_fft_impl(config: MelConfig = MelConfig(), n_streams: int = 16,
     warm-up) and return the faster one's name.
 
     Returns ``"rdft"`` without timing where the sig route cannot serve
-    the config (``record_norm="log10"``; no geometry for (fft, hop)) or
-    the device is the CPU (K1's plain version there is no measure of the
-    kernel)."""
+    the config (``record_norm="log10"``; no geometry for (fft, hop) at
+    offset = hop; K1 refuses the config's head, ``k1_accepts``, as
+    ``mel_kernel.resolve_pallas_impl`` asks) or the device is the CPU
+    (K1's plain version there is no measure of the kernel)."""
     dev = resolve_device(device)
     if record_norm == "log10" or dev.type != "cuda":
         return "rdft"
     if sig_geometry(config.fft_size, config.hop_size,
                     offset=config.hop_size) is None:
+        return "rdft"
+    head = whisper_head(config.fft_size, config.n_mels,
+                        float(config.sampling_rate), torch.device("cpu"))
+    if not k1_accepts(head, hop=config.hop_size):
         return "rdft"
     rng = np.random.default_rng(7)
     times = {}

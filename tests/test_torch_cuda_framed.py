@@ -1,5 +1,6 @@
 """K5-K8 on the card against their plain PyTorch versions, the JFK gates
-through the kernels, and the auto routes that K1 refuses. Needs a CUDA
+through the kernels, and the auto routes of the heads that are not 512
+columns wide. Needs a CUDA
 device and nvcc; skipped elsewhere. On a machine with the card (no JAX
 needed):
 
@@ -16,7 +17,7 @@ import torch
 from melspec_tpu_torch.config import BatchLogMelConfig, FbankConfig
 from melspec_tpu_torch.io.wav import read_wav_f32le
 from melspec_tpu_torch.kernels import framed_mel, sig_mel
-from melspec_tpu_torch.ops import mel_kernel
+from melspec_tpu_torch.ops import batch_logmel, fbank, mel_kernel
 from melspec_tpu_torch.ops.batch_logmel import BatchLogMel
 from melspec_tpu_torch.ops.fbank import Fbank
 from melspec_tpu_torch.ops.spectrogram import WhisperMelPipeline
@@ -125,47 +126,62 @@ def test_refusals(dev):
     (1024, 256, 80, 22050.0), (960, 480, 40, 48000.0),
     (256, 96, 32, 16000.0)])
 def test_auto_routes_take_k5_where_k1_refuses(dev, fft, hop, n_mels, sr):
-    """The whisper configs whose heads are not 512 columns wide: the
-    pipeline takes its bf3 power, ``whisper_mel_pallas(impl=None)`` K5;
-    both hold their float64 / plain results."""
+    """The whisper configs whose heads are not 512 columns wide: where
+    ``k1_accepts`` holds (256 and 1024 columns, the span within a block's
+    shared memory) the pipeline and ``whisper_mel_pallas(impl=None)`` take
+    K1; where it does not (960/480: its span does not fit) the pipeline
+    takes its bf3 power and ``whisper_mel_pallas`` K5; both hold their
+    float64 results at 2e-5."""
     x = torch.from_numpy((np.random.default_rng(fft).normal(
         size=(2, int(sr))) * 0.2).astype(np.float32)).to(dev)
+    k1 = sig_mel.k1_accepts(mel_kernel.whisper_head(fft, n_mels, sr, dev),
+                            hop=hop)
     pipe = WhisperMelPipeline(fft, hop, n_mels, sr, device=dev)
-    assert pipe.fft_impl == "bf3"
+    assert pipe.fft_impl == ("sig" if k1 else "bf3")
     f64 = WhisperMelPipeline(fft, hop, n_mels, sr, dtype=torch.float64,
                              fft_impl="rdft", device=dev)
     want = f64.mel_batch(x.double())
     assert float((pipe.mel_batch(x).double() - want).abs().max()) <= 2e-5
-    before = dict(framed_mel.launches)
+    before = (dict(framed_mel.launches), sig_mel.launches)
     got = mel_kernel.whisper_mel_pallas(x, fft, hop, n_mels, sr, device=dev)
-    assert framed_mel.launches["K5"] == before["K5"] + 1
+    torch.cuda.synchronize()
+    assert sig_mel.launches == before[1] + k1
+    assert framed_mel.launches["K5"] == before[0]["K5"] + (not k1)
     assert float((got.double() - want).abs().max()) <= 2e-5
 
 
 def test_auto_routes_of_8k_frontends(dev):
-    """8 kHz Kaldi fbank and NeMo log-mel (256-point FFTs): "rdft" on the
-    card; NeMo within 2e-4 of its float64 route, Kaldi within the JAX
-    package's 2e-3 between its Kaldi hp route and float64
-    (tests/test_fbank.py)."""
+    """8 kHz Kaldi fbank and NeMo log-mel (256-column heads): K1 on the
+    card where ``k1_accepts`` holds, else "rdft"; NeMo within 2e-4 of its
+    float64 route, Kaldi within the JAX package's 2e-3 between its Kaldi
+    hp route and float64 (tests/test_fbank.py)."""
     x = torch.from_numpy((np.random.default_rng(2).normal(
         size=(2, 16000)) * 0.2).astype(np.float32)).to(dev)
     fcfg = FbankConfig(sample_rate=8000.0)
     fb = Fbank(fcfg, device=dev)
-    assert fb.fft_impl == "rdft"
+    k1 = sig_mel.k1_accepts(fbank.sig_head(fcfg), hop=80)
+    assert fb.fft_impl == ("sig" if k1 else "rdft")
     want = Fbank(fcfg, dtype=torch.float64, device=dev).compute(x.double())
     assert float((fb.compute(x).double() - want).abs().max()) <= 2e-3
     ncfg = BatchLogMelConfig(sample_rate=8000, n_fft=256, win_length=200,
                              hop_length=80)
     bl = BatchLogMel(ncfg, device=dev)
-    assert bl.fft_impl == "rdft"
+    k1 = sig_mel.k1_accepts(batch_logmel.sig_head(ncfg), hop=80)
+    assert bl.fft_impl == ("sig" if k1 else "rdft")
     want = BatchLogMel(ncfg, dtype=torch.float64,
                        device=dev).compute(x.double())
     assert float((bl.compute(x).double() - want).abs().max()) <= 2e-4
 
 
-@pytest.mark.parametrize("fft,hop,n_mels", [(400, 160, 80),
-                                            (400, 160, 128), (512, 160, 80)])
-def test_k1_accepts_the_512_column_heads(dev, fft, hop, n_mels):
-    head = mel_kernel.whisper_head(fft, n_mels, 16000.0, dev)
+@pytest.mark.parametrize("fft,hop,n_mels,sr", [
+    (400, 160, 80, 16000.0), (400, 160, 128, 16000.0),
+    (512, 160, 80, 16000.0), (200, 80, 80, 8000.0), (256, 96, 32, 16000.0),
+    (1024, 256, 80, 22050.0)])
+def test_k1_accepts_the_512_column_heads(dev, fft, hop, n_mels, sr):
+    """K1 takes the 512-column whisper heads, and the 256- and
+    1024-column ones of the 8 kHz, 256/96 and 22.05 kHz configs; the
+    pipeline's auto route picks it."""
+    head = mel_kernel.whisper_head(fft, n_mels, sr, dev)
     assert sig_mel.k1_accepts(head, hop=hop)
-    assert WhisperMelPipeline(fft, hop, n_mels, device=dev).fft_impl == "sig"
+    assert WhisperMelPipeline(fft, hop, n_mels, sr,
+                              device=dev).fft_impl == "sig"

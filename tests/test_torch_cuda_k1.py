@@ -135,3 +135,57 @@ def test_multistream_sig_route_matches_plain(dev, n_mels):
         floor = float((want - exact).abs().max())
         assert float((got - exact).abs().max()) <= 1e-5
         assert float((got - want).abs().max()) <= 1e-5 + floor
+
+
+WIDTH_CONFIGS = [(200, 80, 80, 8000.0), (256, 96, 32, 16000.0),
+                 (1024, 256, 80, 22050.0)]
+
+
+@pytest.mark.parametrize("fft,hop,n_mels,sr", WIDTH_CONFIGS)
+@pytest.mark.parametrize("streaming", [False, True])
+def test_k1_matches_plain_at_256_and_1024_columns(dev, fft, hop, n_mels, sr,
+                                                  streaming):
+    """The whisper heads of 256 (fft 200, 256) and 1024 (fft 1024)
+    columns, walked in column chunks, at test_k1_matches_plain's bars."""
+    head = mel_kernel.whisper_head(fft, n_mels, sr, dev)
+    assert head.m_big.shape[1] in (256, 1024)
+    assert sig_mel.k1_accepts(head, hop=hop)
+    x = torch.from_numpy((np.random.default_rng(fft + hop).normal(
+        size=(3, int(sr) + 37)) * 0.2).astype(np.float32)).to(dev)
+    before = sig_mel.launches
+    got = mel_kernel.whisper_mel_sig(x, fft, hop, n_mels, sr,
+                                     streaming=streaming, device=dev)
+    torch.cuda.synchronize()
+    assert sig_mel.launches == before + 1
+    offset = framing.streaming_frame_offset(fft, hop) if streaming else 0
+    kw = dict(ks=3, n_frames=got.shape[1], hop=hop, offset=offset,
+              **head.kw())
+    want = sig_mel.sig_mel_reference(x, head.m_big, head.pair_i, head.mt,
+                                     **kw)
+    exact = sig_mel.sig_mel_reference(x, head.m_big, head.pair_i, head.mt,
+                                      dot_dtype=torch.float64, **kw)
+    assert got.shape == want.shape
+    floor = float((want - exact).abs().max())
+    assert float((got - exact).abs().max()) <= max(1e-5, floor)
+    assert float((got - want).abs().max()) <= max(1e-5, floor) + floor
+
+
+@pytest.mark.parametrize("fft,hop,n_mels,sr", WIDTH_CONFIGS)
+def test_jfk_gate_at_256_and_1024_columns(dev, fft, hop, n_mels, sr):
+    """The JFK clip through K1 at the 256- and 1024-column heads, held to
+    the golden gate's 1e-5 against the float64 route of the same config
+    (there is no golden at these configs)."""
+    from pathlib import Path
+
+    from melspec_tpu_torch.io.wav import read_wav_f32le
+    from melspec_tpu_torch.ops.spectrogram import WhisperMelPipeline
+
+    root = Path(__file__).resolve().parents[1]
+    jfk = torch.as_tensor(read_wav_f32le(root / "testdata/jfk_f32le.wav"),
+                          device=dev)[None]
+    got = mel_kernel.whisper_mel_sig(jfk, fft, hop, n_mels, sr, device=dev)
+    want = WhisperMelPipeline(fft, hop, n_mels, sr, dtype=torch.float64,
+                              fft_impl="rdft", device=dev).mel_batch(
+                                  jfk.double())
+    assert got.shape == want.shape
+    assert float((got.double() - want).abs().max()) <= 1e-5

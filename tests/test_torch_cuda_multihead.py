@@ -181,3 +181,53 @@ def test_k2_refuses_what_it_does_not_take(dev):
                             vad=(0.25, 0))
     with pytest.raises(NotImplementedError, match="shared memory"):
         sig_multi.sig_multi(x, fused.heads, ks=3, n_frames=10, hop=400)
+
+
+def test_k2_8k_pair_equals_k1(dev):
+    """The 8 kHz whisper + Kaldi pair (two 256-column heads) through K2:
+    each head torch.equal to K1 on the same matrices, the VAD counts to
+    tile_vad_counts of head 0, the fixed raw to classify_columns."""
+    mc = MelConfig(200, 80, 80, 8000.0)
+    kc = FbankConfig(sample_rate=8000.0, apply_cmn=False)
+    x = _signal(dev, 5, 8000 * 3 + 37, 8)
+    fused = WhisperKaldiFused(mc, kc, device=dev)
+    before = sig_multi.launches
+    mel, fbank = fused.compute(x)
+    torch.cuda.synchronize()
+    assert sig_multi.launches == before + 1
+    assert torch.equal(mel, whisper_mel_sig(x, 200, 80, 80, 8000.0,
+                                            device=dev))
+    assert torch.equal(fbank, Fbank(kc, fft_impl="sig", device=dev)
+                       .compute(x))
+    nf = framing.num_frames_batch(x.shape[-1], 200, 80)
+    vad = (sig_mel.vad_threshold(SETTINGS.min_energy), 0)
+    outs, counts = sig_multi.sig_multi(x, fused.heads, ks=3, n_frames=nf,
+                                       hop=80, vad=vad)
+    assert torch.equal(counts, sig_mel.tile_vad_counts(outs[0], *vad))
+    mel, _, raw = fused.compute_with_vad(x, SETTINGS)
+    assert torch.equal(raw, classify_columns(mel.transpose(-1, -2),
+                                             SETTINGS))
+
+
+@pytest.mark.parametrize("h", [0, 1])
+def test_k1_odd_pack_off_matches_plain(dev, h):
+    """The NeMo tri-head's whisper and Kaldi heads read their taps at
+    pack_off 257 (odd: the kernel assembles A fragments from 16-bit taps)
+    and are held through K1 to K1's bars: whisper 1e-5, Kaldi LN_TOL,
+    each raised to the f32 floor."""
+    tri = WhisperKaldiNemoFused(device=dev)
+    head = tri.heads[h]
+    assert head.pack_off % 2 == 1
+    x = _signal(dev, 3, 16000 * 2 + 37, 21 + h)
+    xin = torch.nn.functional.pad(x, (tri._nemo_pad, 0))
+    nf = framing.num_frames_centered(x.shape[-1], 160)
+    kw = dict(ks=3, n_frames=nf, hop=160, offset=0, **head.kw())
+    got = sig_mel.sig_mel(xin, head.m_big, head.pair_i, head.mt, **kw)
+    want = sig_mel.sig_mel_reference(xin, head.m_big, head.pair_i, head.mt,
+                                     **kw)
+    exact = sig_mel.sig_mel_reference(xin, head.m_big, head.pair_i,
+                                      head.mt, dot_dtype=torch.float64, **kw)
+    floor = float((want - exact).abs().max())
+    bar = max(1e-5 if h == 0 else LN_TOL, floor)
+    assert float((got - exact).abs().max()) <= bar
+    assert float((got - want).abs().max()) <= bar + floor

@@ -239,14 +239,17 @@ CUDA = torch.device("cuda")  # passed as a value: nothing runs on it
 
 
 @pytest.mark.parametrize("fft,hop,n_mels,sr,k1", [
-    (1024, 256, 80, 22050.0, False), (960, 480, 40, 48000.0, False),
-    (256, 96, 32, 16000.0, False), (400, 160, 128, 16000.0, True),
-    (512, 160, 80, 16000.0, True)])
+    (1024, 256, 80, 22050.0, True), (960, 480, 40, 48000.0, True),
+    (256, 96, 32, 16000.0, True), (400, 160, 128, 16000.0, True),
+    (512, 160, 80, 16000.0, True), (200, 80, 80, 8000.0, True),
+    (600, 240, 80, 24000.0, False)])
 def test_auto_whisper_routes_on_cuda(stub_smem, fft, hop, n_mels, sr, k1):
     """On a CUDA device the pipeline and ``whisper_mel_pallas(impl=None)``
-    take K1 exactly where ``k1_accepts`` holds for the config's head (the
-    whisper configs of tests/test_configs_broad.py whose heads are 1024 or
-    256 columns wide take bf3 / K5); on the CPU they keep JAX's choice."""
+    take K1 exactly where ``k1_accepts`` holds for the config's head: the
+    whisper configs of tests/test_configs_broad.py (256-, 512- and
+    1024-column heads) wherever their span fits a block's shared memory;
+    a 768-column head (fft 600) takes bf3 / K5. On the CPU they keep
+    JAX's choice."""
     head = mel_kernel.whisper_head(fft, n_mels, sr, torch.device(CPU))
     accepts = sig_mel.k1_accepts(head, hop=hop)
     assert accepts == k1
@@ -267,16 +270,16 @@ def test_auto_whisper_routes_on_cuda(stub_smem, fft, hop, n_mels, sr, k1):
 
 
 @pytest.mark.parametrize("name,kind,cfg,k1", [
-    ("fbank_8k", "fbank", FbankConfig(sample_rate=8000.0), False),
+    ("fbank_8k", "fbank", FbankConfig(sample_rate=8000.0), True),
     ("nemo_8k", "nemo", BatchLogMelConfig(sample_rate=8000, n_fft=256,
                                           win_length=200, hop_length=80),
-     False),
+     True),
     ("fbank", "fbank", FbankConfig(), True),
     ("nemo", "nemo", BatchLogMelConfig(), True)])
 def test_auto_ln_routes_on_cuda(stub_smem, name, kind, cfg, k1):
     """Fbank (and so Mfcc) and BatchLogMel take K1 on CUDA exactly where
-    ``k1_accepts`` holds for their head; 8 kHz (256-point heads) takes
-    rdft."""
+    ``k1_accepts`` holds for their head: at 16 kHz (512-column heads) and
+    at 8 kHz (256-column heads); rdft where the span would not fit."""
     mod = fbank if kind == "fbank" else batch_logmel
     head = mod.sig_head(cfg)
     hop = cfg.frame_shift_samples if kind == "fbank" else cfg.hop_length
@@ -284,3 +287,6 @@ def test_auto_ln_routes_on_cuda(stub_smem, name, kind, cfg, k1):
     assert mod.auto_fft_impl(cfg, torch.float32, CUDA) == \
         ("sig" if k1 else "rdft")
     assert mod.auto_fft_impl(cfg, torch.float32, torch.device(CPU)) == "rdft"
+    stub_smem.bytes = sig_mel.MAX_SMEM_BYTES + 1
+    assert not sig_mel.k1_accepts(head, hop=hop)
+    assert mod.auto_fft_impl(cfg, torch.float32, CUDA) == "rdft"

@@ -17,6 +17,7 @@ from melspec_tpu.parallel import make_mesh
 from melspec_tpu.parallel import sharded_frontend_step as jax_step
 from melspec_tpu_torch.config import DetectionSettings, FbankConfig, MelConfig
 from melspec_tpu_torch.kernels import sig_mel, sig_multi
+from melspec_tpu_torch.ops import sig_multihead
 from melspec_tpu_torch.ops.quant import quantize_tensor
 from melspec_tpu_torch.parallel import sharding
 
@@ -131,6 +132,43 @@ def test_constant_input_quantizes_to_zero(runs):
     _, _, port, _ = runs["fused"]
     out = port(np.zeros((2, 8000), np.float32))
     assert int(out["mel_q8"].max()) == 0
+
+
+K8 = dict(mel_config=MelConfig(200, 80, 80, 8000.0),
+          fbank_config=FbankConfig(sample_rate=8000.0))
+
+
+@pytest.mark.parametrize("configs", [{}, K8], ids=["16k", "8k"])
+@pytest.mark.parametrize("fits", [True, False])
+def test_cuda_route_follows_k2_accepts(monkeypatch, configs, fits):
+    """On CUDA the step takes the fused route (one K2 launch) only where
+    K2 takes the whisper and Kaldi heads (``sig_multi.k2_accepts``: their
+    widths, here 512 at 16 kHz and 256 at 8 kHz, and K2's shared-memory
+    figure, stubbed: it comes from the built kernel); elsewhere the
+    per-frontend routes, with no exception, as JAX falls back. The fused
+    constructors raise ``ValueError`` there. On the CPU the plain version
+    takes any heads."""
+    smem = 100_000 if fits else sig_mel.MAX_SMEM_BYTES + 1
+    calls = []
+
+    def stub(*args):
+        calls.append(args)
+        return smem, 11_000
+
+    monkeypatch.setattr(sig_multi, "_smem_bytes", stub)
+    mc = configs.get("mel_config", MelConfig())
+    fc = configs.get("fbank_config", FbankConfig())
+    cuda = torch.device("cuda")  # passed as a value: nothing runs on it
+    assert sharding.frontend_route(mc, fc, cuda) == \
+        ("fused" if fits else "per_frontend")
+    assert calls
+    assert sharding.frontend_route(mc, fc, torch.device("cpu")) == "fused"
+    monkeypatch.setattr(sig_multihead, "resolve_device", lambda d=None: cuda)
+    if not fits:
+        for cls in (sig_multihead.WhisperKaldiFused,
+                    sig_multihead.WhisperKaldiNemoFused):
+            with pytest.raises(ValueError, match="K2"):
+                cls(mc, fc)
 
 
 def test_more_than_one_rank_raises(monkeypatch):

@@ -406,6 +406,39 @@ def test_shared_frontend_and_calibration_on_cpu():
                               device=CPU) == "rdft"
 
 
+@pytest.mark.parametrize("cfg,fits,timed", [
+    (MelConfig(), False, False),
+    (MelConfig(600, 240, 80, 24000.0), True, False),
+    (MelConfig(), True, True),
+    (MelConfig(200, 80, 80, 8000.0), True, True)],
+    ids=["smem", "width768", "16k", "8k"])
+def test_calibrate_skips_sig_where_k1_refuses(monkeypatch, cfg, fits, timed):
+    """On CUDA ``calibrate_fft_impl`` returns "rdft" before any timing
+    where K1 refuses the config's head (``k1_accepts``: its shared-memory
+    figure, stubbed here as it comes from the built kernel, or a width K1
+    does not take), and times both routes where K1 takes it. The device
+    and the timing are stand-ins: nothing runs on a card."""
+    import melspec_tpu_torch.streaming.serving as serving
+
+    class Timed(Exception):
+        pass
+
+    def timing(*args, **kw):
+        raise Timed
+
+    monkeypatch.setattr(serving, "resolve_device",
+                        lambda d=None: torch.device("cuda"))
+    monkeypatch.setattr(serving, "shared_frontend", timing)
+    monkeypatch.setattr(sig_mel, "_smem_bytes", lambda *a: (
+        100_000 if fits else sig_mel.MAX_SMEM_BYTES + 1))
+    if timed:
+        with pytest.raises(Timed):
+            calibrate_fft_impl(cfg, 4, settings=SET, verbose=False)
+    else:
+        assert calibrate_fft_impl(cfg, 4, settings=SET,
+                                  verbose=False) == "rdft"
+
+
 def test_chunk_buffer_reuse_after_push_is_safe():
     """A serving loop refills its host buffer as soon as push_many
     returns; the pushed samples must already be on the device."""

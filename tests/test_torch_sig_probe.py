@@ -1,0 +1,45 @@
+"""K1's time probe on the CPU (it runs on the card only): every cut of
+the device code matches ``csrc/sig_common.cuh`` exactly once, a cut that
+no longer matches raises, and the command refuses without a card."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from melspec_tpu_torch.kernels import sig_probe
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("name", ["full", *sig_probe.CUTS])
+def test_cuts_match_the_header_once(name):
+    text = sig_probe.HEADER.read_text()
+    got = sig_probe.variant_source(name, text)
+    if name == "full":
+        assert got == text
+    else:
+        old, new = sig_probe.CUTS[name]
+        assert old not in got and got.count(new) >= 1
+        assert len(got) - len(text) == len(new) - len(old)
+
+
+def test_a_moved_cut_raises():
+    text = sig_probe.HEADER.read_text()
+    old, _ = sig_probe.CUTS["no_dft_mma"]
+    with pytest.raises(ValueError, match="no_dft_mma"):
+        sig_probe.variant_source("no_dft_mma", text.replace(old, ""))
+    with pytest.raises(ValueError, match="2 places"):
+        sig_probe.variant_source("no_dft_mma", text + old)
+
+
+def test_cli_refuses_without_cuda():
+    code = ("import torch, sys\n"
+            "torch.cuda.is_available = lambda: False\n"
+            "from melspec_tpu_torch.kernels import sig_probe\n"
+            "sys.exit(sig_probe.main())\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 1 and "CUDA is not available" in res.stderr
+    assert res.stdout == ""
