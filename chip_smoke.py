@@ -5,8 +5,9 @@
 
 Builds every CUDA kernel of the port from the sources in this checkout
 (K1 ``csrc/sig_mel.cu``, K2 ``csrc/sig_multi.cu``, K3/K4
-``csrc/resample.cu``, K5-K8 ``csrc/framed_mel.cu``, P1
-``csrc/load_probe.cu``, one ``nvcc`` each, started together), holds each
+``csrc/resample.cu``, K5/K8 ``csrc/framed_mel.cu``, K6/K7
+``csrc/framed_ozaki.cu``, P1 ``csrc/load_probe.cu``, one ``nvcc`` each,
+started together), holds each
 against its plain PyTorch version on the card, checks the accuracy gates
 through the kernels, and drives the port's main paths at full width,
 with launch counts (zeroed just before each path, read just after) that
@@ -33,7 +34,9 @@ show each went through its kernels:
   on 64 x 30 s for each of bf3 / hp8 / hp_bf16 / f32 (K5 / K6 / K7 / K8,
   one launch each, K1 none), after K5-K8 are held against their plain
   versions (float32 and float64 dots) on 64 ragged 10 s clips and on
-  8 clips at 1024/256/80/22050 and pass the JFK gates; then the auto
+  8 clips at 1024/256/80/22050 and pass the JFK gates, and K6's and K7's
+  DFT power equals their plain versions' bit for bit at both shapes and
+  framings (phase ozaki_power); then the auto
   routes of the 256- and 1024-column heads (whisper 1024/256 at 22.05
   kHz through the pipeline and ``whisper_mel_pallas(impl=None)``, 8 kHz
   Kaldi fbank and NeMo log-mel), which take K1 wherever ``k1_accepts``
@@ -79,7 +82,8 @@ from melspec_tpu_torch import (WHISPER_LARGE_V3, WhisperMelPipeline,  # noqa: E4
                                compute_streaming_mel, read_wav_f32le,
                                whisper_mel_sig)
 from melspec_tpu_torch.kernels import (build, framed_mel,  # noqa: E402
-                                       load_probe, sig_mel, sig_multi)
+                                       framed_ozaki, load_probe, sig_mel,
+                                       sig_multi)
 from melspec_tpu_torch.kernels import resample as kres  # noqa: E402
 from melspec_tpu_torch.config import (BatchLogMelConfig,  # noqa: E402
                                       DetectionSettings, FbankConfig,
@@ -138,6 +142,9 @@ K2_REPLACES = "melspec_tpu/ops/sig_multihead.py:151"
 # K1's and K2's DFT instruction (csrc/sig_common.cuh::dft_chunk)
 DFT_MMA = "wgmma m64n128k16"
 FRAMED_SOURCE = "melspec_tpu_torch/csrc/framed_mel.cu"
+OZAKI_SOURCE = "melspec_tpu_torch/csrc/framed_ozaki.cu"
+# K6's and K7's DFT instruction (csrc/framed_ozaki.cu)
+OZAKI_MMA = {"K6": "wgmma m64n64k32 s8", "K7": "wgmma m64n64k16 f16"}
 FRAMED_REPLACES = {"K5": "melspec_tpu/ops/mel_kernel.py:467",
                    "K6": "melspec_tpu/ops/mel_kernel.py:314",
                    "K7": "melspec_tpu/ops/mel_kernel.py:2060",
@@ -319,17 +326,22 @@ def phase_device() -> str:
 def phase_build() -> None:
     t0 = time.perf_counter()
     built = build.load_all(["sig_mel", "resample", "sig_multi",
-                            "framed_mel", "load_probe"])
+                            "framed_mel", "framed_ozaki", "load_probe"])
     seconds = time.perf_counter() - t0
     report = {name: [ln.strip() for ln in b.log.splitlines()
                      if ("registers" in ln or "spill" in ln
                          or "Compiling entry" in ln) and "C7519" not in ln]
               for name, b in built.items()}
-    sass = tensor_core_sass(["sig_mel", "sig_multi"])
+    sass = tensor_core_sass(["sig_mel", "sig_multi", "framed_ozaki"])
     emit("build", kernels=sorted(built), seconds=round(seconds, 3),
          ptxas=report, ptxas_c7519=ptxas_c7519(built), sass=sass)
-    missing = [(name, op) for name, ops in sass.items()
-               for op, r in ops.items() if not r["count"]]
+    # K1 and K2: the DFT on HGMMA, the bf2 projection on HMMA; K6 on int8
+    # (IGMMA or IMMA), K7 on 16-bit floats (HGMMA or HMMA)
+    need = {"sig_mel": [("HGMMA",), ("HMMA",)],
+            "sig_multi": [("HGMMA",), ("HMMA",)],
+            "K6": [("IGMMA", "IMMA")], "K7": [("HGMMA", "HMMA")]}
+    missing = [(name, ops) for name, alts in need.items() for ops in alts
+               if not any(sass[name][op]["count"] for op in ops)]
     if missing:
         raise AssertionError(f"no tensor-core instructions: {missing}")
 
@@ -353,21 +365,32 @@ def ptxas_c7519(built) -> dict:
 
 
 def tensor_core_sass(names) -> dict:
-    """Per built library, the count of its warpgroup (HGMMA) and warp
-    (HMMA) tensor-core instructions in ``cuobjdump -sass``, with one line
-    of each: K1 and K2 run their DFT and projection there."""
+    """Per built library, the count of its warpgroup (HGMMA, IGMMA) and
+    warp (HMMA, IMMA) tensor-core instructions in ``cuobjdump -sass``,
+    with one line of each; ``framed_ozaki`` is split by kernel (K6: the
+    instances of scheme 0, K7: scheme 1)."""
     tool = Path(build.find_nvcc()).with_name("cuobjdump")
+    ops = ("HGMMA", "HMMA", "IGMMA", "IMMA")
     out = {}
     for name in names:
         sass = subprocess.run([str(tool), "-sass", str(build._target(name))],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout.splitlines()
-        out[name] = {}
-        for op in ("HGMMA", "HMMA"):
-            lines = [ln.split(";")[0].split("*/")[-1].strip()
-                     for ln in sass if f" {op}." in ln]
-            out[name][op] = dict(count=len(lines),
-                                 example=lines[0] if lines else None)
+        by = {}
+        key = name
+        for ln in sass:
+            if "Function :" in ln and name == "framed_ozaki":
+                key = "K6" if "ozaki_kernelILi0E" in ln else "K7"
+            for op in ops:
+                if f" {op}." in ln:
+                    by.setdefault(key, {}).setdefault(op, []).append(
+                        ln.split(";")[0].split("*/")[-1].strip())
+        keys = ("K6", "K7") if name == "framed_ozaki" else (name,)
+        for k in keys:
+            found = by.get(k, {})
+            out[k] = {op: dict(count=len(found.get(op, [])),
+                               example=found.get(op, [None])[0])
+                      for op in ops}
     return out
 
 
@@ -1549,6 +1572,44 @@ def phase_framed_vs_plain(dev) -> list:
     return rows
 
 
+def phase_ozaki_power(dev) -> dict:
+    """K6's and K7's DFT power, written by the kernel before its
+    projection (``framed_mel.ozaki_power``), against their plain versions'
+    ``two_float_power`` with the float32 and the float64 dot: ``torch.equal``
+    on 64 ragged 10 s clips at 400/160/128 and 8 clips at 1024/256/80 at
+    22.05 kHz, both framings. These launches are not counted."""
+    rng = np.random.default_rng(SEED + 85)
+    rows = []
+    for b, t, fft, hop, n_mels, sr in [
+            (FRAMED_B, CHECK_T, 400, 160, 128, 16000.0),
+            (FRAMED_22K_B, FRAMED_22K_T, 1024, 256, 80, 22050.0)]:
+        x = signal(rng, b, t, dev)
+        for streaming in (False, True):
+            fr, _ = mel_kernel.framed_input(x, fft, hop, streaming)
+            for impl in framed_mel.OZAKI:
+                mats = framed_mats(impl, fft, n_mels, sr, dev)
+                got, _ = framed_mel.ozaki_power(fr, mats, taps=fft)
+                row = dict(kernel=framed_mel.KERNEL[impl],
+                           config=[fft, hop, n_mels, sr], shape=[b, t],
+                           streaming=streaming, frames=fr.shape[0],
+                           bins=got.shape[1])
+                for name, dt in (("plain", torch.float32),
+                                 ("f64_dot", torch.float64)):
+                    want = framed_mel.ozaki_power_reference(fr, mats,
+                                                            dot_dtype=dt)
+                    torch.cuda.synchronize()
+                    row[f"equal_{name}"] = bool(torch.equal(got, want))
+                    row[f"n_differ_{name}"] = int((got != want).sum())
+                rows.append(row)
+            del fr
+    emit("ozaki_power", cases=rows)
+    failed = [r for r in rows if not (r["equal_plain"] and r["equal_f64_dot"])]
+    if failed:
+        raise AssertionError(f"K6 / K7 DFT power differs from the plain "
+                             f"version: {failed}")
+    return dict(cases=len(rows), equal=True)
+
+
 def framed_work(mats, taps: int, n_mels: int, frames: int) -> dict:
     """Operations of one framed call over ``frames`` frames, the
     function's work: each kept slice pair's taps against the DFT columns
@@ -1627,6 +1688,17 @@ def phase_framed_main_path(dev, rows, k1_rows) -> dict:
             **framed_bound(mats, fr, k_out, c.fft_size, c.n_mels))
         out[impl]["x_real_time"] = (FRAMED_B * FRAMED_SECONDS
                                     / (out[impl]["call_ms"] / 1e3))
+        out[impl]["share_of_bound"] = out[impl]["bound_ms"] / out[impl]["ms"]
+        if impl in framed_mel.OZAKI:
+            # the built library's frames per block, and the ring-tile bytes
+            # its loads request from L2 (counted, not measured)
+            frames = framed_ozaki.plan(mats.ks, c.fft_size,
+                                       mats.mt.shape[1])[0]
+            out[impl].update(
+                block_frames=frames,
+                l2_bytes_counted=framed_ozaki.l2_tile_bytes(
+                    impl, mats.ks, mats.cutoff, c.fft_size,
+                    mats.n_bins_pad, fr.shape[0], frames))
         del k_out
         emit(f"framed_main_path_{impl}", **out[impl])
         others = [k for k in framed_mel.KERNEL.values() if k != name]
@@ -2096,6 +2168,7 @@ def main() -> int:
     widths = phase_k1_widths(dev, rows, ln["rows"])
     front = phase_frontend_step(dev, k2)
     framed_rows = phase_framed_vs_plain(dev)
+    ozaki_power = phase_ozaki_power(dev)
     dial = phase_framed_main_path(dev, framed_rows, rows)
     epi = phase_k1_epilogues_vs_plain(dev, rows)
     wire = phase_vad_wire_path(dev, rows)
@@ -2189,7 +2262,8 @@ def main() -> int:
              ms=bulk["ms"]["k4"], ms_bf3=bulk["ms"]["k4_bf3"],
              plain_ms=bulk["ms"]["k4_plain"],
              bound_ops_bf3_ms=bulk["bound_ops_bf3_ms"])] + [{
-        "name": t["kernel"], "route": "cuda", "source": FRAMED_SOURCE,
+        "name": t["kernel"], "route": "cuda",
+        "source": OZAKI_SOURCE if impl in framed_mel.OZAKI else FRAMED_SOURCE,
         "replaces": FRAMED_REPLACES[t["kernel"]], "impl": impl,
         "launches": launches(t["kernel"]),
         "launches_by_path": {k: v.get(t["kernel"], 0)
@@ -2207,6 +2281,11 @@ def main() -> int:
         "library_ms": None,
         "library_composition_ms": t["library_composition_ms"],
         "shape": [t["frames"], 512],
+        **({"dft_mma": OZAKI_MMA[t["kernel"]],
+            "block_frames": t["block_frames"],
+            "share_of_bound": t["share_of_bound"],
+            "power_bit_equal": ozaki_power["equal"]}
+           if impl in framed_mel.OZAKI else {}),
     } for impl, t in dial["times"].items()] + [{
         "name": "P1", "route": "cuda", "source": P1_SOURCE,
         "replaces": P1_REPLACES, "launches": launches("P1"),

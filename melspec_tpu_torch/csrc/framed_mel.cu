@@ -1,45 +1,36 @@
-// K5-K8 for Hopper (sm_90a): whisper log-mel of pre-framed [n_rows, ld]
-// float32 frames through one of four DFT schemes, one launch for all frames.
+// K5 and K8 for Hopper (sm_90a): whisper log-mel of pre-framed [n_rows,
+// ld] float32 frames through one of two DFT schemes, one launch for all
+// frames. (K6 and K7, the Ozaki schemes, run on the tensor cores in
+// framed_ozaki.cu.)
 //
 // Replaces the TPU kernels of melspec_tpu/ops/mel_kernel.py:
 //   K8 _mel_tile_kernel (launched by _pallas_mel_frames): plain float32;
-//   K5 _bf3_mel_tile_kernel (_pallas_bf3_mel_frames): rounded-bf16 slices;
-//   K6 _hp8_mel_tile_kernel (_pallas_hp8_mel_frames): int8 Ozaki split;
-//   K7 _hp_mel_tile_kernel (_pallas_hp_mel_frames): bf16-integer Ozaki.
+//   K5 _bf3_mel_tile_kernel (_pallas_bf3_mel_frames): rounded-bf16 slices.
 // One template over the scheme; framing, power, projection and epilogue
 // are shared. For frame n it computes:
 //   1. the signal slices of its first `taps` samples: the frame itself
-//      (f32); the bf16 residual cascade, each slice rounded to nearest even
-//      (bf3); or, after the power-of-two row scale sigma = 2^(e+1) > max|x|
-//      taken from the exponent bits (clamped at 0xFD), the 7-bit integer
-//      slices t_i = trunc(128 r), r <- 128 r - t_i of r = x / sigma (Ozaki);
+//      (f32) or the bf16 residual cascade, each slice rounded to nearest
+//      even (bf3);
 //   2. the slice pairs (i, j), i, j < ks, i + j <= cutoff: the dot of
 //      signal slice i with matrix plane j over the taps, for the re (cos)
 //      and im (-sin) columns. A product of two slice values is exact in
-//      float32, and an Ozaki pair's dot is an exact integer (int32 for int8);
+//      float32;
 //   3. the same-scale groups s = i + j, each adding its pairs in increasing
-//      i. bf3 sums the groups largest-first in float32. Ozaki scales group
-//      s by 128^-(s+2) (exact) and chains the groups, largest first, through
-//      two-sums into (hi, lo); power = ((hi_re^2 + hi_im^2) + 2 (hi_re lo_re
-//      + hi_im lo_im)) sigma^2. f32 and bf3 take power = re^2 + im^2;
+//      i, summed largest-first in float32 (bf3); power = re^2 + im^2;
 //   4. energy = power @ mt in float32, log10_accurate(max(energy, 1e-10)),
 //      the whisper norm, out[n, :n_mels] (logs and norm: sig_common.cuh).
-// Every compensated step is written with the _rn intrinsics, which nvcc
-// never contracts into FMAs, in the JAX kernels' order; so an Ozaki
-// scheme's DFT equals its plain PyTorch version bit for bit.
 //
 // What bounds it: operations. At whisper 400/160/128 a frame needs 2 * 400
-// taps x 399 nonzero DFT columns per kept slice pair (6 for bf3, 13 for
-// hp8 in int8, 19 for hp_bf16, 1 for f32) against 1.6 KB of frame in and
-// 512 B of output: hundreds to thousands of operations per byte. This
-// first version runs the pair dots as SIMT FMAs (int32 multiply-adds for
-// int8). A block owns a tile of 32 frames (16 where shared memory is
-// short) and every mel column, and keeps the tile's signal slices in
+// taps x 399 nonzero DFT columns per kept slice pair (6 for bf3, 1 for
+// f32) against 1.6 KB of frame in and 512 B of output: hundreds to
+// thousands of operations per byte. This first version runs the pair dots
+// as SIMT FMAs. A block owns a tile of 32 frames (16 where shared memory
+// is short) and every mel column, and keeps the tile's signal slices in
 // shared memory for the whole launch. It walks the bins in chunks of 128:
 // for each chunk it runs the pairs group by group, streaming the pair's
 // plane columns (re and im) through shared memory 16 rows at a time with
 // the next rows prefetched into registers; each thread holds 4 (2) frames
-// x 4 bins x (re, im) of the pair, group and two-float sums in registers.
+// x 4 bins x (re, im) of the pair and group sums in registers.
 // The chunk's power then goes through shared memory into energy +=
 // power_chunk @ mt[chunk], kept in shared memory until the epilogue.
 // Nothing is sized to a fixed column count: fft 1024's 512-bin planes are
@@ -49,15 +40,13 @@
 // (melspec_tpu_torch/kernels/framed_mel.py). Every launch is followed by
 // cudaGetLastError, and its code is returned.
 
-#include <type_traits>
-
 #include "sig_common.cuh"
 
 namespace {
 
 using namespace sigk;
 
-enum Scheme { kF32 = 0, kBf3 = 1, kInt8 = 2, kBf16Int = 3 };
+enum Scheme { kF32 = 0, kBf3 = 1 };
 
 constexpr int kFT = 256;         // threads per block
 constexpr int kCB = 128;         // bins per chunk
@@ -97,17 +86,9 @@ template <> struct Tr<kBf3> {
   using A = __nv_bfloat16; using G = __nv_bfloat16; using B = float;
   static constexpr int kVec = 8;
 };
-template <> struct Tr<kInt8> {
-  using A = signed char; using G = signed char; using B = int;
-  static constexpr int kVec = 16;
-};
-template <> struct Tr<kBf16Int> {
-  using A = signed char; using G = __nv_bfloat16; using B = float;
-  static constexpr int kVec = 8;
-};
 
 __host__ __device__ inline int a_bytes(int scheme) {
-  return scheme == kF32 ? 4 : scheme == kBf3 ? 2 : 1;
+  return scheme == kF32 ? 4 : 2;
 }
 
 // shared memory of one block: the tile's slices, one staged step of plane
@@ -118,29 +99,15 @@ __host__ __device__ inline long long smem_bytes(int scheme, int ks, int kp,
          4LL * kKC * kCols + 4LL * tile * nmp;
 }
 
-__device__ __forceinline__ void two_sum(float a, float b, float& s,
-                                        float& err) {
-  s = __fadd_rn(a, b);
-  const float bb = __fsub_rn(s, a);
-  err = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
-}
-
-// the sign-extended byte q of w
-__device__ __forceinline__ int sbyte(unsigned w, int q) {
-  return static_cast<int>(w << (24 - 8 * q)) >> 24;
-}
-
 template <int S, int FPW>
 __global__ void __launch_bounds__(kFT, 1) framed_mel_kernel(const Params p) {
   using A = typename Tr<S>::A;
   using G = typename Tr<S>::G;
   using B = typename Tr<S>::B;
-  using Acc = typename std::conditional<S == kInt8, int, float>::type;
   constexpr int kTile = 8 * FPW;
   constexpr int kVec = Tr<S>::kVec;
   constexpr int kVpr = kCols / kVec;  // 16-byte loads per staged row
   constexpr int kVpt = kKC * kVpr / kFT;
-  constexpr bool kOzaki = S == kInt8 || S == kBf16Int;
   static_assert(kKC * kVpr % kFT == 0, "step split");
   static_assert(kTile * kCB <= kKC * kCols, "power tile fits the step");
 
@@ -156,45 +123,24 @@ __global__ void __launch_bounds__(kFT, 1) framed_mel_kernel(const Params p) {
   float* sp = reinterpret_cast<float*>(work);  // [kTile][kCB]
   float* se = reinterpret_cast<float*>(work + 4 * kKC * kCols);  // [kTile][nmp]
 
-  // 1. this warp's frames: row scale, signal slices; energy rows zeroed
-  float sigma[FPW];
+  // 1. this warp's frames: signal slices; energy rows zeroed
 #pragma unroll
   for (int f = 0; f < FPW; ++f) {
     const int row = f0 + f;
     const long long n = n0 + row;
     const bool live = n < p.n_rows;
     const float* x = p.frames + (live ? n : 0) * p.ld;
-    sigma[f] = 1.0f;
-    if constexpr (kOzaki) {
-      float mx = 0.0f;
-      if (live)
-        for (int k = lane; k < p.taps; k += 32)
-          mx = max_nan(mx, fabsf(__ldg(x + k)));
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = max_nan(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const int bits = __float_as_int(max_nan(mx, 1e-38f));
-      sigma[f] = __int_as_float((min((bits >> 23) & 0xFF, 0xFD) + 1) << 23);
-    }
     A* a = sa + static_cast<long long>(row) * p.kp;
     for (int k = lane; k < p.kp; k += 32) {
       const float v = (live && k < p.taps) ? __ldg(x + k) : 0.0f;
       if constexpr (S == kF32) {
         a[k] = v;
-      } else if constexpr (S == kBf3) {
+      } else {
         float r = v;
         for (int i = 0; i < p.ks; ++i) {
           const __nv_bfloat16 h = __float2bfloat16_rn(r);
           a[i * slice_len + k] = h;
           r = __fsub_rn(r, __bfloat162float(h));
-        }
-      } else {
-        float r = __fdiv_rn(v, sigma[f]);
-        for (int i = 0; i < p.ks; ++i) {
-          const float sc = __fmul_rn(r, 128.0f);
-          const float t = truncf(sc);
-          a[i * slice_len + k] = static_cast<signed char>(static_cast<int>(t));
-          r = __fsub_rn(sc, t);
         }
       }
     }
@@ -240,13 +186,6 @@ __global__ void __launch_bounds__(kFT, 1) framed_mel_kernel(const Params p) {
         *reinterpret_cast<float4*>(dst) =
             make_float4(__uint_as_float(u.x), __uint_as_float(u.y),
                         __uint_as_float(u.z), __uint_as_float(u.w));
-      } else if constexpr (S == kInt8) {
-        const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          reinterpret_cast<int4*>(dst)[q] =
-              make_int4(sbyte(w[q], 0), sbyte(w[q], 1), sbyte(w[q], 2),
-                        sbyte(w[q], 3));
       } else {
         // a bf16 is the high half of its float32: widening is exact
         float4* d = reinterpret_cast<float4*>(dst);
@@ -260,8 +199,7 @@ __global__ void __launch_bounds__(kFT, 1) framed_mel_kernel(const Params p) {
 
   // thread's outputs: frames f0 + f, bins 4 * lane + e of the chunk, re
   // in [e], im in [4 + e]
-  Acc acc[FPW][8];
-  float grp[FPW][8], res[FPW][8], lo[FPW][8];
+  float acc[FPW][8], grp[FPW][8], res[FPW][8];
   fetch(0);
   for (int t = 0; t < steps; ++t) {
     const int kc = t % nkc;
@@ -271,11 +209,11 @@ __global__ void __launch_bounds__(kFT, 1) framed_mel_kernel(const Params p) {
     const int s = p.ps[pr];
     const bool group_first = pr == 0 || p.ps[pr - 1] != s;
     const bool group_last = pr + 1 == p.n_pairs || p.ps[pr + 1] != s;
-    if (kc == 0 && (S != kInt8 || group_first)) {
+    if (kc == 0) {
 #pragma unroll
       for (int f = 0; f < FPW; ++f)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[f][e] = Acc(0);
+        for (int e = 0; e < 8; ++e) acc[f][e] = 0.0f;
     }
     __syncthreads();  // the last step's rows (or power tile) are consumed
     stage();
@@ -286,12 +224,12 @@ __global__ void __launch_bounds__(kFT, 1) framed_mel_kernel(const Params p) {
                   static_cast<long long>(f0) * p.kp + kc * kKC;
 #pragma unroll 4
     for (int kk = 0; kk < kKC; ++kk) {
-      Acc av[FPW];
+      float av[FPW];
 #pragma unroll
       for (int f = 0; f < FPW; ++f) {
         const A raw = a0[f * p.kp + kk];
         if constexpr (S == kBf3) av[f] = __bfloat162float(raw);
-        else av[f] = static_cast<Acc>(raw);
+        else av[f] = raw;
       }
       const B* br = sb + kk * kCols + 4 * lane;
       B bv[8];
@@ -303,15 +241,12 @@ __global__ void __launch_bounds__(kFT, 1) framed_mel_kernel(const Params p) {
 #pragma unroll
       for (int f = 0; f < FPW; ++f)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          if constexpr (S == kInt8) acc[f][e] += av[f] * bv[e];
-          else acc[f][e] = fmaf(av[f], bv[e], acc[f][e]);
-        }
+        for (int e = 0; e < 8; ++e) acc[f][e] = fmaf(av[f], bv[e], acc[f][e]);
     }
     if (kc + 1 < nkc) continue;
 
     // the pair is done: into its group (pairs in increasing i)
-    if constexpr (S == kBf3 || S == kBf16Int) {
+    if constexpr (S == kBf3) {
 #pragma unroll
       for (int f = 0; f < FPW; ++f)
 #pragma unroll
@@ -322,30 +257,14 @@ __global__ void __launch_bounds__(kFT, 1) framed_mel_kernel(const Params p) {
 
     // the group is done: into the sum, largest scale first
     const bool sum_first = s == p.ps[0];
-    // 128^-(s+2), a power of two
-    const float scale = __int_as_float((127 - 7 * (s + 2)) << 23);
 #pragma unroll
     for (int f = 0; f < FPW; ++f)
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        if constexpr (S == kF32) {
+        if constexpr (S == kF32)
           res[f][e] = acc[f][e];
-        } else if constexpr (S == kBf3) {
+        else
           res[f][e] = sum_first ? grp[f][e] : __fadd_rn(res[f][e], grp[f][e]);
-        } else {
-          float g;
-          if constexpr (S == kInt8) g = __int2float_rn(acc[f][e]);
-          else g = grp[f][e];
-          const float term = __fmul_rn(g, scale);
-          if (sum_first) {
-            res[f][e] = term;
-            lo[f][e] = 0.0f;
-          } else {
-            float err;
-            two_sum(res[f][e], term, res[f][e], err);
-            lo[f][e] = __fadd_rn(lo[f][e], err);
-          }
-        }
       }
     if (pr + 1 < p.n_pairs) continue;
 
@@ -355,20 +274,9 @@ __global__ void __launch_bounds__(kFT, 1) framed_mel_kernel(const Params p) {
     for (int f = 0; f < FPW; ++f)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float pw;
-        if constexpr (kOzaki) {
-          float rh, rl, ih, il;
-          two_sum(res[f][e], lo[f][e], rh, rl);
-          two_sum(res[f][4 + e], lo[f][4 + e], ih, il);
-          pw = __fadd_rn(__fadd_rn(__fmul_rn(rh, rh), __fmul_rn(ih, ih)),
-                         __fmul_rn(2.0f, __fadd_rn(__fmul_rn(rh, rl),
-                                                   __fmul_rn(ih, il))));
-          pw = __fmul_rn(pw, __fmul_rn(sigma[f], sigma[f]));
-        } else {
-          pw = __fadd_rn(__fmul_rn(res[f][e], res[f][e]),
-                         __fmul_rn(res[f][4 + e], res[f][4 + e]));
-        }
-        sp[(f0 + f) * kCB + 4 * lane + e] = pw;
+        sp[(f0 + f) * kCB + 4 * lane + e] =
+            __fadd_rn(__fmul_rn(res[f][e], res[f][e]),
+                      __fmul_rn(res[f][4 + e], res[f][4 + e]));
       }
     __syncwarp();
     const int nq = p.nmp / 32;
@@ -466,7 +374,7 @@ int melspec_framed_mel(int scheme, const float* frames, long long n_rows,
                        int ks, int cutoff, const float* mt, int n_mels,
                        int nmp, float* out, void* stream) {
   if (n_rows <= 0) return cudaSuccess;
-  if (scheme < kF32 || scheme > kBf16Int || ks < 1 || ks > kMaxS ||
+  if (scheme < kF32 || scheme > kBf3 || ks < 1 || ks > kMaxS ||
       cutoff < 0 || taps < 1 || taps > ld || nbp < kCB || nbp % kCB != 0 ||
       nmp < 128 || nmp % 128 != 0 || nmp > kMaxMelsPad || n_mels < 1 ||
       n_mels > nmp || (scheme == kF32 && ks != 1))
@@ -477,7 +385,7 @@ int melspec_framed_mel(int scheme, const float* frames, long long n_rows,
   p.ld = ld;
   p.taps = taps;
   p.kp = (taps + kKC - 1) / kKC * kKC;
-  const int gsize = scheme == kF32 ? 4 : scheme == kInt8 ? 1 : 2;
+  const int gsize = scheme == kF32 ? 4 : 2;
   for (int i = 0; i < kMaxS; ++i) {
     p.re[i] = i < ks ? re[i] : nullptr;
     p.im[i] = i < ks ? im[i] : nullptr;
@@ -510,9 +418,7 @@ int melspec_framed_mel(int scheme, const float* frames, long long n_rows,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (scheme) {
     case kF32: return launch_scheme<kF32>(p, tile, smem, st);
-    case kBf3: return launch_scheme<kBf3>(p, tile, smem, st);
-    case kInt8: return launch_scheme<kInt8>(p, tile, smem, st);
-    default: return launch_scheme<kBf16Int>(p, tile, smem, st);
+    default: return launch_scheme<kBf3>(p, tile, smem, st);
   }
 }
 

@@ -248,6 +248,13 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+// orders this thread's earlier generic-proxy writes to shared memory
+// (st.shared, cp.async) before async-proxy reads of the same bytes
+// (wgmma's B by descriptor): every writer issues it before the barrier
+// that hands the bytes to the wgmma's
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
   asm volatile(
@@ -619,6 +626,7 @@ __device__ __forceinline__ void dft_chunk(const Head& h, const int* tab,
   auto step = [&](unsigned (&a)[2][4], int tt, unsigned (&next)[2][4],
                   int& tt_next) {
     cp_async_wait<kAhead - 1>();
+    fence_async_shared();
     __syncthreads();  // stage s landed; stage s - 2's wgmma's are done
     fill.next(h, tab, (s + kAhead) % L::kSlots);
     const unsigned st = ring + (s % L::kSlots) * L::kStageBytes + wg_cols;

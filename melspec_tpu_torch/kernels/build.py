@@ -11,6 +11,7 @@ build raises; there is no fallback.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -18,7 +19,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -58,6 +59,21 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _nvcc(src: Path, out: Path) -> subprocess.Popen:
+    return subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-o", str(out),
+                             str(src)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(proc: subprocess.Popen, what: str) -> str:
+    """Wait for an ``nvcc``; its report, or ``RuntimeError``."""
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {what} "
+                           f"(exit {proc.returncode}):\n{out}")
+    return out
+
+
 def _target(name: str) -> Path:
     # the digest covers the source, every shared header of csrc/ and the
     # flags: an edited header rebuilds the kernels that include it
@@ -82,19 +98,11 @@ def load_all(names: Iterable[str]) -> Dict[str, Built]:
         if so.is_file():
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, so)
+        procs[name] = (_nvcc(CSRC_DIR / f"{name}.cu", tmp), tmp, so)
     logs = {}
     for name, (proc, tmp, so) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
-                               f"(exit {proc.returncode}):\n{out}")
+        logs[name] = _finish(proc, f"csrc/{name}.cu")
         os.replace(tmp, so)
-        logs[name] = out
     for name in todo:
         _loaded[name] = Built(ctypes.CDLL(str(_target(name))),
                               logs.get(name, ""))
@@ -104,3 +112,55 @@ def load_all(names: Iterable[str]) -> Dict[str, Built]:
 def load(name: str) -> Built:
     """Build ``csrc/<name>.cu`` if needed and load it."""
     return load_all([name])[name]
+
+
+Edit = Tuple[str, str]
+
+
+def edited(path: Path, edits: Sequence[Edit], what: str,
+           text: str | None = None) -> str:
+    """``path``'s text (or ``text``) with each ``(old, new)`` edit made in
+    turn; raises ``ValueError`` unless each ``old`` occurs exactly once,
+    so an edit of the device code that moves one fails loudly."""
+    text = path.read_text() if text is None else text
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise ValueError(f"{what} matches {text.count(old)} places of "
+                             f"{path.name}")
+        text = text.replace(old, new)
+    return text
+
+
+def build_variants(probe: str, name: str,
+                   variants: Dict[str, Dict[str, str]]) -> Dict[str, Path]:
+    """Time probes: ``csrc/<name>.cu`` built once per variant (in
+    parallel) under ``BUILD_DIR/<probe>/<variant>``, each from a copy of
+    ``csrc/`` whose files ``variants[variant]`` (file name -> text)
+    replaces. Returns each variant's library."""
+    procs = {}
+    for var, files in variants.items():
+        d = BUILD_DIR / probe / var
+        d.mkdir(parents=True, exist_ok=True)
+        for src in [CSRC_DIR / f"{name}.cu", *CSRC_DIR.glob("*.cuh")]:
+            (d / src.name).write_text(files.get(src.name, src.read_text()))
+        so = d / f"lib{name}.so"
+        procs[var] = (_nvcc(d / f"{name}.cu", so), so)
+    for var, (proc, so) in procs.items():
+        _finish(proc, f"variant {var} of csrc/{name}.cu")
+    return {var: so for var, (_, so) in procs.items()}
+
+
+@contextlib.contextmanager
+def bound_to(module, so: Path, functions: Iterable[str]):
+    """Within the block, ``module._bound()`` returns the library ``so``,
+    its ``functions`` typed as the module's own library types them."""
+    real = module._bound
+    lib = ctypes.CDLL(str(so))
+    for fn in functions:
+        getattr(lib, fn).argtypes = getattr(real(), fn).argtypes
+        getattr(lib, fn).restype = getattr(real(), fn).restype
+    module._bound = lambda: lib
+    try:
+        yield lib
+    finally:
+        module._bound = real

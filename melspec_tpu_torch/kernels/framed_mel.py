@@ -1,20 +1,22 @@
 """K5-K8: whisper log-mel of pre-framed ``[N, k_pad]`` frames through the
-precision dial's four DFT schemes — the CUDA kernel (``csrc/framed_mel.cu``,
-one template over the scheme), the plain PyTorch version of each, and the
-wrapper that picks between them by the device the frames lie on.
+precision dial's four DFT schemes — the CUDA kernels, the plain PyTorch
+version of each, and the wrapper that picks between them by the device
+the frames lie on.
 
-| kernel | ``impl`` | replaces (``melspec_tpu/ops/mel_kernel.py``) | DFT |
-|---|---|---|---|
-| K5 | ``"bf3"`` | ``_bf3_mel_tile_kernel`` via ``_pallas_bf3_mel_frames`` | rounded-bf16 slice pairs |
-| K6 | ``"hp8"`` | ``_hp8_mel_tile_kernel`` via ``_pallas_hp8_mel_frames`` | int8 Ozaki |
-| K7 | ``"hp_bf16"`` | ``_hp_mel_tile_kernel`` via ``_pallas_hp_mel_frames`` | bf16-integer Ozaki |
-| K8 | ``"f32"`` | ``_mel_tile_kernel`` via ``_pallas_mel_frames`` | float32 |
+| kernel | ``impl`` | replaces (``melspec_tpu/ops/mel_kernel.py``) | DFT | source |
+|---|---|---|---|---|
+| K5 | ``"bf3"`` | ``_bf3_mel_tile_kernel`` via ``_pallas_bf3_mel_frames`` | rounded-bf16 slice pairs, SIMT | ``csrc/framed_mel.cu`` |
+| K6 | ``"hp8"`` | ``_hp8_mel_tile_kernel`` via ``_pallas_hp8_mel_frames`` | int8 Ozaki, int8 ``wgmma`` | ``csrc/framed_ozaki.cu`` (``kernels/framed_ozaki.py``) |
+| K7 | ``"hp_bf16"`` | ``_hp_mel_tile_kernel`` via ``_pallas_hp_mel_frames`` | bf16-integer Ozaki, bf16 ``wgmma`` | ``csrc/framed_ozaki.cu`` |
+| K8 | ``"f32"`` | ``_mel_tile_kernel`` via ``_pallas_mel_frames`` | float32, SIMT | ``csrc/framed_mel.cu`` |
 
 ``framed_mel`` launches the kernel for a CUDA tensor (or raises) and runs
 the plain version only for a CPU tensor, with the DFT dot summed in
 float64 there (the f32 sum of a CPU BLAS changes with its thread count).
 ``launches`` counts kernel launches by kernel name; nothing else adds to
-it.
+it. ``ozaki_power`` returns K6's or K7's DFT power (written before the
+projection) for the checks that hold it to ``ozaki_power_reference``
+bit for bit; its launches are not counted.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import functools
 
 import torch
 
-from melspec_tpu_torch.kernels import build
+from melspec_tpu_torch.kernels import build, framed_ozaki
 from melspec_tpu_torch.kernels.sig_mel import (MAX_SMEM_BYTES, out_vals,
                                                raise_for)
 from melspec_tpu_torch.ops.hp_dft import (_signal_slices, combine_groups,
@@ -33,10 +35,12 @@ from melspec_tpu_torch.ops.hp_dft import (_signal_slices, combine_groups,
 
 IMPLS = ("bf3", "hp8", "hp_bf16", "f32")
 KERNEL = {"bf3": "K5", "hp8": "K6", "hp_bf16": "K7", "f32": "K8"}
-# the scheme numbers of csrc/framed_mel.cu
-_SCHEME = {"f32": 0, "bf3": 1, "hp8": 2, "hp_bf16": 3}
-# the kernel's largest tile of frames per block; the callers pad the
-# frame count to it (csrc/framed_mel.cu: plan_tile)
+# the scheme numbers of csrc/framed_mel.cu (K6 / K7: framed_ozaki)
+_SCHEME = {"f32": 0, "bf3": 1}
+OZAKI = ("hp8", "hp_bf16")
+# K5's and K8's largest tile of frames per block; the callers pad the
+# frame count to it (csrc/framed_mel.cu: plan_tile; K6 / K7 mask their
+# ragged tiles)
 TILE_FRAMES = 32
 MAX_SLICES = 6
 MAX_MELS_PAD = 256
@@ -70,10 +74,22 @@ class FramedMatrices:
     mt: torch.Tensor
     ks: int = 1
     cutoff: int = 0
+    # K6's / K7's ring tiles by taps, built at their first launch
+    _tiles: dict = dataclasses.field(default_factory=dict, init=False,
+                                     repr=False, compare=False)
 
     @property
     def n_bins_pad(self) -> int:
         return self.mt.shape[0]
+
+    def ring_tiles(self, taps: int) -> torch.Tensor:
+        """``framed_ozaki.ring_tiles`` of these planes (hp8 / hp_bf16),
+        built once per ``taps`` and kept with the matrices."""
+        if taps not in self._tiles:
+            self._tiles[taps] = framed_ozaki.ring_tiles(
+                self.impl, self.planes, self.ks, self.cutoff,
+                self.n_bins_pad, taps)
+        return self._tiles[taps]
 
     def to(self, device) -> "FramedMatrices":
         return dataclasses.replace(
@@ -137,14 +153,14 @@ def bf3_mel_reference(frames, mt, *slice_mats, ks: int, km: int,
     return _whisper(re * re + im * im, mt)
 
 
-def hp8_mel_reference(frames, mt, *slice_mats, ks: int, km: int,
-                      cutoff: int, dot_dtype=torch.float32) -> torch.Tensor:
-    """K6's math (``_hp8_mel_tile_kernel``): the power-of-two row scale,
-    7-bit integer signal slices, per slice one dot against its int8 plane
-    concat (an exact integer: float32 holds it), the same-scale groups
-    summed in int32, scaled and chained through two-sums, the two-float
-    power, projection, whisper epilogue -> ``[N, n_mels_pad]``."""
-    n_bins_pad = mt.shape[0]
+def hp8_power_reference(frames, *slice_mats, ks: int, km: int,
+                        cutoff: int, dot_dtype=torch.float32) -> torch.Tensor:
+    """K6's DFT power (``_hp8_mel_tile_kernel`` up to its projection): the
+    power-of-two row scale, 7-bit integer signal slices, per slice one dot
+    against its int8 plane concat (an exact integer: float32 holds it), the
+    same-scale groups summed in int32, scaled and chained through
+    two-sums, the two-float power -> ``[N, n_bins_pad]``."""
+    n_bins_pad = slice_mats[0].shape[1] // (2 * (min(cutoff, km - 1) + 1))
     fr = frames.to(torch.float32)
     sigma = pow2_row_scale(fr)
     groups_re: dict = {}
@@ -162,19 +178,27 @@ def hp8_mel_reference(frames, mt, *slice_mats, ks: int, km: int,
     def as_f32(groups):
         return {s: g.to(torch.float32) for s, g in groups.items()}
 
-    power = two_float_power(combine_groups(as_f32(groups_re)),
-                            combine_groups(as_f32(groups_im)), sigma)
-    return _whisper(power, mt)
+    return two_float_power(combine_groups(as_f32(groups_re)),
+                           combine_groups(as_f32(groups_im)), sigma)
 
 
-def hp_mel_reference(frames, cs, ss, mt, *, n_slices: int, max_pair_sum: int,
-                     dot_dtype=torch.float32) -> torch.Tensor:
-    """K7's math (``_hp_mel_tile_kernel``): the row scale and 7-bit
-    integer slices of K6, one wide dot per signal slice against the
-    integer-valued bf16 planes (exact in float32), the pairs ``i + j <=
-    max_pair_sum`` grouped by scale in increasing ``i`` (float32 adds),
-    chained through two-sums, the two-float power, projection, whisper
-    epilogue -> ``[N, n_mels_pad]``."""
+def hp8_mel_reference(frames, mt, *slice_mats, ks: int, km: int,
+                      cutoff: int, dot_dtype=torch.float32) -> torch.Tensor:
+    """K6's math (``_hp8_mel_tile_kernel``): ``hp8_power_reference``, then
+    projection and whisper epilogue -> ``[N, n_mels_pad]``."""
+    return _whisper(hp8_power_reference(frames, *slice_mats, ks=ks, km=km,
+                                        cutoff=cutoff, dot_dtype=dot_dtype),
+                    mt)
+
+
+def hp_power_reference(frames, cs, ss, *, n_slices: int, max_pair_sum: int,
+                       dot_dtype=torch.float32) -> torch.Tensor:
+    """K7's DFT power (``_hp_mel_tile_kernel`` up to its projection): the
+    row scale and 7-bit integer slices of K6, one wide dot per signal
+    slice against the integer-valued bf16 planes (exact in float32), the
+    pairs ``i + j <= max_pair_sum`` grouped by scale in increasing ``i``
+    (float32 adds), chained through two-sums, the two-float power ->
+    ``[N, n_bins_pad]``."""
     fr = frames.to(torch.float32)
     sigma = pow2_row_scale(fr)
     x_slices = _signal_slices(fr / sigma, n_slices)
@@ -192,8 +216,30 @@ def hp_mel_reference(frames, cs, ss, mt, *, n_slices: int, max_pair_sum: int,
                 groups[s] = y if s not in groups else groups[s] + y
         return combine_groups(groups)
 
-    return _whisper(two_float_power(component(cs), component(ss), sigma),
-                    mt)
+    return two_float_power(component(cs), component(ss), sigma)
+
+
+def hp_mel_reference(frames, cs, ss, mt, *, n_slices: int, max_pair_sum: int,
+                     dot_dtype=torch.float32) -> torch.Tensor:
+    """K7's math (``_hp_mel_tile_kernel``): ``hp_power_reference``, then
+    projection and whisper epilogue -> ``[N, n_mels_pad]``."""
+    return _whisper(hp_power_reference(frames, cs, ss, n_slices=n_slices,
+                                       max_pair_sum=max_pair_sum,
+                                       dot_dtype=dot_dtype), mt)
+
+
+def ozaki_power_reference(frames: torch.Tensor, mats: FramedMatrices, *,
+                          dot_dtype=torch.float32) -> torch.Tensor:
+    """The DFT power ``[N, n_bins_pad]`` of K6's or K7's plain version."""
+    if mats.impl == "hp8":
+        return hp8_power_reference(frames, *mats.planes, ks=mats.ks,
+                                   km=mats.ks, cutoff=mats.cutoff,
+                                   dot_dtype=dot_dtype)
+    if mats.impl == "hp_bf16":
+        return hp_power_reference(frames, *mats.planes, n_slices=mats.ks,
+                                  max_pair_sum=mats.cutoff,
+                                  dot_dtype=dot_dtype)
+    raise ValueError(f"impl must be one of {OZAKI}; got {mats.impl!r}")
 
 
 def framed_mel_reference(frames: torch.Tensor, mats: FramedMatrices, *,
@@ -280,10 +326,12 @@ def _slice_table(mats: FramedMatrices, taps: int, dev) -> tuple:
     return planes, rows
 
 
-def _launch(frames: torch.Tensor, mats: FramedMatrices, *, n_mels: int,
-            taps: int) -> torch.Tensor:
-    impl = mats.impl
-    name = KERNEL[impl]
+def _checked(frames: torch.Tensor, mats: FramedMatrices, *, n_mels: int,
+             taps: int) -> tuple:
+    """The launch's argument checks: ``(frames, mt, planes, rows)``, the
+    tensors contiguous on the frames' device, ``rows`` K5's / K8's slice
+    table."""
+    name = KERNEL[mats.impl]
     dev = frames.device
     if frames.dtype != torch.float32 or frames.dim() != 2:
         raise ValueError(f"{name} takes [N, k_pad] float32 frames")
@@ -304,16 +352,33 @@ def _launch(frames: torch.Tensor, mats: FramedMatrices, *, n_mels: int,
         raise ValueError(f"taps {taps} outside the frame of "
                          f"{frames.shape[1]}")
     planes, rows = _slice_table(mats, taps, dev)
+    frames = frames.contiguous()
+    if any(t.data_ptr() % 16 for t in (frames, mt, *planes)):
+        raise ValueError(f"{name} needs 16-byte aligned tensors")
+    return frames, mt, planes, rows
+
+
+def _launch(frames: torch.Tensor, mats: FramedMatrices, *, n_mels: int,
+            taps: int) -> torch.Tensor:
+    impl = mats.impl
+    name = KERNEL[impl]
+    frames, mt, planes, rows = _checked(frames, mats, n_mels=n_mels,
+                                        taps=taps)
+    if impl in OZAKI:
+        out = framed_ozaki.run(frames, impl, mats.ring_tiles(taps), mt,
+                               ks=mats.ks, cutoff=mats.cutoff, n_mels=n_mels,
+                               taps=taps)
+        if frames.shape[0]:
+            launches[name] += 1
+        return out
+    nbp, nmp = mt.shape
     tile, smem = _plan(impl, mats.ks, taps, nmp)
     if tile == 0:
         raise NotImplementedError(
             f"{name} needs {smem} bytes of shared memory for {taps} taps, "
             f"{mats.ks} signal slices, {nmp} mel columns at 16 frames a "
             f"block; a block has {MAX_SMEM_BYTES}")
-    frames = frames.contiguous()
-    ptrs = [frames, mt, *planes]
-    if any(t.data_ptr() % 16 for t in ptrs):
-        raise ValueError(f"{name} needs 16-byte aligned tensors")
+    dev = frames.device
     n = frames.shape[0]
     out = torch.empty((n, n_mels), dtype=torch.float32, device=dev)
     if n == 0:
@@ -332,6 +397,25 @@ def _launch(frames: torch.Tensor, mats: FramedMatrices, *, n_mels: int,
     raise_for(lib, rc, f"{name} (framed_mel, {impl})")
     launches[name] += 1
     return out
+
+
+def ozaki_power(frames: torch.Tensor, mats: FramedMatrices, *,
+                taps: int | None = None) -> tuple:
+    """K6's or K7's launch on CUDA frames with its DFT power written out:
+    ``(power [N, n_bins_pad], log-mel [N, n_mels_pad])``, for the checks
+    against ``ozaki_power_reference``. Not counted in ``launches``."""
+    if mats.impl not in OZAKI or frames.device.type != "cuda":
+        raise ValueError("ozaki_power takes hp8 / hp_bf16 matrices and CUDA "
+                         "frames")
+    taps = frames.shape[1] if taps is None else taps
+    nmp = mats.mt.shape[1]
+    frames, mt, *_ = _checked(frames, mats, n_mels=nmp, taps=taps)
+    power = torch.empty((frames.shape[0], mt.shape[0]), dtype=torch.float32,
+                        device=frames.device)
+    out = framed_ozaki.run(frames, mats.impl, mats.ring_tiles(taps), mt,
+                           ks=mats.ks, cutoff=mats.cutoff, n_mels=nmp,
+                           taps=taps, power=power)
+    return power, out
 
 
 def framed_mel(frames: torch.Tensor, mats: FramedMatrices, *, n_mels: int,

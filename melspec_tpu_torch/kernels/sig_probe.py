@@ -18,9 +18,7 @@ fails there first.
 
 from __future__ import annotations
 
-import ctypes
 import json
-import subprocess
 import sys
 
 import numpy as np
@@ -41,44 +39,15 @@ CUTS = {
         "    d[0] += __uint_as_float(a[0][0] ^ a[1][3] ^ st);"),
 }
 B, SECONDS = 64, 30.0
+FUNCTIONS = ("melspec_sig_mel", "melspec_sig_mel_layout",
+             "melspec_cuda_error_string")
 
 
 def variant_source(name: str, text: str | None = None) -> str:
     """``sig_common.cuh`` with variant ``name``'s cut (``"full"``: as it
     is); raises unless the cut's text occurs exactly once."""
-    text = HEADER.read_text() if text is None else text
-    if name == "full":
-        return text
-    old, new = CUTS[name]
-    if text.count(old) != 1:
-        raise ValueError(f"sig_probe cut {name!r} matches "
-                         f"{text.count(old)} places of sig_common.cuh")
-    return text.replace(old, new)
-
-
-def _build(names) -> dict:
-    """Each variant's K1 library, built in parallel under the build
-    directory."""
-    out = build.BUILD_DIR / "sig_probe"
-    procs = {}
-    for name in names:
-        d = out / name
-        d.mkdir(parents=True, exist_ok=True)
-        (d / "sig_common.cuh").write_text(variant_source(name))
-        (d / "sig_mel.cu").write_text(
-            (build.CSRC_DIR / "sig_mel.cu").read_text())
-        cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-o",
-               str(d / "libsig_mel.so"), str(d / "sig_mel.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       d / "libsig_mel.so")
-    libs = {}
-    for name, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
-        libs[name] = so
-    return libs
+    cuts = [] if name == "full" else [CUTS[name]]
+    return build.edited(HEADER, cuts, f"sig_probe cut {name!r}", text)
 
 
 def run(dev: torch.device, timer) -> list:
@@ -102,21 +71,12 @@ def run(dev: torch.device, timer) -> list:
         return sig_mel.sig_mel(x, head.m_big, head.pair_i, head.mt, **kw)
 
     names = ["full", *CUTS]
-    libs = _build(names)
-    real = sig_mel._bound
-    fns = ("melspec_sig_mel", "melspec_sig_mel_layout",
-           "melspec_cuda_error_string")
+    libs = build.build_variants("sig_probe", "sig_mel", {
+        name: {HEADER.name: variant_source(name)} for name in names})
     rows = []
-    try:
-        for name in names:
-            lib = ctypes.CDLL(str(libs[name]))
-            for fn in fns:
-                getattr(lib, fn).argtypes = getattr(real(), fn).argtypes
-                getattr(lib, fn).restype = getattr(real(), fn).restype
-            sig_mel._bound = lambda lib=lib: lib
+    for name in names:
+        with build.bound_to(sig_mel, libs[name], FUNCTIONS):
             rows.append(dict(variant=name, ms=timer(k1)))
-    finally:
-        sig_mel._bound = real
     for r in rows:
         r["saves_ms"] = rows[0]["ms"] - r["ms"]
     fused = WhisperKaldiFused(c, device=dev)

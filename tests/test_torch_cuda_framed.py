@@ -1,6 +1,7 @@
-"""K5-K8 on the card against their plain PyTorch versions, the JFK gates
-through the kernels, and the auto routes of the heads that are not 512
-columns wide. Needs a CUDA
+"""K5-K8 on the card against their plain PyTorch versions, K6's and K7's
+DFT power bit-equal to their plain versions', the JFK gates through the
+kernels, and the auto routes of the heads that are not 512 columns wide.
+Needs a CUDA
 device and nvcc; skipped elsewhere. On a machine with the card (no JAX
 needed):
 
@@ -16,7 +17,7 @@ import torch
 
 from melspec_tpu_torch.config import BatchLogMelConfig, FbankConfig
 from melspec_tpu_torch.io.wav import read_wav_f32le
-from melspec_tpu_torch.kernels import framed_mel, sig_mel
+from melspec_tpu_torch.kernels import framed_mel, framed_ozaki, sig_mel
 from melspec_tpu_torch.ops import batch_logmel, fbank, mel_kernel
 from melspec_tpu_torch.ops.batch_logmel import BatchLogMel
 from melspec_tpu_torch.ops.fbank import Fbank
@@ -185,3 +186,43 @@ def test_k1_accepts_the_512_column_heads(dev, fft, hop, n_mels, sr):
     assert sig_mel.k1_accepts(head, hop=hop)
     assert WhisperMelPipeline(fft, hop, n_mels, sr,
                               device=dev).fft_impl == "sig"
+
+
+@pytest.mark.parametrize("impl", framed_mel.OZAKI)
+@pytest.mark.parametrize("fft,hop,n_mels,sr,sched", [
+    (400, 160, 128, 16000.0, None), (1024, 256, 80, 22050.0, None),
+    (256, 96, 32, 16000.0, None), (1024, 256, 80, 22050.0, (6, 6))])
+@pytest.mark.parametrize("streaming", [False, True])
+def test_ozaki_power_bit_equal(dev, impl, fft, hop, n_mels, sr, sched,
+                               streaming):
+    """K6's and K7's DFT power, written before the projection, is the
+    plain version's two-float power bit for bit (float32 and float64
+    dots) on a ragged frame count, in each block layout (64 frames at
+    400 taps, 32 and 16 at 1024); the log-mel of the same launch is the
+    counted launch's; these launches are not counted."""
+    x = torch.from_numpy((np.random.default_rng(fft + 7).normal(
+        size=(3, 9137)) * 0.2).astype(np.float32)).to(dev)
+    ks, cutoff = sched or mel_kernel.pallas_schedule(impl)
+    mats = mel_kernel.framed_matrices(impl, fft, n_mels, sr, ks, cutoff, dev)
+    fr, nf = mel_kernel.framed_input(x, fft, hop, streaming)
+    fr = fr[: 3 * nf]
+    before = dict(framed_mel.launches)
+    power, mel = framed_mel.ozaki_power(fr, mats, taps=fft)
+    torch.cuda.synchronize()
+    assert framed_mel.launches == before
+    for dt in (torch.float32, torch.float64):
+        want = framed_mel.ozaki_power_reference(fr, mats, dot_dtype=dt)
+        assert torch.equal(power, want)
+    got = framed_mel.framed_mel(fr, mats, n_mels=n_mels, taps=fft)
+    assert torch.equal(mel[:, :n_mels], got)
+
+
+@pytest.mark.parametrize("impl,fft,n_mels,ks,frames", [
+    ("hp8", 400, 128, 4, 64), ("hp_bf16", 400, 128, 5, 64),
+    ("hp8", 1024, 80, 4, 32), ("hp_bf16", 1024, 80, 5, 32),
+    ("hp_bf16", 1024, 80, 6, 16)])
+def test_ozaki_block_frames(dev, impl, fft, n_mels, ks, frames):
+    """The built library's block layout: 64 frames on the main path, 32
+    at 1024 taps, 16 where six slices of 1024 taps must fit."""
+    tile, smem = framed_ozaki.plan(ks, fft, -(-n_mels // 128) * 128)
+    assert tile == frames and smem <= sig_mel.MAX_SMEM_BYTES
