@@ -5,9 +5,8 @@
 
 Builds every CUDA kernel of the port from the sources in this checkout
 (K1 ``csrc/sig_mel.cu``, K2 ``csrc/sig_multi.cu``, K3/K4
-``csrc/resample.cu``, K5/K8 ``csrc/framed_mel.cu``, K6/K7
-``csrc/framed_ozaki.cu``, P1 ``csrc/load_probe.cu``, one ``nvcc`` each,
-started together), holds each
+``csrc/resample.cu``, K5-K8 ``csrc/framed_ozaki.cu``, P1
+``csrc/load_probe.cu``, one ``nvcc`` each, started together), holds each
 against its plain PyTorch version on the card, checks the accuracy gates
 through the kernels, and drives the port's main paths at full width,
 with launch counts (zeroed just before each path, read just after) that
@@ -21,7 +20,8 @@ show each went through its kernels:
   against a plain frontend fed float64 ``resample_poly`` audio and, on
   the sig route, every tick's K1 output (offset = hop) held against K1's
   plain version; then a 64-stream 8 kHz fleet (K4 upsampling) and a 256 x
-  500-hop bulk tick for kernel times;
+  500-hop bulk tick for kernel times, with K4 timed at the 4-hop tick's
+  shape and K3 at the 1-hop tick's;
 - the composite frontend step: 64 x 30 s through
   ``sharded_frontend_step`` at whisper large-v3 + Kaldi fbank + NeMo
   log-mel defaults (K2 with whisper, Kaldi and the VAD; K1 in ln_guard
@@ -33,8 +33,10 @@ show each went through its kernels:
 - the precision dial: ``whisper_mel_pallas(x, 400, 160, 128, impl=...)``
   on 64 x 30 s for each of bf3 / hp8 / hp_bf16 / f32 (K5 / K6 / K7 / K8,
   one launch each, K1 none), after K5-K8 are held against their plain
-  versions (float32 and float64 dots) on 64 ragged 10 s clips and on
-  8 clips at 1024/256/80/22050 and pass the JFK gates, and K6's and K7's
+  versions (float32 and float64 dots) on 64 ragged 10 s clips, on 8
+  clips at 1024/256/80/22050 and on 8 clips at 960/480/40/48000 (the
+  auto route's K5 where K1 refuses the head) and pass the JFK gates, and
+  K6's and K7's
   DFT power equals their plain versions' bit for bit at both shapes and
   framings (phase ozaki_power); then the auto
   routes of the 256- and 1024-column heads (whisper 1024/256 at 22.05
@@ -141,10 +143,10 @@ K2_SOURCE = "melspec_tpu_torch/csrc/sig_multi.cu"
 K2_REPLACES = "melspec_tpu/ops/sig_multihead.py:151"
 # K1's and K2's DFT instruction (csrc/sig_common.cuh::dft_chunk)
 DFT_MMA = "wgmma m64n128k16"
-FRAMED_SOURCE = "melspec_tpu_torch/csrc/framed_mel.cu"
-OZAKI_SOURCE = "melspec_tpu_torch/csrc/framed_ozaki.cu"
-# K6's and K7's DFT instruction (csrc/framed_ozaki.cu)
-OZAKI_MMA = {"K6": "wgmma m64n64k32 s8", "K7": "wgmma m64n64k16 f16"}
+FRAMED_SOURCE = "melspec_tpu_torch/csrc/framed_ozaki.cu"
+# the framed kernels' frame widths whose block layout the kernels line
+# reports: the dial's 400, the JFK gate's 512, 960 at 48 kHz, 1024
+FRAMED_WIDTHS = (400, 512, 960, 1024)
 FRAMED_REPLACES = {"K5": "melspec_tpu/ops/mel_kernel.py:467",
                    "K6": "melspec_tpu/ops/mel_kernel.py:314",
                    "K7": "melspec_tpu/ops/mel_kernel.py:2060",
@@ -162,8 +164,11 @@ FRAMED_JFK = {"bf3": 1e-5, "hp8": 2e-6, "hp_bf16": 1e-6, "f32": 1e-5}
 OZAKI_TOL = 1e-6
 FRAMED_B, FRAMED_SECONDS = 64, 30.0
 # the second check shape (planes of 512 bins, four chunks): 8 ragged 10 s
-# clips at 22.05 kHz; the auto routes' clips are 30 s long
+# clips at 22.05 kHz; the third, whisper 960/480/40 at 48 kHz (960 taps:
+# 32-frame blocks), 8 ragged 10 s clips; the auto routes' clips are 30 s
+# long
 FRAMED_22K_B, FRAMED_22K_T = 8, 10 * 22050 + 37
+FRAMED_48K_B, FRAMED_48K_T = 8, 10 * 48000 + 37
 AUTO_SECONDS = 30
 # the auto routes that K1 refuses, against their float64 routes: whisper
 # mel at the fused routes' 2e-5, NeMo at LN_TOL; Kaldi fbank (its f32 rdft
@@ -326,7 +331,7 @@ def phase_device() -> str:
 def phase_build() -> None:
     t0 = time.perf_counter()
     built = build.load_all(["sig_mel", "resample", "sig_multi",
-                            "framed_mel", "framed_ozaki", "load_probe"])
+                            "framed_ozaki", "load_probe"])
     seconds = time.perf_counter() - t0
     report = {name: [ln.strip() for ln in b.log.splitlines()
                      if ("registers" in ln or "spill" in ln
@@ -336,10 +341,12 @@ def phase_build() -> None:
     emit("build", kernels=sorted(built), seconds=round(seconds, 3),
          ptxas=report, ptxas_c7519=ptxas_c7519(built), sass=sass)
     # K1 and K2: the DFT on HGMMA, the bf2 projection on HMMA; K6 on int8
-    # (IGMMA or IMMA), K7 on 16-bit floats (HGMMA or HMMA)
+    # (IGMMA or IMMA), K7 on 16-bit floats (HGMMA or HMMA); K5 / K8 on
+    # bf16 HGMMA
     need = {"sig_mel": [("HGMMA",), ("HMMA",)],
             "sig_multi": [("HGMMA",), ("HMMA",)],
-            "K6": [("IGMMA", "IMMA")], "K7": [("HGMMA", "HMMA")]}
+            "K6": [("IGMMA", "IMMA")], "K7": [("HGMMA", "HMMA")],
+            "K5": [("HGMMA_BF16",)], "K8": [("HGMMA_BF16",)]}
     missing = [(name, ops) for name, alts in need.items() for ops in alts
                if not any(sass[name][op]["count"] for op in ops)]
     if missing:
@@ -367,10 +374,13 @@ def ptxas_c7519(built) -> dict:
 def tensor_core_sass(names) -> dict:
     """Per built library, the count of its warpgroup (HGMMA, IGMMA) and
     warp (HMMA, IMMA) tensor-core instructions in ``cuobjdump -sass``,
-    with one line of each; ``framed_ozaki`` is split by kernel (K6: the
-    instances of scheme 0, K7: scheme 1)."""
+    with one line of each, and of the HGMMA lines on bf16 operands
+    (HGMMA_BF16); ``framed_ozaki`` is split by kernel (K6: the instances
+    of scheme 0, K7: scheme 1, K5 and K8: scheme 2, which both launch)."""
     tool = Path(build.find_nvcc()).with_name("cuobjdump")
-    ops = ("HGMMA", "HMMA", "IGMMA", "IMMA")
+    ops = ("HGMMA", "HMMA", "IGMMA", "IMMA", "HGMMA_BF16")
+    scheme = {"ozaki_kernelILi0E": "K6", "ozaki_kernelILi1E": "K7",
+              "ozaki_kernelILi2E": "K5"}
     out = {}
     for name in names:
         sass = subprocess.run([str(tool), "-sass", str(build._target(name))],
@@ -380,17 +390,21 @@ def tensor_core_sass(names) -> dict:
         key = name
         for ln in sass:
             if "Function :" in ln and name == "framed_ozaki":
-                key = "K6" if "ozaki_kernelILi0E" in ln else "K7"
+                key = next(k for s, k in scheme.items() if s in ln)
             for op in ops:
-                if f" {op}." in ln:
+                hit = (" HGMMA." in ln and ".BF16" in ln
+                       if op == "HGMMA_BF16" else f" {op}." in ln)
+                if hit:
                     by.setdefault(key, {}).setdefault(op, []).append(
                         ln.split(";")[0].split("*/")[-1].strip())
-        keys = ("K6", "K7") if name == "framed_ozaki" else (name,)
+        keys = ("K5", "K6", "K7") if name == "framed_ozaki" else (name,)
         for k in keys:
             found = by.get(k, {})
             out[k] = {op: dict(count=len(found.get(op, [])),
                                example=found.get(op, [None])[0])
                       for op in ops}
+        if name == "framed_ozaki":
+            out["K8"] = out["K5"]
     return out
 
 
@@ -878,7 +892,9 @@ def phase_bulk(dev, rows) -> dict:
     at its shapes beside their plain versions, the library call and
     their bounds; K3/K4 in the serving precision ("highest") and in bf3,
     and K1 on the serving route (offset = hop) held against its plain
-    version and the exact result to the bars of ``rows``."""
+    version and the exact result to the bars of ``rows``. Then K4 at the
+    4-hop tick's shape and K3 at the 1-hop tick's, where the serving
+    paths launch them, each held against its plain version."""
     c = WHISPER_LARGE_V3
     s, hops, up, down = FLEET, BULK_HOPS, 1, 3
     rng = np.random.default_rng(SEED + 30)
@@ -943,6 +959,38 @@ def phase_bulk(dev, rows) -> dict:
     t_ops = 2 * k * outs / PEAK_F32_FLOPS * 1e3
     t_ops_bf3 = 2 * 3 * k * outs / PEAK_BF16_FLOPS * 1e3
 
+    def at_tick(h: int, name: str, launch) -> dict:
+        """``name`` (K3 or K4) at an ``h``-hop tick of the fleet: its
+        output against the plain version, its ms beside the plain
+        version's, the conv1d call's and the bound."""
+        xt = xdev[:, : h * 480]
+        qt = h * 480 // down
+        st = torch.cat([buf, xt], dim=1)
+        lt = st[:, None, : (qt - 1) * down + g32.shape[-1]]
+        err = max_abs(launch(buf, xt, st, qt),
+                      kres.resample_reference(st, g, up, down, qt, prec))
+        nb = ((buf.numel() + xt.numel() + s * qt * up) * 4
+              + g.numel() * g.element_size())
+        tb = nb / PEAK_HBM_BYTES * 1e3
+        to = 2 * k * s * qt * up / PEAK_F32_FLOPS * 1e3
+        return dict(
+            kernel=name, hops=h, shape=[[s, length], [s, h * 480]],
+            windows=qt, vs_plain=err,
+            ms=time_ms(lambda: launch(buf, xt, st, qt)),
+            plain_ms=time_ms(lambda: kres.resample_reference(
+                st, g, up, down, qt, prec), reps=3, warmup=1),
+            library_ms=time_ms(lambda: torch.nn.functional.conv1d(
+                lt, g32, stride=down)),
+            bound_ms=max(tb, to), bound_by="bytes" if tb >= to
+            else "operations")
+
+    tick = {
+        "k4": at_tick(4, "K4", lambda b, xt, st, qt: kres.resample_pair(
+            b, xt, up, down, qt, precision=prec)),
+        "k3": at_tick(1, "K3", lambda b, xt, st, qt: kres.resample(
+            st, up, down, qt, precision=prec))}
+    errs["tick_vs_plain"] = max(v["vs_plain"] for v in tick.values())
+
     # K1 at the serving tick's bulk shape: offset = hop over the concat
     mats = mel_kernel.sig_matrices(c.fft_size, c.n_mels, c.sampling_rate,
                                    3, 2, dev)
@@ -964,9 +1012,10 @@ def phase_bulk(dev, rows) -> dict:
                windows=q, errs=errs, ms=ms, bytes=nbytes,
                bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
                bound_ops_bf3_ms=t_ops_bf3, k1_serving_ms=k1_ms,
-               k1_serving_errs=k1_errs)
+               k1_serving_errs=k1_errs, tick=tick)
     emit("bulk_48k", **out)
-    if not errs["k4_equal_k3"] or errs["k4_vs_plain"] > RS_TOL:
+    if (not errs["k4_equal_k3"]
+            or max(errs["k4_vs_plain"], errs["tick_vs_plain"]) > RS_TOL):
         raise AssertionError(f"bulk tick: {errs}")
     check([k1_errs], tolerances(rows + [k1_errs]), "bulk tick K1")
     return dict(out, bound_ms=max(t_bytes, t_ops),
@@ -1528,15 +1577,17 @@ def framed_check(rows, bars, what: str) -> None:
 
 def phase_framed_vs_plain(dev) -> list:
     """K5-K8 through ``whisper_mel_pallas`` against their plain versions
-    (f32 and float64 dots) on 64 ragged 10 s clips at 400/160/128 and 8
-    clips at 1024/256/80/22050 (planes of 512 bins: four chunks), both
-    framings; then the JFK gates through the kernels. These launches are
-    not counted."""
+    (f32 and float64 dots) on 64 ragged 10 s clips at 400/160/128, 8
+    clips at 1024/256/80/22050 (planes of 512 bins: four chunks) and 8 at
+    960/480/40/48000 (the auto route's K5 where K1 refuses the head; 32
+    frames a block), both framings; then the JFK gates through the
+    kernels. These launches are not counted."""
     rng = np.random.default_rng(SEED + 80)
     rows = []
     for b, t, fft, hop, n_mels, sr in [
             (FRAMED_B, CHECK_T, 400, 160, 128, 16000.0),
-            (FRAMED_22K_B, FRAMED_22K_T, 1024, 256, 80, 22050.0)]:
+            (FRAMED_22K_B, FRAMED_22K_T, 1024, 256, 80, 22050.0),
+            (FRAMED_48K_B, FRAMED_48K_T, 960, 480, 40, 48000.0)]:
         x = signal(rng, b, t, dev)
         for streaming in (False, True):
             fr, _ = mel_kernel.framed_input(x, fft, hop, streaming)
@@ -1611,32 +1662,41 @@ def phase_ozaki_power(dev) -> dict:
 
 
 def framed_work(mats, taps: int, n_mels: int, frames: int) -> dict:
-    """Operations of one framed call over ``frames`` frames, the
-    function's work: each kept slice pair's taps against the DFT columns
-    that are not identically zero, at the scheme's type (bf16, int8 or
-    float32); then one re + im add per bin with an im column and the
-    float32 projection over the bins."""
+    """Operations of one framed call over ``frames`` frames, the work of
+    the kernel's scheme: each slice pair it runs (K8: the six bf16 pairs
+    of its float32 DFT) over the taps against the DFT columns that are
+    not identically zero, at the scheme's type (bf16 or int8), and the
+    float32 DFT's single product as SIMT work (``dft_ops_f32``); then one
+    re + im add per bin with an im column and the float32 projection over
+    the bins."""
     cw, sw = mel_kernel._build_matrices(taps, n_mels, 16000.0)[:2]
     re_cols = int((cw != 0).any(axis=0).sum())
     im_cols = int((sw != 0).any(axis=0).sum())
-    pairs = sum(1 for i in range(mats.ks) for j in range(mats.ks)
-                if i + j <= mats.cutoff)
-    return dict(pairs=pairs,
-                dft_ops=frames * pairs * 2 * taps * (re_cols + im_cols),
+    pairs = len(framed_ozaki.schedule(mats.impl, mats.ks, mats.cutoff))
+    per_pair = frames * 2 * taps * (re_cols + im_cols)
+    return dict(pairs=pairs, dft_ops=pairs * per_pair, dft_ops_f32=per_pair,
                 f32_ops=frames * (im_cols + 2 * re_cols * n_mels))
 
 
 def framed_bound(mats, fr, out, taps: int, n_mels: int) -> dict:
+    """The larger of the operations over their type's peak and the bytes
+    over HBM's; K8 also ``bound_simt_ms``, its float32 DFT as one product
+    at the SIMT float32 rate (the bound of the earlier SIMT kernel)."""
     w = framed_work(mats, taps, n_mels, fr.shape[0])
-    rate = {"bf3": PEAK_BF16_FLOPS, "hp8": PEAK_INT8_OPS,
-            "hp_bf16": PEAK_BF16_FLOPS, "f32": PEAK_F32_FLOPS}[mats.impl]
+    rate = PEAK_INT8_OPS if mats.impl == "hp8" else PEAK_BF16_FLOPS
     nbytes = (fr.numel() * 4 + out.numel() * 4 + mats.mt.numel() * 4
               + sum(m.numel() * m.element_size() for m in mats.planes))
-    t_ops = (w["dft_ops"] / rate + w["f32_ops"] / PEAK_F32_FLOPS) * 1e3
+    proj_ms = w["f32_ops"] / PEAK_F32_FLOPS * 1e3
+    t_ops = w["dft_ops"] / rate * 1e3 + proj_ms
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    extra = {}
+    if mats.impl == "f32":
+        extra["bound_simt_ms"] = max(
+            w["dft_ops_f32"] / PEAK_F32_FLOPS * 1e3 + proj_ms, t_bytes)
     return dict(w, bytes=nbytes, bound_ops_ms=t_ops, bound_bytes_ms=t_bytes,
                 bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                **extra)
 
 
 def phase_framed_main_path(dev, rows, k1_rows) -> dict:
@@ -1689,16 +1749,19 @@ def phase_framed_main_path(dev, rows, k1_rows) -> dict:
         out[impl]["x_real_time"] = (FRAMED_B * FRAMED_SECONDS
                                     / (out[impl]["call_ms"] / 1e3))
         out[impl]["share_of_bound"] = out[impl]["bound_ms"] / out[impl]["ms"]
-        if impl in framed_mel.OZAKI:
-            # the built library's frames per block, and the ring-tile bytes
-            # its loads request from L2 (counted, not measured)
-            frames = framed_ozaki.plan(mats.ks, c.fft_size,
-                                       mats.mt.shape[1])[0]
-            out[impl].update(
-                block_frames=frames,
-                l2_bytes_counted=framed_ozaki.l2_tile_bytes(
-                    impl, mats.ks, mats.cutoff, c.fft_size,
-                    mats.n_bins_pad, fr.shape[0], frames))
+        # the built library's frames per block (here and at each width of
+        # FRAMED_WIDTHS), and the ring-tile bytes its loads request from L2
+        # (counted, not measured)
+        frames = framed_ozaki.plan(impl, mats.ks, c.fft_size,
+                                   mats.mt.shape[1])[0]
+        out[impl].update(
+            block_frames=frames,
+            block_frames_by_taps={w: framed_ozaki.plan(
+                impl, mats.ks, w, mats.mt.shape[1])[0]
+                for w in FRAMED_WIDTHS},
+            l2_bytes_counted=framed_ozaki.l2_tile_bytes(
+                impl, mats.ks, mats.cutoff, c.fft_size, mats.n_bins_pad,
+                fr.shape[0], frames))
         del k_out
         emit(f"framed_main_path_{impl}", **out[impl])
         others = [k for k in framed_mel.KERNEL.values() if k != name]
@@ -2208,7 +2271,7 @@ def main() -> int:
                                           for w in wire.values())
     flat_span = probe["modes"]["flat_span"]
     rs_err = max(max(r["vs_plain"] for r in rs_rows),
-                 bulk["errs"]["k4_vs_plain"])
+                 bulk["errs"]["k4_vs_plain"], bulk["errs"]["tick_vs_plain"])
     common = dict(route="cuda", source=RS_SOURCE, max_abs_err=rs_err,
                   max_abs_vs_exact=max(r["vs_exact"] for r in rs_rows),
                   precision=bulk["precision"], bound_ms=bulk["bound_ms"],
@@ -2255,15 +2318,15 @@ def main() -> int:
             launches=launches("K3"),
             launches_by_path={k: v["K3"] for k, v in serving.items()},
             ms=bulk["ms"]["k3"], ms_bf3=bulk["ms"]["k3_bf3"],
-            plain_ms=bulk["ms"]["k3_plain"]),
+            plain_ms=bulk["ms"]["k3_plain"], tick_1hop=bulk["tick"]["k3"]),
         dict(common, name="K4", replaces=K4_REPLACES,
              launches=launches("K4"),
              launches_by_path={k: v["K4"] for k, v in serving.items()},
              ms=bulk["ms"]["k4"], ms_bf3=bulk["ms"]["k4_bf3"],
              plain_ms=bulk["ms"]["k4_plain"],
-             bound_ops_bf3_ms=bulk["bound_ops_bf3_ms"])] + [{
-        "name": t["kernel"], "route": "cuda",
-        "source": OZAKI_SOURCE if impl in framed_mel.OZAKI else FRAMED_SOURCE,
+             bound_ops_bf3_ms=bulk["bound_ops_bf3_ms"],
+             tick_4hop=bulk["tick"]["k4"])] + [{
+        "name": t["kernel"], "route": "cuda", "source": FRAMED_SOURCE,
         "replaces": FRAMED_REPLACES[t["kernel"]], "impl": impl,
         "launches": launches(t["kernel"]),
         "launches_by_path": {k: v.get(t["kernel"], 0)
@@ -2281,11 +2344,13 @@ def main() -> int:
         "library_ms": None,
         "library_composition_ms": t["library_composition_ms"],
         "shape": [t["frames"], 512],
-        **({"dft_mma": OZAKI_MMA[t["kernel"]],
-            "block_frames": t["block_frames"],
-            "share_of_bound": t["share_of_bound"],
-            "power_bit_equal": ozaki_power["equal"]}
+        "dft_mma": framed_ozaki.MMA[impl],
+        "block_frames": t["block_frames"],
+        "block_frames_by_taps": t["block_frames_by_taps"],
+        "share_of_bound": t["share_of_bound"],
+        **({"power_bit_equal": ozaki_power["equal"]}
            if impl in framed_mel.OZAKI else {}),
+        **({"bound_simt_ms": t["bound_simt_ms"]} if impl == "f32" else {}),
     } for impl, t in dial["times"].items()] + [{
         "name": "P1", "route": "cuda", "source": P1_SOURCE,
         "replaces": P1_REPLACES, "launches": launches("P1"),

@@ -10,7 +10,7 @@ package on identical inputs. The kernels are written by hand in CUDA C++
 for Hopper: K1 (``csrc/sig_mel.cu``, one frontend's fused features, with
 the u8-record and Sobel VAD epilogues), K2 (``csrc/sig_multi.cu``,
 several frontends over one staging of the signal), K3/K4
-(``csrc/resample.cu``, the resampler), K5-K8 (``csrc/framed_mel.cu``,
+(``csrc/resample.cu``, the resampler), K5-K8 (``csrc/framed_ozaki.cu``,
 the precision dial of ``whisper_mel_pallas``) and the probe P1
 (``csrc/load_probe.cu``), each built with ``nvcc`` at its first launch;
 on the CPU the same functions run their plain PyTorch versions. Every entry point takes

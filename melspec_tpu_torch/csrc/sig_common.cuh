@@ -6,8 +6,8 @@
 // Both kernels call the same functions in the same order, so a head of K2
 // with K1's matrices and block order computes K1's output bit for bit,
 // and the two count VAD edges with one piece of code. K5-K8
-// (framed_mel.cu) take the logarithms and the whisper norm of a log row
-// from here too.
+// (framed_ozaki.cu) take the copy and wgmma primitives, the logarithms
+// and the whisper norm of a log row from here too.
 //
 // Replaces the TPU kernels' shared body (melspec_tpu/ops/mel_kernel.py::
 // _sig_mel_tile_kernel: _sig_xcat, _sig_project, _sig_out_vals), whose

@@ -1,14 +1,15 @@
-"""K5-K8: whisper log-mel of pre-framed ``[N, k_pad]`` frames through the
-precision dial's four DFT schemes — the CUDA kernels, the plain PyTorch
-version of each, and the wrapper that picks between them by the device
-the frames lie on.
+"""K5-K8: whisper log-mel of pre-framed ``[N, k_pad]`` frames through
+the precision dial's four DFT schemes — the plain PyTorch version of each,
+the argument checks of their kernels (``csrc/framed_ozaki.cu``, launcher
+``kernels/framed_ozaki.py``), and the wrapper that picks between them by
+the device the frames lie on.
 
-| kernel | ``impl`` | replaces (``melspec_tpu/ops/mel_kernel.py``) | DFT | source |
-|---|---|---|---|---|
-| K5 | ``"bf3"`` | ``_bf3_mel_tile_kernel`` via ``_pallas_bf3_mel_frames`` | rounded-bf16 slice pairs, SIMT | ``csrc/framed_mel.cu`` |
-| K6 | ``"hp8"`` | ``_hp8_mel_tile_kernel`` via ``_pallas_hp8_mel_frames`` | int8 Ozaki, int8 ``wgmma`` | ``csrc/framed_ozaki.cu`` (``kernels/framed_ozaki.py``) |
-| K7 | ``"hp_bf16"`` | ``_hp_mel_tile_kernel`` via ``_pallas_hp_mel_frames`` | bf16-integer Ozaki, bf16 ``wgmma`` | ``csrc/framed_ozaki.cu`` |
-| K8 | ``"f32"`` | ``_mel_tile_kernel`` via ``_pallas_mel_frames`` | float32, SIMT | ``csrc/framed_mel.cu`` |
+| kernel | ``impl`` | replaces (``melspec_tpu/ops/mel_kernel.py``) | DFT on the tensor cores |
+|---|---|---|---|
+| K5 | ``"bf3"`` | ``_bf3_mel_tile_kernel`` via ``_pallas_bf3_mel_frames`` | rounded-bf16 slice pairs, bf16 ``wgmma`` |
+| K6 | ``"hp8"`` | ``_hp8_mel_tile_kernel`` via ``_pallas_hp8_mel_frames`` | int8 Ozaki, int8 ``wgmma`` |
+| K7 | ``"hp_bf16"`` | ``_hp_mel_tile_kernel`` via ``_pallas_hp_mel_frames`` | integer Ozaki, float16 ``wgmma`` |
+| K8 | ``"f32"`` | ``_mel_tile_kernel`` via ``_pallas_mel_frames`` | float32 as 3xTF32, TF32 ``wgmma`` |
 
 ``framed_mel`` launches the kernel for a CUDA tensor (or raises) and runs
 the plain version only for a CPU tensor, with the DFT dot summed in
@@ -21,31 +22,22 @@ bit for bit; its launches are not counted.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import functools
 
 import torch
 
-from melspec_tpu_torch.kernels import build, framed_ozaki
-from melspec_tpu_torch.kernels.sig_mel import (MAX_SMEM_BYTES, out_vals,
-                                               raise_for)
+from melspec_tpu_torch.kernels import framed_ozaki
+from melspec_tpu_torch.kernels.sig_mel import out_vals
 from melspec_tpu_torch.ops.hp_dft import (_signal_slices, combine_groups,
                                           pow2_row_scale, two_float_power)
 
 IMPLS = ("bf3", "hp8", "hp_bf16", "f32")
-KERNEL = {"bf3": "K5", "hp8": "K6", "hp_bf16": "K7", "f32": "K8"}
-# the scheme numbers of csrc/framed_mel.cu (K6 / K7: framed_ozaki)
-_SCHEME = {"f32": 0, "bf3": 1}
+KERNEL = framed_ozaki.KERNEL
 OZAKI = ("hp8", "hp_bf16")
-# K5's and K8's largest tile of frames per block; the callers pad the
-# frame count to it (csrc/framed_mel.cu: plan_tile; K6 / K7 mask their
-# ragged tiles)
-TILE_FRAMES = 32
 MAX_SLICES = 6
 MAX_MELS_PAD = 256
-# bins per chunk of the kernel's loop: the plane matrices' column blocks
-# are multiples of it
+# the plane matrices' column blocks (n_bins_pad) are multiples of it, as
+# the host builds them (the kernels walk chunks of 64 bins)
 CHUNK_BINS = 128
 
 launches = dict.fromkeys(KERNEL.values(), 0)
@@ -74,7 +66,7 @@ class FramedMatrices:
     mt: torch.Tensor
     ks: int = 1
     cutoff: int = 0
-    # K6's / K7's ring tiles by taps, built at their first launch
+    # the kernel's ring tiles by taps, built at its first launch
     _tiles: dict = dataclasses.field(default_factory=dict, init=False,
                                      repr=False, compare=False)
 
@@ -83,8 +75,8 @@ class FramedMatrices:
         return self.mt.shape[0]
 
     def ring_tiles(self, taps: int) -> torch.Tensor:
-        """``framed_ozaki.ring_tiles`` of these planes (hp8 / hp_bf16),
-        built once per ``taps`` and kept with the matrices."""
+        """``framed_ozaki.ring_tiles`` of these planes, built once per
+        ``taps`` and kept with the matrices."""
         if taps not in self._tiles:
             self._tiles[taps] = framed_ozaki.ring_tiles(
                 self.impl, self.planes, self.ks, self.cutoff,
@@ -261,76 +253,43 @@ def framed_mel_reference(frames: torch.Tensor, mats: FramedMatrices, *,
     return out[:, :n_mels].contiguous()
 
 
-@functools.cache
-def _bound() -> ctypes.CDLL:
-    lib = build.load("framed_mel").lib
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.melspec_framed_mel.argtypes = [
-        i, p, ll, i, i,   # scheme, frames, n_rows, ld, taps
-        p, p, p, i,       # re[], im[], ldm[], nbp
-        i, i,             # ks, cutoff
-        p, i, i,          # mt, n_mels, nmp
-        p, p,             # out, stream
-    ]
-    lib.melspec_framed_mel.restype = ctypes.c_int
-    lib.melspec_framed_mel_plan.argtypes = [i, i, i, i,
-                                            ctypes.POINTER(ll)]
-    lib.melspec_framed_mel_plan.restype = ctypes.c_int
-    lib.melspec_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.melspec_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _plan(impl: str, ks: int, taps: int, n_mels_pad: int) -> tuple:
-    """``(frames per block, shared memory bytes)`` the built kernel takes
-    for these arguments; 0 frames where no tile fits a block."""
-    smem = ctypes.c_longlong(0)
-    tile = _bound().melspec_framed_mel_plan(_SCHEME[impl], ks, taps,
-                                            n_mels_pad, ctypes.byref(smem))
-    return int(tile), int(smem.value)
-
-
-def _slice_table(mats: FramedMatrices, taps: int, dev) -> tuple:
-    """Per signal slice: (re plane 0 pointer, im plane 0 pointer, row
-    stride in elements), checked against the schedule."""
+def _checked_planes(mats: FramedMatrices, taps: int, dev) -> None:
+    """The plane matrices against the scheme's dtype and schedule."""
     impl, nbp = mats.impl, mats.n_bins_pad
     want = {"bf3": torch.bfloat16, "hp8": torch.int8,
             "hp_bf16": torch.bfloat16, "f32": torch.float32}[impl]
-    planes = tuple(m.contiguous() for m in mats.planes)
-    for m in planes:
+    for m in mats.planes:
         if m.dtype != want or m.device != dev or m.dim() != 2 \
                 or m.shape[0] < taps:
             raise ValueError(f"{KERNEL[impl]} takes {want} plane matrices "
                              f"of >= {taps} rows on the frames' device; got "
                              f"{m.dtype} {tuple(m.shape)} on {m.device}")
-    esize = planes[0].element_size()
     if impl in ("bf3", "hp8"):
-        if len(planes) != mats.ks:
+        if len(mats.planes) != mats.ks:
             raise ValueError(f"{KERNEL[impl]} takes one plane matrix per "
-                             f"signal slice ({mats.ks}); got {len(planes)}")
-        rows = []
-        for i, m in enumerate(planes):
+                             f"signal slice ({mats.ks}); got "
+                             f"{len(mats.planes)}")
+        for i, m in enumerate(mats.planes):
             n_p = min(mats.cutoff - i, mats.ks - 1) + 1
             if n_p < 1 or m.shape[1] != 2 * n_p * nbp:
                 raise ValueError(f"slice {i}'s matrix must have 2 * {n_p} "
                                  f"planes of {nbp} columns; got "
                                  f"{tuple(m.shape)}")
-            rows.append((m.data_ptr(), m.data_ptr() + n_p * nbp * esize,
-                         m.shape[1]))
-    else:
-        width = nbp * (mats.ks if impl == "hp_bf16" else 1)
-        if len(planes) != 2 or any(m.shape[1] != width for m in planes):
-            raise ValueError(f"{KERNEL[impl]} takes (re, im) matrices of "
-                             f"{width} columns")
-        rows = [(planes[0].data_ptr(), planes[1].data_ptr(), width)] * mats.ks
-    return planes, rows
+        return
+    width = nbp * (mats.ks if impl == "hp_bf16" else 1)
+    if len(mats.planes) != 2 or any(m.shape[1] != width
+                                    for m in mats.planes):
+        raise ValueError(f"{KERNEL[impl]} takes (re, im) matrices of "
+                         f"{width} columns")
+    if impl == "f32" and (mats.ks, mats.cutoff) != (1, 0):
+        raise ValueError(f"K8 takes one slice (ks 1, cutoff 0); got ks "
+                         f"{mats.ks}, cutoff {mats.cutoff}")
 
 
 def _checked(frames: torch.Tensor, mats: FramedMatrices, *, n_mels: int,
              taps: int) -> tuple:
-    """The launch's argument checks: ``(frames, mt, planes, rows)``, the
-    tensors contiguous on the frames' device, ``rows`` K5's / K8's slice
-    table."""
+    """The launch's argument checks: ``(frames, mt)``, contiguous on the
+    frames' device."""
     name = KERNEL[mats.impl]
     dev = frames.device
     if frames.dtype != torch.float32 or frames.dim() != 2:
@@ -351,51 +310,21 @@ def _checked(frames: torch.Tensor, mats: FramedMatrices, *, n_mels: int,
     if not 0 < taps <= frames.shape[1]:
         raise ValueError(f"taps {taps} outside the frame of "
                          f"{frames.shape[1]}")
-    planes, rows = _slice_table(mats, taps, dev)
+    _checked_planes(mats, taps, dev)
     frames = frames.contiguous()
-    if any(t.data_ptr() % 16 for t in (frames, mt, *planes)):
+    if any(t.data_ptr() % 16 for t in (frames, mt)):
         raise ValueError(f"{name} needs 16-byte aligned tensors")
-    return frames, mt, planes, rows
+    return frames, mt
 
 
 def _launch(frames: torch.Tensor, mats: FramedMatrices, *, n_mels: int,
             taps: int) -> torch.Tensor:
-    impl = mats.impl
-    name = KERNEL[impl]
-    frames, mt, planes, rows = _checked(frames, mats, n_mels=n_mels,
-                                        taps=taps)
-    if impl in OZAKI:
-        out = framed_ozaki.run(frames, impl, mats.ring_tiles(taps), mt,
-                               ks=mats.ks, cutoff=mats.cutoff, n_mels=n_mels,
-                               taps=taps)
-        if frames.shape[0]:
-            launches[name] += 1
-        return out
-    nbp, nmp = mt.shape
-    tile, smem = _plan(impl, mats.ks, taps, nmp)
-    if tile == 0:
-        raise NotImplementedError(
-            f"{name} needs {smem} bytes of shared memory for {taps} taps, "
-            f"{mats.ks} signal slices, {nmp} mel columns at 16 frames a "
-            f"block; a block has {MAX_SMEM_BYTES}")
-    dev = frames.device
-    n = frames.shape[0]
-    out = torch.empty((n, n_mels), dtype=torch.float32, device=dev)
-    if n == 0:
-        return out
-    arr = ctypes.c_void_p * len(rows)
-    re = arr(*(r[0] for r in rows))
-    im = arr(*(r[1] for r in rows))
-    ldm = (ctypes.c_int * len(rows))(*(r[2] for r in rows))
-    lib = _bound()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.melspec_framed_mel(
-            _SCHEME[impl], frames.data_ptr(), n, frames.shape[1], taps,
-            re, im, ldm, nbp, mats.ks, mats.cutoff, mt.data_ptr(),
-            n_mels, nmp, out.data_ptr(), stream)
-    raise_for(lib, rc, f"{name} (framed_mel, {impl})")
-    launches[name] += 1
+    frames, mt = _checked(frames, mats, n_mels=n_mels, taps=taps)
+    out = framed_ozaki.run(frames, mats.impl, mats.ring_tiles(taps), mt,
+                           ks=mats.ks, cutoff=mats.cutoff, n_mels=n_mels,
+                           taps=taps)
+    if frames.shape[0]:
+        launches[KERNEL[mats.impl]] += 1
     return out
 
 
@@ -409,7 +338,7 @@ def ozaki_power(frames: torch.Tensor, mats: FramedMatrices, *,
                          "frames")
     taps = frames.shape[1] if taps is None else taps
     nmp = mats.mt.shape[1]
-    frames, mt, *_ = _checked(frames, mats, n_mels=nmp, taps=taps)
+    frames, mt = _checked(frames, mats, n_mels=nmp, taps=taps)
     power = torch.empty((frames.shape[0], mt.shape[0]), dtype=torch.float32,
                         device=frames.device)
     out = framed_ozaki.run(frames, mats.impl, mats.ring_tiles(taps), mt,

@@ -1,11 +1,12 @@
-"""Where K6's and K7's time goes on the card: ``csrc/framed_ozaki.cu``
-built once as it is and once with each of four parts cut out (the
-tensor-core DFT, the ring tiles' stream from L2, the projection, the
-frames' slicing) or with the ring laid out as K1 lays out its ring (16
-bytes of padding between column groups), each timed at the dial's launch
-(whisper large-v3, 400/160/128, 64 x 30 s) and at 1024/256/80, 22.05
-kHz, 64 x 30 s. A cut's output is not the function any more; its time
-only shows what the part it removes costs, and where the parts overlap.
+"""Where K5-K8's time goes on the card: ``csrc/framed_ozaki.cu`` built
+once as it is and once with each of five parts cut out (the tensor-core
+DFT, the ring tiles' stream from L2, the projection, the frames' slicing
+or staging, K5's / K8's cutting of each stage's A tile from the staged
+frames) or with the ring laid out as K1 lays out its ring (16 bytes of
+padding between column groups), each timed at the dial's launch (whisper
+large-v3, 400/160/128, 64 x 30 s) and at 1024/256/80, 22.05 kHz, 64 x 30
+s. A cut's output is not the function any more; its time only shows what
+the part it removes costs, and where the parts overlap.
 
     python3 -m melspec_tpu_torch.kernels.ozaki_probe
 
@@ -30,10 +31,14 @@ SOURCE = build.CSRC_DIR / "framed_ozaki.cu"
 # variant -> the (text, replacement) edits it makes
 EDITS = {
     "no_dft_mma": [(
-        "        if constexpr (k8) wgmma_s8(acc, a[h], desc, !(first && h == 0));\n"
-        "        else wgmma_f16(acc, a[h], desc, !(first && h == 0));",
+        "        wgmma_step<S>(acc, a[h], a_desc, desc, !(first && h == 0));",
         "        acc[h] += static_cast<Acc>(\n"
-        "            (a[h][0] ^ a[h][3] ^ static_cast<unsigned>(desc)) & 1);")],
+        "            (a[h][0] ^ a[h][3] ^ static_cast<unsigned>(desc ^ a_desc))"
+        " & 1);")],
+    "no_a_cut": [(
+        "    cut_stage<T>(sat + slot * kABytes, sa, p.rs, p.taps, st * kATaps,\n"
+        "                 p.pi[pr], tid);",
+        "    (void)pr, (void)st, (void)slot;")],
     "no_tile_stream": [(
         "cp_async16(ring + slot * kStageBytes + 16 * v, src + 16 * v, true);",
         "cp_async16(ring + slot * kStageBytes + 16 * v, src + 16 * v, v < 0);")],
@@ -71,7 +76,7 @@ def variant_source(name: str, text: str | None = None) -> str:
 
 
 def run(dev: torch.device, timer) -> list:
-    """Each variant's K6 and K7 time at each shape (``timer(fn)`` -> ms)."""
+    """Each variant's K5-K8 time at each shape (``timer(fn)`` -> ms)."""
     from melspec_tpu_torch.ops import mel_kernel
 
     rng = np.random.default_rng(0)
@@ -80,7 +85,7 @@ def run(dev: torch.device, timer) -> list:
         x = torch.from_numpy((rng.normal(size=(B, int(SECONDS * sr)))
                               * 0.2).astype(np.float32)).to(dev)
         fr, _ = mel_kernel.framed_input(x, fft, hop)
-        for impl in framed_mel.OZAKI:
+        for impl in framed_mel.IMPLS:
             ks, cutoff = mel_kernel.pallas_schedule(impl)
             mats = mel_kernel.framed_matrices(impl, fft, n_mels, sr, ks,
                                               cutoff, dev)
@@ -95,7 +100,7 @@ def run(dev: torch.device, timer) -> list:
             for case, fr, mats, n_mels, taps in cases:
                 rows.append(dict(
                     variant=name, case=case,
-                    block_frames=framed_ozaki.plan(mats.ks, taps,
+                    block_frames=framed_ozaki.plan(mats.impl, mats.ks, taps,
                                                    mats.mt.shape[1])[0],
                     ms=timer(lambda: framed_mel.framed_mel(
                         fr, mats, n_mels=n_mels, taps=taps))))

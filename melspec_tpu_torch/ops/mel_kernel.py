@@ -18,10 +18,11 @@ Not carried over from the JAX functions: ``interpret`` (no interpret mode
 for a CUDA kernel), the quant epilogue's ``qabl`` ablations,
 ``input_mode`` / ``flat_rows`` and the macro-row ``row_w`` / ``phases`` /
 ``rows_tile`` geometry, the ``_pad_for_flat`` batch padding and the framed
-kernels' 256- and 512-frame tiles — all TPU tiling. K1 frames any ``[B,
-T]`` signal as it is, and its VAD epilogue's tile-boundary columns follow
-its own 64-frame tile; the framed route pads the frame count to
-``TILE_FRAMES``, the Hopper kernel's tile.
+kernels' 256- and 512-frame tiles with the frame-count padding to them —
+all TPU tiling. K1 frames any ``[B, T]`` signal as it is, and its VAD
+epilogue's tile-boundary columns follow its own 64-frame tile; the framed
+kernels mask their ragged last block, so the framed route passes exactly
+``B * n_frames`` frames.
 """
 
 from __future__ import annotations
@@ -35,8 +36,8 @@ import torch
 
 from melspec_tpu_torch._device import as_signal, resolve_device
 from melspec_tpu_torch.config import DetectionSettings
-from melspec_tpu_torch.kernels.framed_mel import (IMPLS, TILE_FRAMES,
-                                                  FramedMatrices, framed_mel)
+from melspec_tpu_torch.kernels.framed_mel import (IMPLS, FramedMatrices,
+                                                  framed_mel)
 from melspec_tpu_torch.kernels.sig_mel import TILE_FRAMES as TILE_K1
 from melspec_tpu_torch.kernels.sig_mel import (SigHead, k1_accepts,
                                                live_columns, sig_mel,
@@ -50,9 +51,9 @@ from melspec_tpu_torch.ops.hp_dft import bf16_round_slices, matrix_slices
 from melspec_tpu_torch.ops.windows import hann_periodic
 
 __all__ = [
-    "FramedMatrices", "SigHead", "SigMatrices", "TILE_FRAMES",
-    "framed_input", "framed_matrices", "pallas_schedule",
-    "resolve_pallas_impl", "sig_geometry", "sig_mel_reference",
+    "FramedMatrices", "SigHead", "SigMatrices", "framed_input",
+    "framed_matrices", "pallas_schedule", "resolve_pallas_impl",
+    "sig_geometry", "sig_mel_reference",
     "whisper_head", "whisper_mel_pallas", "whisper_mel_quantized",
     "whisper_mel_sig", "whisper_mel_vad_sig",
 ]
@@ -576,9 +577,10 @@ def framed_input(x: torch.Tensor, fft_size: int, hop_size: int,
     """The framed kernels' input (the framing and padding of JAX's
     ``_framed_pallas_mel``): ``x [B, T]`` framed at ``hop_size`` in batch
     framing, or in streaming framing (offset ``streaming_frame_offset``,
-    up to the last whole hop), as ``(frames [total_pad, k_pad],
-    n_frames)``: the ``B * n_frames`` frames padded to the matrices'
-    128-row multiple of taps and their count to ``TILE_FRAMES``."""
+    up to the last whole hop), as ``(frames [B * n_frames, k_pad],
+    n_frames)``: the frames padded with zeros to the matrices' 128-row
+    multiple of taps (JAX also pads their count to its TPU tile; the
+    Hopper kernels mask a ragged last block instead)."""
     n = x.shape[-1]
     if streaming:
         offset = framing.streaming_frame_offset(fft_size, hop_size)
@@ -588,15 +590,13 @@ def framed_input(x: torch.Tensor, fft_size: int, hop_size: int,
         n_frames = framing.num_frames_batch(n, fft_size, hop_size)
     n_frames = max(n_frames, 0)
     total = x.shape[0] * n_frames
-    total_pad = -(-total // TILE_FRAMES) * TILE_FRAMES
     needed = (n_frames - 1) * hop_size + fft_size
     if x.shape[-1] < needed:
         x = torch.nn.functional.pad(x, (0, needed - x.shape[-1]))
     frames = framing.frame_signal(x, fft_size, hop_size, n_frames).reshape(
         total, fft_size)
     k_pad = -(-fft_size // LANES) * LANES
-    frames = torch.nn.functional.pad(
-        frames, (0, k_pad - fft_size, 0, total_pad - total))
+    frames = torch.nn.functional.pad(frames, (0, k_pad - fft_size))
     return frames, n_frames
 
 
@@ -699,5 +699,5 @@ def whisper_mel_pallas(
                             cutoff, dev)
             if matrices is None else matrices.to(dev))
     out = framed_mel(frames, mats, n_mels=n_mels, taps=fft_size)
-    out = out[: batch * n_frames].reshape(batch, n_frames, n_mels)
+    out = out.reshape(batch, n_frames, n_mels)
     return out[0] if squeeze else out

@@ -1,6 +1,8 @@
-"""K5-K8 on the card against their plain PyTorch versions, K6's and K7's
+"""K5-K8 on the card against their plain PyTorch versions (whisper
+960/480/40 at 48 kHz too, where the auto route takes K5), K6's and K7's
 DFT power bit-equal to their plain versions', the JFK gates through the
-kernels, and the auto routes of the heads that are not 512 columns wide.
+kernels, the block layout per frame width, and the auto routes of the
+heads that are not 512 columns wide.
 Needs a CUDA
 device and nvcc; skipped elsewhere. On a machine with the card (no JAX
 needed):
@@ -29,10 +31,11 @@ TESTDATA = Path(__file__).resolve().parents[1] / "testdata"
 # the Ozaki kernels' DFT is exact, and equal to their plain version's bit
 # for bit; only the f32 projection's order differs
 OZAKI_TOL = 1e-6
-# K5 and K8 sum float32 dots in another order than cuBLAS: against the
-# exact result (float64 dot) at the 1e-5 gate raised to the plain
-# version's own distance from it, against the plain version at that plus
-# the same floor (K1's card bars)
+# K5 and K8 sum their bf16 products on the tensor cores, in another order
+# than cuBLAS sums the plain version's float32 dot: against the exact
+# result (float64 dot) at the 1e-5 gate raised to the plain version's own
+# distance from it, against the plain version at that plus the same floor
+# (K1's card bars)
 GATE = 1e-5
 
 
@@ -46,7 +49,8 @@ def dev():
 @pytest.mark.parametrize("impl", framed_mel.IMPLS)
 @pytest.mark.parametrize("fft,hop,n_mels,sr", [
     (400, 160, 80, 16000.0), (400, 160, 128, 16000.0),
-    (1024, 256, 80, 22050.0), (256, 96, 32, 16000.0)])
+    (1024, 256, 80, 22050.0), (256, 96, 32, 16000.0),
+    (960, 480, 40, 48000.0)])
 @pytest.mark.parametrize("streaming", [False, True])
 def test_kernel_matches_plain(dev, impl, fft, hop, n_mels, sr, streaming):
     """``whisper_mel_pallas`` launches the kernel once; its output against
@@ -117,10 +121,12 @@ def test_refusals(dev):
             n_mels=80)
     with pytest.raises(ValueError, match="float32 frames"):
         framed_mel.framed_mel(fr.double(), mats, n_mels=80)
-    big = mel_kernel.framed_matrices("hp_bf16", 4096, 80, 16000.0, 6, 6, dev)
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        framed_mel.framed_mel(torch.zeros(32, 4096, device=dev), big,
-                              n_mels=80)
+    for impl, ks in (("hp_bf16", 6), ("bf3", 3)):
+        big = mel_kernel.framed_matrices(impl, 4096, 80, 16000.0, ks, ks,
+                                         dev)
+        with pytest.raises(NotImplementedError, match="shared memory"):
+            framed_mel.framed_mel(torch.zeros(32, 4096, device=dev), big,
+                                  n_mels=80)
 
 
 @pytest.mark.parametrize("fft,hop,n_mels,sr", [
@@ -220,9 +226,16 @@ def test_ozaki_power_bit_equal(dev, impl, fft, hop, n_mels, sr, sched,
 @pytest.mark.parametrize("impl,fft,n_mels,ks,frames", [
     ("hp8", 400, 128, 4, 64), ("hp_bf16", 400, 128, 5, 64),
     ("hp8", 1024, 80, 4, 32), ("hp_bf16", 1024, 80, 5, 32),
-    ("hp_bf16", 1024, 80, 6, 16)])
+    ("hp_bf16", 1024, 80, 6, 16),
+    ("bf3", 400, 128, 3, 64), ("bf3", 400, 256, 3, 32),
+    ("bf3", 512, 80, 3, 64), ("bf3", 960, 40, 3, 32),
+    ("bf3", 1024, 80, 3, 32), ("bf3", 1024, 256, 6, 32),
+    ("f32", 400, 128, 1, 64), ("f32", 512, 80, 1, 64),
+    ("f32", 960, 40, 1, 32), ("f32", 1024, 80, 1, 32)])
 def test_ozaki_block_frames(dev, impl, fft, n_mels, ks, frames):
     """The built library's block layout: 64 frames on the main path, 32
-    at 1024 taps, 16 where six slices of 1024 taps must fit."""
-    tile, smem = framed_ozaki.plan(ks, fft, -(-n_mels // 128) * 128)
+    at 1024 taps, 16 where six int8 slices of 1024 taps must fit; K5 and
+    K8 stage the float32 frames whatever their slices: 64 frames up to 512
+    taps at 128 mel columns, 32 at 960 and 1024 taps or 256 columns."""
+    tile, smem = framed_ozaki.plan(impl, ks, fft, -(-n_mels // 128) * 128)
     assert tile == frames and smem <= sig_mel.MAX_SMEM_BYTES

@@ -231,7 +231,7 @@ def test_launcher_refusals(monkeypatch):
         framed_mel.ozaki_power_reference(fr, bf3)
     # what does not fit a block's shared memory is refused by name (the
     # figure comes from the built library, stubbed here)
-    monkeypatch.setattr(framed_ozaki, "plan", lambda ks, taps, nmp:
+    monkeypatch.setattr(framed_ozaki, "plan", lambda impl, ks, taps, nmp:
                         (0, 300_000))
     with pytest.raises(NotImplementedError, match="shared memory"):
         framed_ozaki.run(fr, "hp8", mats.ring_tiles(400), mats.mt, ks=4,

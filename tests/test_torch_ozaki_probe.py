@@ -1,4 +1,4 @@
-"""K6's and K7's time probe on the CPU (it runs on the card only): every
+"""K5-K8's time probe on the CPU (it runs on the card only): every
 edit of the device code matches ``csrc/framed_ozaki.cu`` exactly once, an
 edit that no longer matches raises, the probes' shared build and binding
 helpers (``kernels/build.py``) do what they say, and the command refuses
