@@ -20,8 +20,10 @@ show each went through its kernels:
   against a plain frontend fed float64 ``resample_poly`` audio and, on
   the sig route, every tick's K1 output (offset = hop) held against K1's
   plain version; then a 64-stream 8 kHz fleet (K4 upsampling) and a 256 x
-  500-hop bulk tick for kernel times, with K4 timed at the 4-hop tick's
-  shape and K3 at the 1-hop tick's;
+  500-hop bulk tick for kernel times, with K3/K4 and the ``conv1d``
+  yardstick timed per launch on the device (and per call) there, and at
+  the 4-hop (K4) and 1-hop (K3) ticks' shapes and the 8 kHz fleet's
+  4-hop tick (K4);
 - the composite frontend step: 64 x 30 s through
   ``sharded_frontend_step`` at whisper large-v3 + Kaldi fbank + NeMo
   log-mel defaults (K2 with whisper, Kaldi and the VAD; K1 in ln_guard
@@ -119,7 +121,7 @@ from melspec_tpu_torch.streaming.serving import (  # noqa: E402
     MultiStreamFrontend, calibrate_fft_impl, shared_frontend)
 from melspec_tpu_torch.utils import vad_eval  # noqa: E402
 from melspec_tpu_torch.utils.timing import (  # noqa: E402
-    device_time_ms as time_ms)
+    device_time_ms as time_ms, per_launch_ms)
 
 TESTDATA = ROOT / "testdata"
 # K1 is held against the exact result (its plain version with the DFT dot
@@ -877,24 +879,79 @@ def phase_serving_profile(dev) -> dict:
             by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3 / (ticks - 1)
         busy = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+        # K3/K4 by name, whether or not they are in the top 10
+        rs_ms = sum(v for k, v in by_name.items() if "resample_kernel" in k)
         out[impl] = dict(wall_ms_per_tick=wall, device_ms_per_tick=busy,
                          idle_share=1.0 - busy / wall if wall else None,
                          n_names=len(by_name),
+                         resample_kernel_ms_per_tick=rs_ms,
+                         resample_kernel_share=rs_ms / busy if busy else None,
                          top=[[k[:80], v, v / busy if busy else None]
                               for k, v in top])
+
     emit("serving_profile", streams=FLEET, hops=TICK_HOPS, ticks=ticks - 1,
          **out)
     return out
+
+
+def rs_tick(dev, kernel, up, down, buf, x, prec) -> dict:
+    """``kernel`` (K3 over the concat, or K4) at one serving tick's shape
+    (``buf [S, L]``, chunks ``x [S, n]``): its output against the plain
+    version, its device time per launch (``ms``) beside one call's
+    (``call_ms``, the host path included), the plain version's, the
+    ``conv1d`` call's per launch and per call, the bound and the tile."""
+    s, n = x.shape
+    q = n // down
+    sig = torch.cat([buf, x], dim=1)
+    g = kres.resample_matrices(up, down, 5.0, prec, dev)
+    k = g.shape[-2]
+    g32 = torch.as_tensor(_phase_matrix(up, down, 5.0)[0].T[:, None, :],
+                          dtype=torch.float32, device=dev)
+    lsig = sig[:, None, : (q - 1) * down + k]  # the q windows
+
+    def launch():
+        if kernel == "K4":
+            return kres.resample_pair(buf, x, up, down, q, precision=prec)
+        return kres.resample(sig, up, down, q, precision=prec)
+
+    def library():
+        return torch.nn.functional.conv1d(lsig, g32, stride=down)
+
+    def plain():
+        return kres.resample_reference(sig, g, up, down, q, prec)
+
+    want = plain()
+    err = max_abs(launch(), want)
+    lib_err = max_abs(library().transpose(-1, -2).reshape(s, q * up), want)
+    nb = ((buf.numel() + x.numel() + s * q * up) * 4
+          + g.numel() * g.element_size())
+    tb = nb / PEAK_HBM_BYTES * 1e3
+    to = 2 * k * s * q * up / PEAK_F32_FLOPS * 1e3
+    ms = per_launch_ms(launch)
+    geo = kres.launch_tile(up, down, k, prec == "bf3", s, q,
+                           x.device.index)
+    return dict(
+        kernel=kernel, ratio=[up, down], streams=s, shape=[list(buf.shape),
+                                                           [s, n]],
+        windows=q, vs_plain=err, library_vs_plain=lib_err, ms=ms,
+        call_ms=time_ms(launch), plain_ms=time_ms(plain, reps=3, warmup=1),
+        library_ms=per_launch_ms(library), library_call_ms=time_ms(library),
+        bound_ms=max(tb, to), bound_by="bytes" if tb >= to else "operations",
+        share_of_bound=max(tb, to) / ms,
+        tile={f: getattr(geo, f) for f in ("threads", "r", "windows",
+                                           "items", "grid")})
 
 
 def phase_bulk(dev, rows) -> dict:
     """One 256 x 500-hop 48 kHz tick per route, then K4, K3 and K1 timed
     at its shapes beside their plain versions, the library call and
     their bounds; K3/K4 in the serving precision ("highest") and in bf3,
-    and K1 on the serving route (offset = hop) held against its plain
-    version and the exact result to the bars of ``rows``. Then K4 at the
-    4-hop tick's shape and K3 at the 1-hop tick's, where the serving
-    paths launch them, each held against its plain version."""
+    per launch on the device and per call, and K1 on the serving route
+    (offset = hop) held against its plain version and the exact result
+    to the bars of ``rows``. Then K4 at the 4-hop tick's shape, K3 at the
+    1-hop tick's and K4 at the 8 kHz fleet's 4-hop tick (64 streams, up
+    2), where the serving paths launch them, each held against its plain
+    version and timed as above beside ``conv1d``."""
     c = WHISPER_LARGE_V3
     s, hops, up, down = FLEET, BULK_HOPS, 1, 3
     rng = np.random.default_rng(SEED + 30)
@@ -937,58 +994,48 @@ def phase_bulk(dev, rows) -> dict:
                 k4_equal_k3=bool(torch.equal(k4, k3)),
                 library_vs_k4=max_abs(lib, k4))
     del plain, lib
-    ms = dict(
-        k4=time_ms(lambda: kres.resample_pair(buf, xdev, up, down, q,
-                                              precision=prec)),
-        k4_bf3=time_ms(lambda: kres.resample_pair(
-            buf, xdev, up, down, q, precision="bf3")),
-        k3=time_ms(lambda: kres.resample(sig, up, down, q, precision=prec)),
-        k3_bf3=time_ms(lambda: kres.resample(sig, up, down, q,
-                                             precision="bf3")),
-        k3_plain=time_ms(lambda: kres.resample_reference(
+    timed = {
+        "k4": lambda: kres.resample_pair(buf, xdev, up, down, q,
+                                         precision=prec),
+        "k4_bf3": lambda: kres.resample_pair(buf, xdev, up, down, q,
+                                             precision="bf3"),
+        "k3": lambda: kres.resample(sig, up, down, q, precision=prec),
+        "k3_bf3": lambda: kres.resample(sig, up, down, q, precision="bf3"),
+        "library": library}
+    ms = {name: per_launch_ms(fn) for name, fn in timed.items()}
+    call_ms = {name: time_ms(fn) for name, fn in timed.items()}
+    plain_ms = dict(
+        k3=time_ms(lambda: kres.resample_reference(
             sig, g, up, down, q, prec), reps=3, warmup=1),
-        k4_plain=time_ms(lambda: kres.resample_reference(
+        k4=time_ms(lambda: kres.resample_reference(
             torch.cat([buf, xdev], dim=1), g, up, down, q, prec),
-            reps=3, warmup=1),
-        library=time_ms(library))
+            reps=3, warmup=1))
     k = g.shape[-2]
     outs = s * q * up
     nbytes = ((buf.numel() + xdev.numel() + outs) * 4
               + g.numel() * g.element_size())
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     t_ops = 2 * k * outs / PEAK_F32_FLOPS * 1e3
+    # bf3's products are of bf16 values (the bound's type); the kernel
+    # runs them as float32 FMAs, whose own figure is the SIMT one
     t_ops_bf3 = 2 * 3 * k * outs / PEAK_BF16_FLOPS * 1e3
+    t_ops_bf3_simt = 2 * 3 * k * outs / PEAK_F32_FLOPS * 1e3
+    geo = kres.launch_tile(up, down, k, prec == "bf3", s, q,
+                           xdev.device.index)
 
-    def at_tick(h: int, name: str, launch) -> dict:
-        """``name`` (K3 or K4) at an ``h``-hop tick of the fleet: its
-        output against the plain version, its ms beside the plain
-        version's, the conv1d call's and the bound."""
-        xt = xdev[:, : h * 480]
-        qt = h * 480 // down
-        st = torch.cat([buf, xt], dim=1)
-        lt = st[:, None, : (qt - 1) * down + g32.shape[-1]]
-        err = max_abs(launch(buf, xt, st, qt),
-                      kres.resample_reference(st, g, up, down, qt, prec))
-        nb = ((buf.numel() + xt.numel() + s * qt * up) * 4
-              + g.numel() * g.element_size())
-        tb = nb / PEAK_HBM_BYTES * 1e3
-        to = 2 * k * s * qt * up / PEAK_F32_FLOPS * 1e3
-        return dict(
-            kernel=name, hops=h, shape=[[s, length], [s, h * 480]],
-            windows=qt, vs_plain=err,
-            ms=time_ms(lambda: launch(buf, xt, st, qt)),
-            plain_ms=time_ms(lambda: kres.resample_reference(
-                st, g, up, down, qt, prec), reps=3, warmup=1),
-            library_ms=time_ms(lambda: torch.nn.functional.conv1d(
-                lt, g32, stride=down)),
-            bound_ms=max(tb, to), bound_by="bytes" if tb >= to
-            else "operations")
-
+    # the serving ticks: 4 and 1 hops of the 48 kHz fleet, 4 of the 8 kHz
+    rs8 = MultiStreamResampler(2, 1, FLEET_8K, align=c.hop_size,
+                               precision=prec, device=dev)
+    # (contiguous chunks, as a tick's are: a strided slice would add a
+    # copy to every launch)
     tick = {
-        "k4": at_tick(4, "K4", lambda b, xt, st, qt: kres.resample_pair(
-            b, xt, up, down, qt, precision=prec)),
-        "k3": at_tick(1, "K3", lambda b, xt, st, qt: kres.resample(
-            st, up, down, qt, precision=prec))}
+        "k4_4hop": rs_tick(dev, "K4", up, down, buf,
+                           xdev[:, : TICK_HOPS * 480].contiguous(), prec),
+        "k3_1hop": rs_tick(dev, "K3", up, down, buf,
+                           xdev[:, :480].contiguous(), prec),
+        "k4_4hop_8k": rs_tick(
+            dev, "K4", 2, 1, signal(rng, FLEET_8K, rs8._len, dev),
+            signal(rng, FLEET_8K, TICK_HOPS * 80, dev), prec)}
     errs["tick_vs_plain"] = max(v["vs_plain"] for v in tick.values())
 
     # K1 at the serving tick's bulk shape: offset = hop over the concat
@@ -1009,9 +1056,15 @@ def phase_bulk(dev, rows) -> dict:
     k1_ms = time_ms(k1, reps=5, warmup=1)
     out = dict(streams=s, hops=hops, ticks=ticks, precision=prec,
                shape_buf=[s, length], shape_chunks=list(xdev.shape),
-               windows=q, errs=errs, ms=ms, bytes=nbytes,
-               bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
-               bound_ops_bf3_ms=t_ops_bf3, k1_serving_ms=k1_ms,
+               windows=q, errs=errs, ms=ms, call_ms=call_ms,
+               plain_ms=plain_ms, bytes=nbytes, bound_bytes_ms=t_bytes,
+               bound_ops_ms=t_ops, bound_ops_bf3_ms=t_ops_bf3,
+               bound_ops_bf3_simt_ms=t_ops_bf3_simt,
+               share_of_bound={n: max(t_bytes, t_ops) / ms[n]
+                               for n in ("k3", "k4")},
+               share_of_bound_bf3={n: max(t_bytes, t_ops_bf3) / ms[f"{n}_bf3"]
+                                   for n in ("k3", "k4")},
+               tile=geo._asdict(), k1_serving_ms=k1_ms,
                k1_serving_errs=k1_errs, tick=tick)
     emit("bulk_48k", **out)
     if (not errs["k4_equal_k3"]
@@ -2277,7 +2330,24 @@ def main() -> int:
                   precision=bulk["precision"], bound_ms=bulk["bound_ms"],
                   bound_by=bulk["bound_by"],
                   library_ms=bulk["ms"]["library"],
-                  shape=[bulk["shape_buf"], bulk["shape_chunks"]])
+                  library_call_ms=bulk["call_ms"]["library"],
+                  shape=[bulk["shape_buf"], bulk["shape_chunks"]],
+                  tile={f: bulk["tile"][f] for f in ("threads", "r",
+                                                     "windows", "items",
+                                                     "grid")})
+
+    def rs_entry(name, key):
+        return dict(common, name=name, launches=launches(name),
+                    launches_by_path={k: v[name] for k, v in serving.items()},
+                    ms=bulk["ms"][key], call_ms=bulk["call_ms"][key],
+                    share_of_bound=bulk["share_of_bound"][key],
+                    ms_bf3=bulk["ms"][f"{key}_bf3"],
+                    call_ms_bf3=bulk["call_ms"][f"{key}_bf3"],
+                    share_of_bound_bf3=bulk["share_of_bound_bf3"][key],
+                    plain_ms=bulk["plain_ms"][key],
+                    **{f"tick_{t.split('_', 1)[1]}": v
+                       for t, v in bulk["tick"].items()
+                       if t.startswith(key)})
     print(json.dumps({"kernels": [{
         "name": "K1", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches("K1"),
@@ -2314,18 +2384,10 @@ def main() -> int:
         **{k: front["k2_times"][k] for k in ("share_of_bound",
                                              "block_frames", "chunk_cols")},
         "dft_mma": DFT_MMA,
-    }, dict(common, name="K3", replaces=K3_REPLACES,
-            launches=launches("K3"),
-            launches_by_path={k: v["K3"] for k, v in serving.items()},
-            ms=bulk["ms"]["k3"], ms_bf3=bulk["ms"]["k3_bf3"],
-            plain_ms=bulk["ms"]["k3_plain"], tick_1hop=bulk["tick"]["k3"]),
-        dict(common, name="K4", replaces=K4_REPLACES,
-             launches=launches("K4"),
-             launches_by_path={k: v["K4"] for k, v in serving.items()},
-             ms=bulk["ms"]["k4"], ms_bf3=bulk["ms"]["k4_bf3"],
-             plain_ms=bulk["ms"]["k4_plain"],
+    }, dict(rs_entry("K3", "k3"), replaces=K3_REPLACES),
+        dict(rs_entry("K4", "k4"), replaces=K4_REPLACES,
              bound_ops_bf3_ms=bulk["bound_ops_bf3_ms"],
-             tick_4hop=bulk["tick"]["k4"])] + [{
+             bound_ops_bf3_simt_ms=bulk["bound_ops_bf3_simt_ms"])] + [{
         "name": t["kernel"], "route": "cuda", "source": FRAMED_SOURCE,
         "replaces": FRAMED_REPLACES[t["kernel"]], "impl": impl,
         "launches": launches(t["kernel"]),

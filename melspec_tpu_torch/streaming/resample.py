@@ -132,15 +132,17 @@ class MultiStreamResampler:
         impl = self.impl
         on_card = self.device.type == "cuda"
         if impl == "kernel" or (impl == "auto" and on_card):
+            # the route is decided here, once a tick; resample_routed does
+            # not ask again
             if kres.pair_eligible(self._len, n, up, down, beta, prec):
-                y = kres.resample_pair(state.buf, ch32, up, down, q, beta,
-                                       prec)
+                y = kres.resample_routed(state.buf, ch32, up, down, q, beta,
+                                         prec)
                 tail = ch32[:, n - self._len:]
                 return MultiResampleState(
                     torch.where(active[:, None], tail, state.buf)), y
             if kres.kernel_eligible(up, down, beta, prec):
                 sig = torch.cat([state.buf, ch32], dim=-1)
-                y = kres.resample(sig, up, down, q, beta, prec)
+                y = kres.resample_routed(sig, None, up, down, q, beta, prec)
                 return MultiResampleState(
                     torch.where(active[:, None], sig[:, n:], state.buf)), y
             if impl == "kernel":

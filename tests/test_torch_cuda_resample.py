@@ -47,17 +47,11 @@ def _exact(sig, up, down, q):
     return (win @ g).reshape(sig.shape[0], q * up)
 
 
-@pytest.mark.parametrize("up,down", [(1, 3), (2, 1), (1, 2)])
-@pytest.mark.parametrize("precision", ["highest", "bf3"])
-@pytest.mark.parametrize("s,hops", [(1, 1), (7, 3), (256, 1), (7, 60)])
-def test_k3_k4_match_plain_and_exact(dev, up, down, precision, s, hops):
-    hop_src = 160 * down // up
-    mr = MultiStreamResampler(up, down, s, align=160, impl="kernel",
-                              precision=precision, device=dev)
-    n = hops * hop_src
-    q = n // down
-    buf = _sig(up + s, (s, mr._len), dev)
-    chunks = _sig(down + hops, (s, n), dev)
+def _held(dev, up, down, precision, buf, chunks, q):
+    """K3 over the concat against the plain version and the float64
+    result, and K4 over ``(buf, chunks)`` ``torch.equal`` to it where the
+    chunk is at least as long as the buffer; one launch each."""
+    s = buf.shape[0]
     sig = torch.cat([buf, chunks], dim=1)
     before = dict(kres.launches)
     k3 = kres.resample(sig, up, down, q, precision=precision)
@@ -71,12 +65,78 @@ def test_k3_k4_match_plain_and_exact(dev, up, down, precision, s, hops):
     err = float((k3.double() - exact).abs().max())
     scale = float(exact.abs().max())
     assert err <= (2e-6 if precision == "highest" else 1e-5 * scale)
-    if n >= mr._len:
+    if chunks.shape[1] >= buf.shape[1]:
         k4 = kres.resample_pair(buf, chunks, up, down, q,
                                 precision=precision)
         torch.cuda.synchronize()
         assert kres.launches["K4"] == before["K4"] + 1
         assert torch.equal(k4, k3)
+
+
+# (streams, hops): one stream, odd counts, the 1-hop and 4-hop ticks of
+# the 256-stream fleet, the 8 kHz fleet's 64 streams, window counts that
+# are no multiple of a tile (3 and 7 hops), and 120 hops of 256 streams,
+# where the persistent walk wraps (more items than blocks)
+@pytest.mark.parametrize("up,down", [(1, 3), (2, 1), (1, 2)])
+@pytest.mark.parametrize("precision", ["highest", "bf3"])
+@pytest.mark.parametrize("s,hops", [(1, 1), (7, 3), (256, 1), (7, 60),
+                                    (256, 4), (64, 4), (1, 7), (33, 7),
+                                    (256, 120)])
+def test_k3_k4_match_plain_and_exact(dev, up, down, precision, s, hops):
+    hop_src = 160 * down // up
+    mr = MultiStreamResampler(up, down, s, align=160, impl="kernel",
+                              precision=precision, device=dev)
+    n = hops * hop_src
+    q = n // down
+    if hops == 120:
+        t = kres.launch_tile(up, down, mr._k, precision == "bf3", s, q,
+                             torch.cuda.current_device())
+        assert t.grid < t.items
+    buf = _sig(up + s, (s, mr._len), dev)
+    chunks = _sig(down + hops, (s, n), dev)
+    _held(dev, up, down, precision, buf, chunks, q)
+
+
+@pytest.mark.parametrize("precision", ["highest", "bf3"])
+@pytest.mark.parametrize("length", [509, 511, 513, 514, 1021])
+def test_k4_rows_not_16_byte_aligned(dev, precision, length):
+    """Buffer rows of any length (2,036 to 4,084 bytes, none a multiple
+    of 16 but 514's 2,056 is 8 mod 16) and chunks of 1,923 samples."""
+    q = (length + 1923 - 61) // 3
+    buf = _sig(length, (5, length), dev)
+    chunks = _sig(length + 1, (5, 1923), dev)
+    _held(dev, 1, 3, precision, buf, chunks, q)
+
+
+@pytest.mark.parametrize("up,down", [(1, 3), (2, 1), (1, 2), (3, 2)])
+@pytest.mark.parametrize("precision", ["highest", "bf3"])
+def test_each_instance_launches_once_per_call(dev, up, down, precision):
+    """Each template instance of csrc/resample.cu (the tiled (1, 3),
+    (2, 1), (1, 2) and the generic one, in both precisions): one launch
+    per call, held as above."""
+    k = MultiStreamResampler(up, down, 1, device=dev)._k
+    sig = _sig(up * down, (3, 900 * down + k), dev)
+    g = kres.resample_matrices(up, down, 5.0, precision, dev)
+    for calls in range(1, 4):
+        before = kres.launches["K3"]
+        out = kres.resample(sig, up, down, 900, precision=precision)
+        assert kres.launches["K3"] == before + 1
+    plain = kres.resample_reference(sig, g, up, down, 900, precision)
+    assert float((out - plain).abs().max()) <= 2e-6
+
+
+@pytest.mark.parametrize("precision", ["highest", "bf3"])
+def test_generic_ratios_and_fallback_tile(dev, precision):
+    """(3, 2) and (7, 5) on the generic instance, and (1, 240), whose G
+    leaves bf3 one unpadded buffer, against the plain version."""
+    for up, down in [(3, 2), (7, 5), (1, 240)]:
+        k = MultiStreamResampler(up, down, 1, device=dev)._k
+        q = 70
+        sig = _sig(down, (3, (q - 1) * down + k + 5), dev)
+        g = kres.resample_matrices(up, down, 5.0, precision, dev)
+        out = kres.resample(sig, up, down, q, precision=precision)
+        plain = kres.resample_reference(sig, g, up, down, q, precision)
+        assert float((out - plain).abs().max()) <= 2e-6, (up, down)
 
 
 def test_serving_tick_launches(dev):

@@ -157,9 +157,13 @@ def test_eligibility_comes_from_shared_memory():
         assert kres.kernel_eligible(up, down, precision="bf3")
     # 44.1 kHz -> 16 kHz: a 493 x 160 phase matrix, 315 KB in f32
     assert not kres.kernel_eligible(160, 441)
-    groups, g_len, smem = kres.tile(1, 3, 61, True)
-    assert groups * kres.WINDOWS == 1024 and g_len == 124
-    assert smem == 4 * (124 + 2 * (1023 * 3 + 61))
+    t = kres.tile(1, 3, 61, True, 256, 80000)  # the serving bulk tick
+    assert (t.threads, t.r, t.windows, t.nbuf, t.pad) == (64, 8, 512, 2, 1)
+    assert t.g_len == 0 and t.span == 511 * 3 + 61  # G: parameters
+    # one pad word after every 24 samples; bf3's slices are cut in
+    # registers, so each buffer holds the float32 span once
+    assert t.stride == t.span + (t.span - 1) // 24
+    assert t.smem == 4 * 2 * t.stride
     assert kres.pair_eligible(510, 1920, 1, 3)
     assert not kres.pair_eligible(510, 480, 1, 3)  # 1-hop 48 kHz tick
     with pytest.raises(ValueError, match="at least as long"):
