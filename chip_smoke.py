@@ -57,6 +57,14 @@ show each went through its kernels:
   through K1's VAD epilogue;
 - P1, the signal-load probe (``load_probe.run``): flat rows and K1's
   spans copied through shared memory, each mode exact, with its GB/s.
+- the live per-hop service, plain PyTorch as in the JAX package (phase
+  ``live_stream``, no kernel of the port: K1-K8 and P1 read 0 launches):
+  the native ``SampleRing`` built from the checkout, JFK through
+  ``RingBuffer`` in 32-sample pushes against the golden, whisper
+  large-v3 through ``StreamingMel.push`` / ``push_many`` against the
+  CPU's float64 with the push latency and kernels per push,
+  ``SpeechToMel`` against the CPU port's records, and a producer thread
+  feeding a ``SampleRing`` that a consumer drains into ``SpeechToMel``.
 
 Each phase prints one JSON line. Any failure raises and the script exits
 non-zero without its last line; on success the last line is
@@ -72,6 +80,8 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 from unittest import mock
@@ -82,9 +92,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-from melspec_tpu_torch import (WHISPER_LARGE_V3, WhisperMelPipeline,  # noqa: E402
-                               compute_streaming_mel, read_wav_f32le,
-                               whisper_mel_sig)
+from melspec_tpu_torch import (WHISPER_LARGE_V3, RingBuffer,  # noqa: E402
+                               SampleRing, SpeechToMel, StreamingMel,
+                               WhisperMelPipeline, compute_streaming_mel,
+                               read_wav_f32le, whisper_mel_sig)
 from melspec_tpu_torch.kernels import (build, framed_mel,  # noqa: E402
                                        framed_ozaki, load_probe, sig_mel,
                                        sig_multi)
@@ -115,6 +126,7 @@ from melspec_tpu_torch.ops.windows import (hann_centered,  # noqa: E402
                                            hann_periodic, povey)
 from melspec_tpu_torch.parallel.sharding import (  # noqa: E402
     sharded_frontend_step)
+from melspec_tpu_torch.runtime import ringbuffer  # noqa: E402
 from melspec_tpu_torch.streaming.resample import (  # noqa: E402
     MultiStreamResampler)
 from melspec_tpu_torch.streaming.serving import (  # noqa: E402
@@ -242,6 +254,36 @@ WIDTH_CONFIGS = [("whisper_8k", 200, 80, 80, 8000.0),
 WIDTH_MUST_ACCEPT = ("whisper_8k", "whisper_256_96", "whisper_1024_256")
 NEMO_8K = BatchLogMelConfig(sample_rate=8000, n_fft=256, win_length=200,
                             hop_length=80)
+# the live per-hop service (phase live_stream), plain PyTorch as in JAX:
+# the JFK master regression through RingBuffer in 32-sample pushes at
+# 512/160/80 (float64 at JAX's 1e-6 from the golden; float32 reported
+# against its 1e-5 bar from the card's float64 run), bulk drain_mels
+# against the per-hop frames (1e-12 at float64; two float32 floors at
+# float32, reported; a miss of either float32 bar is logged in ROADMAP
+# §3); whisper large-v3 at float32
+# against the CPU's float64 result at AUTO_TOL, the bar of the other
+# float32 whisper routes against float64 (the CPU's float32 lands 1.2e-5
+# there); push latency over LIVE_TIMED hops after
+# LIVE_WARMUP, kernels per push over LIVE_PROFILED pushes, bulk push_many
+# on LIVE_BULK_HOPS hops (10 minutes at 16 kHz) held to the CPU on its
+# first LIVE_HOLD_HOPS, scan=True on LIVE_SCAN_HOPS; SpeechToMel over JFK
+# held to the CPU port's records as tests/test_torch_speech_to_mel.py
+# holds them to JAX's (max 1e-5; min, the quietest bin, within
+# LIVE_MIN_FLOOR of the CPU's float64; u8 at most one step apart on at
+# most 0.1% of entries; VAD decisions equal). LIVE_MIN_FLOOR is the JAX
+# package's own float32 distance there, 3.80e-3 on JFK (measured by
+# tests/test_torch_speech_to_mel.py on the CPU; the port's CPU float32
+# lands 1.25e-3): the card's float32 must be no further from float64 than
+# the reference's float32 is
+LIVE_JFK_CONFIG = MelConfig(512, 160, 80, 16000.0)
+LIVE_GOLDEN_TOL = 1e-6
+LIVE_F32_TOL = 1e-5
+LIVE_BULK_TOL = {"float64": 1e-12, "float32": 2e-5}
+LIVE_WIDTH_TOL = AUTO_TOL
+LIVE_MIN_FLOOR = 3.8e-3
+LIVE_WARMUP, LIVE_TIMED, LIVE_PROFILED = 50, 1000, 20
+LIVE_BULK_HOPS, LIVE_HOLD_HOPS, LIVE_SCAN_HOPS = 60_000, 2000, 1000
+LIVE_RING_BLOCK = 32
 
 
 def emit(phase: str, **fields) -> None:
@@ -2261,6 +2303,301 @@ def phase_load_probe(dev) -> dict:
     return dict(modes={r["mode"]: r for r in results}, counts=counts)
 
 
+def jfk_through_ring(x: np.ndarray, dtype) -> tuple:
+    """JFK through ``RingBuffer`` on the card: 32-sample pushes drained a
+    hop at a time (``maybe_mel``), and the whole clip drained in bulk
+    (``drain_mels``); both ``[80, frames]``."""
+    rb = RingBuffer(LIVE_JFK_CONFIG, capacity=2048, dtype=dtype)
+    if not rb._ring.native:
+        raise AssertionError("RingBuffer took the Python ring on the card")
+    frames = []
+    for off in range(0, len(x), LIVE_RING_BLOCK):
+        rb.add_frame(x[off : off + LIVE_RING_BLOCK])
+        mel = rb.maybe_mel()
+        if mel is not None:
+            frames.append(mel)
+    bulk = RingBuffer(LIVE_JFK_CONFIG, capacity=1 << 22, dtype=dtype)
+    bulk.add_frame(x)
+    return (np.concatenate(frames, axis=1),
+            np.concatenate(bulk.drain_mels(), axis=1))
+
+
+def stm_records(stm, x: np.ndarray) -> tuple:
+    """SpeechToMel records of ``x`` pushed a hop at a time, with each
+    call's host-clock ms."""
+    recs, ms = [], []
+    for off in range(0, len(x), 160):
+        t0 = time.perf_counter()
+        recs.append(stm.add(x[off : off + 160]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return recs, ms
+
+
+def records_held(got, ref) -> dict:
+    """Two SpeechToMel record sequences: the same cadence (ok, idx, ms,
+    len) and VAD decisions, else AssertionError; the largest min / max
+    differences and the u8 entries apart."""
+    if len(got) != len(ref):
+        raise AssertionError(f"{len(got)} records vs {len(ref)}")
+    d_min = d_max = 0.0
+    apart = step = total = 0
+    for a, b in zip(got, ref):
+        keys = ("ok", "idx", "ms", "len", "va")
+        if a.keys() != b.keys() or any(a.get(k) != b.get(k) for k in keys):
+            raise AssertionError(f"records differ: {a} vs {b}")
+        if not a["ok"]:
+            continue
+        d_min = max(d_min, abs(a["min"] - b["min"]))
+        d_max = max(d_max, abs(a["max"] - b["max"]))
+        d = np.abs(a["frame"].astype(int) - b["frame"].astype(int))
+        apart += int((d > 0).sum())
+        step = max(step, int(d.max()))
+        total += d.size
+    return dict(min=d_min, max=d_max, u8_apart=apart, u8_step=step,
+                u8_total=total, ok=sum(r["ok"] for r in got))
+
+
+def kernels_per_call(prof, calls: int) -> dict:
+    """CUDA kernels and copies launched per call, from a profile of
+    ``calls`` calls, with the device time per call and the top kernels."""
+    from torch.autograd import DeviceType
+
+    kernels = copies = 0
+    us = 0.0
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        us += e.self_cuda_time_total if t is None else t
+        if e.key.startswith(("Memcpy", "Memset")):
+            copies += e.count
+        else:
+            kernels += e.count
+            by_name[e.key[:60]] = e.count / calls
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(kernels=kernels / calls, copies=copies / calls,
+                device_ms=us / 1e3 / calls, top=top)
+
+
+def phase_live_stream(dev) -> dict:
+    """The live per-hop service (``StreamingMel``, ``RingBuffer`` on the
+    native ``SampleRing``, ``SpeechToMel``), plain PyTorch as in the JAX
+    package: no kernel of the port runs, so K1-K8 and P1 read 0 launches
+    across the phase (counts zeroed just before, read just after)."""
+    from melspec_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    zero_counts()
+    out = {}
+    sections = {}
+
+    def lap(name):
+        sections[name] = time.perf_counter() - t_phase - sum(
+            sections.values())
+
+    so = ringbuffer.library_path()
+    reused = so.is_file()
+    t0 = time.perf_counter()
+    if not ringbuffer.native_available():
+        raise AssertionError("the native ring did not build on the card")
+    out["ring"] = dict(native=True, build_s=time.perf_counter() - t0,
+                       reused=reused, library=so.name)
+
+    # the JFK master regression at float64, and the float32 route
+    x = read_wav_f32le(TESTDATA / "jfk_f32le.wav")
+    golden = np.load(TESTDATA / "rust_jfk_golden.npy")
+    hop64, bulk64 = jfk_through_ring(x, torch.float64)
+    hop32, bulk32 = jfk_through_ring(x, torch.float32)
+    for name, m in (("hop64", hop64), ("bulk64", bulk64), ("hop32", hop32),
+                    ("bulk32", bulk32)):
+        if m.shape != golden.shape or not np.isfinite(m).all():
+            raise AssertionError(f"JFK {name}: {m.shape} vs {golden.shape}")
+    jfk = dict(
+        f64_vs_golden=float(np.abs(hop64 - golden).max()),
+        f64_bulk_vs_golden=float(np.abs(bulk64 - golden).max()),
+        f64_bulk_vs_hop=float(np.abs(bulk64 - hop64).max()),
+        f32_vs_golden=float(np.abs(hop32 - golden).max()),
+        f32_bulk_vs_golden=float(np.abs(bulk32 - golden).max()),
+        f32_vs_f64=float(np.abs(hop32 - hop64).max()),
+        f32_bulk_vs_f64=float(np.abs(bulk32 - hop64).max()),
+        f32_bulk_vs_hop=float(np.abs(bulk32 - hop32).max()))
+    # the float32 route's figures are held to their bars in the line, not
+    # raised: its distance from float64 on JFK is the f32 floor of the
+    # JAX package's own route (a miss is logged in ROADMAP §3)
+    jfk.update(
+        f32_n_over_bar=int((np.abs(hop32 - hop64) > LIVE_F32_TOL).sum()),
+        f32_within_bar=max(jfk["f32_vs_f64"], jfk["f32_bulk_vs_f64"])
+        <= LIVE_F32_TOL,
+        f32_bulk_vs_hop_within_bar=jfk["f32_bulk_vs_hop"]
+        <= LIVE_BULK_TOL["float32"])
+    out["jfk"] = jfk
+    if max(jfk["f64_vs_golden"], jfk["f64_bulk_vs_golden"]) \
+            > LIVE_GOLDEN_TOL:
+        raise AssertionError(f"JFK through RingBuffer at float64: {jfk}")
+    if jfk["f64_bulk_vs_hop"] > LIVE_BULK_TOL["float64"]:
+        raise AssertionError(f"drain_mels vs per-hop frames: {jfk}")
+    lap("jfk")
+
+    # whisper large-v3 at float32: per-hop latency and launches, bulk and
+    # scan, each held to the CPU's float64 on the same seeded audio
+    c = WHISPER_LARGE_V3
+    hop = c.hop_size
+    rng = np.random.default_rng(SEED)
+    audio = speechlike(rng, 1, LIVE_BULK_HOPS * hop, int(c.sampling_rate))[0]
+    chunks = audio.reshape(LIVE_BULK_HOPS, hop)
+    cpu = StreamingMel(c, dtype=torch.float64, device="cpu")
+    _, ref, ref_valid = cpu.push_many(cpu.init(), chunks[:LIVE_HOLD_HOPS])
+    mel = StreamingMel(c)
+    state = mel.init()
+    per_hop, lat = [], []
+    n_hops = LIVE_WARMUP + LIVE_TIMED
+    for i in range(n_hops):
+        t0 = time.perf_counter()
+        state, m = mel.push(state, chunks[i])
+        lat.append((time.perf_counter() - t0) * 1e3)
+        per_hop.append(m)
+    lat = np.asarray(lat[LIVE_WARMUP:])
+    valid = [m is not None for m in per_hop]
+    if valid != list(ref_valid[:n_hops]):
+        raise AssertionError("push emissions differ from the CPU's")
+    got = np.stack([m for m in per_hop if m is not None])
+    width = dict(push_vs_cpu_f64=float(np.abs(
+        got - ref[:n_hops][ref_valid[:n_hops]]).max()))
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp) as prof:
+            for i in range(LIVE_PROFILED):
+                state, _ = mel.push(state, chunks[n_hops + i])
+        trace_bytes = sum(f.stat().st_size for f in Path(tmp).iterdir())
+    launches = kernels_per_call(prof, LIVE_PROFILED)
+    dchunks = torch.from_numpy(chunks).to(dev)
+    s0 = mel.init()
+    _, bulk, bulk_valid = mel.push_many(s0, dchunks)
+    width["bulk_vs_cpu_f64"] = float(np.abs(
+        bulk[:LIVE_HOLD_HOPS] - ref)[ref_valid].max())
+    _, scan, scan_valid = mel.push_many(s0, dchunks[:LIVE_SCAN_HOPS],
+                                        scan=True)
+    if not (np.array_equal(bulk_valid[:LIVE_SCAN_HOPS], scan_valid)
+            and np.array_equal(ref_valid, bulk_valid[:LIVE_HOLD_HOPS])):
+        raise AssertionError("bulk / scan validity differ")
+    width["scan_vs_cpu_f64"] = float(np.abs(
+        scan - ref[:LIVE_SCAN_HOPS])[scan_valid].max())
+    width["scan_vs_bulk"] = float(np.abs(
+        scan - bulk[:LIVE_SCAN_HOPS])[scan_valid].max())
+    if not np.isfinite(bulk).all() or bulk.shape != (LIVE_BULK_HOPS,
+                                                     c.n_mels):
+        raise AssertionError(f"bulk output {bulk.shape} not finite")
+    if max(width["push_vs_cpu_f64"], width["bulk_vs_cpu_f64"],
+           width["scan_vs_cpu_f64"]) > LIVE_WIDTH_TOL \
+            or width["scan_vs_bulk"] > LIVE_BULK_TOL["float32"]:
+        raise AssertionError(f"large-v3 streaming mel: {width}")
+    bulk_ms = time_ms(lambda: mel._bulk(s0, dchunks), reps=5, warmup=1)
+    bulk_call_ms = time_ms(lambda: mel.push_many(s0, dchunks), reps=5,
+                           warmup=1)
+    scan_ms = time_ms(lambda: mel.push_many(
+        s0, dchunks[:LIVE_SCAN_HOPS], scan=True), reps=3, warmup=1)
+    audio_s = LIVE_BULK_HOPS * hop / c.sampling_rate
+    hop_ms = hop / c.sampling_rate * 1e3
+    out["large_v3"] = dict(
+        config=[c.fft_size, c.hop_size, c.n_mels, c.sampling_rate],
+        bars=dict(vs_cpu_f64=LIVE_WIDTH_TOL,
+                  scan_vs_bulk=LIVE_BULK_TOL["float32"]), **width,
+        push_ms_median=float(np.median(lat)),
+        push_ms_p99=float(np.percentile(lat, 99)), hop_period_ms=hop_ms,
+        pushes_timed=int(lat.size), launches_per_push=launches,
+        trace_bytes=trace_bytes,
+        bulk_hops=LIVE_BULK_HOPS, bulk_frames_bytes=LIVE_BULK_HOPS
+        * c.fft_size * 4, bulk_device_ms=bulk_ms,
+        bulk_call_ms=bulk_call_ms, bulk_x_real_time=audio_s / bulk_ms * 1e3,
+        bulk_call_x_real_time=audio_s / bulk_call_ms * 1e3,
+        scan_hops=LIVE_SCAN_HOPS, scan_ms=scan_ms,
+        scan_ms_per_hop=scan_ms / LIVE_SCAN_HOPS)
+
+    lap("large_v3")
+
+    # SpeechToMel at its defaults over JFK, held to the CPU port's records
+    card, stm_ms = stm_records(SpeechToMel(), x)
+    cpu32, _ = stm_records(SpeechToMel(device="cpu"), x)
+    cpu64, _ = stm_records(SpeechToMel(dtype=torch.float64, device="cpu"),
+                           x)
+    vs32 = records_held(card, cpu32)
+    vs64 = records_held(card, cpu64)
+    stm = dict(vs_cpu_f32=vs32, min_vs_cpu_f64=vs64["min"],
+               add_ms_median=float(np.median(stm_ms[5:])),
+               add_ms_p99=float(np.percentile(stm_ms[5:], 99)),
+               records=len(card), bars=dict(max=1e-5,
+                                            min_vs_f64=LIVE_MIN_FLOOR))
+    out["speech_to_mel"] = stm
+    if vs32["max"] > 1e-5 or vs64["min"] > LIVE_MIN_FLOOR \
+            or vs32["u8_step"] > 1 or vs32["u8_apart"] > vs32["u8_total"] \
+            // 1000 or vs32["ok"] != len(x) // 160 - 2:
+        raise AssertionError(f"SpeechToMel on the card: {stm}")
+
+    lap("speech_to_mel")
+
+    # two threads: a producer pushes JFK into a native SampleRing in
+    # 32-sample blocks; a consumer drains whole hops into SpeechToMel
+    ring = SampleRing(1 << 15)
+    live = SpeechToMel()
+    live_recs = []
+    done = threading.Event()
+    errors = []
+
+    def producer():
+        for off in range(0, len(x), LIVE_RING_BLOCK):
+            rest = x[off : off + LIVE_RING_BLOCK]
+            while rest.size:
+                rest = rest[ring.push(rest):]
+                if rest.size:
+                    time.sleep(0.0005)
+        done.set()
+
+    def consumer():
+        buf = np.empty(160, dtype=np.float32)
+        try:
+            while not (done.is_set() and len(ring) < 160):
+                if ring.pop_exact(buf):
+                    live_recs.append(live.add(buf.copy()))
+                else:
+                    time.sleep(0.0002)
+        except Exception as e:  # raised again below, in the main thread
+            errors.append(e)
+            raise
+
+    threads = [threading.Thread(target=producer),
+               threading.Thread(target=consumer)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"live threads failed: {errors}")
+    live_held = records_held(live_recs, card)
+    out["two_threads"] = dict(
+        records=len(live_recs), hops=len(x) // 160, dropped=ring.dropped,
+        left=len(ring), wall_s=wall, x_real_time=len(x) / 16000.0 / wall,
+        vs_single_thread=live_held)
+    if ring.dropped or len(live_recs) != len(x) // 160 \
+            or live_held["max"] or live_held["min"] \
+            or live_held["u8_apart"]:
+        raise AssertionError(f"two-thread live run: {out['two_threads']}")
+
+    torch.cuda.synchronize()
+    lap("two_threads")
+    counts = read_counts()
+    out["launches"] = counts
+    out["seconds"] = time.perf_counter() - t_phase
+    out["section_s"] = sections
+    emit("live_stream", **out)
+    if any(counts.values()):
+        raise AssertionError(f"a port kernel launched on the live path: "
+                             f"{counts}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2290,6 +2627,7 @@ def main() -> int:
     wire = phase_vad_wire_path(dev, rows)
     ten_vad = phase_ten_vad_eval(dev)
     probe = phase_load_probe(dev)
+    phase_live_stream(dev)
     k1_rows = rows + widths["rows"] + [dial["auto"]["auto_1024"]]
     k1_ln_rows = ln["rows"] + widths["ln_rows"]
     vs_plain = max(r["vs_plain"] for r in k1_rows + k1_ln_rows)

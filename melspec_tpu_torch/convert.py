@@ -20,7 +20,8 @@ A live serving fleet's state crosses over too: ``from_jax_frontend_state``
 and ``from_jax_source_rate_state`` take a JAX ``FrontendState`` or
 ``SourceRateState`` whose leaves are numpy arrays (``jax.device_get`` of
 the state) and return the port's state on a device, carried windows, VAD
-history and resampler tails included.
+history and resampler tails included; ``from_jax_stft_state`` does the
+same for one live stream's ``StftState`` (``StreamingMel``).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from melspec_tpu_torch.streaming.resample import MultiResampleState
 from melspec_tpu_torch.streaming.serving import (FrontendState,
                                                  SourceRateState,
                                                  VadStreamState)
+from melspec_tpu_torch.streaming.stft import StftState, state_from_arrays
 
 
 def _bf16(arr) -> torch.Tensor:
@@ -160,3 +162,11 @@ def from_jax_source_rate_state(state, device=None) -> SourceRateState:
     return SourceRateState(
         MultiResampleState(_leaf(state.rs.buf, torch.float32, dev)),
         from_jax_frontend_state(state.fe, dev))
+
+
+def from_jax_stft_state(hop_buf, idx, device=None) -> StftState:
+    """JAX ``StftState(hop_buf, idx)`` as numpy (``jax.device_get`` of the
+    state) -> the port's ``StftState`` on ``device`` (``None``: CUDA), so a
+    JAX stream resumes in ``StreamingMel.push``. ``hop_buf`` keeps float64
+    (else float32); ``idx``, int32 or int64, becomes int64."""
+    return state_from_arrays(hop_buf, idx, device)

@@ -1,13 +1,17 @@
 """WAV readers (copies of ``melspec_tpu.io.wav``'s ``read_wav_f32le``,
-``read_wav`` and ``read_wav_mono`` and the RIFF walk they need)."""
+``read_wav`` and ``read_wav_mono`` and the RIFF walk they need),
+``load_audio`` (read and resample to one rate) and ``iter_pcm_f32le``
+(raw float32-LE PCM from a byte stream)."""
 
 from __future__ import annotations
 
 import struct
 from pathlib import Path
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
+
+from melspec_tpu_torch.ops.resample import resample_poly, validate_ratio
 
 
 def _find_chunk(wav_bytes: bytes, chunk_ids: Tuple[bytes, ...]) -> Tuple[int, int]:
@@ -92,3 +96,38 @@ def read_wav_mono(path: Union[str, Path]) -> Tuple[np.ndarray, int]:
     if data.shape[1] != 1:
         raise ValueError(f"{path} is not mono (channels={data.shape[1]})")
     return data[:, 0], rate
+
+
+def load_audio(path: Union[str, Path], target_rate: Optional[int] = 16000,
+               device=None) -> np.ndarray:
+    """Read a WAV as float32 mono at ``target_rate``: multi-channel files
+    are downmixed (channel mean), then resampled with ``resample_poly`` on
+    ``device`` (``None``: CUDA) after the rate pair is validated
+    (``validate_ratio``). ``target_rate=None``, or a file already at that
+    rate, returns the file's samples and touches no device."""
+    data, rate = read_wav(path)
+    samples = data[:, 0] if data.shape[1] == 1 \
+        else data.mean(axis=1, dtype=np.float64).astype(np.float32)
+    if target_rate is None or int(rate) == int(target_rate):
+        return samples
+    up, down = validate_ratio(int(target_rate), int(rate))
+    out = resample_poly(samples, up, down, device=device)
+    return out.cpu().numpy().astype(np.float32, copy=False)
+
+
+def iter_pcm_f32le(stream, chunk_bytes: int = 4096):
+    """Yield float32 sample blocks from a raw f32le byte stream (the
+    reference examples' stdin transport, read in 4096-byte chunks). A
+    trailing partial float is carried into the next block, so chunk
+    boundaries never drop bytes; 1-3 dangling bytes at EOF are discarded,
+    like the reference's ``chunks_exact``."""
+    carry = b""
+    while True:
+        buf = stream.read(chunk_bytes)
+        if not buf:
+            return
+        buf = carry + buf
+        n = len(buf) // 4 * 4
+        carry = buf[n:]
+        if n:
+            yield np.frombuffer(buf[:n], dtype="<f4")

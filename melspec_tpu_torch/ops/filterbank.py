@@ -104,6 +104,11 @@ def mel_filterbank(
     return weights
 
 
+# the reference's name for the whisper filterbank (``mel`` in JAX's
+# ``ops/filterbank.py``)
+mel = mel_filterbank
+
+
 def kaldi_hz_to_mel(hz: float) -> float:
     """Kaldi mel scale ``1127 ln(1 + hz/700)`` (``src/fbank.rs:303-307``)."""
     return 1127.0 * np.log(1.0 + hz / 700.0)

@@ -65,6 +65,13 @@ def norm_mel(mel_spec) -> torch.Tensor:
     return whisper_norm(torch.as_tensor(mel_spec))
 
 
+def norm_mel_vec(mel_spec) -> np.ndarray:
+    """Float32 host variant (reference ``norm_mel_vec``): the global-max
+    whisper norm as a numpy array."""
+    return whisper_norm(torch.as_tensor(
+        np.asarray(mel_spec, dtype=np.float32))).numpy()
+
+
 def log_mel_spectrogram(fft_frame, mel_filters) -> np.ndarray:
     """One complex FFT frame through a dense filterbank: ``[n_mels, 1]`` of
     ``log10(max(energy, 1e-10))`` with bins >= ``len(fft)/2`` zeroed

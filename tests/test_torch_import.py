@@ -44,6 +44,14 @@ def test_import_and_cpu_call_load_no_jax():
         "                               device='cpu')\n"
         "assert tuple(raw.shape) == (21,) and ve.preset and lp.run\n"
         "assert melspec_tpu_torch.tga_8bit_data(np.ones(160), 80)\n"
+        "from melspec_tpu_torch.prelude import *\n"
+        "import melspec_tpu_torch.runtime as rt\n"
+        "import melspec_tpu_torch.utils.profiling as prof\n"
+        "rb = RingBuffer(MelConfig(), 1024, device='cpu')\n"
+        "rb.add_frame(np.zeros(800, np.float32))\n"
+        "assert len(rb.drain_mels()) == 3\n"
+        "assert rt.SampleRing(8).capacity == 8\n"
+        "assert not SpeechToMel(device='cpu').get()['ok'] and prof.trace\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0].startswith('jax')\n"
         "             or m.split('.')[0] == 'melspec_tpu')\n"
@@ -94,9 +102,12 @@ def no_cuda(monkeypatch):
     lambda x: vad_eval.evaluate_testset_batched(
         ROOT / "testdata" / "ten-vad", vad_eval.EvalOptions(),
         mt.DetectionSettings()),
+    lambda x: mt.StreamingMel(),
+    lambda x: mt.RingBuffer(mt.MelConfig(), 2048),
+    lambda x: mt.SpeechToMel(),
 ], ids=["sig", "pallas", "pipeline", "compute", "streaming", "cuda", "fbank",
         "mfcc", "nemo", "fused", "trihead", "step", "quantized", "vad_sig",
-        "vad_eval"])
+        "vad_eval", "streaming_mel", "ring_buffer", "speech_to_mel"])
 def test_default_device_raises_without_cuda(no_cuda, call):
     before = sig_mel.launches
     with pytest.raises(RuntimeError, match="CUDA is not available"):
