@@ -65,6 +65,15 @@ show each went through its kernels:
   CPU's float64 with the push latency and kernels per push,
   ``SpeechToMel`` against the CPU port's records, and a producer thread
   feeding a ``SampleRing`` that a consumer drains into ``SpeechToMel``.
+- the example entry points (phase ``serve_streams``): the TCP
+  ``StreamServer`` of ``melspec_tpu_torch/examples/serve_streams.py``
+  with 256 concurrent ``stream_client`` threads of 48 kHz f32 PCM over
+  loopback at whisper large-v3 on the sig route (K4 and K1 every tick),
+  then 64 clients of 8 kHz s16le at 80 mels on rdft (K4 only), every
+  client's records against the CPU's float64; one WebSocket client
+  through ``BrowserBridge`` against a TCP client; and the CLIs
+  (``mel_tga``, ``live_pipeline``, ``stream_asr_segments``,
+  ``vad_ten_eval --batched``) by subprocess on their default device.
 
 Each phase prints one JSON line. Any failure raises and the script exits
 non-zero without its last line; on success the last line is
@@ -131,6 +140,8 @@ from melspec_tpu_torch.streaming.resample import (  # noqa: E402
     MultiStreamResampler)
 from melspec_tpu_torch.streaming.serving import (  # noqa: E402
     MultiStreamFrontend, calibrate_fft_impl, shared_frontend)
+from melspec_tpu_torch.examples import serve_streams  # noqa: E402
+from melspec_tpu_torch.examples.browser import server as ws_bridge  # noqa: E402
 from melspec_tpu_torch.utils import vad_eval  # noqa: E402
 from melspec_tpu_torch.utils.timing import (  # noqa: E402
     device_time_ms as time_ms, per_launch_ms)
@@ -284,6 +295,18 @@ LIVE_MIN_FLOOR = 3.8e-3
 LIVE_WARMUP, LIVE_TIMED, LIVE_PROFILED = 50, 1000, 20
 LIVE_BULK_HOPS, LIVE_HOLD_HOPS, LIVE_SCAN_HOPS = 60_000, 2000, 1000
 LIVE_RING_BLOCK = 32
+# the TCP serving server (phase serve_streams): run A, SERVE_A_CLIENTS
+# clients of SERVE_SECONDS of 48 kHz f32 PCM over loopback into a
+# StreamServer of as many slots at whisper large-v3 (sig, device
+# resampling); run B, SERVE_B_CLIENTS clients of 8 kHz s16le at 80 mels
+# (rdft, device resampling); each client writes SERVE_WRITE samples at a
+# time. Records are held to the serving grid's bars against the CPU's
+# float64 (resample_poly -> compute_streaming_mel -> quantizer): frame
+# count and indices exact, u8 one step, VA_FLIP_BUDGET flips a fleet. The
+# CLIs run by subprocess on their default device, mel_tga and
+# stream_asr_segments on CLI_SECONDS of JFK
+SERVE_A_CLIENTS, SERVE_B_CLIENTS, SERVE_SECONDS = 256, 64, 3.0
+SERVE_HOPS, SERVE_WRITE, CLI_SECONDS = 4, 4096, 4.0
 
 
 def emit(phase: str, **fields) -> None:
@@ -2597,6 +2620,307 @@ def phase_live_stream(dev) -> dict:
                              f"{counts}")
     return out
 
+def ws_connect(port: int) -> "socket.socket":
+    """A WebSocket client of the bridge: the upgrade, checked."""
+    import socket
+
+    sock = socket.create_connection(("127.0.0.1", port), timeout=60)
+    key = "dGhlIHNhbXBsZSBub25jZQ=="
+    sock.sendall((f"GET /ws HTTP/1.1\r\nHost: 127.0.0.1:{port}\r\n"
+                  "Upgrade: websocket\r\nConnection: Upgrade\r\n"
+                  f"Sec-WebSocket-Key: {key}\r\n"
+                  "Sec-WebSocket-Version: 13\r\n\r\n").encode())
+    resp = b""
+    while b"\r\n\r\n" not in resp:
+        chunk = sock.recv(1)  # byte by byte: no record frame swallowed
+        if not chunk:
+            raise AssertionError("bridge closed during the upgrade")
+        resp += chunk
+    if b" 101 " not in resp.split(b"\r\n", 1)[0] \
+            or ws_bridge.ws_accept_key(key).encode() not in resp:
+        raise AssertionError(f"bad upgrade: {resp!r}")
+    return sock
+
+
+def serve_reference(pcm: np.ndarray, rate: int, config: MelConfig,
+                    settings: DetectionSettings) -> tuple:
+    """What every client of a device-resampling server must receive, on
+    the CPU in float64: ``resample_poly`` of its PCM to 16 kHz, then
+    ``compute_streaming_mel`` (float64), then the per-frame quantizer and
+    the streaming VAD decisions over the float32 mel. Returns ``(q [S, F,
+    n_mels], lo, hi, va [S, F])`` numpy."""
+    up, down = 16000 // np.gcd(16000, rate), rate // np.gcd(16000, rate)
+    y = resample_poly(torch.from_numpy(pcm.astype(np.float64)), up, down,
+                      device="cpu")
+    mel = compute_streaming_mel(y.numpy(), config.fft_size, config.hop_size,
+                                config.n_mels, config.sampling_rate,
+                                dtype=torch.float64, device="cpu")
+    mel = torch.from_numpy(mel)                     # [S, n_mels, F] f32
+    q, lo, hi = quantize_frames(mel.transpose(-1, -2))
+    fields = streaming_decision_fields_batched(mel.to(torch.float64),
+                                               settings)
+    va = torch.zeros(mel.shape[0], mel.shape[2], dtype=torch.bool)
+    va[:, settings.min_x - 1:] = fields["active"]
+    return q.numpy(), lo.numpy(), hi.numpy(), va.numpy()
+
+
+def serve_run(dev, name, config, clients, rate, fmt, fft_impl, seed) -> dict:
+    """One fleet through the TCP server: ``clients`` threads, each
+    ``stream_client`` with SERVE_SECONDS of speech-like PCM at ``rate``
+    (``fmt`` on the wire), into a ``StreamServer`` of as many slots that
+    resamples on the device. Launch counts are zeroed just before the
+    clients start and read just after the last finishes. Every client's
+    records are held against ``serve_reference``."""
+    settings = DetectionSettings()
+    server = serve_streams.StreamServer(
+        config=config, n_streams=clients, hops_per_tick=SERVE_HOPS,
+        settings=settings, input_rate=rate, device_resample=True,
+        fft_impl=fft_impl, pcm_format=fmt, device=dev)
+    t0 = time.perf_counter()
+    server.start()  # the warm push: the route's kernels are built here
+    start_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    pcm = speechlike(rng, clients, int(SERVE_SECONDS * rate), rate)
+    if fmt == "s16le":  # the client sends (and the server decodes) this
+        pcm = np.clip(np.round(pcm * 32768.0), -32768, 32767) / 32768.0
+        pcm = pcm.astype(np.float32)
+    recs, errors = [None] * clients, []
+
+    def client(i):
+        try:
+            recs[i] = serve_streams.stream_client(
+                server.port, pcm[i], chunk=SERVE_WRITE, timeout=120,
+                n_mels=config.n_mels, pcm_format=fmt)
+        except Exception as e:  # raised again below, in the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(clients)]
+    # host-clock seconds inside the tick's push_many (the device work and
+    # its one fetch); the rest of the wall is sockets, rings and packing
+    push = server.frontend.push_many
+    in_push = []
+
+    def timed_push(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return push(*a, **kw)
+        finally:
+            in_push.append(time.perf_counter() - t)
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(server.frontend, "push_many", timed_push):
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=180)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    stats = server.stats()
+    server.stop()
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"{name}: clients failed: {errors[:3]}")
+
+    q, lo, hi, va = serve_reference(pcm, rate, config, settings)
+    spur = server.frontend.rs.spurious_out // config.hop_size
+    k = int(SERVE_SECONDS * rate) // server.ingest_hop
+    n_want = framing.num_frames_streaming(k * config.hop_size,
+                                          config.fft_size,
+                                          config.hop_size) - spur
+    d_lo = d_hi = 0.0
+    q_step = flips = 0
+    for i, r in enumerate(recs):
+        if len(r) != n_want or [x[0] for x in r] != list(range(n_want)):
+            raise AssertionError(f"{name}: client {i}: {len(r)} records, "
+                                 f"want {n_want} in order")
+        gq = np.stack([x[4] for x in r]).astype(int)
+        q_step = max(q_step, int(np.abs(gq - q[i, :n_want]).max()))
+        d_lo = max(d_lo, float(np.abs(np.asarray([x[2] for x in r])
+                                      - lo[i, :n_want]).max()))
+        d_hi = max(d_hi, float(np.abs(np.asarray([x[3] for x in r])
+                                      - hi[i, :n_want]).max()))
+        flips += int((np.asarray([x[1] for x in r]) != va[i, :n_want]).sum())
+    n_recs = clients * n_want
+    audio_s = clients * SERVE_SECONDS
+    out = dict(clients=clients, rate=rate, pcm_format=fmt,
+               fft_impl=server.fft_impl, n_mels=config.n_mels,
+               hops_per_tick=SERVE_HOPS, seconds_per_client=SERVE_SECONDS,
+               write_samples=SERVE_WRITE, start_s=start_s, wall_s=wall,
+               records=n_recs, records_per_s=n_recs / wall,
+               x_real_time=audio_s / wall, ticks=stats["ticks"],
+               push_many_s=sum(in_push),
+               push_many_ms_median=statistics.median(in_push) * 1e3,
+               push_many_share=sum(in_push) / wall,
+               frames_sent=stats["frames_sent"],
+               clients_served=stats["clients_served"],
+               backpressure_waits=stats["backpressure_waits"],
+               ring_dropped=stats["ring_dropped"], launches=counts,
+               spurious_hops=spur, q_max_step=q_step, lo_vs_f64=d_lo,
+               hi_vs_f64=d_hi, va_flips=flips, va_checked=n_recs,
+               va_flip_budget=VA_FLIP_BUDGET)
+    if q_step > 1 or flips > VA_FLIP_BUDGET \
+            or stats["frames_sent"] != n_recs \
+            or stats["clients_served"] != clients \
+            or stats["backpressure_waits"] or stats["ring_dropped"]:
+        raise AssertionError(f"{name}: {out}")
+    return out
+
+
+def bridge_vs_tcp(dev) -> dict:
+    """One WebSocket client through the port's ``BrowserBridge`` over a
+    ``StreamServer`` on the card, against a TCP client of the same PCM
+    (3 s of JFK, masked frames of odd sizes): the same bytes."""
+    import socket
+
+    pcm = read_wav_f32le(TESTDATA / "jfk_f32le.wav")[: 3 * 16000]
+    raw = pcm.astype("<f4").tobytes()
+    streams = serve_streams.StreamServer(n_streams=4, device=dev)
+    streams.start()
+    bridge = ws_bridge.BrowserBridge(stream_server=streams).start()
+    try:
+        tcp = socket.create_connection(("127.0.0.1", streams.port),
+                                       timeout=60)
+        tcp.sendall(raw)
+        tcp.shutdown(socket.SHUT_WR)
+        want = b""
+        while True:
+            d = tcp.recv(65536)
+            if not d:
+                break
+            want += d
+        tcp.close()
+        ws = ws_connect(bridge.port)
+        for off in range(0, len(raw), 31997):
+            ws.sendall(ws_bridge.ws_encode_frame(raw[off : off + 31997],
+                                                 mask=True))
+        ws.sendall(ws_bridge.ws_encode_frame(b"", opcode=0x8, mask=True))
+        got = b""
+        while True:
+            try:
+                opcode, payload = ws_bridge.ws_read_frame(ws)
+            except ConnectionError:
+                break
+            if opcode == 0x8:
+                break
+            if opcode == 0x2:
+                got += payload
+        ws.close()
+    finally:
+        bridge.stop()
+        streams.stop()
+    rec = serve_streams.HEADER.size + streams.config.n_mels
+    out = dict(bytes=len(want), records=len(want) // rec,
+               equal=got == want)
+    if not want or len(want) % rec or got != want:
+        raise AssertionError(f"bridge vs TCP: {out}, got {len(got)} bytes")
+    return out
+
+
+def run_clis(dev) -> dict:
+    """The CLIs by subprocess, all started together, each on its default
+    device (no ``--device``; on a CPU rehearsal ``--device cpu``), beside
+    ``mel_tga --device cpu`` on the same PCM: each must exit 0 and write
+    its output; ``mel_tga``'s TGA must equal the CPU run's within one u8
+    step. ``waterfall`` is held on the CPU only (tests/
+    test_torch_examples.py): PIL may be absent on the card's machine."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        pcm = tmp / "jfk.f32le"
+        pcm.write_bytes(read_wav_f32le(TESTDATA / "jfk_f32le.wav")
+                        [: int(CLI_SECONDS * 16000)].tobytes())
+        flag = [] if dev.type == "cuda" else ["--device", "cpu"]
+        mod = "melspec_tpu_torch.examples."
+        jobs = {
+            "mel_tga": ([mod + "mel_tga", "--out-dir", str(tmp / "card")]
+                        + flag, pcm),
+            "mel_tga_cpu": ([mod + "mel_tga", "--out-dir", str(tmp / "cpu"),
+                             "--device", "cpu"], pcm),
+            "live_pipeline": ([mod + "live_pipeline"] + flag, None),
+            "stream_asr_segments": ([mod + "stream_asr_segments",
+                                     "--out-dir", str(tmp / "segs")] + flag,
+                                    pcm),
+            "vad_ten_eval": ([mod + "vad_ten_eval", "--max-files", "2",
+                              "--batched"] + flag, None),
+        }
+        t0 = time.perf_counter()
+        procs = {}
+        for name, (args, stdin) in jobs.items():
+            fh = open(stdin, "rb") if stdin else subprocess.DEVNULL
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-m"] + args, cwd=ROOT, stdin=fh,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+                fh)
+        res = {}
+        try:
+            for name, (p, fh) in procs.items():
+                out, err = p.communicate(timeout=300)
+                if fh is not subprocess.DEVNULL:
+                    fh.close()
+                res[name] = dict(rc=p.returncode, out=out, err=err)
+        finally:
+            for p, _ in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        bad = {k: v["err"][-800:] for k, v in res.items() if v["rc"]}
+        if bad:
+            raise AssertionError(f"CLI runs failed: {bad}")
+        card = sorted((tmp / "card").glob("*.tga"))
+        cpu = sorted((tmp / "cpu").glob("*.tga"))
+        segs = sorted((tmp / "segs").glob("*.tga"))
+        tga_step = max(int(np.abs(
+            parse_tga_8bit(a.read_bytes()).astype(int)
+            - parse_tga_8bit(b.read_bytes()).astype(int)).max())
+            for a, b in zip(card, cpu)) if card and len(card) == len(cpu) \
+            else None
+        out = dict(
+            wall_s=wall, device=dev.type if flag else "default",
+            mel_tga=dict(files=len(card), u8_max_step_vs_cpu=tga_step),
+            live_pipeline=res["live_pipeline"]["out"].strip(),
+            stream_asr_segments=dict(
+                segments=len(segs),
+                lines=len(res["stream_asr_segments"]["out"].splitlines())),
+            vad_ten_eval=[ln for ln in res["vad_ten_eval"]["out"]
+                          .splitlines() if ln.startswith(("macro:",
+                                                          "speed:"))])
+    if tga_step is None or tga_step > 1 or not segs \
+            or "mel frames" not in out["live_pipeline"] \
+            or len(out["vad_ten_eval"]) != 2:
+        raise AssertionError(f"CLI outputs: {out}")
+    return out
+
+
+def phase_serve_streams(dev) -> dict:
+    """The example entry points on the card: the TCP ``StreamServer``
+    (``melspec_tpu_torch/examples/serve_streams.py``) behind its socket at
+    full width, run A: SERVE_A_CLIENTS concurrent ``stream_client``
+    threads of 48 kHz f32 PCM into a server at whisper large-v3 that
+    resamples on the device and takes the sig route (K4 and K1 must
+    launch, K2 and K5-K8 must not); run B: SERVE_B_CLIENTS clients of
+    8 kHz s16le at 80 mels on the rdft route (K4 must launch, K1 must
+    not). Each client's records against the CPU's float64. Then one
+    WebSocket client through ``BrowserBridge`` against a TCP client, and
+    the CLIs on their default device (``run_clis``; ``waterfall`` only in
+    the CPU tests, since PIL may be absent here)."""
+    t_phase = time.perf_counter()
+    a = serve_run(dev, "run A", WHISPER_LARGE_V3, SERVE_A_CLIENTS, 48000,
+                  "f32le", "sig", SEED + 40)
+    b = serve_run(dev, "run B", MelConfig(400, 160, 80, 16000.0),
+                  SERVE_B_CLIENTS, 8000, "s16le", "rdft", SEED + 41)
+    out = dict(run_a=a, run_b=b, bridge=bridge_vs_tcp(dev),
+               clis=run_clis(dev))
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("serve_streams", **out)
+    la, lb = a["launches"], b["launches"]
+    quiet = ("K2", "K5", "K6", "K7", "K8")
+    if la["K4"] < 1 or la["K1"] < 1 or any(la.get(k) for k in quiet) \
+            or lb["K4"] < 1 or lb["K1"] or any(lb.get(k) for k in quiet):
+        raise AssertionError(f"serve_streams launches: A {la}, B {lb}")
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2628,6 +2952,7 @@ def main() -> int:
     ten_vad = phase_ten_vad_eval(dev)
     probe = phase_load_probe(dev)
     phase_live_stream(dev)
+    serve = phase_serve_streams(dev)
     k1_rows = rows + widths["rows"] + [dial["auto"]["auto_1024"]]
     k1_ln_rows = ln["rows"] + widths["ln_rows"]
     vs_plain = max(r["vs_plain"] for r in k1_rows + k1_ln_rows)
@@ -2640,6 +2965,9 @@ def main() -> int:
                **{f"ten_vad_{k}": v["launches"]
                   for k, v in ten_vad.items()},
                "load_probe": {"P1": sum(probe["counts"].values())}}
+    serve_paths = {"serve_streams_sig_48k": serve["run_a"]["launches"],
+                   "serve_streams_rdft_8k": serve["run_b"]["launches"]}
+    by_path.update(serve_paths)
     framed_all = framed_rows + dial["rows"]
 
     def launches(name):
@@ -2676,7 +3004,8 @@ def main() -> int:
 
     def rs_entry(name, key):
         return dict(common, name=name, launches=launches(name),
-                    launches_by_path={k: v[name] for k, v in serving.items()},
+                    launches_by_path={k: by_path[k][name]
+                                      for k in (*serving, *serve_paths)},
                     ms=bulk["ms"][key], call_ms=bulk["call_ms"][key],
                     share_of_bound=bulk["share_of_bound"][key],
                     ms_bf3=bulk["ms"][f"{key}_bf3"],

@@ -210,17 +210,16 @@ class SampleRing:
 
 
 def pop_many(rings: "list[Optional[SampleRing]]", need: int,
-             out: Optional[np.ndarray] = None):
+             out: np.ndarray) -> np.ndarray:
     """Batched all-or-nothing drain across a fleet: for each non-None
     ``rings[j]`` pop exactly ``need`` samples into ``out[j]`` (the row is
-    left untouched otherwise). Returns ``(out [n, need], got [n] bool)``;
-    ``out`` is allocated (zeros) when not given.
+    left untouched otherwise). Returns ``ok [n] bool``, as the JAX
+    package's ``pop_many`` does; ``out`` must be C-contiguous float32
+    ``[len(rings), need]`` (``ValueError`` otherwise).
 
     One native call per tick when every ring is native; mixed, None and
     Python rings take the per-entry path."""
     n = len(rings)
-    if out is None:
-        out = np.zeros((n, need), dtype=np.float32)
     if (out.dtype != np.float32 or not out.flags.c_contiguous
             or out.shape != (n, need)):
         raise ValueError(f"out must be C-contiguous float32 [{n}, {need}]")
@@ -234,9 +233,9 @@ def pop_many(rings: "list[Optional[SampleRing]]", need: int,
             out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
             ok.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         )
-        return out, ok.astype(bool)
-    got = np.zeros(n, dtype=bool)
+        return ok.astype(bool)
+    ok = np.zeros(n, dtype=bool)
     for j, r in enumerate(rings):
         if r is not None:
-            got[j] = r.pop_exact(out[j])
-    return out, got
+            ok[j] = r.pop_exact(out[j])
+    return ok

@@ -116,16 +116,17 @@ def test_pop_exact_all_or_nothing(ring_cls):
 
 def test_pop_many_batched_drain(ring_cls):
     """One call drains every ready ring into its row; short rings and None
-    slots leave their rows untouched."""
+    slots leave their rows untouched. Returns ``ok [n] bool`` (JAX's
+    contract)."""
     need = 12
     rings = [ring_cls(64), None, ring_cls(64), ring_cls(64)]
     rings[0].push(np.arange(need, dtype=np.float32))
     rings[2].push(np.arange(5, dtype=np.float32))  # too short
     rings[3].push(np.arange(100, 100 + need + 3, dtype=np.float32))
     out = np.full((4, need), -1.0, dtype=np.float32)
-    out2, got = pop_many(rings, need, out)
-    assert out2 is out
-    assert got.tolist() == [True, False, False, True]
+    ok = pop_many(rings, need, out)
+    assert isinstance(ok, np.ndarray) and ok.dtype == bool
+    assert ok.tolist() == [True, False, False, True]
     np.testing.assert_array_equal(out[0], np.arange(need, dtype=np.float32))
     np.testing.assert_array_equal(out[1], -np.ones(need, np.float32))
     np.testing.assert_array_equal(out[2], -np.ones(need, np.float32))
@@ -137,12 +138,16 @@ def test_pop_many_batched_drain(ring_cls):
 
 
 def test_pop_many_allocates_rows():
+    """``pop_many`` no longer allocates its rows: ``out`` is required, as
+    in the JAX package's signature, so a call without it raises
+    ``TypeError`` and consumes nothing."""
     rings = [SampleRing(32, force_python=True), None]
     rings[0].push(np.arange(6, dtype=np.float32))
-    out, got = pop_many(rings, 6)
-    assert out.shape == (2, 6) and out.dtype == np.float32
-    assert got.tolist() == [True, False]
-    np.testing.assert_array_equal(out[1], np.zeros(6, np.float32))
+    with pytest.raises(TypeError):
+        pop_many(rings, 6)
+    with pytest.raises(TypeError):
+        jring.pop_many(rings, 6)
+    assert len(rings[0]) == 6
 
 
 def test_pop_many_mixed_backends():
@@ -151,9 +156,48 @@ def test_pop_many_mixed_backends():
     rings = [SampleRing(32), SampleRing(32, force_python=True)]
     for r in rings:
         r.push(np.arange(need, dtype=np.float32))
-    out, got = pop_many(rings, need)
-    assert got.all()
+    out = np.zeros((2, need), dtype=np.float32)
+    ok = pop_many(rings, need, out)
+    assert ok.tolist() == [True, True]
     np.testing.assert_array_equal(out[0], out[1])
+
+
+def _serve_drain(ring_mod, rings, need):
+    """The serving tick's drain as ``examples/serve_streams.py`` writes it:
+    ``ok = pop_many(rings, need, chunks)`` then ``ok[i]`` per slot."""
+    chunks = np.zeros((len(rings), need), dtype=np.float32)
+    ok = ring_mod.pop_many(rings, need, chunks)
+    kept = [i for i, r in enumerate(rings) if r is not None and ok[i]]
+    evicted = [i for i, r in enumerate(rings) if r is not None and not ok[i]]
+    return np.asarray(ok).tolist(), kept, evicted, chunks.tolist()
+
+
+@pytest.mark.parametrize("layout", ["python", "native", "mixed"])
+def test_pop_many_drives_like_the_serving_tick(layout):
+    """``ok[i]`` after ``ok = pop_many(rings, need, chunks)`` is each slot's
+    flag, equal to JAX's on the same sequence, over Python rings, native
+    rings (or a mix) and a ``None`` slot."""
+    if layout != "python":
+        _need_native()
+        if not jring.native_available():
+            pytest.skip("the JAX package's native ring is unavailable")
+
+    def fleet(ring_mod):
+        py = {"python": [True] * 3, "native": [False] * 3,
+              "mixed": [False, True, False]}[layout]
+        rings = [ring_mod.SampleRing(64, force_python=py[0]), None,
+                 ring_mod.SampleRing(64, force_python=py[1]),
+                 ring_mod.SampleRing(64, force_python=py[2])]
+        log = []
+        for step, fill in enumerate([(8, 3, 9), (0, 8, 7), (16, 1, 1)]):
+            for r, n in zip([rings[0], rings[2], rings[3]], fill):
+                r.push(np.arange(n, dtype=np.float32) + 100 * step)
+            log.append(_serve_drain(ring_mod, rings, 8))
+        return log
+
+    got, want = fleet(ringbuffer), fleet(jring)
+    assert got == want
+    assert list(got[0][:3]) == [[True, False, False, True], [0, 3], [2]]
 
 
 def test_concurrent_producer_consumer():
@@ -229,10 +273,7 @@ def test_sequence_equals_jax_ring(backend):
     if not python and not jring.native_available():
         pytest.skip("the JAX package's native ring is unavailable")
 
-    def port_pop_many(rings, need, out):
-        return pop_many(rings, need, out)[1]
-
-    assert _replay(ringbuffer, python, port_pop_many) == \
+    assert _replay(ringbuffer, python, pop_many) == \
         _replay(jring, python, jring.pop_many)
 
 
