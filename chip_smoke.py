@@ -74,6 +74,16 @@ show each went through its kernels:
   through ``BrowserBridge`` against a TCP client; and the CLIs
   (``mel_tga``, ``live_pipeline``, ``stream_asr_segments``,
   ``vad_ten_eval --batched``) by subprocess on their default device.
+- the scale-out package (phase ``parallel``): the frontend step at 64 x
+  30 s in a one-rank NCCL group (its all-reduce on the card) bit-equal to
+  the step without a group; then two gloo ranks, processes of this script
+  (``--parallel-worker``) both on the one card, each holding its block of
+  ``sharded_frontend_step`` and ``sharded_whisper_mel`` against a one-rank
+  run, ``sharded_serving(input_rate=48000, fft_impl="sig")`` over 128 of
+  256 streams for 50 ticks against one rank (with a whole-fleet
+  checkpoint at tick 25 resumed bit for bit) and ``multihost_frontend``
+  over the 30 TEN-VAD wavs against one rank over every file; K2, K1 and K4
+  counted on each rank.
 
 Each phase prints one JSON line. Any failure raises and the script exits
 non-zero without its last line; on success the last line is
@@ -128,18 +138,21 @@ from melspec_tpu_torch.ops.resample import (_phase_matrix,  # noqa: E402
 from melspec_tpu_torch.ops.sig_multihead import (  # noqa: E402
     WhisperKaldiFused, WhisperKaldiNemoFused)
 from melspec_tpu_torch.ops.quant import (dequantize_tensor,  # noqa: E402
-                                         quantize_frames)
+                                         quantize_frames, quantize_tensor)
 from melspec_tpu_torch.ops.vad import (  # noqa: E402
     boundary_columns, classify_columns, streaming_decision_fields_batched)
 from melspec_tpu_torch.ops.windows import (hann_centered,  # noqa: E402
                                            hann_periodic, povey)
-from melspec_tpu_torch.parallel.sharding import (  # noqa: E402
-    sharded_frontend_step)
+from melspec_tpu_torch.parallel import (  # noqa: E402
+    make_mesh, multihost_frontend, sharded_frontend_step, sharded_serving,
+    sharded_whisper_mel)
 from melspec_tpu_torch.runtime import ringbuffer  # noqa: E402
+from melspec_tpu_torch.streaming import multistream  # noqa: E402
 from melspec_tpu_torch.streaming.resample import (  # noqa: E402
     MultiStreamResampler)
 from melspec_tpu_torch.streaming.serving import (  # noqa: E402
-    MultiStreamFrontend, calibrate_fft_impl, shared_frontend)
+    MultiStreamFrontend, SourceRateFrontend, calibrate_fft_impl,
+    shared_frontend)
 from melspec_tpu_torch.examples import serve_streams  # noqa: E402
 from melspec_tpu_torch.examples.browser import server as ws_bridge  # noqa: E402
 from melspec_tpu_torch.utils import vad_eval  # noqa: E402
@@ -1492,18 +1505,77 @@ def phase_k2(dev, rows, ln_rows) -> dict:
 
 
 @contextlib.contextmanager
-def plain_kernels():
-    """Inside the block, the frontends call K1's and K2's plain versions
-    (f32 dot) on CUDA tensors in place of the kernels."""
+def plain_kernels(dot_dtype: torch.dtype = torch.float32):
+    """Inside the block, the frontends call the plain versions of K1 and
+    K2 and of K3 / K4 (on the concat) on CUDA tensors in place of the
+    kernels, their dots summed in ``dot_dtype`` (float64: the exact
+    result): K1 where NeMo (``batch_logmel``), the whisper pipeline
+    (``mel_kernel``) and the stream mel (``multistream``) call it."""
     def k2(samples, heads, **kw):
-        return sig_multi.sig_multi_reference(samples, heads, **kw)
+        return sig_multi.sig_multi_reference(samples, heads,
+                                             dot_dtype=dot_dtype, **kw)
 
     def k1(samples, m_big, pair_i, mt, **kw):
-        return sig_mel.sig_mel_reference(samples, m_big, pair_i, mt, **kw)
+        return sig_mel.sig_mel_reference(samples, m_big, pair_i, mt,
+                                         dot_dtype=dot_dtype, **kw)
+
+    def k3_k4(name, a, b, g, g_host, up, down, q, precision):
+        sig = a if b is None else torch.cat([a, b], dim=1)
+        return kres.resample_reference(sig, g, up, down, q, precision,
+                                       dot_dtype)
 
     with mock.patch.object(sig_multi, "sig_multi", k2), \
-            mock.patch.object(batch_logmel, "sig_mel", k1):
+            mock.patch.object(batch_logmel, "sig_mel", k1), \
+            mock.patch.object(mel_kernel, "sig_mel", k1), \
+            mock.patch.object(multistream, "sig_mel", k1), \
+            mock.patch.object(kres, "_launch", k3_k4):
         yield
+
+
+def step_errs(res: dict, ref: dict, flips: int | None = None) -> dict:
+    """A step's outputs (or a rank's block of them) against the same step
+    on the plain versions: the largest differences, the VAD flips and the
+    aggregates. ``flips`` is the whole batch's count of flips where
+    ``res`` is one rank's block (the aggregates are the group's)."""
+    block_flips = int((res["vad_smoothed"] != ref["vad_smoothed"]).sum())
+    return dict(
+        mel=max_abs(res["mel"], ref["mel"]),
+        nemo=max_abs(res["nemo"], ref["nemo"]),
+        fbank=max_abs(res["fbank"], ref["fbank"]),
+        vad_flips=block_flips if flips is None else flips,
+        block_flips=block_flips,
+        active_diff=abs(int(res["vad_active_columns"])
+                        - int(ref["vad_active_columns"])),
+        total_equal=int(res["vad_total_columns"])
+        == int(ref["vad_total_columns"]),
+        q8_max_step=int((res["mel_q8"].int() - ref["mel_q8"].int())
+                        .abs().max()),
+        range=max_abs(res["mel_q8_range"], ref["mel_q8_range"]))
+
+
+def step_errs_failed(errs: dict, wbar: float, lbar: float) -> bool:
+    """The frontend step's bars against its plain version: whisper mel and
+    the u8 range at K1's vs-plain bar ``wbar``, NeMo and Kaldi at the ln
+    heads' ``lbar``, at most VA_FLIP_BUDGET flips (the active count off by
+    no more), the total equal, q within one step."""
+    return (errs["mel"] > wbar or max(errs["nemo"], errs["fbank"]) > lbar
+            or errs["vad_flips"] > VA_FLIP_BUDGET
+            or errs["block_flips"] > errs["vad_flips"]
+            or errs["active_diff"] > errs["vad_flips"]
+            or not errs["total_equal"] or errs["q8_max_step"] > 1
+            or errs["range"] > wbar)
+
+
+def plain_block(plain: dict, rows) -> dict:
+    """One rank's rows of the one-rank plain step's outputs, the u8
+    record quantized over those rows (as the rank quantizes its block)
+    and the whole batch's aggregates."""
+    block = {k: plain[k][rows] for k in ("mel", "nemo", "fbank",
+                                         "vad_smoothed")}
+    q, lo, hi = quantize_tensor(block["mel"])
+    return dict(block, mel_q8=q, mel_q8_range=torch.stack([lo, hi])[None],
+                vad_active_columns=plain["vad_active_columns"],
+                vad_total_columns=plain["vad_total_columns"])
 
 
 def library_multi(x, mc, kcfg, settings):
@@ -1584,19 +1656,7 @@ def phase_frontend_step(dev, k2: dict) -> dict:
                 "fbank": [STEP_B, nf, 80], "vad_smoothed": [STEP_B, nf - 2],
                 "mel_q8": [STEP_B, nf, mc.n_mels], "mel_q8_range": [1, 2],
                 "vad_active_columns": [], "vad_total_columns": []}
-        flips = int((res["vad_smoothed"] != ref["vad_smoothed"]).sum())
-        errs = dict(
-            mel=max_abs(res["mel"], ref["mel"]),
-            nemo=max_abs(res["nemo"], ref["nemo"]),
-            fbank=max_abs(res["fbank"], ref["fbank"]),
-            vad_flips=flips,
-            active_diff=abs(int(res["vad_active_columns"])
-                            - int(ref["vad_active_columns"])),
-            total_equal=int(res["vad_total_columns"])
-            == int(ref["vad_total_columns"]),
-            q8_max_step=int((res["mel_q8"].int() - ref["mel_q8"].int())
-                            .abs().max()),
-            range=max_abs(res["mel_q8_range"], ref["mel_q8_range"]))
+        errs = step_errs(res, ref)
         finite = all(bool(torch.isfinite(res[k]).all())
                      for k in ("mel", "nemo", "fbank"))
         ms = time_ms(lambda: step(x))
@@ -1613,11 +1673,8 @@ def phase_frontend_step(dev, k2: dict) -> dict:
             fails.append(f"launches {c}")
         if shapes != want:
             fails.append(f"shapes {shapes}")
-        if (not finite or errs["mel"] > k2["wbars"]["vs_plain"]
-                or max(errs["nemo"], errs["fbank"]) > k2["lbars"]["vs_plain"]
-                or flips > VA_FLIP_BUDGET or errs["active_diff"] > flips
-                or not errs["total_equal"] or errs["q8_max_step"] > 1
-                or errs["range"] > k2["wbars"]["vs_plain"]):
+        if not finite or step_errs_failed(errs, k2["wbars"]["vs_plain"],
+                                          k2["lbars"]["vs_plain"]):
             fails.append(f"outputs {errs} finite={finite}")
         if fails:
             raise AssertionError(f"frontend step {name}: {fails}")
@@ -2922,10 +2979,400 @@ def phase_serve_streams(dev) -> dict:
     return out
 
 
+# phase parallel: the frontend step at PAR_B x PAR_SECONDS (whisper
+# large-v3 + Kaldi + NeMo), first in a one-rank NCCL group against the
+# ungrouped step, bit for bit; then PAR_WORLD gloo ranks (processes of this
+# script, every one on cuda:0: NCCL refuses two ranks on one card), each
+# holding its block of the step and of sharded_whisper_mel against a
+# one-rank run, the 48 kHz sig serving tick (PAR_STREAMS streams, PAR_TICKS
+# ticks of TICK_HOPS hops, a whole-fleet checkpoint at PAR_CKPT resumed bit
+# for bit) against one rank at the JAX bars, and multihost_frontend over
+# the TEN-VAD wavs (PAR_CLIP clips, PAR_LOCAL rows a rank, 80 mels) against
+# one rank over every file. Where a block is not bit-equal to the one-rank
+# run, the largest difference is held to tests/test_sharding.py's 1e-5
+# (PAR_BAR; lo and hi of a tick too, tests/test_configs_broad.py). Every
+# block is also held against the one-rank run on the plain versions of
+# K1-K4 (plain_kernels, which launch no kernel) on the same inputs: the
+# step's and multihost_frontend's at the frontend step's bars
+# (step_errs_failed), the whisper rows at K1's vs-plain bar, the ticks at
+# the JAX serving bars with lo and hi at K1's vs-plain bar; the bars are
+# phase_k2's of this run, handed to the workers in a file, and for the
+# TEN-VAD clips raised to their own f32 floor (clip_bars)
+PAR_B, PAR_SECONDS, PAR_WORLD, PAR_BAR = 64, 30, 2, 1e-5
+PAR_STREAMS, PAR_TICKS, PAR_CKPT = 256, 50, 25
+PAR_CLIP, PAR_LOCAL, PAR_WORKER_S = 30 * 16000, 16, 240
+
+
+def par_inputs(dev) -> torch.Tensor:
+    """The step's input, the same in every process."""
+    return signal(np.random.default_rng(SEED + 90), PAR_B,
+                  PAR_SECONDS * 16000, dev)
+
+
+def plain_run(fn, dot_dtype: torch.dtype = torch.float32):
+    """``fn()`` on the plain versions; fails if a kernel launched."""
+    torch.cuda.synchronize()
+    zero_counts()
+    with plain_kernels(dot_dtype):
+        res = fn()
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in read_counts().items() if v}
+    if launched:
+        raise AssertionError(f"the plain run launched {launched}")
+    return res
+
+
+def blocks_held(got: dict, want: dict) -> dict:
+    """Per key: bit-equal, and the largest difference."""
+    return {k: dict(equal=bool(torch.equal(got[k], want[k])),
+                    max_abs=max_abs(got[k].double(), want[k].double()))
+            for k in want}
+
+
+def blocks_failed(held: dict) -> bool:
+    """Not bit-equal to the one-rank run, and off by more than PAR_BAR or
+    in an aggregate."""
+    return not all(h["equal"] for h in held.values()) and (
+        max(h["max_abs"] for h in held.values()) > PAR_BAR
+        or any(not held[k]["equal"] for k in ("vad_active_columns",
+                                              "vad_total_columns")))
+
+
+def parallel_nccl(dev, bars: dict) -> dict:
+    """The step in a one-rank NCCL group (the all-reduce of the two
+    aggregates runs on the card) against the step without a group, and
+    against the same step on the plain versions."""
+    import torch.distributed as dist
+
+    kw = dict(settings=DetectionSettings(), mel_config=WHISPER_LARGE_V3)
+    x = par_inputs(dev)
+    ungrouped = sharded_frontend_step(make_mesh(device=dev), **kw)
+    want = ungrouped(x)
+    plain = plain_run(lambda: ungrouped(x))
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            f"{tmp}/store", 1), rank=0, world_size=1)
+        try:
+            mesh = make_mesh()
+            step = sharded_frontend_step(mesh, **kw)
+            torch.cuda.synchronize()
+            zero_counts()
+            got = step(x)  # the path, once
+            torch.cuda.synchronize()
+            launches = read_counts()
+            pair = torch.zeros(2, dtype=torch.int32, device=mesh.device)
+            out = dict(backend=dist.get_backend(), device=str(mesh.device),
+                       launches=launches, held=blocks_held(got, want),
+                       vs_plain=step_errs(got, plain),
+                       allreduce_ms=time_ms(lambda: dist.all_reduce(pair)),
+                       step_ms=time_ms(lambda: step(x)),
+                       ungrouped_ms=time_ms(lambda: ungrouped(x)))
+        finally:
+            dist.destroy_process_group()
+    out["bit_equal"] = all(h["equal"] for h in out["held"].values())
+    out["vs_plain_failed"] = step_errs_failed(out["vs_plain"], *bars)
+    return out
+
+
+def clip_bars(plain: dict, exact: dict, bars: tuple) -> tuple:
+    """The step's bars (K1's vs-plain bar, the ln heads') raised, where
+    the f32 floor on these inputs (the plain version's largest distance
+    from the exact result) is higher, by phase_k2's rule: max(tol, floor)
+    + floor. Real clips reach further below their frames' peaks than
+    phase_k2's noise, and ln turns that into absolute error."""
+    fw = max_abs(plain["mel"], exact["mel"])
+    fl = max(max_abs(plain[k], exact[k]) for k in ("nemo", "fbank"))
+    return (max(bars[0], max(K1_TOL, fw) + fw),
+            max(bars[1], max(LN_TOL, fl) + fl))
+
+
+def tick_held(got: list, want: list, bar: float) -> dict:
+    """One tick against another run's at the JAX bars
+    (tests/test_configs_broad.py): valid exact, q within one step, at most
+    one VA flip, lo and hi within ``bar``; the counts that differ."""
+    q, lo, hi, va, valid = got
+    rq, rlo, rhi, rva, rvalid = want
+    h = dict(valid_diff=int((valid != rvalid).sum()),
+             q_diff=int((q != rq).sum()),
+             q_max_step=int((q.int() - rq.int()).abs().max()),
+             va_flips=int((va != rva).sum()),
+             lo_max_abs=max_abs(lo, rlo), hi_max_abs=max_abs(hi, rhi))
+    h["failed"] = bool(h["valid_diff"] or h["q_max_step"] > 1
+                       or h["va_flips"] > 1
+                       or max(h["lo_max_abs"], h["hi_max_abs"]) > bar)
+    return h
+
+
+def ticks_summary(held: list) -> dict:
+    return dict(
+        valid_diff=sum(h["valid_diff"] for h in held),
+        q_diff=sum(h["q_diff"] for h in held),
+        q_max_step=max(h["q_max_step"] for h in held),
+        va_flips=sum(h["va_flips"] for h in held),
+        va_flips_max_tick=max(h["va_flips"] for h in held),
+        lo_max_abs=max(h["lo_max_abs"] for h in held),
+        hi_max_abs=max(h["hi_max_abs"] for h in held),
+        failed_ticks=[t for t, h in enumerate(held) if h["failed"]])
+
+
+def parallel_rank(mesh, out_dir: Path, bars: tuple) -> dict:
+    """What one gloo rank holds against one-rank runs in its own process
+    (a mesh of this process alone: no collective), on the kernels and on
+    their plain versions. ``bars`` is (K1's vs-plain bar, the ln heads')."""
+    from melspec_tpu_torch.parallel.sharding import Mesh, _all_reduce_sum
+
+    wbar, lbar = bars
+    dev, out, counts = mesh.device, {}, {}
+    solo = Mesh(None, mesh.axis, 1, 0, dev)
+    rows = slice(mesh.rank * PAR_B // mesh.size,
+                 (mesh.rank + 1) * PAR_B // mesh.size)
+
+    def counted(name, fn):
+        torch.cuda.synchronize()
+        zero_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        counts[name] = read_counts()
+        return res
+
+    kw = dict(settings=DetectionSettings(), mel_config=WHISPER_LARGE_V3)
+    x = par_inputs(dev)
+    one_step = sharded_frontend_step(solo, **kw)
+    one = one_step(x)
+    plain = plain_run(lambda: one_step(x))
+    flips = int((one["vad_smoothed"] != plain["vad_smoothed"]).sum())
+    step = sharded_frontend_step(mesh, **kw)
+    xb = x[rows].contiguous()
+    got = counted("step", lambda: step(xb))
+    out["step"] = blocks_held(got, plain_block(one, rows))
+    out["step_vs_plain"] = step_errs(got, plain_block(plain, rows), flips)
+    pair = torch.zeros(2, dtype=torch.int32, device=dev)
+    out["step_ms"] = time_ms(lambda: step(xb))
+    out["allreduce_ms"] = time_ms(lambda: _all_reduce_sum(mesh, pair))
+
+    wm = sharded_whisper_mel(mesh, 400, 160, WHISPER_LARGE_V3.n_mels)
+    one_wm = sharded_whisper_mel(solo, 400, 160, WHISPER_LARGE_V3.n_mels)
+    ref = one_wm(x)
+    ref_plain = plain_run(lambda: one_wm(x))
+    mel = counted("whisper_mel", lambda: wm(xb))
+    out["whisper_mel"] = dict(equal=bool(torch.equal(mel, ref[rows])),
+                              max_abs=max_abs(mel, ref[rows]),
+                              vs_plain=max_abs(mel, ref_plain[rows]))
+
+    s, hop_src = PAR_STREAMS, 480
+    chunks = torch.from_numpy(speechlike(
+        np.random.default_rng(SEED + 91), s, PAR_TICKS * TICK_HOPS * hop_src,
+        48000).reshape(s, PAR_TICKS, TICK_HOPS, hop_src)).to(dev)
+    serve = dict(config=WHISPER_LARGE_V3, n_streams=s, input_rate=48000,
+                 fft_impl="sig")
+    _, init1, tick1 = sharded_serving(solo, **serve)
+
+    def one_rank_ticks():
+        st, ticks = init1(), []
+        for t in range(PAR_TICKS):
+            st, *o = tick1(st, chunks[:, t], None)
+            ticks.append(o)
+        return ticks
+
+    ref_ticks = one_rank_ticks()
+    plain_ticks = plain_run(one_rank_ticks)
+    front, init_fn, tick_fn = sharded_serving(mesh, **serve)
+    streams = slice(mesh.rank * s // mesh.size,
+                    (mesh.rank + 1) * s // mesh.size)
+    mine = chunks[streams]
+    path = out_dir / "fleet.npz"
+    warm = {}
+
+    def fleet():
+        st, ticks = init_fn(), []
+        for t in range(PAR_TICKS):
+            if t == PAR_CKPT:
+                front.save_state(path, st)
+                warm["state"] = st
+            st, *o = tick_fn(st, mine[:, t], None)
+            ticks.append(o)
+        return ticks
+
+    ticks = counted("serving", fleet)
+    held = [tick_held(o, [r[streams] for r in want], PAR_BAR)
+            for o, want in zip(ticks, ref_ticks)]
+    held_plain = [tick_held(o, [r[streams] for r in want], wbar)
+                  for o, want in zip(ticks, plain_ticks)]
+    st = front.load_state(path)
+    resumed = True
+    for t in range(PAR_CKPT, PAR_TICKS):
+        st, *o = tick_fn(st, mine[:, t], None)
+        resumed &= all(torch.equal(a, b) for a, b in zip(o, ticks[t]))
+    whole = SourceRateFrontend(WHISPER_LARGE_V3, s, input_rate=48000,
+                               fft_impl="sig", device=dev).load_state(path)
+    out["serving"] = dict(
+        ticks=PAR_TICKS, streams=[streams.start, streams.stop],
+        **ticks_summary(held),
+        vs_plain=ticks_summary(held_plain),
+        valid_frames=sum(int(o[4].sum()) for o in ticks),
+        resumed_bit_equal=bool(resumed),
+        whole_fleet_rows=int(whole.fe.mel.idx.shape[0]))
+    # a steady-state 4-hop tick: from the state the fleet carried into
+    # tick PAR_CKPT, on that tick's chunks (the tick returns a new state)
+    out["tick_ms"] = time_ms(lambda: tick_fn(warm["state"],
+                                             mine[:, PAR_CKPT], None))
+
+    wavs = sorted((TESTDATA / "ten-vad").glob("*.wav"))
+
+    def one_rank_files():
+        return multihost_frontend(solo, wavs, PAR_CLIP,
+                                  PAR_LOCAL * mesh.size)[0]
+
+    ref = one_rank_files()
+    ref_plain = plain_run(one_rank_files)
+    mh_bars = clip_bars(ref_plain, plain_run(one_rank_files, torch.float64),
+                        bars)
+    mh, nv = counted("multihost", lambda: multihost_frontend(
+        mesh, wavs, PAR_CLIP, PAR_LOCAL))
+    mine_files = list(range(mesh.rank, len(wavs), mesh.size))  # a row each
+    n = len(mine_files)
+    # the rank's rows in the one-rank run: its files, then pad rows (the
+    # one-rank run's rows past the last file are pad rows too)
+    index = mine_files + [len(wavs)] * (PAR_LOCAL - n)
+    mh_flips = int((ref["vad_smoothed"] != ref_plain["vad_smoothed"]).sum())
+    out["multihost"] = dict(
+        files=len(wavs), rows=n, real_rows=int((nv > 0).sum()),
+        aggregates=[int(mh["vad_active_columns"]),
+                    int(mh["vad_total_columns"])],
+        one_rank=[int(ref["vad_active_columns"]),
+                  int(ref["vad_total_columns"])],
+        held=blocks_held(mh, plain_block(ref, index)),
+        vs_plain=step_errs(mh, plain_block(ref_plain, index), mh_flips),
+        bars=mh_bars)
+    out["launches"] = counts
+    out["launches_total"] = {k: sum(c[k] for c in counts.values())
+                             for k in ("K1", "K2", "K3", "K4")}
+    return out
+
+
+def parallel_worker(rank: int, world: int, out_dir: Path) -> int:
+    """One rank of phase parallel: a gloo group over a file store in
+    ``out_dir``, the mesh's default device (cuda:{rank % cards}), the bars
+    from ``out_dir/bars.json``, results into ``out_dir/rank{rank}.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bars = tuple(json.loads((out_dir / "bars.json").read_text()))
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh()
+        res = dict(rank=rank, world=world, device=str(mesh.device),
+                   backend=dist.get_backend(),
+                   **parallel_rank(mesh, out_dir, bars))
+    finally:
+        dist.destroy_process_group()
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def parallel_gloo(bars: tuple) -> list:
+    """PAR_WORLD workers of this script; fails if either fails."""
+    with tempfile.TemporaryDirectory() as tmp:
+        (Path(tmp) / "bars.json").write_text(json.dumps(list(bars)))
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--parallel-worker", str(r), str(PAR_WORLD), tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=str(ROOT)) for r in range(PAR_WORLD)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=PAR_WORKER_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        bad = [(r, p.returncode, log[-4000:])
+               for r, (p, log) in enumerate(zip(procs, logs))
+               if p.returncode != 0]
+        if bad:
+            raise AssertionError(f"parallel workers failed: {bad}")
+        return [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                for r in range(PAR_WORLD)]
+
+
+def phase_parallel(dev, k2: dict) -> dict:
+    """The scale-out package on the card (see PAR_B above). Fails unless
+    the NCCL step is bit-equal to the ungrouped one with K2 and K1 one
+    launch each, and every gloo rank launched K2, K1 and K4 and held its
+    blocks against one rank: the step bit-equal (else within PAR_BAR,
+    aggregates equal), sharded_whisper_mel bit-equal, the serving tick
+    within the JAX bars (valid exact, q one step, at most one VA flip a
+    tick, lo and hi within PAR_BAR), the checkpoint resumed bit for bit,
+    multihost_frontend's blocks as the step's; and unless every block,
+    the NCCL step's too, holds against the one-rank run on the plain
+    versions (PAR_B's comment)."""
+    bars = (k2["wbars"]["vs_plain"], k2["lbars"]["vs_plain"])
+    t0 = time.perf_counter()
+    nccl = parallel_nccl(dev, bars)
+    emit("parallel_nccl", **nccl)
+    t1 = time.perf_counter()
+    ranks = parallel_gloo(bars)
+    for r in ranks:
+        emit("parallel_rank", **r)
+    out = dict(nccl=nccl, ranks=ranks, nccl_seconds=t1 - t0,
+               gloo_seconds=time.perf_counter() - t1,
+               seconds=time.perf_counter() - t0)
+    emit("parallel", seconds=out["seconds"],
+         nccl_seconds=out["nccl_seconds"], gloo_seconds=out["gloo_seconds"],
+         bars=dict(zip(("whisper_vs_plain", "ln_vs_plain"), bars)),
+         step_ms={"ungrouped": nccl["ungrouped_ms"], "nccl": nccl["step_ms"],
+                  **{f"rank{r['rank']}": r["step_ms"] for r in ranks}},
+         tick_ms={f"rank{r['rank']}": r["tick_ms"] for r in ranks},
+         allreduce_ms={"nccl": nccl["allreduce_ms"],
+                       **{f"rank{r['rank']}": r["allreduce_ms"]
+                          for r in ranks}},
+         launches={f"rank{r['rank']}": r["launches_total"] for r in ranks})
+    fails = []
+    if (not nccl["bit_equal"] or nccl["vs_plain_failed"]
+            or (nccl["launches"]["K1"], nccl["launches"]["K2"]) != (1, 1)):
+        fails.append(f"nccl {nccl['launches']} {nccl['held']} "
+                     f"vs plain {nccl['vs_plain']}")
+    for r in ranks:
+        c = r["launches"]
+        if (c["step"]["K2"], c["step"]["K1"]) != (1, 1) \
+                or c["whisper_mel"]["K1"] != 1 \
+                or c["serving"]["K4"] < PAR_TICKS \
+                or c["serving"]["K1"] < PAR_TICKS \
+                or (c["multihost"]["K2"], c["multihost"]["K1"]) != (1, 1):
+            fails.append(f"rank {r['rank']} launches {c}")
+        if blocks_failed(r["step"]) \
+                or step_errs_failed(r["step_vs_plain"], *bars):
+            fails.append(f"rank {r['rank']} step {r['step']} "
+                         f"vs plain {r['step_vs_plain']}")
+        sv, wm, mh = r["serving"], r["whisper_mel"], r["multihost"]
+        if (not wm["equal"] or wm["vs_plain"] > bars[0]
+                or sv["failed_ticks"] or sv["vs_plain"]["failed_ticks"]
+                or not sv["resumed_bit_equal"] or sv["valid_frames"] == 0
+                or sv["whole_fleet_rows"] != PAR_STREAMS
+                or mh["aggregates"] != mh["one_rank"]
+                or blocks_failed(mh["held"])
+                or step_errs_failed(mh["vs_plain"], *mh["bars"])):
+            fails.append(f"rank {r['rank']}: whisper {wm}, serving {sv}, "
+                         f"multihost {mh}")
+    if fails:
+        raise AssertionError(f"phase parallel: {fails}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        return parallel_worker(int(sys.argv[2]), int(sys.argv[3]),
+                               Path(sys.argv[4]))
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     smi = phase_device()
@@ -2953,6 +3400,7 @@ def main() -> int:
     probe = phase_load_probe(dev)
     phase_live_stream(dev)
     serve = phase_serve_streams(dev)
+    par = phase_parallel(dev, k2)
     k1_rows = rows + widths["rows"] + [dial["auto"]["auto_1024"]]
     k1_ln_rows = ln["rows"] + widths["ln_rows"]
     vs_plain = max(r["vs_plain"] for r in k1_rows + k1_ln_rows)
@@ -2967,7 +3415,10 @@ def main() -> int:
                "load_probe": {"P1": sum(probe["counts"].values())}}
     serve_paths = {"serve_streams_sig_48k": serve["run_a"]["launches"],
                    "serve_streams_rdft_8k": serve["run_b"]["launches"]}
-    by_path.update(serve_paths)
+    par_paths = {"parallel_nccl": par["nccl"]["launches"],
+                 **{f"parallel_gloo_rank{r['rank']}": r["launches_total"]
+                    for r in par["ranks"]}}
+    by_path.update(serve_paths, **par_paths)
     framed_all = framed_rows + dial["rows"]
 
     def launches(name):
@@ -3005,7 +3456,8 @@ def main() -> int:
     def rs_entry(name, key):
         return dict(common, name=name, launches=launches(name),
                     launches_by_path={k: by_path[k][name]
-                                      for k in (*serving, *serve_paths)},
+                                      for k in (*serving, *serve_paths,
+                                                *par_paths)},
                     ms=bulk["ms"][key], call_ms=bulk["call_ms"][key],
                     share_of_bound=bulk["share_of_bound"][key],
                     ms_bf3=bulk["ms"][f"{key}_bf3"],

@@ -344,14 +344,21 @@ class SourceRateFrontend:
              else chunks.shape[1] // self.hop_src)
         if h == 0:
             return (state, *_empty_tick(self.n_streams, self.config.n_mels))
+        state, *out = self._tick(state, chunks,
+                                 stream_mask(active, self.n_streams,
+                                             self.device))
+        return (state, *to_host(*out))
+
+    def _tick(self, state: SourceRateState, chunks: torch.Tensor,
+              active: torch.Tensor):
+        """The device tick: ``(state, q, lo, hi, va, valid)`` tensors."""
         # whole hops consume whole resampler windows: hop_src integral
         # means up | hop (gcd(up, down) = 1), so h*hop_src is a multiple
         # of down
-        active = stream_mask(active, self.n_streams, self.device)
         rstate, y = self.rs.step(state.rs, chunks.reshape(self.n_streams, -1),
                                  active)
         fstate, *out = self.front._tick(state.fe, y, active)
-        return (SourceRateState(rstate, fstate), *to_host(*out))
+        return (SourceRateState(rstate, fstate), *out)
 
     def reset(self, state: SourceRateState, mask) -> SourceRateState:
         mask = stream_mask(mask, self.n_streams, self.device)

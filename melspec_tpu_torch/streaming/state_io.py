@@ -3,13 +3,14 @@
 
 Every fleet state of the port is a nested ``NamedTuple`` of tensors (hop
 buffers, warm-up counters, VAD frame history, resampler tails for ``S``
-streams). The saved ``.npz`` records the state's structure (the port's
-own string: the NamedTuple types and field names), each leaf's shape and
-dtype, and a caller-supplied ``meta`` mapping (the frontends pass their
-config fingerprint). ``load_stream_state`` checks all of them against a
-template state, so a 16-stream checkpoint does not load into a 256-stream
-frontend and a checkpoint of another hop size does not resume on the
-wrong frame grid::
+streams). The saved ``.npz`` records the state's structure (as JAX prints
+the treedef of the same NamedTuples, so either package reads the other's
+files; the port's earlier spelling, the NamedTuple types and field names,
+is still read), each leaf's shape and dtype, and a caller-supplied
+``meta`` mapping (the frontends pass their config fingerprint).
+``load_stream_state`` checks all of them against a template state, so a
+16-stream checkpoint does not load into a 256-stream frontend and a
+checkpoint of another hop size does not resume on the wrong frame grid::
 
     save_stream_state(path, state, meta=front.state_meta())
     state = load_stream_state(path, like=front.init(),
@@ -47,15 +48,26 @@ def _canon_meta(meta: Optional[Mapping[str, Any]]) -> dict:
 
 def _flatten(state, leaves: List) -> str:
     """Append ``state``'s tensor leaves to ``leaves`` in field order and
-    return its structure string."""
+    return its node string, as ``str(jax.tree_util.tree_structure(...))``
+    spells a NamedTuple node."""
     if isinstance(state, tuple) and hasattr(state, "_fields"):
-        inner = ", ".join(f"{f}={_flatten(v, leaves)}"
-                          for f, v in zip(state._fields, state))
-        return f"{type(state).__name__}({inner})"
+        inner = ", ".join(_flatten(v, leaves) for v in state)
+        return f"CustomNode(namedtuple[{type(state).__name__}], [{inner}])"
     if isinstance(state, torch.Tensor):
         leaves.append(state)
         return "*"
     raise TypeError(f"state leaf is not a tensor: {state!r}")
+
+
+def _named_structure(state) -> str:
+    """The structure string the port wrote before it took JAX's spelling:
+    the NamedTuple types and field names, ``*`` for a tensor. The loader
+    accepts it, so those checkpoints still resume."""
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        inner = ", ".join(f"{f}={_named_structure(v)}"
+                          for f, v in zip(state._fields, state))
+        return f"{type(state).__name__}({inner})"
+    return "*"
 
 
 def _unflatten(like, it):
@@ -69,7 +81,7 @@ def save_stream_state(path, state, meta: Optional[Mapping[str, Any]] = None
     """Checkpoint a carried state (nested NamedTuples of tensors) to one
     ``.npz`` file, with ``meta`` (JSON-serializable) stored beside it."""
     leaves: List[torch.Tensor] = []
-    structure = _flatten(state, leaves)
+    structure = f"PyTreeDef({_flatten(state, leaves)})"
     arrays = {f"leaf_{i}": leaf.detach().cpu().numpy()
               for i, leaf in enumerate(leaves)}
     header = json.dumps({
@@ -99,7 +111,7 @@ def load_stream_state(path, like, meta: Optional[Mapping[str, Any]] = None):
     import zipfile
 
     like_leaves: List[torch.Tensor] = []
-    like_structure = _flatten(like, like_leaves)
+    like_structure = f"PyTreeDef({_flatten(like, like_leaves)})"
     try:
         ctx = np.load(_canon_path(path))
     except (zipfile.BadZipFile, ValueError, EOFError) as e:
@@ -117,7 +129,8 @@ def load_stream_state(path, like, meta: Optional[Mapping[str, Any]] = None):
             raise ValueError(
                 f"{path}: checkpoint version {header.get('version')!r}, "
                 f"expected {_FORMAT_VERSION}")
-        if header["treedef"] != like_structure:
+        if header["treedef"] not in (like_structure,
+                                     _named_structure(like)):
             raise ValueError(
                 f"{path}: state structure mismatch — checkpoint is "
                 f"{header['treedef']}, target expects {like_structure}")

@@ -171,12 +171,32 @@ def test_cuda_route_follows_k2_accepts(monkeypatch, configs, fits):
                 cls(mc, fc)
 
 
-def test_more_than_one_rank_raises(monkeypatch):
+def test_one_and_two_rank_steps_agree(monkeypatch):
+    """A step on a mesh of two ranks (a stand-in group) equals the
+    one-rank step on the same rows; its aggregates go through one
+    ``all_reduce`` (SUM over the mesh's group), here stubbed to record its
+    call and add nothing, as if the other rank held only padding."""
     import torch.distributed as dist
 
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        sharding.sharded_frontend_step(device="cpu")
-    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 1)
-    assert callable(sharding.sharded_frontend_step(device="cpu"))
+    calls = []
+
+    def all_reduce(t, op=None, group=None):
+        calls.append((t.clone(), op, group))
+
+    group = object()
+    monkeypatch.setattr(dist, "all_reduce", all_reduce)
+    monkeypatch.setattr(dist, "get_backend", lambda g=None: "gloo")
+    mesh = sharding.Mesh(group, "batch", 2, 0, torch.device("cpu"))
+    x, valid = _batch(4), np.asarray([16037, 8000, 0], np.int32)
+    one = sharding.sharded_frontend_step(
+        settings=DetectionSettings(**SETTINGS), device="cpu")(x, valid)
+    assert not calls  # no group: no collective
+    two = sharding.sharded_frontend_step(
+        mesh, DetectionSettings(**SETTINGS))(x, valid)
+    assert set(one) == set(two) == set(KEYS)
+    for key in KEYS:
+        assert torch.equal(one[key], two[key]), key
+    [(t, op, g)] = calls
+    assert op == dist.ReduceOp.SUM and g is group
+    assert t.dtype == torch.int32 and t.tolist() == [
+        int(one["vad_active_columns"]), int(one["vad_total_columns"])]

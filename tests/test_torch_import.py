@@ -36,6 +36,11 @@ def test_import_and_cpu_call_load_no_jax():
         "step = sh.sharded_frontend_step(device='cpu')\n"
         "res = step(np.zeros((1, 4000), np.float32))\n"
         "assert len(res) == 8 and mh.WhisperKaldiNemoFused\n"
+        "import melspec_tpu_torch.parallel as par\n"
+        "mesh = par.make_mesh(device='cpu')\n"
+        "rows, nv = par.chunk_audio([np.zeros(900, np.float32)], 400)\n"
+        "out, _ = par.multihost_frontend(mesh, [], 4000, 2)\n"
+        "assert len(par.__all__) == 11 and out['mel'].shape[0] == 2\n"
         "import melspec_tpu_torch.utils.vad_eval as ve\n"
         "import melspec_tpu_torch.kernels.load_probe as lp\n"
         "from melspec_tpu_torch.ops.mel_kernel import whisper_mel_vad_sig\n"

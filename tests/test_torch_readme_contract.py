@@ -8,7 +8,7 @@ The snippets call the entry points with ``device=None`` (CUDA), as a user
 on a card would. Here every port module's ``resolve_device`` maps ``None``
 to the CPU; an explicit ``"cuda"`` still raises on a host without CUDA.
 The snippets' free inputs (``batch``, ``clip``, ``chunks``, ...) are small
-seeded arrays.
+seeded arrays; the scale-out snippet runs as one process without a group.
 """
 
 import argparse
@@ -93,7 +93,7 @@ def _inputs(block: str) -> dict:
 
 
 def test_section_has_the_snippets():
-    assert len(PY_BLOCKS) == 4
+    assert len(PY_BLOCKS) == 5
     assert len(_commands()) >= 10
 
 
@@ -110,6 +110,12 @@ def _check(ns: dict, block: str) -> None:
         mm = ns["vad_eval"].macro_metrics(ns["rows"])
         assert round(mm["precision"], 4) == 0.8751
         assert round(mm["f1"], 4) == 0.8566
+    elif "make_mesh" in block:  # one process, no group: the whole batch
+        assert ns["mesh"].size == 1 and ns["mesh"].group is None
+        assert ns["step"] is not None and ns["n_valid"].shape == (24,)
+        assert tuple(ns["out"]["mel"].shape) == (24, 98, 80)
+        assert int(ns["out"]["vad_total_columns"]) > 0
+        assert ns["q"].shape == (256, 1, 128) and ns["va"].dtype == torch.bool
     elif "SpeechToMel" in block:
         assert tuple(ns["mels"].shape) == (256, 128)
         assert ns["ok"].tolist() == [False]  # 160 samples never pushed

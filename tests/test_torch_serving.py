@@ -14,6 +14,8 @@ rdft frontend) at ``STOPBAND_BAR``, and the two against each other at
 twice that bar, the distance the triangle inequality allows.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +32,7 @@ from melspec_tpu_torch.kernels import sig_mel
 from melspec_tpu_torch.ops.resample import resample_poly
 from melspec_tpu_torch.streaming.multistream import (MultiStreamMel,
                                                      MultiStreamState)
+from melspec_tpu_torch.streaming import state_io
 from melspec_tpu_torch.streaming.state_io import load_stream_state
 from melspec_tpu_torch.streaming.serving import (MultiStreamFrontend,
                                                  SourceRateFrontend,
@@ -376,6 +379,37 @@ def test_state_io_round_trip(tmp_path):
     (tmp_path / "junk.npz").write_bytes(b"not a zip")
     with pytest.raises(ValueError, match="corrupt"):
         front.load_state(tmp_path / "junk.npz")
+
+
+def _respell(path, structure) -> None:
+    """Rewrite a checkpoint's structure string, leaves untouched."""
+    with np.load(path) as z:
+        arrays = dict(z)
+    header = json.loads(bytes(arrays[state_io._META_KEY]).decode())
+    header["treedef"] = structure
+    arrays[state_io._META_KEY] = np.frombuffer(
+        json.dumps(header, sort_keys=True).encode(), np.uint8)
+    np.savez(path, **arrays)
+
+
+def test_state_io_reads_the_earlier_structure_spelling(tmp_path):
+    """A checkpoint whose structure string is the port's earlier spelling
+    (NamedTuple types and field names) still resumes bit for bit; a
+    structure of another state is still refused in that spelling."""
+    rng = np.random.default_rng(6)
+    src = SourceRateFrontend(CFG, 2, settings=SET, device=CPU)
+    st = src.push_many(src.init(), _chunks(rng, 2, 4, 480))[0]
+    path = tmp_path / "old.npz"
+    src.save_state(path, st)
+    _respell(path, state_io._named_structure(st))
+    back = src.load_state(path)
+    x = _chunks(rng, 2, 4, 480)
+    a, b = src.push_many(st, x)[1:], src.push_many(back, x)[1:]
+    assert all(np.array_equal(u, v) for u, v in zip(a, b))
+    front = MultiStreamFrontend(CFG, 2, settings=SET, device=CPU)
+    _respell(path, state_io._named_structure(front.init()))
+    with pytest.raises(ValueError, match="structure mismatch"):
+        src.load_state(path)
 
 
 def test_convert_carries_jax_state():
