@@ -29,15 +29,25 @@ show each went through its kernels:
   log-mel defaults (K2 with whisper, Kaldi and the VAD; K1 in ln_guard
   for NeMo), and 64 x 10 s at the JAX defaults, after K1's ln modes and
   K2 (two and three heads) are held against their plain versions, and K1
-  at the 256- and 1024-column heads (whisper at 8 kHz, 256/96, 22.05 kHz,
-  48 kHz where it fits; Kaldi and NeMo at 8 kHz) and K2 on the 8 kHz
-  whisper + Kaldi pair against K1 (phase k1_widths);
+  at the 256-, 1024- and 2048-column heads (whisper at 8 kHz, 256/96,
+  1024/256 at 22.05 kHz, 960/480 and 1024/480 at 48 kHz, 2048/512 at
+  22.05 kHz, each with its VAD and u8 epilogues; Kaldi and NeMo at 8 kHz)
+  and K2 on the 8 kHz whisper + Kaldi pair against K1 (phase k1_widths);
+- the wide hops (phase ``wide_hops``): 64 x 30 s through
+  ``WhisperMelPipeline`` and ``whisper_mel_pallas(impl=None)`` at
+  960/480/40, 1024/480/64 (48 kHz) and 2048/512/128 (22.05 kHz), K1 once
+  each in its 32-frame blocks, against float64, with K1's, K5's and the
+  library composition's times and K1's bound; and every whisper config of
+  the mirrored JAX tests (phase ``broad_configs``: the five of
+  tests/test_configs_broad.py, the six of tests/test_fuzz_differential.py)
+  through both entry points, each route's kernel counted;
 - the precision dial: ``whisper_mel_pallas(x, 400, 160, 128, impl=...)``
   on 64 x 30 s for each of bf3 / hp8 / hp_bf16 / f32 (K5 / K6 / K7 / K8,
   one launch each, K1 none), after K5-K8 are held against their plain
   versions (float32 and float64 dots) on 64 ragged 10 s clips, on 8
   clips at 1024/256/80/22050 and on 8 clips at 960/480/40/48000 (the
-  auto route's K5 where K1 refuses the head) and pass the JFK gates, and
+  route K5 took there while K1 refused the head) and pass the JFK gates,
+  and
   K6's and K7's
   DFT power equals their plain versions' bit for bit at both shapes and
   framings (phase ozaki_power); then the auto
@@ -267,15 +277,34 @@ P1_REPLACES = "tools/hbm_reshape_probe.py:47"
 # Sobel gradient of one (frame, row): gx and gy 7 operations each, g2 3
 SOBEL_OPS = 17
 # K1 at the widths other than 512 (phase k1_widths): whisper configs of
-# the JAX package's tests/test_configs_broad.py, and Kaldi and NeMo at 8
-# kHz (256-column heads); all but 960/480 must be accepted, that one
-# where its span fits a block's shared memory
+# the JAX package's tests/test_configs_broad.py, librosa's default n_fft /
+# hop_length (2048/512 at 22.05 kHz, a 2048-column head) and LAION-CLAP's
+# STFT (1024/480 at 48 kHz), and Kaldi and NeMo at 8 kHz (256-column
+# heads); every one must be accepted. The wide hops (960/480, 1024/480,
+# 2048/512) take K1's 32-frame blocks; phase wide_hops times them at
+# WIDE_B x WIDE_SECONDS beside K5 and the library composition
 WIDTH_B = 8
 WIDTH_CONFIGS = [("whisper_8k", 200, 80, 80, 8000.0),
                  ("whisper_256_96", 256, 96, 32, 16000.0),
                  ("whisper_1024_256", 1024, 256, 80, 22050.0),
-                 ("whisper_960_480", 960, 480, 40, 48000.0)]
-WIDTH_MUST_ACCEPT = ("whisper_8k", "whisper_256_96", "whisper_1024_256")
+                 ("whisper_960_480", 960, 480, 40, 48000.0),
+                 ("whisper_2048_512", 2048, 512, 128, 22050.0),
+                 ("whisper_1024_480", 1024, 480, 64, 48000.0)]
+WIDTH_MUST_ACCEPT = tuple(c[0] for c in WIDTH_CONFIGS)
+WIDE_HOPS = ("whisper_960_480", "whisper_2048_512", "whisper_1024_480")
+WIDE_B, WIDE_SECONDS = 64, 30.0
+# phase broad_configs: the whisper configs of the JAX package's
+# tests/test_configs_broad.py and the six that
+# tests/test_fuzz_differential.py draws from its seed 0xC0FFEE (a CPU test
+# holds this list to those draws), each through the entry points' auto
+# routes on BROAD_B clips of BROAD_SECONDS, against the float64 rdft route
+BROAD_CONFIGS = [(400, 160, 128, 16000.0), (512, 128, 64, 8000.0),
+                 (1024, 256, 80, 22050.0), (960, 480, 40, 48000.0),
+                 (256, 96, 32, 16000.0)]
+FUZZ_CONFIGS = [(400, 379, 20, 8000.0), (256, 48, 80, 22050.0),
+                (128, 18, 40, 22050.0), (128, 59, 20, 22050.0),
+                (512, 194, 40, 22050.0), (256, 252, 20, 16000.0)]
+BROAD_B, BROAD_SECONDS = 4, 2.0
 NEMO_8K = BatchLogMelConfig(sample_rate=8000, n_fft=256, win_length=200,
                             hop_length=80)
 # the live per-hop service (phase live_stream), plain PyTorch as in JAX:
@@ -543,12 +572,12 @@ def phase_gates(dev) -> None:
         raise AssertionError(f"accuracy gates failed: {failed}")
 
 
-def library_mel(x, fft, hop, n_mels):
+def library_mel(x, fft, hop, n_mels, sr=16000.0):
     """The same function composed from library calls: cuFFT STFT, power,
     f32 matmul projection, log10, whisper norm (timed only)."""
     win = torch.as_tensor(hann_periodic(fft), dtype=torch.float32,
                           device=x.device)
-    filt = torch.as_tensor(mel_filterbank(16000.0, fft, n_mels)[:, : fft // 2].T,
+    filt = torch.as_tensor(mel_filterbank(sr, fft, n_mels)[:, : fft // 2].T,
                            dtype=torch.float32, device=x.device)
 
     def run():
@@ -1342,13 +1371,18 @@ def phase_k1_widths(dev, rows, ln_rows) -> dict:
     ragged clips of 10 s at each config's rate, through the entry points
     (``whisper_mel_sig`` batch and streaming, ``Fbank`` / ``BatchLogMel``
     on their sig route): whisper 200/80 at 8 kHz, 256/96, 1024/256 at
-    22.05 kHz and 960/480 at 48 kHz, Kaldi fbank and NeMo log-mel at 8
-    kHz, each against its plain version and the exact result at K1's bars
-    (whisper) or the ln bars, where ``k1_accepts`` holds; a refused config
-    is listed with its shared-memory figure. The JFK clip through each
-    whisper config against its float64 route. Then K2 on the 8 kHz
-    whisper + Kaldi pair, both heads ``torch.equal`` to K1 and the VAD
-    counts to ``tile_vad_counts`` of head 0."""
+    22.05 kHz, 960/480 and 1024/480 at 48 kHz and 2048/512 at 22.05 kHz,
+    Kaldi fbank and NeMo log-mel at 8 kHz, each against its plain version
+    and the exact result at K1's bars (whisper) or the ln bars; a refused
+    config is listed with its shared-memory figure and fails the phase.
+    The JFK clip through each whisper config against its float64 route.
+    Each whisper config's epilogues on the same clips: the VAD route's
+    mel ``torch.equal`` to ``whisper_mel_sig``'s, its raw to
+    ``classify_columns`` of that mel, K1's counts to ``tile_vad_counts``
+    at the launch's tile, the u8 records to ``quantize_frames`` of that
+    mel. Then K2 on the 8 kHz whisper + Kaldi pair, both heads
+    ``torch.equal`` to K1 and the VAD counts to ``tile_vad_counts`` of
+    head 0."""
     rng = np.random.default_rng(SEED + 55)
     jfk = read_wav_f32le(TESTDATA / "jfk_f32le.wav")
     cases, w_rows, l_rows, refused = [], [], [], {}
@@ -1378,6 +1412,8 @@ def phase_k1_widths(dev, rows, ln_rows) -> dict:
         cases[-1]["jfk_vs_f64"] = max_abs(
             whisper_mel_sig(xj, fft, hop, n_mels, sr, device=dev).double(),
             f64.mel_batch(xj.double()))
+        cases[-1]["epilogues"] = width_epilogues(x, head, fft, hop, n_mels,
+                                                 sr, dev)
     for name, front in (
             ("kaldi_8k", Fbank(FbankConfig(sample_rate=8000.0,
                                            apply_cmn=False),
@@ -1425,10 +1461,176 @@ def phase_k1_widths(dev, rows, ln_rows) -> dict:
     bad += [r["name"] for r in l_rows if r["vs_exact"] > lbars["vs_exact"]
             or r["vs_plain"] > lbars["vs_plain"]]
     bad += [n for n in WIDTH_MUST_ACCEPT if n in refused]
+    bad += [r["name"] for r in w_rows
+            if "epilogues" in r and not all(r["epilogues"][k] for k in (
+                "vad_mel_equal", "vad_raw_equal", "counts_equal",
+                "quant_equal"))]
     if bad or not all(v for k, v in k2.items() if k.endswith("equal_k1")
                       or k == "counts_equal"):
         raise AssertionError(f"K1 widths: {bad}, K2 8 kHz {k2}")
     return dict(rows=w_rows, ln_rows=l_rows, refused=refused, k2=k2)
+
+
+def width_epilogues(x, head, fft, hop, n_mels, sr, dev) -> dict:
+    """K1's two epilogues at one whisper config, through the entry points
+    (``whisper_mel_vad_sig``, ``whisper_mel_quantized``) and the VAD
+    wrapper, each held exactly to its function of ``whisper_mel_sig``'s
+    mel on the same clips."""
+    settings = DetectionSettings()
+    mel = whisper_mel_sig(x, fft, hop, n_mels, sr, device=dev)
+    mel_v, raw = mel_kernel.whisper_mel_vad_sig(x, settings, fft, hop,
+                                                n_mels, sr, device=dev)
+    q = mel_kernel.whisper_mel_quantized(x, fft, hop, n_mels, sr, device=dev)
+    vad = sig_mel.vad_args(settings, n_mels)
+    width = head.m_big.shape[1]
+    tile = sig_mel.k1_vad_tile(dev, ks=3, hop=hop, pack=fft, pack_off=0,
+                               width=width, npow=head.n_bins_pad,
+                               n_mels_pad=head.mt.shape[1])
+    k_mel, counts = sig_mel.sig_mel_vad(
+        x, head.m_big, head.pair_i, head.mt, ks=3, n_frames=mel.shape[1],
+        hop=hop, offset=0, pack=fft, n_bins_pad=head.n_bins_pad,
+        n_mels=n_mels, vad=vad, live=head.live)
+    return dict(
+        vad_tile=tile,
+        vad_mel_equal=bool(torch.equal(mel_v, mel)
+                           and torch.equal(k_mel, mel)),
+        vad_raw_equal=bool(torch.equal(
+            raw, classify_columns(mel.transpose(-1, -2), settings))),
+        counts_equal=bool(torch.equal(
+            counts, sig_mel.tile_vad_counts(mel, *vad, tile))),
+        quant_equal=all(bool(torch.equal(a, b))
+                        for a, b in zip(q, quantize_frames(mel))))
+
+
+def phase_wide_hops(dev) -> dict:
+    """K1's 32-frame blocks at the wide hops (960/480/40 and 1024/480/64
+    at 48 kHz, 2048/512/128 at 22.05 kHz) on ``WIDE_B`` x
+    ``WIDE_SECONDS`` clips. The auto routes,
+    ``WhisperMelPipeline(...).mel_batch`` and ``whisper_mel_pallas(impl=
+    None)``, with the counts zeroed before each call and read after it:
+    K1 once and no other kernel, each against the float64 rdft route at
+    ``AUTO_TOL``. Then, on the same input, K1's time per call, K5's (the
+    framed bf3 kernel alone on pre-framed input, and
+    ``whisper_mel_pallas(impl="bf3")`` with its framing: the route these
+    configs took while K1 refused them) and the library composition's,
+    beside K1's bound (``head_work``, and the bytes of ``head_bytes``)
+    and the L2 bytes its loads request (counted, not measured)."""
+    rng = np.random.default_rng(SEED + 57)
+    res, counts = {}, {}
+    for name, fft, hop, n_mels, sr in WIDTH_CONFIGS:
+        if name not in WIDE_HOPS:
+            continue
+        x = signal(rng, WIDE_B, int(WIDE_SECONDS * sr), dev)
+        head = mel_kernel.whisper_head(fft, n_mels, sr, dev)
+        layout = k1_layout(head, hop)
+        pipe = WhisperMelPipeline(fft, hop, n_mels, sr, device=dev)
+        zero_counts()
+        got = pipe.mel_batch(x)
+        torch.cuda.synchronize()
+        counts[f"pipeline_{name}"] = read_counts()
+        zero_counts()
+        auto = mel_kernel.whisper_mel_pallas(x, fft, hop, n_mels, sr,
+                                             device=dev)
+        torch.cuda.synchronize()
+        counts[f"auto_{name}"] = read_counts()
+        f64 = WhisperMelPipeline(fft, hop, n_mels, sr, dtype=torch.float64,
+                                 fft_impl="rdft", device=dev).mel_batch(
+                                     x.double())
+        nf = got.shape[1]
+        r = dict(route=pipe.fft_impl, block_frames=layout[0],
+                 chunk_cols=layout[1], shape=[WIDE_B, x.shape[-1]],
+                 n_frames=nf, finite=bool(torch.isfinite(got).all()),
+                 pipeline_vs_f64=max_abs(got.double(), f64),
+                 auto_vs_f64=max_abs(auto.double(), f64),
+                 auto_equal_pipeline=bool(torch.equal(auto, got)))
+        del f64, auto
+        kw = dict(ks=3, n_frames=nf, hop=hop, offset=0, **head.kw())
+        r["ms"] = time_ms(lambda: sig_mel.sig_mel(x, head.m_big, head.pair_i,
+                                                  head.mt, **kw))
+        frames, _ = mel_kernel.framed_input(x, fft, hop)
+        mats = mel_kernel.framed_matrices("bf3", fft, n_mels, sr, 3, 2, dev)
+        r["k5_ms"] = time_ms(lambda: framed_mel.framed_mel(
+            frames, mats, n_mels=n_mels, taps=fft))
+        del frames
+        r["k5_call_ms"] = time_ms(lambda: mel_kernel.whisper_mel_pallas(
+            x, fft, hop, n_mels, sr, impl="bf3", device=dev))
+        lib = library_mel(x, fft, hop, n_mels, sr)
+        r["library_composition_ms"] = time_ms(lib)
+        r["library_composition_max_abs_vs_k1"] = max_abs(lib(), got)
+        b = bound(head_work(head, WIDE_B * nf), head_bytes([head], x, [got]))
+        r.update(b, share_of_bound=b["bound_ms"] / r["ms"],
+                 k1_over_k5=r["ms"] / r["k5_ms"],
+                 **l2_bytes_counted([head], hop, WIDE_B, nf, layout))
+        res[name] = r
+        del x, got
+    emit("wide_hops", launches=counts, bar_vs_f64=AUTO_TOL, **res)
+    fails = [k for k, c in counts.items()
+             if {n: v for n, v in c.items() if v} != {"K1": 1}]
+    fails += [n for n, r in res.items()
+              if r["route"] != "sig" or r["block_frames"] != 32
+              or not r["finite"] or not r["auto_equal_pipeline"]
+              or max(r["pipeline_vs_f64"], r["auto_vs_f64"]) > AUTO_TOL]
+    if fails:
+        raise AssertionError(f"wide hops: {fails}")
+    return dict(times=res, counts=counts)
+
+
+def phase_broad_configs(dev) -> dict:
+    """Each whisper config of the mirrored JAX tests (``BROAD_CONFIGS``,
+    ``FUZZ_CONFIGS``) through ``WhisperMelPipeline(...).mel_batch`` and
+    ``whisper_mel_pallas(impl=None)`` on ``BROAD_B`` clips of
+    ``BROAD_SECONDS``, the counts zeroed before each call and read after
+    it. Each route's kernel launches once (the pipeline's sig route: K1,
+    its bf3 route: plain PyTorch, none; the pallas route: K1 for sig, K5
+    for bf3), and each output is held against the float64 rdft route at
+    ``AUTO_TOL``, the bar of the float32 whisper routes."""
+    rng = np.random.default_rng(SEED + 58)
+    res, counts = {}, {}
+    kernel = {"sig": "K1", "bf3": "K5"}
+    fails = []
+    for fft, hop, n_mels, sr in BROAD_CONFIGS + FUZZ_CONFIGS:
+        name = f"{fft}_{hop}_{n_mels}_{int(sr)}"
+        x = signal(rng, BROAD_B, int(BROAD_SECONDS * sr) + 37, dev)
+        f64 = WhisperMelPipeline(fft, hop, n_mels, sr, dtype=torch.float64,
+                                 fft_impl="rdft", device=dev).mel_batch(
+                                     x.double())
+        pipe = WhisperMelPipeline(fft, hop, n_mels, sr, device=dev)
+        zero_counts()
+        got = pipe.mel_batch(x)
+        torch.cuda.synchronize()
+        counts[f"pipeline_{name}"] = read_counts()
+        impl = mel_kernel.resolve_pallas_impl(fft, hop, n_mels, sr,
+                                              device=dev)
+        zero_counts()
+        auto = mel_kernel.whisper_mel_pallas(x, fft, hop, n_mels, sr,
+                                             device=dev)
+        torch.cuda.synchronize()
+        counts[f"pallas_{name}"] = read_counts()
+        res[name] = dict(pipeline_route=pipe.fft_impl, pallas_route=impl,
+                         pipeline_vs_f64=max_abs(got.double(), f64),
+                         pallas_vs_f64=max_abs(auto.double(), f64))
+        want_pipe = {"K1": 1} if pipe.fft_impl == "sig" else {}
+        for key, want in ((f"pipeline_{name}", want_pipe),
+                          (f"pallas_{name}", {kernel[impl]: 1})):
+            if {k: v for k, v in counts[key].items() if v} != want:
+                fails.append(f"{key} launches {counts[key]}")
+        if max(res[name]["pipeline_vs_f64"],
+               res[name]["pallas_vs_f64"]) > AUTO_TOL:
+            fails.append(f"{name} vs float64")
+    emit("broad_configs", launches=counts, bar_vs_f64=AUTO_TOL,
+         shape=[BROAD_B, BROAD_SECONDS], **res)
+    if fails:
+        raise AssertionError(f"broad configs: {fails}")
+    return dict(res=res, counts=counts)
+
+
+def sum_counts(counts: dict) -> dict:
+    """The launches of several runs of one path, kernel by kernel."""
+    total = {}
+    for c in counts.values():
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def phase_k2(dev, rows, ln_rows) -> dict:
@@ -1754,8 +1956,8 @@ def phase_framed_vs_plain(dev) -> list:
     """K5-K8 through ``whisper_mel_pallas`` against their plain versions
     (f32 and float64 dots) on 64 ragged 10 s clips at 400/160/128, 8
     clips at 1024/256/80/22050 (planes of 512 bins: four chunks) and 8 at
-    960/480/40/48000 (the auto route's K5 where K1 refuses the head; 32
-    frames a block), both framings; then the JFK gates through the
+    960/480/40/48000 (K5's 32-frame blocks; the route this config took
+    while K1 refused it), both framings; then the JFK gates through the
     kernels. These launches are not counted."""
     rng = np.random.default_rng(SEED + 80)
     rows = []
@@ -3390,6 +3592,8 @@ def main() -> int:
     ln = phase_k1_ln_modes(dev)
     k2 = phase_k2(dev, rows, ln["rows"])
     widths = phase_k1_widths(dev, rows, ln["rows"])
+    wide = phase_wide_hops(dev)
+    broad = phase_broad_configs(dev)
     front = phase_frontend_step(dev, k2)
     framed_rows = phase_framed_vs_plain(dev)
     ozaki_power = phase_ozaki_power(dev)
@@ -3412,7 +3616,9 @@ def main() -> int:
                **{f"vad_wire_{k}": v["launches"] for k, v in wire.items()},
                **{f"ten_vad_{k}": v["launches"]
                   for k, v in ten_vad.items()},
-               "load_probe": {"P1": sum(probe["counts"].values())}}
+               "load_probe": {"P1": sum(probe["counts"].values())},
+               "wide_hops": sum_counts(wide["counts"]),
+               "broad_configs": sum_counts(broad["counts"])}
     serve_paths = {"serve_streams_sig_48k": serve["run_a"]["launches"],
                    "serve_streams_rdft_8k": serve["run_b"]["launches"]}
     par_paths = {"parallel_nccl": par["nccl"]["launches"],
@@ -3484,6 +3690,11 @@ def main() -> int:
         **{k: main[k] for k in ("block_frames", "chunk_cols")},
         "dft_mma": DFT_MMA,
         "widths_refused": widths["refused"],
+        "wide_hops": {k: {f: v[f] for f in (
+            "block_frames", "ms", "k5_ms", "k5_call_ms",
+            "library_composition_ms", "bound_ms", "bound_by",
+            "share_of_bound", "shape")}
+            for k, v in wide["times"].items()},
         "serving_bulk_ms": bulk["k1_serving_ms"],
         "ln_modes": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
                                            "bound_by",

@@ -24,10 +24,14 @@
 //     warpgroups takes 64 frames and all 128 columns of a chunk), or 64
 //     (Lay<1>: each warpgroup takes all 64 frames and half of a 256-column
 //     chunk) where the 128-frame span does not fit in shared memory or a
-//     head has more than 128 padded mel columns. Either way a k16 step of
-//     the DFT is one wgmma m64n128k16 per warpgroup, A from registers, B
-//     from the ring by descriptor, and a thread holds 64 float32 DFT
-//     accumulators; the larger tile halves the m_big bytes per frame.
+//     head has more than 128 padded mel columns, or 32 (Lay<2>: Lay<1>'s
+//     walk with rows 32-63 of each warpgroup's m64 tile held at zero)
+//     where neither fits (the wide hops: 960/480, 1024/480, 2048/512).
+//     Either way a k16 step of the DFT is one wgmma m64n128k16 per
+//     warpgroup, A from registers, B from the ring by descriptor, and a
+//     thread holds 64 float32 DFT accumulators; the larger tile halves the
+//     m_big bytes per frame, and Lay<2> spends half its DFT work on the
+//     zero rows.
 //   - The tile's signal span is staged once as ks bf16 slices in shared
 //     memory, cut into hop-long segments whose row stride is padded to 8
 //     mod 16 elements: frame f's taps start in segment f, so the 8 frame
@@ -50,8 +54,8 @@
 //     accumulating the energy [tile, nmp] in registers (64 floats a thread
 //     at most) across chunks. The "highest" (f32)
 //     projection stays float32 FMAs. Shared memory and registers do not
-//     depend on the head's width: 256-, 512- and 1024-column heads differ
-//     in their chunk count only.
+//     depend on the head's width: 256-, 512-, 1024- and 2048-column heads
+//     differ in their chunk count only.
 //   - After the last chunk: logs, the whisper norm or the ln modes, and
 //     the epilogues on the normalized tile.
 //   Sum order: every output sums the head's K blocks in the given order
@@ -69,7 +73,8 @@ namespace sigk {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 // the tile of the VAD counts' zeros (the last two frames of every 64) and
-// of P1's spans; a block's frames are a multiple of it
+// of P1's spans; the frames of a Lay<0> or Lay<1> block are a multiple of
+// it, and a Lay<2> block counts on its own 32 frames (Lay::kVadTile)
 constexpr int kTileFrames = 64;
 constexpr int kChunk = 32;       // m_big rows per ring stage
 constexpr int kMaxBlocks = 16;   // K blocks (slice pairs)
@@ -88,25 +93,36 @@ constexpr unsigned kCoreN = 528;  // bytes between core matrices along N
 constexpr unsigned kLbo = kCoreK;
 constexpr unsigned kSbo = kCoreN;
 
-// The block layouts: C = 0 holds 128 frames, C = 1 64. The DFT: warpgroup
-// w takes frames [w * kWgFrames, + 64) and ring columns [w * kWgCols,
-// + 128) of a chunk of kCols (Lay<0>: its own 64 frames and all 128
-// columns; Lay<1>: all 64 frames and half of 256 columns). The projection
-// and the outputs: kWM warp rows of 32 frames x kWN warp columns. A ring
-// stage holds 32 m_big rows of a chunk.
+// The block layouts: C = 0 holds 128 frames, C = 1 64, C = 2 32. The DFT:
+// warpgroup w takes frames [w * kWgFrames, + 64) and ring columns [w *
+// kWgCols, + 128) of a chunk of kCols (Lay<0>: its own 64 frames and all
+// 128 columns; Lay<1>: all 64 frames and half of 256 columns; Lay<2>:
+// Lay<1>'s split with only rows 0-31 of the m64 tile holding frames, so
+// warps 2 and 3 of each warpgroup give zero A rows and store no power).
+// The projection and the outputs: kWM warp rows of 32 frames x kWN warp
+// columns. A ring stage holds 32 m_big rows of a chunk.
 template <int C>
 struct Lay {
-  static constexpr int kWM = C == 0 ? 4 : 2;
+  static constexpr int kWM = C == 0 ? 4 : (C == 1 ? 2 : 1);
   static constexpr int kSlots = 4;  // ring stages
   static constexpr int kWN = kWarps / kWM;
-  static constexpr int kTile = 32 * kWM;       // frames per block
-  static constexpr int kCols = 64 * kWN;       // DFT columns per chunk
+  static constexpr int kTile = 32 * kWM;            // frames per block
+  static constexpr int kCols = C == 0 ? 128 : 256;  // DFT columns per chunk
   static constexpr int kWgFrames = C == 0 ? 64 : 0;
   static constexpr int kWgCols = C == 0 ? 0 : 128;
+  static constexpr bool kMasked = C == 2;  // m64 rows 32-63 hold no frame
   static constexpr int kStageBytes = kCols / 8 * kCoreN;
   static constexpr int kRingBytes = kSlots * kStageBytes;
   static constexpr int kMaxMels = 8 * 8 * kWN;  // energy: 8 n8 tiles a warp
+  // the VAD counts' tile: the last two frames of each get 0
+  static constexpr int kVadTile = kTile < kTileFrames ? kTile : kTileFrames;
 };
+
+// whether this warp's 16 rows of its warpgroup's m64 tile hold frames
+template <int C>
+__device__ __forceinline__ bool rows_live() {
+  return !Lay<C>::kMasked || ((threadIdx.x >> 5) & 3) < 2;
+}
 
 // ops/fastmath.py: _E_ROUND, float32(log10(2)), float32(ln(2)) and the
 // Horner coefficients float32(scale * (2/7, 2/5, 2/3, 2)) with scale
@@ -138,7 +154,7 @@ struct Head {
   const void* mt;              // bf16 [3*npow, nmp] (bf2) or f32 [npow, nmp]
   float* out;                  // [B, n_frames, n_mels]
   int n_blocks, pack, pack_off;
-  int width;                   // DFT columns: 256, 512 or 1024
+  int width;                   // DFT columns: 256, 512, 1024 or 2048
   int npow;                    // width / 2: split re|im halves; width: N-packed
   int live;                    // power columns [0, live) may be nonzero
   int n_mels, n_mels_pad, bf2, out_mode;
@@ -575,6 +591,8 @@ __device__ __forceinline__ void dft_chunk(const Head& h, const int* tab,
   const int n_steps = h.n_blocks * cpb;
   // this warpgroup's columns in a ring stage
   const unsigned wg_cols = (warp >> 2) * (L::kWgCols / 8) * kCoreN;
+  // Lay<2>: the rows past the tile read nothing and stay zero
+  const bool live = rows_live<C>();
 
   __syncthreads();  // the ring and the span are ready for this chunk
   // stage s's wgmma's run while stage s + 1 is set up; stages up to s +
@@ -614,7 +632,8 @@ __device__ __forceinline__ void dft_chunk(const Head& h, const int* tab,
         const int dd = seg[hh] * sp.stride + pos[hh];
 #pragma unroll
         for (int rw = 0; rw < 2; ++rw)
-          a[k][rw + 2 * hh] = a_pair<kFast>(xs, roff[rw] + dd, pos[hh], sp);
+          a[k][rw + 2 * hh] =
+              live ? a_pair<kFast>(xs, roff[rw] + dd, pos[hh], sp) : 0u;
         pos[hh] += 16;
         while (pos[hh] >= sp.hop) {
           pos[hh] -= sp.hop;
@@ -670,6 +689,7 @@ __device__ __forceinline__ void store_power(const Head& h,
   const int cp = chunk_pow<C>(h.width, h.npow);
   const int wg = warp >> 2;
   const int col0 = wg * (split ? L::kWgCols / 2 : L::kWgCols);
+  if (!rows_live<C>()) return;  // Lay<2>: zero rows, no frames
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     if (split && j >= 8) continue;
@@ -941,10 +961,10 @@ __device__ __forceinline__ void run_head(const Head& h, int* tab,
 // [start_y, n_mels - 2) whose 3x3 patch (frames x .. x+2, rows y .. y+2)
 // has a squared gradient >= thr, written to counts[b * n_frames + k0 + x].
 // The expression order is ops/vad.py::sobel_gradient_sq's, each operation
-// rounded. The last two frames of every 64 (kTileFrames) get 0, whatever
-// the block's tile, and the caller recomputes them from the mel output;
-// the clip's last two frames have no patch and get 0. One warp per frame,
-// the rows over its lanes.
+// rounded. The last two frames of every Lay::kVadTile (64, or 32 in a
+// 32-frame block) get 0, and the caller recomputes them from the mel
+// output; the clip's last two frames have no patch and get 0. One warp per
+// frame, the rows over its lanes.
 template <int C>
 __device__ __forceinline__ void vad_counts(const float* vals, int nmp,
                                            int n_mels, int start_y,
@@ -954,8 +974,9 @@ __device__ __forceinline__ void vad_counts(const float* vals, int nmp,
   const int lane = threadIdx.x & 31;
   for (int x = warp; x < Lay<C>::kTile; x += kWarps) {
     int cnt = 0;
-    // a patch must lie inside a 64-frame tile and inside the clip
-    if (x % kTileFrames < kTileFrames - 2 && k0 + x + 2 < n_frames) {
+    // a patch must lie inside a VAD tile and inside the clip
+    constexpr int kVt = Lay<C>::kVadTile;
+    if (x % kVt < kVt - 2 && k0 + x + 2 < n_frames) {
       const float* r0 = vals + x * nmp;
       const float* r1 = r0 + nmp;
       const float* r2 = r1 + nmp;
@@ -1041,45 +1062,58 @@ __device__ __forceinline__ void quant_records(const float* vals, int nmp,
 
 // The layout of a launch: C = 0 (128-frame blocks) where every head has
 // at most Lay<0>::kMaxMels padded mel columns and the block's shared
-// memory fits, else C = 1 (64-frame blocks). `need(c)` is the block's
-// dynamic shared memory in layout c. Returns c and writes the block's
-// shared memory in that layout (dynamic + static); a caller refuses the
-// launch where it exceeds kSmemLimit.
+// memory fits, else C = 1 (64-frame blocks) where it fits or max_layout is
+// 1, else C = 2 (32-frame blocks). `need(c)` is the block's dynamic shared
+// memory in layout c. Returns c and writes the block's shared memory in
+// that layout (dynamic + static); a caller refuses the launch where it
+// exceeds kSmemLimit. A head that fits in layout 0 or 1 keeps it.
 template <class Need>
-__host__ inline int pick_layout(int max_nmp, Need need, long long* bytes) {
+__host__ inline int pick_layout(int max_nmp, Need need, int max_layout,
+                                long long* bytes) {
   if (max_nmp <= Lay<0>::kMaxMels) {
     *bytes = need(0) + kStaticSmem;
     if (*bytes <= kSmemLimit) return 0;
   }
   *bytes = need(1) + kStaticSmem;
-  return 1;
+  if (*bytes <= kSmemLimit || max_layout < 2) return 1;
+  *bytes = need(2) + kStaticSmem;
+  return 2;
 }
 
 // Whether the kernels take a head's column layout and projection: 256,
-// 512 or 1024 DFT columns, split (npow = width / 2) or N-packed, a live
-// count in multiples of 8, up to kMaxNmp padded mel columns
+// 512, 1024 or 2048 DFT columns (at most max_width), split (npow = width
+// / 2) or N-packed, a live count in multiples of 8, up to kMaxNmp padded
+// mel columns
 __host__ inline bool head_ok(int width, int npow, int live, int n_mels,
-                             int n_mels_pad) {
-  return (width == 256 || width == 512 || width == 1024) &&
-         (npow == width || npow == width / 2) && live >= 0 &&
-         live <= npow && live % 8 == 0 && n_mels > 0 &&
+                             int n_mels_pad, int max_width) {
+  return (width == 256 || width == 512 || width == 1024 || width == 2048) &&
+         width <= max_width && (npow == width || npow == width / 2) &&
+         live >= 0 && live <= npow && live % 8 == 0 && n_mels > 0 &&
          n_mels_pad % 128 == 0 && n_mels_pad <= kMaxNmp &&
          n_mels <= n_mels_pad;
 }
 
 // frames per block of layout c
 __host__ __device__ inline int layout_frames(int c) {
-  return c == 0 ? Lay<0>::kTile : Lay<1>::kTile;
+  return c == 0 ? Lay<0>::kTile : (c == 1 ? Lay<1>::kTile : Lay<2>::kTile);
 }
 
 // DFT columns per chunk of layout c
 __host__ __device__ inline int layout_cols(int c) {
-  return c == 0 ? Lay<0>::kCols : Lay<1>::kCols;
+  return c == 0 ? Lay<0>::kCols : (c == 1 ? Lay<1>::kCols : Lay<2>::kCols);
+}
+
+// the VAD counts' tile of layout c
+__host__ __device__ inline int layout_vad_tile(int c) {
+  return c == 0 ? Lay<0>::kVadTile
+                : (c == 1 ? Lay<1>::kVadTile : Lay<2>::kVadTile);
 }
 
 // work_bytes of layout c
 __host__ inline long long layout_work_bytes(int c, int width, int npow) {
-  return c == 0 ? work_bytes<0>(width, npow) : work_bytes<1>(width, npow);
+  return c == 0   ? work_bytes<0>(width, npow)
+         : c == 1 ? work_bytes<1>(width, npow)
+                  : work_bytes<2>(width, npow);
 }
 
 }  // namespace sigk

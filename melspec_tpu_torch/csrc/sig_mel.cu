@@ -6,8 +6,8 @@
 // epilogues. For clip b and frame k it computes (device code in
 // sig_common.cuh):
 //   1. the samples offset + k*hop + pack_off ... + pack, staged once per
-//      block of 128 (or 64) frames as one overlapping span in shared
-//      memory;
+//      block of 128 (or 64, or 32) frames as one overlapping span in
+//      shared memory;
 //   2. the bf16 residual cascade x_0 .. x_{ks-1} of every staged sample;
 //   3. y = sum_blk x_{pair_i[blk]} . m_big[blk*pack : (blk+1)*pack, :] on
 //      the tensor cores (bf16 wgmma, float32 accumulation); a
@@ -32,8 +32,8 @@
 //      (quant_records: q[b, k, :n_mels] u8 and lo, hi [b, k] f32, with no
 //      float mel written, n_mels + 8 bytes a frame instead of 4 * n_mels)
 //      and the Sobel VAD counts (vad_counts, the code K2 runs: counts[b, k]
-//      int32, 0 on the last two frames of each 64-frame tile, which the
-//      wrapper recomputes).
+//      int32, 0 on the last two frames of each 64-frame tile (32-frame in
+//      32-frame blocks), which the wrapper recomputes).
 //
 // What bounds it: operations. At whisper 400/160/128 the function needs
 // 2*2400*399 + 2*3*200*128 FLOPs a frame (6 blocks of 400 taps against
@@ -43,14 +43,17 @@
 // block reads every live column of every K block once (1.9 MB at
 // 400/160), so a launch over 64 x 30 s requests 3.3 GB from L2 in
 // 128-frame blocks. The block layout (128 frames where the span fits,
-// else 64; wgmma m64n128k16 either way), the column-chunk walk with its
+// else 64, else 32 for the wide hops, whose 64-frame span does not fit:
+// 960/480, 1024/480, 2048/512; wgmma m64n128k16 in each, the 32-frame
+// block with half of its m64 rows at zero), the column-chunk walk with its
 // 4-stage cp.async ring, the live-column count and the segmented span
 // (sig_common.cuh) are the design's answers; the whole row of DFT columns
 // stays in the block, so power, projection, log and norm follow without
 // a round trip through device memory, and so do the epilogues. Shared
 // memory: the span's slices, the ring (33 KB in 128-frame blocks, 66 KB
-// in 64-frame blocks, whose chunks are twice as wide) and a power tile
-// (32 KB split, 64 KB N-packed); the log tile reuses the last two.
+// in 64- and 32-frame blocks, whose chunks are twice as wide) and a power
+// tile (32 KB split, 64 KB N-packed; half that in 32-frame blocks); the log
+// tile reuses the last two.
 //
 // Plain C interface, built with nvcc and bound with ctypes
 // (melspec_tpu_torch/kernels/sig_mel.py). Every launch is followed by
@@ -103,8 +106,8 @@ __global__ void __launch_bounds__(kThreads, 1) sig_mel_kernel(const Params p) {
                    p.vad_thr, b, k0, p.n_frames, p.vad);
 }
 
-// The block layout of a launch (sig_common.cuh::pick_layout): returns
-// its code, writes its span and shared memory
+// The block layout of a launch (sig_common.cuh::pick_layout, all three
+// layouts): returns its code, writes its span and shared memory
 int layout(int ks, int hop, int pack, int pack_off, int width, int npow,
            int n_mels_pad, Span* span, long long* bytes) {
   auto span_of = [&](int c) {
@@ -113,7 +116,7 @@ int layout(int ks, int hop, int pack, int pack_off, int width, int npow,
   auto need = [&](int c) {
     return span_bytes(ks, span_of(c)) + layout_work_bytes(c, width, npow);
   };
-  const int c = pick_layout(n_mels_pad, need, bytes);
+  const int c = pick_layout(n_mels_pad, need, 2, bytes);
   *span = span_of(c);
   return c;
 }
@@ -123,9 +126,9 @@ int layout(int ks, int hop, int pack, int pack_off, int width, int npow,
 extern "C" {
 
 // The block layout K1 takes for a head: returns one block's shared memory
-// and writes its frames (128 or 64) to *block_frames and the DFT columns
-// of its chunks (128 or 256) to *chunk_cols. The launch applies the same
-// function.
+// and writes its frames (128, 64 or 32) to *block_frames and the DFT
+// columns of its chunks (128 or 256) to *chunk_cols. The launch applies
+// the same function; the VAD epilogue's tile is min(64, block frames).
 long long melspec_sig_mel_layout(int ks, int hop, int pack, int pack_off,
                                  int width, int npow, int n_mels_pad,
                                  int* block_frames, int* chunk_cols) {
@@ -141,7 +144,8 @@ long long melspec_sig_mel_layout(int ks, int hop, int pack, int pack_off,
 
 // Returns 0 or the cudaError_t of the launch (cudaErrorInvalidValue for
 // arguments the kernel does not take). tile_frames is the caller's tile of
-// the VAD counts' zeros and must be the kernel's (kTileFrames). live is
+// the VAD counts' zeros and must be the launch layout's (64, or 32 in
+// 32-frame blocks). live is
 // the count of power columns that may be nonzero (a multiple of 8): the
 // kernel skips the rest. out may be null when q is given (the quant route
 // writes no float mel); q (with lo, hi) and vad select the epilogues, both
@@ -157,9 +161,8 @@ int melspec_sig_mel(const float* x, long long batch, long long T,
   if (batch <= 0 || n_frames <= 0) return cudaSuccess;
   if (hop <= 0 || pack <= 0 || offset < 0 || pack_off < 0 || ks <= 0 ||
       ks > kMaxSlices || n_blocks <= 0 || n_blocks > kMaxBlocks ||
-      !head_ok(width, npow, live, n_mels, n_mels_pad) ||
-      tile_frames != kTileFrames || out_mode < kWhisper ||
-      out_mode > kLnFloor)
+      !head_ok(width, npow, live, n_mels, n_mels_pad, 2048) ||
+      out_mode < kWhisper || out_mode > kLnFloor)
     return cudaErrorInvalidValue;
   if ((out == nullptr && q == nullptr) ||
       (q != nullptr && (lo == nullptr || hi == nullptr)) ||
@@ -174,7 +177,8 @@ int melspec_sig_mel(const float* x, long long batch, long long T,
   const int lay = layout(ks, hop, pack, pack_off, width, npow, n_mels_pad,
                          &p.span, &smem);
   const int frames = layout_frames(lay);
-  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  if (smem > kSmemLimit || tile_frames != layout_vad_tile(lay))
+    return cudaErrorInvalidValue;
   const long long tiles = (n_frames + frames - 1) / frames;
   const long long grid = batch * tiles;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -205,7 +209,9 @@ int melspec_sig_mel(const float* x, long long batch, long long T,
   p.vad = vad;
   p.vad_thr = vad_thr;
   p.vad_start_y = vad_start_y;
-  auto kernel = lay == 0 ? sig_mel_kernel<0> : sig_mel_kernel<1>;
+  auto kernel = lay == 0   ? sig_mel_kernel<0>
+                : lay == 1 ? sig_mel_kernel<1>
+                           : sig_mel_kernel<2>;
   const long long dyn = smem - kStaticSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -110,7 +110,8 @@ int layout(int ks, int hop, int n_heads, const int* packs,
   int max_nmp = 0;
   for (int h = 0; h < n_heads; ++h)
     max_nmp = nmps[h] > max_nmp ? nmps[h] : max_nmp;
-  const int c = pick_layout(max_nmp, need, bytes);
+  // K2 keeps to the 128- and 64-frame layouts
+  const int c = pick_layout(max_nmp, need, 1, bytes);
   *span = span_of(c);
   return c;
 }
@@ -181,7 +182,8 @@ int melspec_sig_multi(const float* x, long long batch, long long T,
     hd.guard = guards[h];
     if (hd.pack <= 0 || hd.pack_off < 0 || hd.n_blocks <= 0 ||
         hd.n_blocks > kMaxBlocks ||
-        !head_ok(hd.width, hd.npow, hd.live, hd.n_mels, hd.n_mels_pad) ||
+        !head_ok(hd.width, hd.npow, hd.live, hd.n_mels, hd.n_mels_pad,
+                 1024) ||
         hd.out_mode < kWhisper || hd.out_mode > kLnFloor ||
         hd.out == nullptr ||
         (reinterpret_cast<uintptr_t>(hd.m_big) |

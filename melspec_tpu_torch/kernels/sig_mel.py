@@ -38,15 +38,15 @@ OUT_MODES = ("whisper", "ln_guard", "ln_floor")
 MAX_SMEM_BYTES = 232448
 MAX_BLOCKS = 16
 MAX_SLICES = 4
-# the kernels' DFT widths: re | im halves of width / 2 (split) or width
-# single components (N-packed), walked in column chunks; the energy tile
-# of up to 256 padded mel columns stays in registers
-WIDTHS = (256, 512, 1024)
+# K1's DFT widths: re | im halves of width / 2 (split) or width single
+# components (N-packed), walked in column chunks; the energy tile of up to
+# 256 padded mel columns stays in registers (K2: ``sig_multi.WIDTHS``)
+WIDTHS = (256, 512, 1024, 2048)
 MAX_MELS_PAD = 256
 # the tile of the VAD epilogue's counts: 0 on the last two frames of every
-# TILE_FRAMES, whatever a block's frames (128 or 64, ``block_layout``);
-# the kernels check that the caller's value is theirs
-# (csrc/sig_common.cuh: kTileFrames)
+# TILE_FRAMES where a block holds 128 or 64 frames, of every 32 in K1's
+# 32-frame blocks (``vad_tile``); the kernels check that the caller's
+# value is theirs (csrc/sig_common.cuh: kTileFrames, Lay::kVadTile)
 TILE_FRAMES = 64
 
 launches = 0
@@ -208,20 +208,20 @@ def vad_args(settings, n_mels: int) -> tuple:
             min(int(settings.min_mel), n_mels - 2))
 
 
-def tile_vad_counts(mel: torch.Tensor, thr: float,
-                    start_y: int) -> torch.Tensor:
+def tile_vad_counts(mel: torch.Tensor, thr: float, start_y: int,
+                    tile: int = TILE_FRAMES) -> torch.Tensor:
     """The VAD epilogue's output from the whisper values ``mel [B, F,
     n_mels]``: per frame ``x`` the number of mel rows ``y`` in
     ``[start_y, n_mels - 2)`` whose squared Sobel gradient over frames
     ``x .. x+2`` is ``>= thr``, int32 ``[B, F]``. Like the kernels (K1
-    and K2), which see one tile of ``TILE_FRAMES`` frames at a time, it
-    gives 0 for the last two frames of every tile and of the clip."""
+    and K2), which see one tile of ``tile`` frames at a time, it gives 0
+    for the last two frames of every tile and of the clip."""
     b, f, _ = mel.shape
     counts = torch.zeros((b, f), dtype=torch.int32, device=mel.device)
     if f > 2:
         g2 = sobel_gradient_sq(mel.transpose(-1, -2))[..., start_y:, :]
         counts[:, : f - 2] = (g2 >= thr).sum(dim=-2, dtype=torch.int32)
-    edge = torch.arange(f, device=mel.device) % TILE_FRAMES >= TILE_FRAMES - 2
+    edge = torch.arange(f, device=mel.device) % tile >= tile - 2
     counts[:, edge] = 0
     return counts
 
@@ -233,7 +233,7 @@ def sig_mel_vad_reference(samples: torch.Tensor, m_big: torch.Tensor,
     ``sig_mel_reference`` (same arguments) and ``tile_vad_counts`` of it
     at ``vad = (thr, start_y)``: ``(mel [B, F, n_mels], counts [B, F]
     int32)``, the classification ``classify_columns`` thresholds, with
-    the kernel's tile-boundary zeros."""
+    the tile-boundary zeros of the 128- and 64-frame blocks."""
     mel = sig_mel_reference(samples, m_big, pair_i, mt, **kw)
     return mel, tile_vad_counts(mel, *vad)
 
@@ -266,7 +266,8 @@ def block_layout(ks: int, hop: int, pack: int, pack_off: int, width: int,
     of the block layout K1 takes for a head (asks the built kernel, which
     decides it): 128-frame blocks of 128-column chunks where they fit and
     the head has at most 128 padded mel columns, else 64-frame blocks of
-    256-column chunks."""
+    256-column chunks where they fit, else 32-frame blocks of 256-column
+    chunks (the wide hops: 960/480, 1024/480, 2048/512)."""
     frames, cols = ctypes.c_int(), ctypes.c_int()
     smem = _bound().melspec_sig_mel_layout(ks, hop, pack, pack_off, width,
                                            npow, n_mels_pad,
@@ -279,6 +280,24 @@ def _smem_bytes(ks: int, hop: int, pack: int, pack_off: int, width: int,
                 npow: int, n_mels_pad: int) -> int:
     """Shared memory one K1 block needs (asks the built kernel)."""
     return block_layout(ks, hop, pack, pack_off, width, npow, n_mels_pad)[0]
+
+
+def vad_tile(block_frames: int) -> int:
+    """The tile of the VAD counts' zeros in blocks of ``block_frames``:
+    ``TILE_FRAMES``, or the block itself where it holds fewer frames."""
+    return min(TILE_FRAMES, block_frames)
+
+
+def k1_vad_tile(device, *, ks: int, hop: int, pack: int, pack_off: int,
+                width: int, npow: int, n_mels_pad: int) -> int:
+    """The tile of K1's VAD counts for a head: on CUDA that of the block
+    layout the launch takes (asks the built kernel), on the CPU, where
+    the plain version runs, ``TILE_FRAMES``. ``fix_raw`` recomputes the
+    columns at its edges."""
+    if torch.device(device).type != "cuda":
+        return TILE_FRAMES
+    return vad_tile(block_layout(ks, hop, pack, pack_off, width, npow,
+                                 n_mels_pad)[1])
 
 
 def block_order(pair_i) -> list:
@@ -298,12 +317,13 @@ def block_table(pair_i: tuple, device: torch.device) -> torch.Tensor:
 
 
 def shape_refusal(width: int, n_bins_pad: int, n_mels_pad: int,
-                  what: str) -> str | None:
-    """Why K1 and K2 refuse a head of ``width`` DFT columns split at
+                  what: str, widths: tuple = WIDTHS) -> str | None:
+    """Why a kernel taking ``widths`` DFT columns (K1: ``WIDTHS``, K2:
+    ``sig_multi.WIDTHS``) refuses a head of ``width`` columns split at
     ``n_bins_pad`` (0: N-packed) with ``n_mels_pad`` projection columns,
     or None."""
-    if width not in WIDTHS or n_bins_pad not in (0, width // 2):
-        return (f"{what} takes {WIDTHS} DFT columns, split into re|im "
+    if width not in widths or n_bins_pad not in (0, width // 2):
+        return (f"{what} takes {widths} DFT columns, split into re|im "
                 f"halves or N-packed; got width {width}, split {n_bins_pad}")
     if n_mels_pad > MAX_MELS_PAD:
         return (f"{what} takes up to {MAX_MELS_PAD} padded mel columns; got "
@@ -311,11 +331,10 @@ def shape_refusal(width: int, n_bins_pad: int, n_mels_pad: int,
     return None
 
 
-def _smem_refusal(ks: int, hop: int, pack: int, pack_off: int, width: int,
-                  npow: int, n_mels_pad: int) -> str | None:
-    """Why K1 refuses a head for its shared memory (asks the built
-    kernel), or None."""
-    smem = _smem_bytes(ks, hop, pack, pack_off, width, npow, n_mels_pad)
+def _smem_refusal(smem: int, hop: int, pack: int, pack_off: int,
+                  npow: int) -> str | None:
+    """Why K1 refuses a head whose block needs ``smem`` bytes of shared
+    memory, or None."""
     if smem > MAX_SMEM_BYTES:
         return (f"K1 needs {smem} bytes of shared memory for hop {hop}, "
                 f"{pack} taps at {pack_off}, {npow} power columns; a block "
@@ -332,8 +351,9 @@ def k1_accepts(head: SigHead, *, hop: int, ks: int = 3) -> bool:
     if shape_refusal(width, split, head.mt.shape[1], "K1") is not None:
         return False
     npow = width if split == 0 else split
-    return _smem_refusal(ks, hop, head.pack, head.pack_off, width, npow,
-                         head.mt.shape[1]) is None
+    smem = _smem_bytes(ks, hop, head.pack, head.pack_off, width, npow,
+                       head.mt.shape[1])
+    return _smem_refusal(smem, hop, head.pack, head.pack_off, npow) is None
 
 
 def live_columns(m_big: torch.Tensor, n_bins_pad: int) -> int:
@@ -359,15 +379,17 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
 def check_head(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
                mt: torch.Tensor, *, ks: int, pack: int, pack_off: int,
                n_bins_pad: int, n_mels: int, mel_precision: str,
-               out_mode: str, what: str) -> tuple:
-    """Validate one head's arguments for K1 or K2; returns ``(pair_i as
-    ints, npow, n_mels_pad, bf2)``."""
+               out_mode: str, what: str, widths: tuple = WIDTHS) -> tuple:
+    """Validate one head's arguments for K1 or K2 (``widths``: the DFT
+    widths the kernel takes); returns ``(pair_i as ints, npow, n_mels_pad,
+    bf2)``."""
     dev = samples.device
     if samples.dtype != torch.float32 or samples.dim() != 2:
         raise ValueError(f"{what} takes a [B, T] float32 signal")
     if m_big.dtype != torch.bfloat16 or m_big.device != dev:
         raise ValueError("m_big must be a bf16 tensor on the signal's device")
-    refusal = shape_refusal(m_big.shape[1], n_bins_pad, mt.shape[-1], what)
+    refusal = shape_refusal(m_big.shape[1], n_bins_pad, mt.shape[-1], what,
+                            widths)
     if refusal is not None:
         raise NotImplementedError(refusal)
     npow = m_big.shape[1] if n_bins_pad == 0 else n_bins_pad
@@ -419,7 +441,9 @@ def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
     if epilogue == "vad" and n_mels < 3:
         raise ValueError("the Sobel VAD needs n_mels >= 3")
     width = m_big.shape[1]
-    refusal = _smem_refusal(ks, hop, pack, pack_off, width, npow, n_mels_pad)
+    smem, frames, _ = block_layout(ks, hop, pack, pack_off, width, npow,
+                                   n_mels_pad)
+    refusal = _smem_refusal(smem, hop, pack, pack_off, npow)
     if refusal is not None:
         raise NotImplementedError(refusal)
     b, t = samples.shape
@@ -452,7 +476,8 @@ def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.melspec_sig_mel(
-            samples.data_ptr(), b, t, n_frames, hop, offset, TILE_FRAMES,
+            samples.data_ptr(), b, t, n_frames, hop, offset,
+            vad_tile(frames),
             m_big.data_ptr(), width, pack, pack_off, blocks.data_ptr(),
             len(pair_i), ks, npow, live, mt.data_ptr(), n_mels, n_mels_pad,
             int(bf2), OUT_MODES.index(out_mode), clamped_guard(guard),
@@ -527,8 +552,8 @@ def sig_mel_vad(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
     """K1 in whisper mode with the Sobel VAD epilogue on a CUDA signal,
     its plain version on a CPU one (float64 DFT dot): ``(mel [B,
     n_frames, n_mels], counts [B, n_frames] int32)`` at ``vad = (thr,
-    start_y)``; the counts of each tile's last two frames are 0 (see
-    ``tile_vad_counts``)."""
+    start_y)``; the counts of the last two frames of each ``k1_vad_tile``
+    tile are 0 (see ``tile_vad_counts``)."""
     kw = dict(ks=ks, n_frames=n_frames, hop=hop, offset=offset, pack=pack,
               n_bins_pad=n_bins_pad, n_mels=n_mels,
               mel_precision=mel_precision, live=live)

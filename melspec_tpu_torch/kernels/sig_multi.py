@@ -31,6 +31,9 @@ from melspec_tpu_torch.kernels.sig_mel import (MAX_SMEM_BYTES, OUT_MODES,
 __all__ = ["TILE_FRAMES", "k2_accepts", "sig_multi", "sig_multi_reference"]
 
 MAX_HEADS = 4
+# K2's DFT widths: K1's but 2048, so K2 keeps to its 128- and 64-frame
+# blocks (csrc/sig_multi.cu)
+WIDTHS = (256, 512, 1024)
 
 launches = 0
 
@@ -120,7 +123,7 @@ def _refusal(heads: Sequence[SigHead], ks: int, hop: int) -> str | None:
         return f"K2 takes 1..{MAX_HEADS} heads; got {len(heads)}"
     for h in heads:
         refusal = shape_refusal(h.m_big.shape[1], h.n_bins_pad,
-                                h.mt.shape[-1], "K2")
+                                h.mt.shape[-1], "K2", WIDTHS)
         if refusal is not None:
             return refusal
     smem, span = _smem_bytes(ks, hop, *_layout(heads))
@@ -149,7 +152,7 @@ def _launch(samples, heads, *, ks, n_frames, hop, offset, vad) -> tuple:
                           pack=h.pack, pack_off=h.pack_off,
                           n_bins_pad=h.n_bins_pad, n_mels=h.n_mels,
                           mel_precision=h.mel_precision,
-                          out_mode=h.out_mode, what="K2")
+                          out_mode=h.out_mode, what="K2", widths=WIDTHS)
                for h in heads]
     if vad is not None and heads[0].out_mode != "whisper":
         raise ValueError("K2's VAD epilogue runs on a whisper head 0")

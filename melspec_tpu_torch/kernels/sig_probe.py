@@ -10,16 +10,34 @@ shows what the part it removes costs, and where the parts overlap.
 prints one JSON line per variant (its ms and the difference to the full
 kernel), then K1 and K2 at the batch path's and the frontend step's
 shapes, and K1 in its 64-frame layout (whisper 1024/256 at 22.05 kHz,
-64 x 30 s), and exits non-zero without a card. The variants are text cuts of
+64 x 30 s), and exits non-zero without a card (K1's 32-frame layout is
+timed by chip_smoke.py's phase wide_hops). The variants are text cuts of
 ``csrc/sig_common.cuh``; each must match the source exactly once, which
 a CPU test checks, so an edit of the device code that moves one of them
 fails there first.
+
+    PYTHONPATH=<tree> python3 -P melspec_tpu_torch/kernels/sig_probe.py \
+        dump <dir>
+    python3 -m melspec_tpu_torch.kernels.sig_probe compare <dir>...
+
+``dump`` drives K1 and K2 of the ``melspec_tpu_torch`` package on the
+path through its public API only (so another checkout's package, an
+earlier commit's, can be driven by this file) on inputs made from fixed
+seeds: ``whisper_mel_sig`` at 400/160/128 and 1024/256/80 at 22.05 kHz
+(batch and streaming, both projections), ``whisper_mel_vad_sig`` and
+``whisper_mel_quantized`` at 400/160/128 and the fused whisper + Kaldi
+step (K2). It writes each output's SHA-256 to ``<dir>/dump.json``;
+``compare`` holds the hashes of every dump equal case by case (bit-equal
+outputs) and exits non-zero where any differs, as
+``resample_probe.py``'s modes do for K3/K4.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -100,10 +118,98 @@ def run(dev: torch.device, timer) -> list:
     return rows
 
 
-def main() -> int:
+def _digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def dump_cases(dev: torch.device) -> list:
+    """``(name, launch)`` for every case of ``dump``, inputs from fixed
+    seeds; ``launch()`` returns a tuple of outputs. Public API only."""
+    from melspec_tpu_torch.config import DetectionSettings
+    from melspec_tpu_torch.ops import mel_kernel
+    from melspec_tpu_torch.ops.sig_multihead import WhisperKaldiFused
+
+    rng = np.random.default_rng(7)
+
+    def signal(b, n):
+        return torch.from_numpy((rng.normal(size=(b, n)) * 0.2).astype(
+            np.float32)).to(dev)
+
+    out = []
+    for fft, hop, n_mels, sr in [(400, 160, 128, 16000.0),
+                                 (1024, 256, 80, 22050.0)]:
+        x = signal(8, int(10 * sr) + 37)
+        for streaming in (False, True):
+            for precision in ("bf2", "highest"):
+                out.append((
+                    f"sig_{fft}_{hop}_{n_mels}/{streaming}/{precision}",
+                    lambda x=x, a=(fft, hop, n_mels, sr), s=streaming,
+                    p=precision: (mel_kernel.whisper_mel_sig(
+                        x, *a, streaming=s, mel_precision=p, device=dev),)))
+    x = signal(8, 16000 * 10 + 37)
+    settings = DetectionSettings()
+    out.append(("vad_400_160_128", lambda: mel_kernel.whisper_mel_vad_sig(
+        x, settings, 400, 160, 128, device=dev)))
+    out.append(("quant_400_160_128", lambda: mel_kernel.whisper_mel_quantized(
+        x, 400, 160, 128, device=dev)))
+    fused = WhisperKaldiFused(device=dev)
+    out.append(("k2_whisper_kaldi_vad",
+                lambda: fused.compute_with_vad(x, settings)))
+    return out
+
+
+def _flat(outs) -> list:
+    if isinstance(outs, torch.Tensor):
+        return [outs]
+    if isinstance(outs, dict):
+        return [t for k in sorted(outs) for t in _flat(outs[k])]
+    return [t for o in outs for t in _flat(o)]
+
+
+def dump(out_dir: Path, dev: torch.device) -> dict:
+    rows = {}
+    for name, launch in dump_cases(dev):
+        outs = _flat(launch())
+        torch.cuda.synchronize()
+        rows[name] = dict(sha256=[_digest(t) for t in outs],
+                          shapes=[list(t.shape) for t in outs])
+    import melspec_tpu_torch
+
+    result = dict(package=str(Path(melspec_tpu_torch.__file__).parent),
+                  device=torch.cuda.get_device_name(0), cases=rows)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "dump.json").write_text(json.dumps(result, indent=1))
+    return result
+
+
+def compare(dirs) -> int:
+    dumps = [json.loads((Path(d) / "dump.json").read_text()) for d in dirs]
+    names = list(dumps[0]["cases"])
+    differ = [n for n in names
+              if len({json.dumps(d["cases"].get(n, {}).get("sha256"))
+                      for d in dumps}) != 1]
+    print(json.dumps(dict(dumps=[str(d) for d in dirs],
+                          packages=[d["package"] for d in dumps],
+                          n_cases=len(names), n_equal=len(names) - len(differ),
+                          differ=differ)), flush=True)
+    return 1 if differ else 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("sig_probe: CUDA is not available", file=sys.stderr)
         return 1
+    if argv[:1] == ["dump"] and len(argv) == 2:
+        r = dump(Path(argv[1]), torch.device("cuda"))
+        print(json.dumps(dict(package=r["package"], device=r["device"],
+                              n_cases=len(r["cases"]))), flush=True)
+        return 0
+    if argv[:1] == ["compare"] and len(argv) >= 3:
+        return compare(argv[1:])
+    if argv:
+        print(__doc__, file=sys.stderr)
+        return 2
     from melspec_tpu_torch.utils.timing import device_time_ms
 
     for r in run(torch.device("cuda"), device_time_ms):

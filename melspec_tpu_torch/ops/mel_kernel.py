@@ -20,7 +20,8 @@ for a CUDA kernel), the quant epilogue's ``qabl`` ablations,
 ``rows_tile`` geometry, the ``_pad_for_flat`` batch padding and the framed
 kernels' 256- and 512-frame tiles with the frame-count padding to them —
 all TPU tiling. K1 frames any ``[B, T]`` signal as it is, and its VAD
-epilogue's tile-boundary columns follow its own 64-frame tile; the framed
+epilogue's tile-boundary columns follow its own tile (64 frames, 32 in
+its 32-frame blocks); the framed
 kernels mask their ragged last block, so the framed route passes exactly
 ``B * n_frames`` frames.
 """
@@ -38,9 +39,9 @@ from melspec_tpu_torch._device import as_signal, resolve_device
 from melspec_tpu_torch.config import DetectionSettings
 from melspec_tpu_torch.kernels.framed_mel import (IMPLS, FramedMatrices,
                                                   framed_mel)
-from melspec_tpu_torch.kernels.sig_mel import TILE_FRAMES as TILE_K1
 from melspec_tpu_torch.kernels.sig_mel import (SigHead, k1_accepts,
-                                               live_columns, sig_mel,
+                                               k1_vad_tile, live_columns,
+                                               sig_mel,
                                                sig_mel_quantized,
                                                sig_mel_reference, sig_mel_vad,
                                                vad_args)
@@ -206,9 +207,10 @@ def _sig_device_matrices(fft_size: int, n_mels: int, sampling_rate: float,
     """Whisper instantiation (the projection zeroes bins >= fft/2), plus
     the bf2 mel stack. The JAX function's tuple less its ``npack``, as
     CPU tensors: ``(m_big, pair_i, mt f32, mt_bf2, n_bins_pad, n_mels_pad,
-    k_pad)``. Always the split layout: the kernels take 256-, 512- and
-    1024-column heads, and where JAX's "auto" would pack a whisper head
-    (fft 320: 384 columns) the split layout keeps a width they take."""
+    k_pad)``. Always the split layout: the kernels take 256- to
+    2048-column heads (K2: to 1024), and where JAX's "auto" would pack a
+    whisper head (fft 320: 384 columns) the split layout keeps a width
+    they take."""
     half = fft_size // 2
     filters = mel_filterbank(sampling_rate, fft_size, n_mels)
     m_big, pair_i, mt, n_bins_pad, n_mels_pad, k_pad, _ = \
@@ -403,8 +405,9 @@ def whisper_mel_vad_sig(
 
     K1 counts each frame's edges on the tile it holds in shared memory;
     the two columns whose 3-frame patch crosses each boundary of its
-    ``TILE_FRAMES``-frame tiles are recomputed here from the mel output
-    (``ops.vad.fix_raw``). A clip of 1-2 frames has no Sobel column: it
+    tiles (``kernels/sig_mel.py::k1_vad_tile``: 64 frames, 32 in the
+    32-frame blocks of the wide hops) are recomputed here from the mel
+    output (``ops.vad.fix_raw``). A clip of 1-2 frames has no Sobel column: it
     returns ``whisper_mel_sig``'s real mel and an empty ``raw``. On a CPU
     signal the plain version runs."""
     x, squeeze, offset, n_frames = _k1_input(
@@ -424,7 +427,10 @@ def whisper_mel_vad_sig(
                  "bf2")
     mel, counts = sig_mel_vad(x, mats.m_big, mats.pair_i, mats.mt_bf2,
                               vad=vad_args(settings, n_mels), **kw)
-    raw = fix_raw(counts, mel, n_frames, n_frames - 2, settings, TILE_K1)
+    tile = k1_vad_tile(x.device, ks=3, hop=hop_size, pack=fft_size,
+                       pack_off=0, width=mats.m_big.shape[1],
+                       npow=mats.n_bins_pad, n_mels_pad=mats.mt.shape[1])
+    raw = fix_raw(counts, mel, n_frames, n_frames - 2, settings, tile)
     return (mel[0], raw[0]) if squeeze else (mel, raw)
 
 
@@ -607,8 +613,9 @@ def resolve_pallas_impl(fft_size: int, hop_size: int, n_mels: int,
                         device=None) -> str:
     """``whisper_mel_pallas``'s ``impl=None``: ``"hp_bf16"`` with ``hp``;
     else ``"sig"`` where the macro-row geometry applies and, on CUDA, K1
-    takes the config's head (``kernels/sig_mel.py::k1_accepts``: 256, 512
-    or 1024 DFT columns, a span within a block's shared memory); else
+    takes the config's head (``kernels/sig_mel.py::k1_accepts``: 256,
+    512, 1024 or 2048 DFT columns, a span within a block's shared memory
+    in 128-, 64- or 32-frame blocks); else
     ``"bf3"``. The
     head is built on the CPU; no kernel runs."""
     if hp:

@@ -84,6 +84,22 @@ def log_mel_spectrogram(fft_frame, mel_filters) -> np.ndarray:
     return np.log10(np.maximum(energy, LOG10_FLOOR))[:, None]
 
 
+def stft_frames(samples, fft_size: int, hop_size: int) -> np.ndarray:
+    """Batch STFT returning raw complex FFT frames ``[n_frames, fft_size]``
+    (the analogue of ``Spectrogram::compute_all_cpu``,
+    ``src/stft.rs:89-115``): periodic Hann window, frame k starting at
+    ``k*hop``, ``np.fft.fft`` of each. Host float64, complex128 ``(0,
+    fft_size)`` where no frame fits; for feature pipelines use the device
+    paths."""
+    samples = np.asarray(samples, dtype=np.float64)
+    nf = framing.num_frames_batch(len(samples), fft_size, hop_size)
+    if nf <= 0:
+        return np.zeros((0, fft_size), dtype=np.complex128)
+    window = hann_periodic(fft_size)
+    idx = np.arange(nf)[:, None] * hop_size + np.arange(fft_size)
+    return np.fft.fft(samples[idx] * window, axis=-1)
+
+
 class MelProjection:
     """Stateful FFT-frame -> normalized mel column projector (reference
     ``MelSpectrogram``): whisper norm per frame, host float64."""
@@ -110,8 +126,9 @@ def auto_fft_impl(fft_size: int, hop_size: int, n_mels: int,
                   sampling_rate: float, dtype, device) -> str:
     """``fft_impl="auto"`` on ``device``: ``"fft"`` on the CPU; on CUDA
     ``"sig"`` where the macro-row geometry applies, the dtype is float32
-    and K1 takes the config's head (``k1_accepts``: 256, 512 or 1024 DFT
-    columns, a span within a block's shared memory), else ``"bf3"``. The
+    and K1 takes the config's head (``k1_accepts``: 256, 512, 1024 or 2048
+    DFT columns, a span within a block's shared memory in 128-, 64- or
+    32-frame blocks), else ``"bf3"``. The
     head is built on the CPU; no kernel runs."""
     if torch.device(device).type != "cuda":
         return "fft"

@@ -1,5 +1,5 @@
 """K5-K8 on the card against their plain PyTorch versions (whisper
-960/480/40 at 48 kHz too, where the auto route takes K5), K6's and K7's
+960/480/40 at 48 kHz too, in their 32-frame blocks), K6's and K7's
 DFT power bit-equal to their plain versions', the JFK gates through the
 kernels, the block layout per frame width, and the auto routes of the
 heads that are not 512 columns wide.
@@ -131,14 +131,14 @@ def test_refusals(dev):
 
 @pytest.mark.parametrize("fft,hop,n_mels,sr", [
     (1024, 256, 80, 22050.0), (960, 480, 40, 48000.0),
-    (256, 96, 32, 16000.0)])
+    (256, 96, 32, 16000.0), (640, 160, 80, 16000.0)])
 def test_auto_routes_take_k5_where_k1_refuses(dev, fft, hop, n_mels, sr):
     """The whisper configs whose heads are not 512 columns wide: where
-    ``k1_accepts`` holds (256 and 1024 columns, the span within a block's
-    shared memory) the pipeline and ``whisper_mel_pallas(impl=None)`` take
-    K1; where it does not (960/480: its span does not fit) the pipeline
-    takes its bf3 power and ``whisper_mel_pallas`` K5; both hold their
-    float64 results at 2e-5."""
+    ``k1_accepts`` holds (256 and 1024 columns; 960/480 in K1's 32-frame
+    blocks) the pipeline and ``whisper_mel_pallas(impl=None)`` take K1;
+    where it does not (640/160: 768 columns, a width K1 does not take)
+    the pipeline takes its bf3 power and ``whisper_mel_pallas`` K5; both
+    hold their float64 results at 2e-5."""
     x = torch.from_numpy((np.random.default_rng(fft).normal(
         size=(2, int(sr))) * 0.2).astype(np.float32)).to(dev)
     k1 = sig_mel.k1_accepts(mel_kernel.whisper_head(fft, n_mels, sr, dev),

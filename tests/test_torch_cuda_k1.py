@@ -1,15 +1,44 @@
-"""K1 on the card against its plain PyTorch version. Needs a CUDA device
-and nvcc; skipped elsewhere. On a machine with the card (no JAX needed):
+"""K1 on the card against its plain PyTorch version, at every head width
+(256, 512, 1024, 2048 columns) and block layout (128, 64 and 32 frames:
+the wide hops 2048/512 at 22.05 kHz, 1024/480 and 960/480 at 48 kHz).
+Needs a CUDA device and nvcc; skipped elsewhere. On a machine with the
+card (no JAX needed):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda_k1.py
+
+The card counterpart of each test of the JAX package's
+``tests/test_tpu_compiled.py`` (its gates with the kernels compiled):
+
+- ``test_sig_kernel_jfk_golden_compiled``: ``test_sig_jfk_golden`` here;
+- ``test_bf3_kernel_jfk_golden_compiled``,
+  ``test_hp8_kernel_jfk_golden_compiled``,
+  ``test_hp_kernel_jfk_golden_compiled``:
+  ``tests/test_torch_cuda_framed.py::test_jfk_gates_through_the_kernels``;
+- ``test_sig_geometry_edges_compiled``: ``test_sig_geometry_edges``;
+- ``test_flat_input_parity_compiled`` (a TPU framing mode the port does
+  not have): ``test_batch_rows_equal_single_clips``, K1's framing of a
+  batch against its framing of each clip alone, bit for bit;
+- ``test_multihead_pair_parity_compiled``:
+  ``tests/test_torch_cuda_multihead.py::test_k2_two_heads_equal_k1``;
+- ``test_vad_fields_parity_compiled``: ``test_vad_fields_parity``;
+- ``test_npack_fbank_golden_compiled``:
+  ``tests/test_torch_cuda_multihead.py::test_kaldi_jfk_gate_through_k1_and_k2``;
+- ``test_resample_parity_compiled``: ``test_resample_parity``;
+- ``test_quantized_emission_parity_compiled``:
+  ``tests/test_torch_cuda_k1_epilogues.py::test_quantized_equals_quantize_frames_of_k1_mel``;
+- ``test_mfcc_external_anchor_compiled``: ``test_mfcc_external_anchor``;
+- ``test_resample_pallas_kernel_parity_compiled``:
+  ``test_resample_kernel_parity``.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from melspec_tpu_torch.kernels import sig_mel
+from melspec_tpu_torch.kernels import framed_mel, sig_mel, sig_multi
 from melspec_tpu_torch.ops import framing, mel_kernel
 
 pytestmark = pytest.mark.cuda
@@ -189,3 +218,281 @@ def test_jfk_gate_at_256_and_1024_columns(dev, fft, hop, n_mels, sr):
                                   jfk.double())
     assert got.shape == want.shape
     assert float((got.double() - want).abs().max()) <= 1e-5
+
+
+# the wide hops: K1's 32-frame blocks (2048/512 also its 2048 columns)
+WIDE_CONFIGS = [(2048, 512, 128, 22050.0), (1024, 480, 64, 48000.0),
+                (960, 480, 40, 48000.0)]
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _jfk(dev):
+    from melspec_tpu_torch.io.wav import read_wav_f32le
+
+    return torch.as_tensor(read_wav_f32le(ROOT / "testdata/jfk_f32le.wav"),
+                           device=dev)
+
+
+def _noise(dev, seed, shape, scale=0.2):
+    return torch.from_numpy((np.random.default_rng(seed).normal(
+        size=shape) * scale).astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("fft,hop,n_mels,sr", WIDE_CONFIGS)
+def test_k1_takes_the_wide_heads_in_32_frame_blocks(dev, fft, hop, n_mels,
+                                                    sr):
+    """``k1_accepts`` holds, and the built kernel reports 32-frame blocks
+    of 256-column chunks within a block's shared memory; K2, which keeps
+    to 1024 columns and its 128- and 64-frame blocks, refuses these
+    heads."""
+    head = mel_kernel.whisper_head(fft, n_mels, sr, dev)
+    assert sig_mel.k1_accepts(head, hop=hop)
+    smem, frames, cols = sig_mel.block_layout(
+        3, hop, fft, 0, head.m_big.shape[1], head.n_bins_pad,
+        head.mt.shape[1])
+    assert (frames, cols) == (32, 256) and smem <= sig_mel.MAX_SMEM_BYTES
+    assert sig_mel.k1_vad_tile(dev, ks=3, hop=hop, pack=fft, pack_off=0,
+                               width=head.m_big.shape[1],
+                               npow=head.n_bins_pad,
+                               n_mels_pad=head.mt.shape[1]) == 32
+    assert not sig_multi.k2_accepts((head,), hop=hop)
+
+
+@pytest.mark.parametrize("fft,hop,n_mels,sr", WIDE_CONFIGS)
+@pytest.mark.parametrize("streaming", [False, True])
+def test_k1_matches_plain_at_the_wide_heads(dev, fft, hop, n_mels, sr,
+                                            streaming):
+    """At test_k1_matches_plain_at_256_and_1024_columns's bars, on three
+    ragged clips that end inside a 32-frame block."""
+    head = mel_kernel.whisper_head(fft, n_mels, sr, dev)
+    x = _noise(dev, fft + hop, (3, int(sr) + 37))
+    before = sig_mel.launches
+    got = mel_kernel.whisper_mel_sig(x, fft, hop, n_mels, sr,
+                                     streaming=streaming, device=dev)
+    torch.cuda.synchronize()
+    assert sig_mel.launches == before + 1
+    offset = framing.streaming_frame_offset(fft, hop) if streaming else 0
+    kw = dict(ks=3, n_frames=got.shape[1], hop=hop, offset=offset,
+              **head.kw())
+    want = sig_mel.sig_mel_reference(x, head.m_big, head.pair_i, head.mt,
+                                     **kw)
+    exact = sig_mel.sig_mel_reference(x, head.m_big, head.pair_i, head.mt,
+                                      dot_dtype=torch.float64, **kw)
+    assert got.shape == want.shape and got.shape[1] % 32
+    floor = float((want - exact).abs().max())
+    assert float((got - exact).abs().max()) <= max(1e-5, floor)
+    assert float((got - want).abs().max()) <= max(1e-5, floor) + floor
+
+
+@pytest.mark.parametrize("fft,hop,n_mels,sr", WIDE_CONFIGS)
+def test_jfk_gate_at_the_wide_heads(dev, fft, hop, n_mels, sr):
+    """The JFK clip through K1 at the wide heads within 1e-5 of the
+    float64 route of the same config."""
+    from melspec_tpu_torch.ops.spectrogram import WhisperMelPipeline
+
+    jfk = _jfk(dev)[None]
+    got = mel_kernel.whisper_mel_sig(jfk, fft, hop, n_mels, sr, device=dev)
+    want = WhisperMelPipeline(fft, hop, n_mels, sr, dtype=torch.float64,
+                              fft_impl="rdft", device=dev).mel_batch(
+                                  jfk.double())
+    assert got.shape == want.shape
+    assert float((got.double() - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("fft,hop,n_mels,sr", WIDE_CONFIGS)
+@pytest.mark.parametrize("streaming", [False, True])
+def test_wide_head_epilogues_are_exact(dev, fft, hop, n_mels, sr,
+                                       streaming):
+    """The VAD epilogue in 32-frame blocks: its mel is K1's, its raw
+    equals ``classify_columns`` of that mel (the columns at every 32-frame
+    boundary recomputed), its counts ``tile_vad_counts`` at the 32-frame
+    tile; the u8 records equal ``quantize_frames`` of K1's mel."""
+    from melspec_tpu_torch.config import DetectionSettings
+    from melspec_tpu_torch.ops.quant import quantize_frames
+    from melspec_tpu_torch.ops.vad import classify_columns
+
+    settings = DetectionSettings()
+    x = _noise(dev, fft, (3, 2 * int(sr) + 11), 0.3)
+    mel = mel_kernel.whisper_mel_sig(x, fft, hop, n_mels, sr,
+                                     streaming=streaming, device=dev)
+    before = dict(sig_mel.epilogue_launches)
+    mel_v, raw = mel_kernel.whisper_mel_vad_sig(x, settings, fft, hop,
+                                                n_mels, sr,
+                                                streaming=streaming,
+                                                device=dev)
+    q = mel_kernel.whisper_mel_quantized(x, fft, hop, n_mels, sr,
+                                         streaming=streaming, device=dev)
+    torch.cuda.synchronize()
+    assert sig_mel.epilogue_launches == {"quant": before["quant"] + 1,
+                                         "vad": before["vad"] + 1}
+    assert torch.equal(mel_v, mel)
+    assert torch.equal(raw, classify_columns(mel.transpose(-1, -2),
+                                             settings))
+    for a, b in zip(q, quantize_frames(mel)):
+        assert torch.equal(a, b)
+    head = mel_kernel.whisper_head(fft, n_mels, sr, dev)
+    vad = sig_mel.vad_args(settings, n_mels)
+    offset = framing.streaming_frame_offset(fft, hop) if streaming else 0
+    k_mel, counts = sig_mel.sig_mel_vad(
+        x, head.m_big, head.pair_i, head.mt, ks=3, n_frames=mel.shape[1],
+        hop=hop, offset=offset, pack=fft, n_bins_pad=head.n_bins_pad,
+        n_mels=n_mels, vad=vad, live=head.live)
+    assert torch.equal(k_mel, mel)
+    assert torch.equal(counts, sig_mel.tile_vad_counts(mel, *vad, 32))
+
+
+@pytest.mark.parametrize("fft,hop,n_mels,sr", WIDE_CONFIGS)
+def test_auto_routes_launch_k1_at_the_wide_heads(dev, fft, hop, n_mels,
+                                                 sr):
+    """``WhisperMelPipeline``'s and ``whisper_mel_pallas(impl=None)``'s
+    auto routes take K1 at the wide heads: one K1 launch each, no K5."""
+    from melspec_tpu_torch.ops.spectrogram import WhisperMelPipeline
+
+    x = _noise(dev, 3, (2, int(sr)))
+    pipe = WhisperMelPipeline(fft, hop, n_mels, sr, device=dev)
+    assert pipe.fft_impl == "sig"
+    assert mel_kernel.resolve_pallas_impl(fft, hop, n_mels, sr,
+                                          device=dev) == "sig"
+    before = (sig_mel.launches, dict(framed_mel.launches))
+    a = pipe.mel_batch(x)
+    b = mel_kernel.whisper_mel_pallas(x, fft, hop, n_mels, sr, device=dev)
+    torch.cuda.synchronize()
+    assert sig_mel.launches == before[0] + 2
+    assert framed_mel.launches == before[1]
+    assert torch.equal(a, b)
+
+
+def test_sig_jfk_golden(dev):
+    """The default route of ``whisper_mel_pallas`` at the master golden's
+    config (512/160/80, streaming) is K1 and holds the 1e-5 bar."""
+    golden = np.load(ROOT / "testdata/rust_jfk_golden.npy")
+    before = sig_mel.launches
+    got = mel_kernel.whisper_mel_pallas(_jfk(dev), 512, 160, 80, 16000.0,
+                                        streaming=True, device=dev)
+    torch.cuda.synchronize()
+    assert sig_mel.launches == before + 1
+    got = got.T.cpu().numpy()
+    assert got.shape == golden.shape
+    assert np.abs(got - golden).max() <= 1e-5
+
+
+def _host_f64_whisper_mel(x: np.ndarray) -> np.ndarray:
+    """The batch whisper mel (400/160/80) in float64 numpy."""
+    from melspec_tpu_torch.ops.filterbank import mel_filterbank
+    from melspec_tpu_torch.ops.windows import hann_periodic
+
+    fft, hop, n_mels = 400, 160, 80
+    nf = (len(x) - fft) // hop + 1
+    idx = np.arange(nf)[:, None] * hop + np.arange(fft)
+    frames = x.astype(np.float64)[idx] * hann_periodic(fft)
+    spec = np.fft.rfft(frames, axis=-1)[:, : fft // 2]
+    power = spec.real**2 + spec.imag**2
+    filters = mel_filterbank(16000.0, fft, n_mels)[:, : fft // 2]
+    log_mel = np.log10(np.maximum(power @ filters.T, 1e-10))
+    mmax = log_mel.max(axis=-1, keepdims=True) - 8.0
+    return (np.maximum(log_mel, mmax) + 4.0) / 4.0
+
+
+@pytest.mark.parametrize("n", [640 * 129 + 7, 16000, 400, 160 * 127 + 400])
+def test_sig_geometry_edges(dev, n):
+    """Clip lengths around K1's block boundaries (a ragged last block, a
+    single frame, exactly 128 frames) against float64 numpy at 1e-5."""
+    x = (np.random.default_rng(3).normal(size=n) * 0.3).astype(np.float32)
+    got = mel_kernel.whisper_mel_sig(x, 400, 160, 80, 16000.0,
+                                     device=dev).cpu().numpy()
+    ref = _host_f64_whisper_mel(x)
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() <= 1e-5
+
+
+def test_batch_rows_equal_single_clips(dev):
+    """K1 frames a ``[B, T]`` batch in place: each clip's rows of one
+    launch over 8 clips equal the launch over that clip alone, bit for
+    bit (streaming, offset 80)."""
+    x = _noise(dev, 2, (8, 5 * 16000), 0.1)
+    rows = mel_kernel.whisper_mel_sig(x, streaming=True, device=dev)
+    assert tuple(rows.shape) == (8, 498, 80)
+    for i in range(8):
+        one = mel_kernel.whisper_mel_sig(x[i : i + 1], streaming=True,
+                                         device=dev)
+        assert torch.equal(rows[i : i + 1], one)
+
+
+def test_vad_fields_parity(dev):
+    """The batched decision fields on K1's VAD raw equal the host float64
+    fields of K1's mel, decision for decision (JFK, streaming)."""
+    from melspec_tpu_torch.config import DetectionSettings
+    from melspec_tpu_torch.ops.vad import (streaming_decision_fields,
+                                           streaming_decision_fields_batched)
+
+    settings = DetectionSettings()
+    mel, raw = mel_kernel.whisper_mel_vad_sig(_jfk(dev)[None], settings,
+                                              streaming=True, device=dev)
+    got = streaming_decision_fields_batched(None, settings, raw=raw)
+    img = mel.transpose(-1, -2)[0].double().cpu().numpy()
+    want = streaming_decision_fields(img, settings)
+    assert want is not None
+    for k in ("active", "active_columns", "leading"):
+        np.testing.assert_array_equal(got[k][0].cpu().numpy(), want[k])
+
+
+@pytest.mark.parametrize("up,down", [(1, 3), (160, 441)])
+def test_resample_parity(dev, up, down):
+    """``resample_poly`` on the card against the float64 host polyphase
+    resampler at 1e-5 x scale (48 k and 44.1 k to 16 k)."""
+    from melspec_tpu_torch.ops.resample import (StreamingResampler,
+                                                resample_poly)
+
+    x = _jfk(dev).cpu().numpy()[: 16000 * 3]
+    host = StreamingResampler(up, down, dtype=np.float64)
+    ref = np.concatenate([host.push(x.astype(np.float64)), host.flush()])
+    got = resample_poly(x, up, down, device=dev).cpu().numpy()
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("precision", ["highest", "bf3"])
+@pytest.mark.parametrize("up,down", [(1, 3), (2, 1)])
+def test_resample_kernel_parity(dev, precision, up, down):
+    """K3 through ``MultiStreamResampler(impl="kernel")`` against the
+    float64 host resampler after the warm-up prefix, at 1e-5 x scale."""
+    from melspec_tpu_torch.kernels import resample as kres
+    from melspec_tpu_torch.ops.resample import StreamingResampler
+    from melspec_tpu_torch.streaming.resample import MultiStreamResampler
+
+    n = down * 128 * 25
+    x = np.tile(_jfk(dev).cpu().numpy()[:n], (8, 1))
+    mr = MultiStreamResampler(up, down, 8, align=160, impl="kernel",
+                              precision=precision, device=dev)
+    before = sum(kres.launches.values())
+    _, y = mr.push(mr.init(), x)
+    assert sum(kres.launches.values()) == before + 1
+    got = y[0, mr.spurious_out:]
+    ref = StreamingResampler(up, down, dtype=np.float64).push(
+        x[0].astype(np.float64))
+    m = min(len(got), len(ref))
+    assert m > 1000
+    assert np.abs(got[:m] - ref[:m]).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_mfcc_external_anchor(dev):
+    """MFCC over K1's fbank route holds the kaldi_native_fbank anchor of
+    tests/test_torch_mfcc.py (the lifted DCT-II of the vendored golden in
+    float64)."""
+    from melspec_tpu_torch.config import FbankConfig, MfccConfig
+    from melspec_tpu_torch.ops.mfcc import (Mfcc, cepstral_lifter_coeffs,
+                                            dct_matrix)
+
+    with np.load(ROOT / "testdata/kaldi_native_fbank_jfk.npz") as npz:
+        gfb = npz["features"].T.astype(np.float64)
+    before = sig_mel.launches
+    got = Mfcc(MfccConfig(fbank=FbankConfig(apply_cmn=False)),
+               fft_impl="sig", device=dev).compute(_jfk(dev))
+    torch.cuda.synchronize()
+    assert sig_mel.launches == before + 1
+    got = got.cpu().numpy()
+    m = dct_matrix(13, 80) * cepstral_lifter_coeffs(13, 22.0)[:, None]
+    want = gfb @ m.T
+    d = np.abs(got - want)
+    assert d.max() < 0.2 and d.mean() < 0.03
+    assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.99999

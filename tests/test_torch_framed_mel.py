@@ -242,14 +242,15 @@ CUDA = torch.device("cuda")  # passed as a value: nothing runs on it
     (1024, 256, 80, 22050.0, True), (960, 480, 40, 48000.0, True),
     (256, 96, 32, 16000.0, True), (400, 160, 128, 16000.0, True),
     (512, 160, 80, 16000.0, True), (200, 80, 80, 8000.0, True),
-    (600, 240, 80, 24000.0, False)])
+    (600, 240, 80, 24000.0, False), (2048, 512, 128, 22050.0, True),
+    (1024, 480, 64, 48000.0, True)])
 def test_auto_whisper_routes_on_cuda(stub_smem, fft, hop, n_mels, sr, k1):
     """On a CUDA device the pipeline and ``whisper_mel_pallas(impl=None)``
     take K1 exactly where ``k1_accepts`` holds for the config's head: the
-    whisper configs of tests/test_configs_broad.py (256-, 512- and
-    1024-column heads) wherever their span fits a block's shared memory;
-    a 768-column head (fft 600) takes bf3 / K5. On the CPU they keep
-    JAX's choice."""
+    whisper configs of tests/test_configs_broad.py and the wide heads
+    (256- to 2048-column heads) wherever their span fits a block's shared
+    memory; a 768-column head (fft 600) takes bf3 / K5. On the CPU they
+    keep JAX's choice."""
     head = mel_kernel.whisper_head(fft, n_mels, sr, torch.device(CPU))
     accepts = sig_mel.k1_accepts(head, hop=hop)
     assert accepts == k1

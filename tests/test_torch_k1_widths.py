@@ -104,15 +104,20 @@ def test_live_columns_follow_an_edit():
 @pytest.mark.parametrize("width,split,nmp,ok", [
     (256, 128, 128, True), (256, 0, 128, True), (512, 256, 256, True),
     (512, 0, 128, True), (1024, 512, 128, True), (1024, 0, 256, True),
-    (768, 384, 128, False), (512, 128, 128, False), (2048, 1024, 128, False),
-    (512, 256, 384, False)])
+    (768, 384, 128, False), (512, 128, 128, False), (2048, 1024, 128, True),
+    (2048, 0, 256, True), (512, 256, 384, False)])
 def test_shape_refusal(width, split, nmp, ok):
-    """K1 and K2 take 256-, 512- and 1024-column heads split at width / 2
-    or N-packed, with at most 256 padded mel columns."""
+    """K1 takes 256-, 512-, 1024- and 2048-column heads split at width / 2
+    or N-packed, with at most 256 padded mel columns; K2 the same up to
+    1024 columns."""
     refusal = sig_mel.shape_refusal(width, split, nmp, "K1")
     assert (refusal is None) == ok
     if not ok:
         assert "K1" in refusal
+    k2 = sig_mel.shape_refusal(width, split, nmp, "K2", sig_multi.WIDTHS)
+    assert (k2 is None) == (ok and width <= 1024)
+    if k2 is not None:
+        assert "K2" in k2
 
 
 @pytest.mark.parametrize("smem,ok", [(100_000, True),

@@ -3,13 +3,18 @@ streaming decisions, timestamps, images, timing helpers) against the JAX
 package on the same numpy inputs: the reference's fixtures of
 ``tests/test_vad.py`` and random images. Both classify in float64 on the
 host, so every decision, count and timestamp is held equal, and the
-confidence equal as a float64 ratio."""
+confidence equal as a float64 ratio. The batched decision fields' cases
+of ``tests/test_vad_batched_device.py`` that no other file mirrors (the
+degenerate refusal, float32 parity on JFK, a precomputed ``raw``) close
+the file."""
 
 import dataclasses
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from melspec_tpu import config as jconfig
 from melspec_tpu.ops import vad as jvad
@@ -201,3 +206,60 @@ def test_timing_helpers_match_jax():
         for k in range(0, 2000, 37):
             assert dataclasses.asdict(t.timestamps_for_frame(k)) == \
                 dataclasses.asdict(jt.timestamps_for_frame(k))
+
+
+def test_batched_fields_rejects_degenerate():
+    """Fewer frames than ``min_x``: no decision window, ValueError in both
+    packages."""
+    with pytest.raises(ValueError):
+        vad.streaming_decision_fields_batched(
+            torch.zeros((1, 40, 4)), DetectionSettings(min_x=6))
+    with pytest.raises(ValueError):
+        jvad.streaming_decision_fields_batched(
+            jnp.zeros((1, 40, 4)), jconfig.DetectionSettings(min_x=6))
+
+
+@pytest.mark.parametrize("args", [(1.0, 6, 6, 0), (0.98, 11, 5, 2)])
+def test_batched_fields_f32_parity_jfk(args):
+    """The eval path's dtype story on real speech: the port's float32 mel
+    of JFK through the batched fields in float32 equals the sequential
+    float64 host fields decision for decision, and JAX's batched fields
+    on the same image."""
+    from melspec_tpu_torch.io.wav import read_wav_f32le
+    from melspec_tpu_torch.ops.spectrogram import WhisperMelPipeline
+
+    settings, jsettings = _both(args)
+    jfk = read_wav_f32le(TESTDATA / "jfk_f32le.wav")
+    mel = WhisperMelPipeline(400, 160, 80, 16000.0,
+                             device="cpu").mel_batch(jfk)
+    img = mel.T.numpy()  # [n_mels, frames] float32
+    want = vad.streaming_decision_fields(img.astype(np.float64), settings)
+    got = vad.streaming_decision_fields_batched(torch.from_numpy(img)[None],
+                                                settings)
+    jgot = jvad.streaming_decision_fields_batched(jnp.asarray(img[None]),
+                                                  jsettings)
+    for k in ("active", "leading", "active_columns", "window_columns"):
+        np.testing.assert_array_equal(got[k][0].numpy(), want[k],
+                                      err_msg=k)
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(jgot[k]),
+                                      err_msg=k)
+
+
+def test_batched_fields_accept_precomputed_raw():
+    """``raw=`` (a fused kernel's classification) gives the fields of the
+    mel it classifies, as in JAX."""
+    mels = np.random.default_rng(1).random((2, 30, 120)) * 3.0
+    settings, jsettings = _both((0.9, 3, 6, 1))
+    raw = vad.classify_columns(torch.from_numpy(mels), settings)
+    base = vad.streaming_decision_fields_batched(torch.from_numpy(mels),
+                                                 settings)
+    via_raw = vad.streaming_decision_fields_batched(None, settings, raw=raw)
+    jvia = jvad.streaming_decision_fields_batched(
+        None, jsettings, raw=jvad.classify_columns(jnp.asarray(mels),
+                                                   jsettings))
+    assert base.keys() == via_raw.keys()
+    for k in base:
+        np.testing.assert_array_equal(base[k].numpy(), via_raw[k].numpy(),
+                                      err_msg=k)
+        np.testing.assert_array_equal(via_raw[k].numpy(),
+                                      np.asarray(jvia[k]), err_msg=k)
