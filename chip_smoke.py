@@ -36,8 +36,12 @@ show each went through its kernels:
 - the wide hops (phase ``wide_hops``): 64 x 30 s through
   ``WhisperMelPipeline`` and ``whisper_mel_pallas(impl=None)`` at
   960/480/40, 1024/480/64 (48 kHz) and 2048/512/128 (22.05 kHz), K1 once
-  each in its 32-frame blocks, against float64, with K1's, K5's and the
-  library composition's times and K1's bound; and every whisper config of
+  each on its factored path (the two-stage DFT of
+  ``csrc/sig_factored.cuh`` in 64-frame blocks), against float64, K1
+  against the factored plain version and the exact result, with K1's,
+  the factored plain version's, K5's and the library composition's
+  times, K1's two bounds (the dense DFT's and the factored design's) and
+  the L2 bytes its loads request; and every whisper config of
   the mirrored JAX tests (phase ``broad_configs``: the five of
   tests/test_configs_broad.py, the six of tests/test_fuzz_differential.py)
   through both entry points, each route's kernel counted;
@@ -186,6 +190,9 @@ PEAK_HBM_BYTES = load_probe.PEAK_HBM_BYTES
 # and the float32 rate outside the tensor cores (K3/K4 "highest")
 PEAK_F32_FLOPS = 67e12
 K1_SOURCE = "melspec_tpu_torch/csrc/sig_mel.cu"
+# K1's factored wide-hop path (layout 3; its DFT instruction)
+K1_FACTORED_SOURCE = "melspec_tpu_torch/csrc/sig_factored.cuh"
+FACTORED_MMA = "wgmma m64n32k16"
 K1_REPLACES = "melspec_tpu/ops/mel_kernel.py:1547"
 K2_SOURCE = "melspec_tpu_torch/csrc/sig_multi.cu"
 K2_REPLACES = "melspec_tpu/ops/sig_multihead.py:151"
@@ -279,20 +286,30 @@ SOBEL_OPS = 17
 # K1 at the widths other than 512 (phase k1_widths): whisper configs of
 # the JAX package's tests/test_configs_broad.py, librosa's default n_fft /
 # hop_length (2048/512 at 22.05 kHz, a 2048-column head) and LAION-CLAP's
-# STFT (1024/480 at 48 kHz), and Kaldi and NeMo at 8 kHz (256-column
-# heads); every one must be accepted. The wide hops (960/480, 1024/480,
-# 2048/512) take K1's 32-frame blocks; phase wide_hops times them at
-# WIDE_B x WIDE_SECONDS beside K5 and the library composition
+# STFT (1024/480 at 48 kHz), a whisper head with no factored split
+# (1000/480 at 48 kHz: K1's 32-frame chunk walk and its epilogues at
+# tile 32), and Kaldi and NeMo at 8 kHz (256-column heads);
+# every one must be accepted. The wide hops (960/480, 1024/480, 2048/512)
+# take K1's factored path; phase wide_hops times them at WIDE_B x
+# WIDE_SECONDS beside K5 and the library composition and holds the first
+# WIDE_CHECK_B clips against the plain versions
 WIDTH_B = 8
 WIDTH_CONFIGS = [("whisper_8k", 200, 80, 80, 8000.0),
                  ("whisper_256_96", 256, 96, 32, 16000.0),
                  ("whisper_1024_256", 1024, 256, 80, 22050.0),
                  ("whisper_960_480", 960, 480, 40, 48000.0),
                  ("whisper_2048_512", 2048, 512, 128, 22050.0),
-                 ("whisper_1024_480", 1024, 480, 64, 48000.0)]
+                 ("whisper_1024_480", 1024, 480, 64, 48000.0),
+                 ("whisper_1000_480", 1000, 480, 80, 48000.0)]
+# the whisper config of K1's 32-frame chunk walk (no factored split)
+CHUNK_WALK_WHISPER = "whisper_1000_480"
 WIDTH_MUST_ACCEPT = tuple(c[0] for c in WIDTH_CONFIGS)
 WIDE_HOPS = ("whisper_960_480", "whisper_2048_512", "whisper_1024_480")
 WIDE_B, WIDE_SECONDS = 64, 30.0
+WIDE_CHECK_B = 8
+# the wide hop whose figures stand in the kernels line's K1_factored
+# entry (every hop's are in its wide_hops): librosa's default STFT
+WIDE_MAIN = "whisper_2048_512"
 # phase broad_configs: the whisper configs of the JAX package's
 # tests/test_configs_broad.py and the six that
 # tests/test_fuzz_differential.py draws from its seed 0xC0FFEE (a CPU test
@@ -307,6 +324,13 @@ FUZZ_CONFIGS = [(400, 379, 20, 8000.0), (256, 48, 80, 22050.0),
 BROAD_B, BROAD_SECONDS = 4, 2.0
 NEMO_8K = BatchLogMelConfig(sample_rate=8000, n_fft=256, win_length=200,
                             hop_length=80)
+# phase chunk_walk: K1's 32-frame chunk walk, which the wide hops' heads
+# of the other frontends keep (their matrices fold in Kaldi's or NeMo's
+# preprocessing), driven through their sig routes at WIDE_B x
+# WIDE_SECONDS: Kaldi fbank (25 / 10 ms) and NeMo log-mel at 48 kHz
+KALDI_48K = FbankConfig(sample_rate=48000.0, apply_cmn=False)
+NEMO_48K = BatchLogMelConfig(sample_rate=48000, n_fft=2048,
+                             win_length=1200, hop_length=480)
 # the live per-hop service (phase live_stream), plain PyTorch as in JAX:
 # the JFK master regression through RingBuffer in 32-sample pushes at
 # 512/160/80 (float64 at JAX's 1e-6 from the golden; float32 reported
@@ -395,6 +419,31 @@ def held(got, x, head, nf, hop, offset=0) -> dict:
                 n_over_tol_plain=int(((plain - exact).abs() > K1_TOL).sum()))
 
 
+def held_factored(got, x, head, nf, hop, offset=0) -> dict:
+    """K1's output for a whisper head on its factored path against the
+    factored plain version (``sig_mel_factored_reference``, float32 dots),
+    and that plain version against the exact result (float64-dot
+    ``sig_mel_reference``), on the same signal and frames."""
+    kw = dict(ks=3, n_frames=nf, hop=hop, offset=offset, **head.kw())
+    fplain = sig_mel.sig_mel_factored_reference(
+        x, sig_mel.factored_dft(head.dft_size, x.device), head.mt,
+        n_frames=nf, hop=hop, offset=offset, n_mels=head.n_mels)
+    exact = sig_mel.sig_mel_reference(x, head.m_big, head.pair_i, head.mt,
+                                      dot_dtype=torch.float64, **kw)
+    torch.cuda.synchronize()
+    return dict(vs_factored_plain=max_abs(got, fplain),
+                factored_plain_vs_exact=max_abs(fplain, exact))
+
+
+def factored_bars(rows, tol: float) -> dict:
+    """The bars of K1's factored path from the f32 floor of its plain
+    version in ``rows``: against the exact result max(tol, floor), against
+    the factored plain version that plus the floor."""
+    floor = max(r["factored_plain_vs_exact"] for r in rows)
+    bar = max(tol, floor)
+    return dict(f32_floor=floor, vs_exact=bar, vs_factored_plain=bar + floor)
+
+
 def compare(got, x, fft, hop, n_mels, offset, nf, dev) -> dict:
     """K1's whisper output (bf2, (ks, cutoff) = (3, 2)) held as above."""
     return held(got, x, mel_kernel.whisper_head(fft, n_mels, 16000.0, dev),
@@ -453,6 +502,7 @@ def phase_build() -> None:
     # (IGMMA or IMMA), K7 on 16-bit floats (HGMMA or HMMA); K5 / K8 on
     # bf16 HGMMA
     need = {"sig_mel": [("HGMMA",), ("HMMA",)],
+            "K1_factored": [("HGMMA",), ("HMMA",)],
             "sig_multi": [("HGMMA",), ("HMMA",)],
             "K6": [("IGMMA", "IMMA")], "K7": [("HGMMA", "HMMA")],
             "K5": [("HGMMA_BF16",)], "K8": [("HGMMA_BF16",)]}
@@ -485,11 +535,15 @@ def tensor_core_sass(names) -> dict:
     warp (HMMA, IMMA) tensor-core instructions in ``cuobjdump -sass``,
     with one line of each, and of the HGMMA lines on bf16 operands
     (HGMMA_BF16); ``framed_ozaki`` is split by kernel (K6: the instances
-    of scheme 0, K7: scheme 1, K5 and K8: scheme 2, which both launch)."""
+    of scheme 0, K7: scheme 1, K5 and K8: scheme 2, which both launch),
+    ``sig_mel`` into its chunk-walk kernels and its factored path
+    (K1_factored)."""
     tool = Path(build.find_nvcc()).with_name("cuobjdump")
     ops = ("HGMMA", "HMMA", "IGMMA", "IMMA", "HGMMA_BF16")
     scheme = {"ozaki_kernelILi0E": "K6", "ozaki_kernelILi1E": "K7",
               "ozaki_kernelILi2E": "K5"}
+    k1_kinds = {"sig_mel_factored_kernel": "K1_factored",
+                "sig_mel_kernel": "sig_mel"}
     out = {}
     for name in names:
         sass = subprocess.run([str(tool), "-sass", str(build._target(name))],
@@ -500,13 +554,16 @@ def tensor_core_sass(names) -> dict:
         for ln in sass:
             if "Function :" in ln and name == "framed_ozaki":
                 key = next(k for s, k in scheme.items() if s in ln)
+            if "Function :" in ln and name == "sig_mel":
+                key = next(k for s, k in k1_kinds.items() if s in ln)
             for op in ops:
                 hit = (" HGMMA." in ln and ".BF16" in ln
                        if op == "HGMMA_BF16" else f" {op}." in ln)
                 if hit:
                     by.setdefault(key, {}).setdefault(op, []).append(
                         ln.split(";")[0].split("*/")[-1].strip())
-        keys = ("K5", "K6", "K7") if name == "framed_ozaki" else (name,)
+        keys = {"framed_ozaki": ("K5", "K6", "K7"),
+                "sig_mel": ("sig_mel", "K1_factored")}.get(name, (name,))
         for k in keys:
             found = by.get(k, {})
             out[k] = {op: dict(count=len(found.get(op, [])),
@@ -746,6 +803,7 @@ def tick_device_ms(front, st, x: torch.Tensor, **kw) -> float:
 
 def zero_counts() -> None:
     sig_mel.launches = 0
+    sig_mel.factored_launches = 0
     sig_mel.epilogue_launches.update(quant=0, vad=0)
     sig_multi.launches = 0
     kres.launches.update(K3=0, K4=0)
@@ -1230,7 +1288,7 @@ def l2_bytes_counted(heads, hop: int, batch: int, n_frames: int,
     block's taps (bf16; zero-filled rows and dead columns are not read)
     and the projection rows of each column chunk's live power columns
     (three bf16 stacks, or one float32 matrix)."""
-    frames, cols = layout
+    frames, cols = layout[:2]
     blocks = batch * -(-n_frames // frames)
     span = max((frames - 1) * hop + h.pack_off + -(-h.pack // 32) * 32
                for h in heads)
@@ -1249,12 +1307,9 @@ def l2_bytes_counted(heads, hop: int, batch: int, n_frames: int,
 
 
 def k1_layout(head, hop: int, ks: int = 3) -> tuple:
-    """``(frames per block, DFT columns per chunk)`` of K1's layout for
-    ``head`` (asks the kernel)."""
-    width = head.m_big.shape[1]
-    npow = width if head.n_bins_pad == 0 else head.n_bins_pad
-    return sig_mel.block_layout(ks, hop, head.pack, head.pack_off, width,
-                                npow, head.mt.shape[1])[1:]
+    """``(frames per block, DFT columns per chunk, factored)`` of K1's
+    layout for ``head`` (``head_layout``: asks the kernel)."""
+    return tuple(sig_mel.head_layout(head, hop, ks))[1:]
 
 
 def k2_layout(heads, hop: int, ks: int = 3) -> tuple:
@@ -1375,22 +1430,27 @@ def phase_k1_widths(dev, rows, ln_rows) -> dict:
     Kaldi fbank and NeMo log-mel at 8 kHz, each against its plain version
     and the exact result at K1's bars (whisper) or the ln bars; a refused
     config is listed with its shared-memory figure and fails the phase.
-    The JFK clip through each whisper config against its float64 route.
+    The JFK clip through each whisper config against its float64 route
+    and, at the wide hops, against the factored plain version (whose own
+    distances from float64 and from the exact result are reported, and
+    that of its schedule with float64 dots: the schedule's roundings
+    alone).
     Each whisper config's epilogues on the same clips: the VAD route's
     mel ``torch.equal`` to ``whisper_mel_sig``'s, its raw to
     ``classify_columns`` of that mel, K1's counts to ``tile_vad_counts``
     at the launch's tile, the u8 records to ``quantize_frames`` of that
     mel. Then K2 on the 8 kHz whisper + Kaldi pair, both heads
     ``torch.equal`` to K1 and the VAD counts to ``tile_vad_counts`` of
-    head 0."""
+    head 0. The wide hops run K1's factored path, also held against its
+    plain version (``factored_bars``); ``CHUNK_WALK_WHISPER`` runs K1's
+    32-frame chunk walk, its VAD counts at tile 32."""
     rng = np.random.default_rng(SEED + 55)
     jfk = read_wav_f32le(TESTDATA / "jfk_f32le.wav")
     cases, w_rows, l_rows, refused = [], [], [], {}
     for name, fft, hop, n_mels, sr in WIDTH_CONFIGS:
         head = mel_kernel.whisper_head(fft, n_mels, sr, dev)
         width = head.m_big.shape[1]
-        layout = sig_mel.block_layout(3, hop, fft, 0, width,
-                                      head.n_bins_pad, head.mt.shape[1])
+        layout = sig_mel.head_layout(head, hop)
         if not sig_mel.k1_accepts(head, hop=hop):
             refused[name] = dict(width=width, smem_bytes=layout[0],
                                  limit=sig_mel.MAX_SMEM_BYTES)
@@ -1400,18 +1460,36 @@ def phase_k1_widths(dev, rows, ln_rows) -> dict:
         for streaming in (False, True):
             got = whisper_mel_sig(x, fft, hop, n_mels, sr,
                                   streaming=streaming, device=dev)
+            offset = k1_grid(t, fft, hop, streaming)[0]
             r = dict(name=name, width=width, block_frames=layout[1],
-                     streaming=streaming, shape=[WIDTH_B, t],
-                     **held(got, x, head, got.shape[1], hop,
-                            k1_grid(t, fft, hop, streaming)[0]))
+                     factored=layout[3], streaming=streaming,
+                     shape=[WIDTH_B, t],
+                     **held(got, x, head, got.shape[1], hop, offset))
+            if layout[3]:
+                r.update(held_factored(got, x, head, got.shape[1], hop,
+                                       offset))
             cases.append(r)
             w_rows.append(r)
         f64 = WhisperMelPipeline(fft, hop, n_mels, sr, dtype=torch.float64,
                                  fft_impl="rdft", device=dev)
         xj = torch.as_tensor(jfk, device=dev)[None]
-        cases[-1]["jfk_vs_f64"] = max_abs(
-            whisper_mel_sig(xj, fft, hop, n_mels, sr, device=dev).double(),
-            f64.mel_batch(xj.double()))
+        k1_jfk = whisper_mel_sig(xj, fft, hop, n_mels, sr, device=dev)
+        f64_jfk = f64.mel_batch(xj.double())
+        cases[-1]["jfk_vs_f64"] = max_abs(k1_jfk.double(), f64_jfk)
+        if layout[3]:
+            nj = k1_jfk.shape[1]
+            fplain, fplain64 = (sig_mel.sig_mel_factored_reference(
+                xj, sig_mel.factored_dft(fft, dev), head.mt, n_frames=nj,
+                hop=hop, offset=0, n_mels=n_mels, dot_dtype=dt)
+                for dt in (torch.float32, torch.float64))
+            cases[-1].update(
+                jfk_vs_factored_plain=max_abs(k1_jfk, fplain),
+                jfk_factored_plain_vs_f64=max_abs(fplain.double(), f64_jfk),
+                jfk_factored_f64_dots_vs_f64=max_abs(fplain64.double(),
+                                                     f64_jfk),
+                **{f"jfk_{k}": v for k, v in held_factored(
+                    k1_jfk, xj, head, nj, hop).items()
+                   if k == "factored_plain_vs_exact"})
         cases[-1]["epilogues"] = width_epilogues(x, head, fft, hop, n_mels,
                                                  sr, dev)
     for name, front in (
@@ -1434,6 +1512,8 @@ def phase_k1_widths(dev, rows, ln_rows) -> dict:
         l_rows.append(r)
     wbars = tolerances(rows + w_rows)
     lbars = ln_bars(ln_rows + l_rows)
+    f_rows = [r for r in w_rows if r["factored"]]
+    fbars = factored_bars(f_rows, K1_TOL) if f_rows else None
 
     # K2 on the 8 kHz pair against K1, bit for bit
     mc8 = MelConfig(200, 80, 80, 8000.0)
@@ -1452,14 +1532,26 @@ def phase_k1_widths(dev, rows, ln_rows) -> dict:
             outs[1], Fbank(kc8, fft_impl="sig", device=dev).compute(x))),
         counts_equal=bool(torch.equal(
             counts, sig_mel.tile_vad_counts(outs[0], *vad))))
-    emit("k1_widths", whisper_bars=wbars, ln_bars=lbars, refused=refused,
-         k2_8k=k2, cases=cases)
+    emit("k1_widths", whisper_bars=wbars, ln_bars=lbars,
+         factored_bars=fbars, refused=refused, k2_8k=k2, cases=cases)
     bad = [r["name"] for r in w_rows
            if r["vs_exact"] > wbars["vs_exact"]
            or r["vs_plain"] > wbars["vs_plain"]
            or r.get("jfk_vs_f64", 0.0) > K1_TOL]
     bad += [r["name"] for r in l_rows if r["vs_exact"] > lbars["vs_exact"]
             or r["vs_plain"] > lbars["vs_plain"]]
+    bad += [r["name"] for r in f_rows
+            if r["vs_exact"] > fbars["vs_exact"]
+            or r["vs_factored_plain"] > fbars["vs_factored_plain"]]
+    bad += [r["name"] for r in w_rows
+            if r["factored"] != (r["name"] in WIDE_HOPS)]
+    bad += [r["name"] for r in w_rows if "jfk_vs_factored_plain" in r
+            and r["jfk_vs_factored_plain"] > max(
+                K1_TOL, r["jfk_factored_plain_vs_exact"])
+            + r["jfk_factored_plain_vs_exact"]]
+    bad += [r["name"] for r in w_rows if r["name"] == CHUNK_WALK_WHISPER
+            and (r["block_frames"] != 32 or r.get("epilogues", {}).get(
+                "vad_tile", 32) != 32)]
     bad += [n for n in WIDTH_MUST_ACCEPT if n in refused]
     bad += [r["name"] for r in w_rows
             if "epilogues" in r and not all(r["epilogues"][k] for k in (
@@ -1482,14 +1574,11 @@ def width_epilogues(x, head, fft, hop, n_mels, sr, dev) -> dict:
                                                 n_mels, sr, device=dev)
     q = mel_kernel.whisper_mel_quantized(x, fft, hop, n_mels, sr, device=dev)
     vad = sig_mel.vad_args(settings, n_mels)
-    width = head.m_big.shape[1]
-    tile = sig_mel.k1_vad_tile(dev, ks=3, hop=hop, pack=fft, pack_off=0,
-                               width=width, npow=head.n_bins_pad,
-                               n_mels_pad=head.mt.shape[1])
+    tile = sig_mel.k1_vad_tile(head, hop, dev)
     k_mel, counts = sig_mel.sig_mel_vad(
         x, head.m_big, head.pair_i, head.mt, ks=3, n_frames=mel.shape[1],
         hop=hop, offset=0, pack=fft, n_bins_pad=head.n_bins_pad,
-        n_mels=n_mels, vad=vad, live=head.live)
+        n_mels=n_mels, vad=vad, live=head.live, dft_size=head.dft_size)
     return dict(
         vad_tile=tile,
         vad_mel_equal=bool(torch.equal(mel_v, mel)
@@ -1502,51 +1591,147 @@ def width_epilogues(x, head, fft, hop, n_mels, sr, dev) -> dict:
                         for a, b in zip(q, quantize_frames(mel))))
 
 
+def factored_work(fac, n_mels: int, frames: int) -> int:
+    """FLOPs of K1's factored path over ``frames`` frames, the design's
+    work (not the padded layout's): stage 1's six slice pairs of products
+    (the re and im rows of n1 k1 values, n1 taps, n2 columns), the float32
+    twiddle (6 a value), stage 2's six pairs (the same rows, n2 taps, the
+    cos and sin columns of its ceil(n2 / 2) k2), the power (5 a bin:
+    two sums, two squares, their sum) and the bf2 projection (three
+    products a (bin, mel) over the N / 2 bins)."""
+    n1, n2 = fac.n1, fac.n2
+    k2 = -(-n2 // 2)
+    return frames * (2 * 6 * 2 * n1 * n1 * n2 + 6 * n1 * n2
+                     + 2 * 6 * 2 * n1 * n2 * 2 * k2 + 5 * n1 * k2
+                     + 2 * 3 * (fac.n // 2) * n_mels)
+
+
+def factored_bytes(fac, head, x, outs) -> int:
+    """Bytes K1's factored path must move: the signal and the outputs
+    once, its host tables and the projection once."""
+    return (x.numel() * 4 + sum(o.numel() * o.element_size() for o in outs)
+            + sum(t.numel() * t.element_size() for t in (
+                fac.window, fac.f1, fac.tw, fac.f2, fac.rowmap))
+            + head.mt.numel() * head.mt.element_size())
+
+
+def factored_l2_bytes(fac, nmp: int, batch: int, n_frames: int) -> dict:
+    """The bytes one launch of K1's factored path requests from L2,
+    counted from its loads (csrc/sig_factored.cuh), not measured: per
+    block (one a SM, persistent) once, F2 and the window; each frame's N
+    float32 samples (frames past the clip's last are not read); per chunk
+    of a 64-frame tile, each warpgroup's F1 fragments (three bf16 slices
+    of 64 rows of n1) and twiddles (32 k1 x 32 n2 float32 pairs), the
+    projection rows (three bf16 stacks of 512 rows of nmp) and their row
+    map."""
+    tiles = batch * -(-n_frames // 64)
+    blocks = min(tiles,
+                 torch.cuda.get_device_properties(0).multi_processor_count)
+    per_chunk = (2 * (3 * 64 * fac.n1 * 2 + 32 * 32 * 8)
+                 + 3 * 512 * nmp * 2 + 512 * 4)
+    total = (blocks * (3 * 32 * 32 * 2 + 4 * fac.n)
+             + batch * n_frames * 4 * fac.n
+             + tiles * (fac.n1 // 32) * per_chunk)
+    return dict(blocks=blocks, tiles=tiles, l2_bytes_counted=total,
+                l2_bytes_counted_per_tile=total / tiles)
+
+
+def chunk_walk_heads() -> dict:
+    """The layouts K1 takes for the heads of the port's other frontends
+    at the wide rates (Kaldi fbank, 25 / 10 ms; NeMo log-mel at its n_fft,
+    25 ms window, 10 ms hop) and for the whisper heads of another slice
+    schedule ((2, 1)): none of them is the Hann-windowed DFT of the (3, 2)
+    schedule, so where its span needs 32-frame blocks it keeps the chunk
+    walk (asks the built kernel; no launch)."""
+    heads = {}
+    for sr in (22050.0, 44100.0, 48000.0):
+        kc = FbankConfig(sample_rate=sr, apply_cmn=False)
+        heads[f"kaldi_{int(sr)}"] = (fbank_sig_head(kc),
+                                     kc.frame_shift_samples)
+    for sr, n_fft, win, hop in ((22050, 1024, 551, 220),
+                                (44100, 2048, 1102, 441),
+                                (48000, 2048, 1200, 480)):
+        nc = BatchLogMelConfig(sample_rate=sr, n_fft=n_fft, win_length=win,
+                               hop_length=hop)
+        heads[f"nemo_{sr}"] = (batch_logmel.sig_head(nc), hop)
+    for name, fft, hop, n_mels, sr in WIDTH_CONFIGS:
+        if name in WIDE_HOPS:
+            m = mel_kernel.sig_matrices(fft, n_mels, sr, 2, 1,
+                                        torch.device("cpu"))
+            heads[f"{name}_ks2"] = (sig_mel.SigHead(
+                m.m_big, m.pair_i, m.mt_bf2, m.n_bins_pad, fft, n_mels,
+                live=m.live, dft_size=m.dft_size), hop)
+    out = {}
+    for name, (h, hop) in heads.items():
+        ks = 1 + max(h.pair_i)
+        frames, cols, factored = k1_layout(h, hop, ks)
+        out[name] = dict(width=h.m_big.shape[1], pack=h.pack, hop=hop,
+                         ks=ks, block_frames=frames, chunk_cols=cols,
+                         factored=factored,
+                         accepted=sig_mel.k1_accepts(h, hop=hop, ks=ks))
+    return out
+
+
 def phase_wide_hops(dev) -> dict:
-    """K1's 32-frame blocks at the wide hops (960/480/40 and 1024/480/64
-    at 48 kHz, 2048/512/128 at 22.05 kHz) on ``WIDE_B`` x
-    ``WIDE_SECONDS`` clips. The auto routes,
-    ``WhisperMelPipeline(...).mel_batch`` and ``whisper_mel_pallas(impl=
-    None)``, with the counts zeroed before each call and read after it:
-    K1 once and no other kernel, each against the float64 rdft route at
-    ``AUTO_TOL``. Then, on the same input, K1's time per call, K5's (the
-    framed bf3 kernel alone on pre-framed input, and
-    ``whisper_mel_pallas(impl="bf3")`` with its framing: the route these
-    configs took while K1 refused them) and the library composition's,
-    beside K1's bound (``head_work``, and the bytes of ``head_bytes``)
-    and the L2 bytes its loads request (counted, not measured)."""
+    """K1's factored path at the wide hops (960/480/40 and 1024/480/64 at
+    48 kHz, 2048/512/128 at 22.05 kHz) on ``WIDE_B`` x ``WIDE_SECONDS``
+    clips. The auto routes, ``WhisperMelPipeline(...).mel_batch`` and
+    ``whisper_mel_pallas(impl=None)``, with the counts zeroed before each
+    call and read after it: K1 once, on its factored path, and no other
+    kernel, each against the float64 rdft route at ``AUTO_TOL``. The
+    first ``WIDE_CHECK_B`` clips of K1's output against the factored
+    plain version and the exact result (float64-dot ``sig_mel_reference``)
+    at ``factored_bars(rows, AUTO_TOL)``. Then, on the same input, K1's
+    time per call, the factored plain version's, K5's (the framed bf3
+    kernel alone on pre-framed input, and ``whisper_mel_pallas(impl=
+    "bf3")`` with its framing) and the library composition's, beside K1's
+    two bounds (``head_work``: the dense DFT's work, which the 32-frame
+    chunk walk does; ``factored_work``: the design's) and the L2
+    bytes its loads request (counted, not measured)."""
     rng = np.random.default_rng(SEED + 57)
-    res, counts = {}, {}
+    res, counts, factored = {}, {}, {}
     for name, fft, hop, n_mels, sr in WIDTH_CONFIGS:
         if name not in WIDE_HOPS:
             continue
         x = signal(rng, WIDE_B, int(WIDE_SECONDS * sr), dev)
         head = mel_kernel.whisper_head(fft, n_mels, sr, dev)
+        fac = sig_mel.factored_dft(fft, dev)
         layout = k1_layout(head, hop)
         pipe = WhisperMelPipeline(fft, hop, n_mels, sr, device=dev)
         zero_counts()
         got = pipe.mel_batch(x)
         torch.cuda.synchronize()
         counts[f"pipeline_{name}"] = read_counts()
+        factored[f"pipeline_{name}"] = sig_mel.factored_launches
         zero_counts()
         auto = mel_kernel.whisper_mel_pallas(x, fft, hop, n_mels, sr,
                                              device=dev)
         torch.cuda.synchronize()
         counts[f"auto_{name}"] = read_counts()
+        factored[f"auto_{name}"] = sig_mel.factored_launches
         f64 = WhisperMelPipeline(fft, hop, n_mels, sr, dtype=torch.float64,
                                  fft_impl="rdft", device=dev).mel_batch(
                                      x.double())
         nf = got.shape[1]
-        r = dict(route=pipe.fft_impl, block_frames=layout[0],
-                 chunk_cols=layout[1], shape=[WIDE_B, x.shape[-1]],
+        r = dict(route=pipe.fft_impl, factored=layout[2],
+                 block_frames=layout[0], chunk_cols=layout[1],
+                 split=[fac.n1, fac.n2], shape=[WIDE_B, x.shape[-1]],
                  n_frames=nf, finite=bool(torch.isfinite(got).all()),
                  pipeline_vs_f64=max_abs(got.double(), f64),
                  auto_vs_f64=max_abs(auto.double(), f64),
                  auto_equal_pipeline=bool(torch.equal(auto, got)))
         del f64, auto
+        xc = x[:WIDE_CHECK_B]
+        r.update(check_shape=list(xc.shape),
+                 **held(got[:WIDE_CHECK_B], xc, head, nf, hop),
+                 **held_factored(got[:WIDE_CHECK_B], xc, head, nf, hop))
         kw = dict(ks=3, n_frames=nf, hop=hop, offset=0, **head.kw())
         r["ms"] = time_ms(lambda: sig_mel.sig_mel(x, head.m_big, head.pair_i,
                                                   head.mt, **kw))
+        r["factored_plain_ms"] = time_ms(
+            lambda: sig_mel.sig_mel_factored_reference(
+                x, fac, head.mt, n_frames=nf, hop=hop, offset=0,
+                n_mels=n_mels), reps=3, warmup=1)
         frames, _ = mel_kernel.framed_input(x, fft, hop)
         mats = mel_kernel.framed_matrices("bf3", fft, n_mels, sr, 3, 2, dev)
         r["k5_ms"] = time_ms(lambda: framed_mel.framed_mel(
@@ -1557,22 +1742,104 @@ def phase_wide_hops(dev) -> dict:
         lib = library_mel(x, fft, hop, n_mels, sr)
         r["library_composition_ms"] = time_ms(lib)
         r["library_composition_max_abs_vs_k1"] = max_abs(lib(), got)
-        b = bound(head_work(head, WIDE_B * nf), head_bytes([head], x, [got]))
-        r.update(b, share_of_bound=b["bound_ms"] / r["ms"],
+        dense = bound(head_work(head, WIDE_B * nf),
+                      head_bytes([head], x, [got]))
+        fact = bound(factored_work(fac, n_mels, WIDE_B * nf),
+                     factored_bytes(fac, head, x, [got]))
+        r.update(bound_dense={**dense, "share": dense["bound_ms"] / r["ms"]},
+                 bound_factored={**fact,
+                                 "share": fact["bound_ms"] / r["ms"]},
+                 bound_ms=fact["bound_ms"], bound_by=fact["bound_by"],
+                 share_of_bound=fact["bound_ms"] / r["ms"],
                  k1_over_k5=r["ms"] / r["k5_ms"],
-                 **l2_bytes_counted([head], hop, WIDE_B, nf, layout))
+                 k1_over_composition=r["ms"] / r["library_composition_ms"],
+                 **factored_l2_bytes(fac, head.mt.shape[1], WIDE_B, nf))
         res[name] = r
         del x, got
-    emit("wide_hops", launches=counts, bar_vs_f64=AUTO_TOL, **res)
+    bars = factored_bars(list(res.values()), AUTO_TOL)
+    walk = chunk_walk_heads()
+    emit("wide_hops", launches=counts, factored_launches=factored,
+         bar_vs_f64=AUTO_TOL, bars=bars, chunk_walk_heads=walk, **res)
     fails = [k for k, c in counts.items()
-             if {n: v for n, v in c.items() if v} != {"K1": 1}]
+             if {n: v for n, v in c.items() if v} != {"K1": 1}
+             or factored[k] != 1]
     fails += [n for n, r in res.items()
-              if r["route"] != "sig" or r["block_frames"] != 32
+              if r["route"] != "sig" or not r["factored"]
+              or r["block_frames"] != 64
               or not r["finite"] or not r["auto_equal_pipeline"]
-              or max(r["pipeline_vs_f64"], r["auto_vs_f64"]) > AUTO_TOL]
+              or max(r["pipeline_vs_f64"], r["auto_vs_f64"]) > AUTO_TOL
+              or r["vs_exact"] > bars["vs_exact"]
+              or r["vs_factored_plain"] > bars["vs_factored_plain"]]
+    fails += [n for n, r in walk.items() if r["factored"]]
     if fails:
         raise AssertionError(f"wide hops: {fails}")
-    return dict(times=res, counts=counts)
+    return dict(times=res, counts=counts, factored=factored, bars=bars,
+                chunk_walk_heads=walk)
+
+
+def phase_chunk_walk(dev) -> dict:
+    """K1's 32-frame chunk walk, which the wide hops' Kaldi and NeMo heads
+    keep, through the entry points a user calls: ``Fbank(KALDI_48K,
+    fft_impl="sig").compute`` and ``BatchLogMel(NEMO_48K,
+    fft_impl="sig").compute`` on ``WIDE_B`` x ``WIDE_SECONDS`` clips at 48
+    kHz, the counts zeroed before each call and read after it: K1 once,
+    never on its factored path, in 32-frame blocks, and no other kernel.
+    The first ``WIDE_CHECK_B`` clips of K1's output against the plain
+    version and the exact result at ``ln_bars``; then, on the same input,
+    K1's time per call, its plain version's and the library
+    composition's beside its bound (``head_work``)."""
+    rng = np.random.default_rng(SEED + 59)
+    res, counts, factored = {}, {}, {}
+    for name, cfg, front, library in (
+            ("kaldi_48k", KALDI_48K,
+             Fbank(KALDI_48K, fft_impl="sig", device=dev), library_kaldi),
+            ("nemo_48k", NEMO_48K,
+             BatchLogMel(NEMO_48K, fft_impl="sig", device=dev),
+             library_nemo)):
+        x = signal(rng, WIDE_B, int(WIDE_SECONDS * 48000), dev)
+        h = front.sig_head
+        zero_counts()
+        got = front.compute(x)
+        torch.cuda.synchronize()
+        counts[name] = read_counts()
+        factored[name] = sig_mel.factored_launches
+        sig, hop = x, KALDI_48K.frame_shift_samples
+        if name == "nemo_48k":
+            got = got.transpose(-1, -2)
+            sig = torch.nn.functional.pad(x, (cfg.n_fft // 2,) * 2)
+            hop = cfg.hop_length
+        nf = got.shape[1]
+        frames, cols, fact = k1_layout(h, hop)
+        r = dict(block_frames=frames, chunk_cols=cols, factored=fact,
+                 width=h.m_big.shape[1], pack=h.pack, hop=hop,
+                 shape=list(sig.shape), n_frames=nf,
+                 check_shape=[WIDE_CHECK_B, sig.shape[-1]],
+                 **held(got[:WIDE_CHECK_B], sig[:WIDE_CHECK_B], h, nf, hop))
+        kw = dict(ks=3, n_frames=nf, hop=hop, offset=0, **h.kw())
+        r["ms"] = time_ms(lambda: sig_mel.sig_mel(sig, h.m_big, h.pair_i,
+                                                  h.mt, **kw))
+        r["plain_ms"] = time_ms(lambda: sig_mel.sig_mel_reference(
+            sig, h.m_big, h.pair_i, h.mt, **kw), reps=3, warmup=1)
+        r["library_composition_ms"] = time_ms(library(x, cfg))
+        r.update(bound(head_work(h, WIDE_B * nf),
+                       head_bytes([h], sig, [got])))
+        r.update(share_of_bound=r["bound_ms"] / r["ms"],
+                 k1_over_composition=r["ms"] / r["library_composition_ms"])
+        res[name] = r
+        del x, sig, got
+    bars = ln_bars(list(res.values()))
+    emit("chunk_walk", launches=counts, factored_launches=factored,
+         bars=bars, **res)
+    fails = [k for k, c in counts.items()
+             if {n: v for n, v in c.items() if v} != {"K1": 1}
+             or factored[k] != 0]
+    fails += [n for n, r in res.items()
+              if (r["block_frames"], r["factored"]) != (32, False)
+              or r["vs_exact"] > bars["vs_exact"]
+              or r["vs_plain"] > bars["vs_plain"]]
+    if fails:
+        raise AssertionError(f"chunk walk: {fails}")
+    return dict(times=res, counts=counts, bars=bars)
 
 
 def phase_broad_configs(dev) -> dict:
@@ -3593,6 +3860,7 @@ def main() -> int:
     k2 = phase_k2(dev, rows, ln["rows"])
     widths = phase_k1_widths(dev, rows, ln["rows"])
     wide = phase_wide_hops(dev)
+    walk = phase_chunk_walk(dev)
     broad = phase_broad_configs(dev)
     front = phase_frontend_step(dev, k2)
     framed_rows = phase_framed_vs_plain(dev)
@@ -3606,7 +3874,8 @@ def main() -> int:
     serve = phase_serve_streams(dev)
     par = phase_parallel(dev, k2)
     k1_rows = rows + widths["rows"] + [dial["auto"]["auto_1024"]]
-    k1_ln_rows = ln["rows"] + widths["ln_rows"]
+    k1_ln_rows = ln["rows"] + widths["ln_rows"] + list(
+        walk["times"].values())
     vs_plain = max(r["vs_plain"] for r in k1_rows + k1_ln_rows)
     by_path = {"batch": {"K1": main["launches"]}, **serving,
                "frontend": front["counts"]["large_v3_30s"],
@@ -3618,6 +3887,7 @@ def main() -> int:
                   for k, v in ten_vad.items()},
                "load_probe": {"P1": sum(probe["counts"].values())},
                "wide_hops": sum_counts(wide["counts"]),
+               "chunk_walk": sum_counts(walk["counts"]),
                "broad_configs": sum_counts(broad["counts"])}
     serve_paths = {"serve_streams_sig_48k": serve["run_a"]["launches"],
                    "serve_streams_rdft_8k": serve["run_b"]["launches"]}
@@ -3690,17 +3960,40 @@ def main() -> int:
         **{k: main[k] for k in ("block_frames", "chunk_cols")},
         "dft_mma": DFT_MMA,
         "widths_refused": widths["refused"],
-        "wide_hops": {k: {f: v[f] for f in (
-            "block_frames", "ms", "k5_ms", "k5_call_ms",
-            "library_composition_ms", "bound_ms", "bound_by",
-            "share_of_bound", "shape")}
-            for k, v in wide["times"].items()},
+        "wide_hops": "K1_factored",
+        "chunk_walk": {k: {f: v[f] for f in (
+            "block_frames", "chunk_cols", "ms", "plain_ms", "bound_ms",
+            "bound_by", "share_of_bound", "library_composition_ms",
+            "k1_over_composition", "vs_plain", "vs_exact",
+            "plain_vs_exact", "shape")}
+            for k, v in walk["times"].items()},
         "serving_bulk_ms": bulk["k1_serving_ms"],
         "ln_modes": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
                                            "bound_by",
                                            "library_composition_ms")}
                      for k, v in ln["times"].items()},
         "epilogues": epilogues,
+    }, {
+        "name": "K1_factored", "route": "cuda", "source": K1_FACTORED_SOURCE,
+        "replaces": K1_REPLACES, "launches": sum(wide["factored"].values()),
+        "launches_by_path": wide["factored"],
+        "max_abs_err": max(v["vs_factored_plain"]
+                           for v in wide["times"].values()),
+        "max_abs_vs_exact": max(v["vs_exact"]
+                                for v in wide["times"].values()),
+        "f32_floor": wide["bars"]["f32_floor"],
+        **{f: wide["times"][WIDE_MAIN][g] for f, g in (
+            ("ms", "ms"), ("plain_ms", "factored_plain_ms"),
+            ("bound_ms", "bound_ms"), ("bound_by", "bound_by"),
+            ("share_of_bound", "share_of_bound"), ("shape", "shape"))},
+        "library_ms": None, "config": WIDE_MAIN, "dft_mma": FACTORED_MMA,
+        "wide_hops": {k: {f: v[f] for f in (
+            "factored", "block_frames", "chunk_cols", "split", "ms",
+            "factored_plain_ms", "k5_ms", "k5_call_ms",
+            "library_composition_ms", "k1_over_composition", "k1_over_k5",
+            "bound_dense", "bound_factored", "l2_bytes_counted",
+            "vs_exact", "vs_factored_plain", "shape")}
+            for k, v in wide["times"].items()},
     }, {
         "name": "K2", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES, "launches": launches("K2"),

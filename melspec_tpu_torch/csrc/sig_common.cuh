@@ -31,7 +31,9 @@
 //     warpgroup, A from registers, B from the ring by descriptor, and a
 //     thread holds 64 float32 DFT accumulators; the larger tile halves the
 //     m_big bytes per frame, and Lay<2> spends half its DFT work on the
-//     zero rows.
+//     zero rows. C = 3 (sig_factored.cuh) is the wide whisper heads'
+//     two-stage DFT in 64-frame blocks; it shares the projection, the
+//     outputs and the epilogues below, not the chunk walk.
 //   - The tile's signal span is staged once as ks bf16 slices in shared
 //     memory, cut into hop-long segments whose row stride is padded to 8
 //     mod 16 elements: frame f's taps start in segment f, so the 8 frame
@@ -93,7 +95,12 @@ constexpr unsigned kCoreN = 528;  // bytes between core matrices along N
 constexpr unsigned kLbo = kCoreK;
 constexpr unsigned kSbo = kCoreN;
 
-// The block layouts: C = 0 holds 128 frames, C = 1 64, C = 2 32. The DFT:
+// The factored layout's ring for the projection rows (C = 3)
+constexpr int kFactoredRing = 48 * 1024;
+
+// The block layouts: C = 0 holds 128 frames, C = 1 64, C = 2 32, C = 3
+// (the factored wide-hop path of sig_factored.cuh) 64, with chunks of 512
+// power columns (1024 DFT columns) and its own ring size. The DFT:
 // warpgroup w takes frames [w * kWgFrames, + 64) and ring columns [w *
 // kWgCols, + 128) of a chunk of kCols (Lay<0>: its own 64 frames and all
 // 128 columns; Lay<1>: all 64 frames and half of 256 columns; Lay<2>:
@@ -103,16 +110,18 @@ constexpr unsigned kSbo = kCoreN;
 // columns. A ring stage holds 32 m_big rows of a chunk.
 template <int C>
 struct Lay {
-  static constexpr int kWM = C == 0 ? 4 : (C == 1 ? 2 : 1);
+  static constexpr int kWM = C == 0 ? 4 : (C == 2 ? 1 : 2);
   static constexpr int kSlots = 4;  // ring stages
   static constexpr int kWN = kWarps / kWM;
   static constexpr int kTile = 32 * kWM;            // frames per block
-  static constexpr int kCols = C == 0 ? 128 : 256;  // DFT columns per chunk
+  // DFT columns per chunk
+  static constexpr int kCols = C == 0 ? 128 : (C == 3 ? 1024 : 256);
   static constexpr int kWgFrames = C == 0 ? 64 : 0;
   static constexpr int kWgCols = C == 0 ? 0 : 128;
   static constexpr bool kMasked = C == 2;  // m64 rows 32-63 hold no frame
   static constexpr int kStageBytes = kCols / 8 * kCoreN;
-  static constexpr int kRingBytes = kSlots * kStageBytes;
+  static constexpr int kRingBytes =
+      C == 3 ? kFactoredRing : kSlots * kStageBytes;
   static constexpr int kMaxMels = 8 * 8 * kWN;  // energy: 8 n8 tiles a warp
   // the VAD counts' tile: the last two frames of each get 0
   static constexpr int kVadTile = kTile < kTileFrames ? kTile : kTileFrames;
@@ -730,13 +739,24 @@ __device__ __forceinline__ void store_power(const Head& h,
   }
 }
 
+// mt's row of power column c of the head (rowmap: the factored layout's
+// order of its power columns; null: the columns in order)
+__device__ __forceinline__ int mt_row(const int* rowmap, int c) {
+  return rowmap ? __ldg(rowmap + c) : c;
+}
+
 // en[tile, nmp] += [p0 | p0 | p1] @ [F0; F1; F0] over the chunk's live
 // power rows: bf16 mma, the three row blocks of mt staged through the
-// ring in pieces; per k16 step p0 . F0, p0 . F1, p1 . F0 in that order
-template <int C>
+// ring in pieces; per k16 step p0 . F0, p0 . F1, p1 . F0 in that order.
+// Power column c of the head reads mt row mt_row(rowmap, c). kNe caps a
+// warp's n8 tiles of the energy at compile time (8: any head; 4: at most
+// 128 padded mel columns), so a caller that knows the head's width keeps
+// the rest of en out of its registers.
+template <int C, int kNe = 8>
 __device__ __forceinline__ void project_bf2(const Head& h, int ch,
                                             const unsigned char* pb,
-                                            unsigned char* ring, Frag& en) {
+                                            unsigned char* ring, Frag& en,
+                                            const int* rowmap = nullptr) {
   using L = Lay<C>;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -766,7 +786,8 @@ __device__ __forceinline__ void project_bf2(const Head& h, int ch,
       const int r = rr - s * rows;
       const int srow = s * rows_max + r;
       cp_async16(sring + srow * nmp * 2 + ((c ^ (srow & 7)) << 4),
-                 F + static_cast<long long>(s * h.npow + ch * cp + k0 + r) *
+                 F + static_cast<long long>(
+                         s * h.npow + mt_row(rowmap, ch * cp + k0 + r)) *
                          nmp + c * 8,
                  true);
     }
@@ -784,7 +805,7 @@ __device__ __forceinline__ void project_bf2(const Head& h, int ch,
       }
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        if (2 * jj >= ne) break;
+        if (2 * jj >= ne || 2 * jj >= kNe) break;
         const int n0 = wn * (nmp / L::kWN) + jj * 16;
         unsigned b[3][4];
 #pragma unroll
@@ -806,11 +827,13 @@ __device__ __forceinline__ void project_bf2(const Head& h, int ch,
 }
 
 // en += power @ mt (float32 [npow, nmp]) over the chunk's live power
-// rows, float32 FMAs in ascending row order
-template <int C>
+// rows, float32 FMAs in ascending row order (mt rows and kNe as
+// project_bf2's)
+template <int C, int kNe = 8>
 __device__ __forceinline__ void project_f32(const Head& h, int ch,
                                             const unsigned char* pb,
-                                            Frag& en) {
+                                            Frag& en,
+                                            const int* rowmap = nullptr) {
   using L = Lay<C>;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -830,11 +853,12 @@ __device__ __forceinline__ void project_f32(const Head& h, int ch,
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh)
         pa[m][hh] = P[(wm * 32 + m * 16 + g + 8 * hh) * cp + c];
-    const float* fr = F + static_cast<long long>(ch * cp + c) * nmp +
+    const float* fr = F + static_cast<long long>(
+                              mt_row(rowmap, ch * cp + c)) * nmp +
                       wn * (nmp / L::kWN) + 2 * q;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      if (j >= ne) break;
+      if (j >= ne || j >= kNe) break;
       const float f0 = __ldg(fr + 8 * j);
       const float f1 = __ldg(fr + 8 * j + 1);
 #pragma unroll
@@ -848,31 +872,28 @@ __device__ __forceinline__ void project_f32(const Head& h, int ch,
   }
 }
 
-// One head over the block's frames: the chunk walk, then the output
-// values of the head's mode. Whisper: log10_accurate(max(e, 1e-10)) into
-// the log tile [tile][nmp] at work, the row max over the padded mel
-// columns, (max(v, max - 8) + 4) / 4; with keep_vals the normalized rows
-// stay in the log tile for an epilogue that follows (after a barrier). ln
-// modes: ln_accurate(e + guard) or ln_accurate(max(e, guard)) straight
-// from the registers. tab is a shared copy of the head's block table.
-template <int C>
-__device__ __forceinline__ void run_head(const Head& h, int* tab,
-                                         const __nv_bfloat16* sx,
-                                         const Span& sp, unsigned char* work,
-                                         int b, int k0, int n_frames,
-                                         bool keep_vals) {
+// One head's energy tile over the block's frames and its output values:
+// en [tile, nmp] is zeroed, walk(en) adds the projection of each chunk of
+// the head's power, then the values of the head's mode. Whisper:
+// log10_accurate(max(e, 1e-10)) into the log tile [tile][nmp] at work, the
+// row max over the padded mel columns, (max(v, max - 8) + 4) / 4; with
+// keep_vals the normalized rows stay in the log tile for an epilogue that
+// follows (after a barrier). ln modes: ln_accurate(e + guard) or
+// ln_accurate(max(e, guard)) straight from the registers. kNe as
+// project_bf2's. The chunk walk (run_head) and the factored path
+// (sig_factored.cuh::run_factored) share it; en stays a local of this
+// function, as it was of run_head before the factored path: passed to a
+// function after the walk, it cost the chunk walk about 1% of its time
+// at 400/160/128.
+template <int C, int kNe = 8, class Walk>
+__device__ __forceinline__ void head_tile(const Head& h, unsigned char* work,
+                                          int b, int k0, int n_frames,
+                                          bool keep_vals, Walk&& walk) {
   using L = Lay<C>;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
   const int wm = warp / L::kWN, wn = warp % L::kWN;
-  const int cp = chunk_pow<C>(h.width, h.npow);
-  unsigned char* pb = work + L::kRingBytes;
-  // the first chunk's barrier orders this copy before every use, and
-  // every use of an earlier head's table before it
-  if (threadIdx.x < 2 * h.n_blocks) tab[threadIdx.x] = __ldg(h.blocks +
-                                                            threadIdx.x);
-  const bool fast = ((sp.hop | h.pack_off) & 1) == 0;
   Frag en;
 #pragma unroll
   for (int m = 0; m < 2; ++m)
@@ -880,21 +901,7 @@ __device__ __forceinline__ void run_head(const Head& h, int* tab,
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) en[m][j][e] = 0.0f;
-  const int n_ch = (h.live + cp - 1) / cp;
-  for (int ch = 0; ch < n_ch; ++ch) {
-    float d[64];
-    if (fast)
-      dft_chunk<C, true>(h, tab, ch, smem_addr(sx), sp, smem_addr(work), d);
-    else
-      dft_chunk<C, false>(h, tab, ch, smem_addr(sx), sp, smem_addr(work), d);
-    store_power<C>(h, d, pb);
-    __syncthreads();  // the chunk's power, from every warp
-    if (h.bf2)
-      project_bf2<C>(h, ch, pb, work, en);
-    else
-      project_f32<C>(h, ch, pb, en);
-  }
-
+  walk(en);
   const int nmp = h.n_mels_pad;
   const int ne = nmp / (8 * L::kWN);
   const int ncol = nmp / L::kWN;
@@ -909,7 +916,7 @@ __device__ __forceinline__ void run_head(const Head& h, int* tab,
                                h.n_mels;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          if (j >= ne) break;
+          if (j >= ne || j >= kNe) break;
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int col = wn * ncol + j * 8 + 2 * q + e;
@@ -933,7 +940,7 @@ __device__ __forceinline__ void run_head(const Head& h, int* tab,
       const int row = wm * 32 + m * 16 + g + 8 * hh;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        if (j >= ne) break;
+        if (j >= ne || j >= kNe) break;
         const int col = wn * ncol + j * 8 + 2 * q;
         *reinterpret_cast<float2*>(slg + row * nmp + col) = make_float2(
             log10_accurate(max_nan(en[m][j][2 * hh], kLogFloor)),
@@ -953,6 +960,45 @@ __device__ __forceinline__ void run_head(const Head& h, int* tab,
                          : nullptr,
                      keep_vals);
   }
+}
+
+// One head over the block's frames: the chunk walk, then the output
+// values of the head's mode (head_tile). tab is a shared copy of the
+// head's block table.
+template <int C>
+__device__ __forceinline__ void run_head(const Head& h, int* tab,
+                                         const __nv_bfloat16* sx,
+                                         const Span& sp, unsigned char* work,
+                                         int b, int k0, int n_frames,
+                                         bool keep_vals) {
+  using L = Lay<C>;
+  // the walk's setup inside the lambda, after head_tile's: this order
+  // keeps the chunk walk's time as it was before head_tile
+  head_tile<C>(h, work, b, k0, n_frames, keep_vals, [&](Frag& en) {
+    const int cp = chunk_pow<C>(h.width, h.npow);
+    unsigned char* pb = work + L::kRingBytes;
+    // the first chunk's barrier orders this copy before every use, and
+    // every use of an earlier head's table before it
+    if (threadIdx.x < 2 * h.n_blocks) tab[threadIdx.x] = __ldg(h.blocks +
+                                                              threadIdx.x);
+    const bool fast = ((sp.hop | h.pack_off) & 1) == 0;
+    const int n_ch = (h.live + cp - 1) / cp;
+    for (int ch = 0; ch < n_ch; ++ch) {
+      float d[64];
+      if (fast)
+        dft_chunk<C, true>(h, tab, ch, smem_addr(sx), sp, smem_addr(work),
+                           d);
+      else
+        dft_chunk<C, false>(h, tab, ch, smem_addr(sx), sp, smem_addr(work),
+                            d);
+      store_power<C>(h, d, pb);
+      __syncthreads();  // the chunk's power, from every warp
+      if (h.bf2)
+        project_bf2<C>(h, ch, pb, work, en);
+      else
+        project_f32<C>(h, ch, pb, en);
+    }
+  });
 }
 
 // Sobel VAD counts of one block's tile (ops/mel_kernel.py::_sig_vad_counts)
@@ -1095,21 +1141,29 @@ __host__ inline bool head_ok(int width, int npow, int live, int n_mels,
 
 // frames per block of layout c
 __host__ __device__ inline int layout_frames(int c) {
-  return c == 0 ? Lay<0>::kTile : (c == 1 ? Lay<1>::kTile : Lay<2>::kTile);
+  return c == 0   ? Lay<0>::kTile
+         : c == 1 ? Lay<1>::kTile
+         : c == 2 ? Lay<2>::kTile
+                  : Lay<3>::kTile;
 }
 
 // DFT columns per chunk of layout c
 __host__ __device__ inline int layout_cols(int c) {
-  return c == 0 ? Lay<0>::kCols : (c == 1 ? Lay<1>::kCols : Lay<2>::kCols);
+  return c == 0   ? Lay<0>::kCols
+         : c == 1 ? Lay<1>::kCols
+         : c == 2 ? Lay<2>::kCols
+                  : Lay<3>::kCols;
 }
 
 // the VAD counts' tile of layout c
 __host__ __device__ inline int layout_vad_tile(int c) {
-  return c == 0 ? Lay<0>::kVadTile
-                : (c == 1 ? Lay<1>::kVadTile : Lay<2>::kVadTile);
+  return c == 0   ? Lay<0>::kVadTile
+         : c == 1 ? Lay<1>::kVadTile
+         : c == 2 ? Lay<2>::kVadTile
+                  : Lay<3>::kVadTile;
 }
 
-// work_bytes of layout c
+// work_bytes of layout c (0 to 2: the chunk-walk layouts)
 __host__ inline long long layout_work_bytes(int c, int width, int npow) {
   return c == 0   ? work_bytes<0>(width, npow)
          : c == 1 ? work_bytes<1>(width, npow)

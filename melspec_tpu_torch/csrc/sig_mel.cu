@@ -55,11 +55,20 @@
 // tile (32 KB split, 64 KB N-packed; half that in 32-frame blocks); the log
 // tile reuses the last two.
 //
+// The wide whisper heads (960/480, 1024/480, 2048/512: whisper heads whose
+// 128- and 64-frame spans do not fit, and where the host gives the
+// factored split) take layout 3 instead: the two-stage DFT of
+// sig_factored.cuh in persistent 64-frame blocks
+// (melspec_sig_mel_factored). The 32-frame dense layout stays for the
+// heads that fold other preprocessing into their matrix (Kaldi, NeMo)
+// and for other slice schedules.
+//
 // Plain C interface, built with nvcc and bound with ctypes
 // (melspec_tpu_torch/kernels/sig_mel.py). Every launch is followed by
 // cudaGetLastError, and its code is returned.
 
 #include "sig_common.cuh"
+#include "sig_factored.cuh"
 
 namespace {
 
@@ -77,6 +86,10 @@ struct Params {
   int* vad;          // VAD epilogue: [B, n_frames] int32, or null
   float vad_thr;
   int vad_start_y;
+  // the factored layout's clip count (its blocks are persistent); last,
+  // so that the chunk-walk kernels read every other field where they did
+  // before it was added
+  long long batch;
 };
 
 template <int C>
@@ -106,19 +119,71 @@ __global__ void __launch_bounds__(kThreads, 1) sig_mel_kernel(const Params p) {
                    p.vad_thr, b, k0, p.n_frames, p.vad);
 }
 
-// The block layout of a launch (sig_common.cuh::pick_layout, all three
-// layouts): returns its code, writes its span and shared memory
+// The factored layout's kernel: persistent blocks over the tiles of 64
+// frames (sig_factored.cuh), the stage-2 matrix and the window copied to
+// shared memory once a block; kNe 4 for heads of 128 padded mel columns,
+// 8 for 256
+template <int N1, int kNe>
+__global__ void __launch_bounds__(kThreads, 1)
+    sig_mel_factored_kernel(const Params p, const Factored f) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* work = smem;
+  unsigned char* b2 =
+      work + Lay<3>::kRingBytes + 4 * Lay<3>::kTile * kFChunkPow;
+  float* swin = reinterpret_cast<float*>(b2 + kFB2Bytes);
+  unsigned char* b1 =
+      reinterpret_cast<unsigned char*>(swin + kFWinRow * N1) +
+      (threadIdx.x >> 7) * f_b1_bytes(N1);
+  f_constants(f, b2, swin);
+  const bool keep = p.q != nullptr || p.vad != nullptr;
+  const long long total = p.batch * p.tiles;
+  for (long long t = blockIdx.x; t < total; t += gridDim.x) {
+    const int b = static_cast<int>(t / p.tiles);
+    const int k0 = static_cast<int>(t - static_cast<long long>(b) * p.tiles) *
+                   Lay<3>::kTile;
+    __syncthreads();  // the previous tile's outputs are done with work
+    run_factored<N1, kNe>(
+        p.head, f, p.x + static_cast<long long>(b) * p.T, p.T,
+        p.offset + static_cast<long long>(k0) * p.span.hop, p.span.hop, work,
+        b2, swin, b1, b, k0, p.n_frames, keep);
+    if (!keep) continue;
+    __syncthreads();  // the tile's normalized rows, from every warp
+    const float* vals = reinterpret_cast<const float*>(work);
+    if (p.q)
+      quant_records<3>(vals, p.head.n_mels_pad, p.head.n_mels, b, k0,
+                       p.n_frames, p.q, p.lo, p.hi);
+    if (p.vad)
+      vad_counts<3>(vals, p.head.n_mels_pad, p.head.n_mels, p.vad_start_y,
+                    p.vad_thr, b, k0, p.n_frames, p.vad);
+  }
+}
+
+// The block layout of a launch (sig_common.cuh::pick_layout, the three
+// chunk-walk layouts), then layout 3 in place of 2 where the host gives
+// the head's factored split n1 x n2 (n1 > 0): returns its code, writes
+// its span (the chunk-walk layouts') and shared memory
 int layout(int ks, int hop, int pack, int pack_off, int width, int npow,
-           int n_mels_pad, Span* span, long long* bytes) {
+           int n_mels_pad, int n1, int n2, Span* span, long long* bytes) {
   auto span_of = [&](int c) {
     return make_span(hop, span_len(layout_frames(c), hop, pack, pack_off));
   };
   auto need = [&](int c) {
     return span_bytes(ks, span_of(c)) + layout_work_bytes(c, width, npow);
   };
-  const int c = pick_layout(n_mels_pad, need, 2, bytes);
+  int c = pick_layout(n_mels_pad, need, 2, bytes);
   *span = span_of(c);
+  if (c == 2 && n1 > 0) {
+    c = 3;
+    *bytes = factored_bytes(n1) + kStaticSmem;
+    *span = make_span(hop, n1 * n2);
+  }
   return c;
+}
+
+// the factored split K1 takes: n1 32 or 64, 25 <= n2 <= 32, the whisper
+// head's split columns (npow = 16 n1: 32 k1 x 16 k2 a chunk)
+bool factored_ok(int n1, int n2, int npow) {
+  return (n1 == 32 || n1 == 64) && n2 > 24 && n2 <= kFN2 && npow == 16 * n1;
 }
 
 }  // namespace
@@ -126,17 +191,26 @@ int layout(int ks, int hop, int pack, int pack_off, int width, int npow,
 extern "C" {
 
 // The block layout K1 takes for a head: returns one block's shared memory
-// and writes its frames (128, 64 or 32) to *block_frames and the DFT
-// columns of its chunks (128 or 256) to *chunk_cols. The launch applies
-// the same function; the VAD epilogue's tile is min(64, block frames).
+// and writes its code (0-2: 128-, 64-, 32-frame chunk walk; 3: the
+// factored DFT) to *code, its frames (128, 64, 32; 64) to *block_frames
+// and the DFT columns of its chunks (128 or 256; 1024) to *chunk_cols.
+// n1 x n2 is the head's factored split, or n1 = 0 for a head the
+// factored path does not take (the host decides which: whisper heads of
+// the (3, 2) schedule). The launch applies the same function; the VAD
+// epilogue's tile is min(64, block frames).
 long long melspec_sig_mel_layout(int ks, int hop, int pack, int pack_off,
-                                 int width, int npow, int n_mels_pad,
-                                 int* block_frames, int* chunk_cols) {
+                                 int width, int npow, int n_mels_pad, int n1,
+                                 int n2, int* code, int* block_frames,
+                                 int* chunk_cols) {
   if (hop <= 0 || pack <= 0) return -1;
+  if (n1 != 0 && (!factored_ok(n1, n2, npow) || pack != n1 * n2 ||
+                  pack_off != 0 || width != 2 * npow))
+    return -1;
   Span span;
   long long bytes;
-  const int c =
-      layout(ks, hop, pack, pack_off, width, npow, n_mels_pad, &span, &bytes);
+  const int c = layout(ks, hop, pack, pack_off, width, npow, n_mels_pad, n1,
+                       n2, &span, &bytes);
+  *code = c;
   *block_frames = layout_frames(c);
   *chunk_cols = layout_cols(c);
   return bytes;
@@ -174,8 +248,8 @@ int melspec_sig_mel(const float* x, long long batch, long long T,
     return cudaErrorInvalidValue;
   Params p;
   long long smem;
-  const int lay = layout(ks, hop, pack, pack_off, width, npow, n_mels_pad,
-                         &p.span, &smem);
+  const int lay = layout(ks, hop, pack, pack_off, width, npow, n_mels_pad, 0,
+                         0, &p.span, &smem);
   const int frames = layout_frames(lay);
   if (smem > kSmemLimit || tile_frames != layout_vad_tile(lay))
     return cudaErrorInvalidValue;
@@ -183,6 +257,7 @@ int melspec_sig_mel(const float* x, long long batch, long long T,
   const long long grid = batch * tiles;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
   p.x = x;
+  p.batch = batch;
   p.T = T;
   p.n_frames = n_frames;
   p.offset = offset;
@@ -219,6 +294,101 @@ int melspec_sig_mel(const float* x, long long batch, long long T,
   if (err != cudaSuccess) return err;
   kernel<<<static_cast<unsigned>(grid), kThreads, static_cast<size_t>(dyn),
            static_cast<cudaStream_t>(stream)>>>(p);
+  return cudaGetLastError();
+}
+
+// K1's factored wide-hop path (layout 3) for a whisper head of N = n1 *
+// n2 taps (periodic Hann window, split columns): the host-built tables of
+// kernels/sig_mel.py::factored_dft (window float32 [n], f1, tw, f2,
+// rowmap; see sig_factored.cuh::Factored), mt (bf2 stack [3 npow, nmp]
+// or float32 [npow, nmp], npow = 16 n1, bins in order), and the outputs
+// and epilogues of melspec_sig_mel (whisper mode). tile_frames must be
+// 64. Returns 0 or the cudaError_t of the launch (cudaErrorInvalidValue
+// for arguments the kernel does not take, or where the head's own layout
+// would not be 32-frame blocks: every other head keeps its layout).
+int melspec_sig_mel_factored(const float* x, long long batch, long long T,
+                             int n_frames, int hop, int offset,
+                             int tile_frames, int n1, int n2,
+                             const float* window, const void* f1,
+                             const void* tw, const void* f2,
+                             const int* rowmap, const void* mt, int npow,
+                             int n_mels, int n_mels_pad, int bf2, float* out,
+                             unsigned char* q, float* lo, float* hi, int* vad,
+                             float vad_thr, int vad_start_y, void* stream) {
+  if (batch <= 0 || n_frames <= 0) return cudaSuccess;
+  if (hop <= 0 || offset < 0 || !factored_ok(n1, n2, npow) ||
+      !head_ok(2 * npow, npow, npow, n_mels, n_mels_pad, 2048))
+    return cudaErrorInvalidValue;
+  if ((out == nullptr && q == nullptr) ||
+      (q != nullptr && (lo == nullptr || hi == nullptr)) ||
+      (vad != nullptr && (vad_start_y < 0 || n_mels < 3)))
+    return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(mt) | reinterpret_cast<uintptr_t>(f1) |
+       reinterpret_cast<uintptr_t>(tw) | reinterpret_cast<uintptr_t>(f2)) %
+      16)
+    return cudaErrorInvalidValue;
+  const int n = n1 * n2;
+  Span span;
+  long long smem;
+  const int lay = layout(3, hop, n, 0, 2 * npow, npow, n_mels_pad, n1, n2,
+                         &span, &smem);
+  if (lay != 3 || smem > kSmemLimit || tile_frames != layout_vad_tile(lay))
+    return cudaErrorInvalidValue;
+  const long long tiles = (n_frames + Lay<3>::kTile - 1) / Lay<3>::kTile;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long total = batch * tiles;
+  const long long grid = total < sms ? total : sms;
+  Params p = {};
+  p.x = x;
+  p.batch = batch;
+  p.T = T;
+  p.n_frames = n_frames;
+  p.offset = offset;
+  p.ks = 3;
+  p.tiles = static_cast<int>(tiles);
+  p.span = span;
+  p.head.mt = mt;
+  p.head.out = out;
+  p.head.n_blocks = kFPairs;
+  p.head.pack = n;
+  p.head.width = 2 * npow;
+  p.head.npow = npow;
+  p.head.live = npow;
+  p.head.n_mels = n_mels;
+  p.head.n_mels_pad = n_mels_pad;
+  p.head.bf2 = bf2;
+  p.head.out_mode = kWhisper;
+  p.q = q;
+  p.lo = lo;
+  p.hi = hi;
+  p.vad = vad;
+  p.vad_thr = vad_thr;
+  p.vad_start_y = vad_start_y;
+  Factored f;
+  f.window = window;
+  f.f1 = static_cast<const unsigned*>(f1);
+  f.tw = static_cast<const float4*>(tw);
+  f.f2 = static_cast<const uint4*>(f2);
+  f.rowmap = rowmap;
+  f.n = n;
+  f.n1 = n1;
+  f.n2 = n2;
+  const bool narrow = n_mels_pad <= 128;
+  auto kernel = n1 == 32 ? (narrow ? sig_mel_factored_kernel<32, 4>
+                                   : sig_mel_factored_kernel<32, 8>)
+                         : (narrow ? sig_mel_factored_kernel<64, 4>
+                                   : sig_mel_factored_kernel<64, 8>);
+  const long long dyn = smem - kStaticSmem;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(dyn));
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(grid), kThreads, static_cast<size_t>(dyn),
+           static_cast<cudaStream_t>(stream)>>>(p, f);
   return cudaGetLastError();
 }
 

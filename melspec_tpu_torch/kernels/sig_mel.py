@@ -11,8 +11,20 @@ whisper mode's two epilogues: the per-frame u8 wire record
 wrapper launches the kernel for a CUDA tensor (or raises) and runs its
 plain version (``sig_mel_reference``, ``sig_mel_quantized_reference``,
 ``sig_mel_vad_reference``) only for a CPU tensor. ``launches`` counts
-kernel launches and ``epilogue_launches`` those that ran an epilogue;
-nothing else adds to them.
+kernel launches, ``epilogue_launches`` those that ran an epilogue and
+``factored_launches`` those of the factored wide-hop path; nothing else
+adds to them.
+
+The factored path (``csrc/sig_factored.cuh``, block layout 3) takes the
+whisper heads whose 128- and 64-frame spans do not fit a block (the wide
+hops 960/480, 1024/480, 2048/512): their matrix is the periodic Hann
+window times the DFT of ``dft_size`` taps, so K1 runs it as two small
+DFTs of ``factored_split(dft_size)`` (``N = N1 x N2``) with a float32
+twiddle between them, from the host tables of ``factored_dft``. Its
+plain version is ``sig_mel_factored_reference``; on the CPU these heads
+keep ``sig_mel_reference`` (float64 dot) as every head does. A head the
+host gives no split (Kaldi's and NeMo's, whose matrices fold in other
+preprocessing, or another slice schedule) keeps the 32-frame chunk walk.
 """
 
 from __future__ import annotations
@@ -20,14 +32,17 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from melspec_tpu_torch.kernels import build
 from melspec_tpu_torch.ops.fastmath import ln_accurate, log10_accurate
+from melspec_tpu_torch.ops.hp_dft import bf16_round_slices
 from melspec_tpu_torch.ops.quant import quantize_frames
 from melspec_tpu_torch.ops.vad import sobel_gradient_sq
+from melspec_tpu_torch.ops.windows import hann_periodic
 
 LOG10_FLOOR = 1e-10
 # the smallest normal float32: ln_accurate's bit decomposition takes
@@ -48,9 +63,19 @@ MAX_MELS_PAD = 256
 # 32-frame blocks (``vad_tile``); the kernels check that the caller's
 # value is theirs (csrc/sig_common.cuh: kTileFrames, Lay::kVadTile)
 TILE_FRAMES = 64
+# the factored path's schedule: three slices a side, pairs i + j <= 2, the
+# whisper heads' pair_i (csrc/sig_factored.cuh: f_pair_i, f_pair_j)
+FACTORED_PAIR_I = (0, 0, 0, 1, 1, 2)
+FACTORED_PAIRS = ((0, 2), (1, 1), (2, 0), (0, 1), (1, 0), (0, 0))
+FACTORED_N1 = (32, 64)
+# stage 2's n2 (padded) and its k2 (the bins below N / 2): a chunk is 32
+# k1 x 16 k2 = 512 power columns
+FACTORED_N2 = 32
+FACTORED_K2 = 16
 
 launches = 0
 epilogue_launches = {"quant": 0, "vad": 0}
+factored_launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,7 +89,9 @@ class SigHead:
     pack)``; ``n_mels`` output columns in ``out_mode`` with ``guard``;
     ``live`` the power columns that can be nonzero (``live_columns``),
     computed from ``m_big`` where the head is built (on the CPU) unless
-    given."""
+    given; ``dft_size`` the N whose periodic-Hann-windowed split DFT
+    ``m_big`` is (whisper heads), 0 for any other matrix: where
+    ``factored_route`` takes it, K1 runs the factored path."""
 
     m_big: torch.Tensor
     pair_i: tuple
@@ -76,6 +103,7 @@ class SigHead:
     out_mode: str = "whisper"
     guard: float = 0.0
     live: int | None = None
+    dft_size: int = 0
 
     def __post_init__(self):
         if self.live is None:
@@ -93,7 +121,7 @@ class SigHead:
                     n_bins_pad=self.n_bins_pad, n_mels=self.n_mels,
                     mel_precision=self.mel_precision,
                     out_mode=self.out_mode, guard=self.guard,
-                    live=self.live)
+                    live=self.live, dft_size=self.dft_size)
 
     def to(self, device) -> "SigHead":
         return dataclasses.replace(self, m_big=self.m_big.to(device),
@@ -127,7 +155,7 @@ def sig_mel_reference(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
                       offset: int, pack: int, n_bins_pad: int, n_mels: int,
                       mel_precision: str = "bf2", pack_off: int = 0,
                       out_mode: str = "whisper", guard: float = 0.0,
-                      live: int | None = None,
+                      live: int | None = None, dft_size: int = 0,
                       dot_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The JAX kernel's math written out in plain PyTorch, on whatever
     device ``samples`` lies on: ``samples [B, T]`` f32 -> ``[B, n_frames,
@@ -143,8 +171,8 @@ def sig_mel_reference(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
     DFT dot is one ``torch.matmul`` in ``dot_dtype``: float32 as in the
     JAX kernel, or float64, which sums the exact bf16 x bf16 products with
     no rounding that reaches float32 — the exact value the float32
-    versions are held against. ``live`` is K1's and not used here: the
-    plain version multiplies every column."""
+    versions are held against. ``live`` and ``dft_size`` are K1's and not
+    used here: the plain version multiplies every column of ``m_big``."""
     b = samples.shape[0]
     if n_frames <= 0:
         return samples.new_zeros((b, 0, n_mels))
@@ -154,14 +182,7 @@ def sig_mel_reference(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
     if x.shape[-1] < need:
         x = torch.nn.functional.pad(x, (0, need - x.shape[-1]))
     frames = x[:, start:need].unfold(-1, pack, hop)  # [B, nf, pack]
-    # the bf16 residual cascade: slice i rounds what slices < i left
-    residual = frames
-    slices = []
-    for i in range(ks):
-        xs = residual.to(torch.bfloat16)
-        if i + 1 < ks:
-            residual = residual - xs.to(torch.float32)
-        slices.append(xs)
+    slices = bf16_cascade(frames, ks)
     # xcat @ m_big, the blocks concatenated in pair_i order; the K-stack's
     # zero pad rows past the real blocks contribute nothing
     xcat = torch.cat([slices[i] for i in pair_i], dim=-1).to(dot_dtype)
@@ -182,6 +203,200 @@ def sig_mel_reference(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
     else:
         raise ValueError("mel_precision must be 'bf2' or 'highest'")
     return out_vals(energy, out_mode, guard)[..., :n_mels].contiguous()
+
+
+def factored_split(dft_size: int) -> tuple | None:
+    """``(N1, N2)`` of K1's factored path for a whisper head of
+    ``dft_size`` taps, or None: ``N = N1 x N2`` with N1 32 or 64 (a chunk
+    is 32 k1 values, the 64 rows of a ``wgmma``), 24 < N2 <= 32 (stage
+    2's padded n2; a thread's 8-tap groups), and the head's split point
+    ``n_bins_pad`` equal to 16 N1 (16 k2 a k1). 960 = 32 x 30, 1024 = 32 x
+    32, 2048 = 64 x 32."""
+    half = dft_size // 2
+    n_bins_pad = -(-half // 128) * 128
+    for n1 in FACTORED_N1:
+        n2 = dft_size // n1
+        if (dft_size % n1 == 0 and 24 < n2 <= FACTORED_N2
+                and n_bins_pad == FACTORED_K2 * n1):
+            return n1, n2
+    return None
+
+
+def factored_route(dft_size: int, *, ks: int, pair_i, pack: int,
+                   pack_off: int, width: int, npow: int,
+                   out_mode: str = "whisper") -> tuple | None:
+    """The factored split the host hands K1's layout for a head, or None.
+    A split only for a whisper head whose matrix is the periodic Hann
+    window times the split DFT of ``dft_size`` taps (``dft_size`` set
+    where it is built), contracting the whole frame, in the (3, 2) slice
+    schedule; the built kernel then takes layout 3 where the head's own
+    would be the 32-frame chunk walk, and keeps every other layout."""
+    split = factored_split(dft_size) if dft_size else None
+    if (split is None or out_mode != "whisper" or ks != 3
+            or tuple(pair_i) != FACTORED_PAIR_I or pack != dft_size
+            or pack_off != 0 or width != 2 * npow):
+        return None
+    return split
+
+
+@dataclasses.dataclass(frozen=True)
+class FactoredDft:
+    """The host tables of K1's factored path for ``N = n1 x n2`` taps,
+    each built in float64 and rounded once, in the layouts
+    ``csrc/sig_factored.cuh::Factored`` reads:
+
+    - ``window`` float32 ``[N]``: the periodic Hann window;
+    - ``f1`` bf16 ``[n1 / 32, 3, 64, n1]``: stage 1's three slices of the
+      real-input ``n1``-point DFT, chunk ``c``'s row ``16 w + 8 h + g``
+      the cos (h 0) or -sin (h 1) row of ``k1 = 32 c + 8 w + g``;
+    - ``tw`` float32 ``[n1, 32, 2]``: ``(cos, sin)(2 pi n2 k1 / N)`` (0
+      past n2);
+    - ``f2`` bf16 ``[3, 32, 32]``: stage 2's ``cos | sin (2 pi n2 k2 /
+      n2)`` for ``k2 < 16`` below ``ceil(n2 / 2)`` (0 elsewhere);
+    - ``rowmap`` int32 ``[16 n1]``: the bin ``32 c + r + n1 k2`` of chunk
+      ``c``'s power column ``16 r + k2``, the mt row the projection reads;
+    - ``f1_rows`` bf16 ``[3, 2 n1, n1]``, ``f1``'s slices in bin order
+      (cos rows, then -sin), for the plain version."""
+
+    n: int
+    n1: int
+    n2: int
+    window: torch.Tensor
+    f1: torch.Tensor
+    tw: torch.Tensor
+    f2: torch.Tensor
+    rowmap: torch.Tensor
+    f1_rows: torch.Tensor
+
+    def to(self, device) -> "FactoredDft":
+        return dataclasses.replace(
+            self, **{k: getattr(self, k).to(device) for k in (
+                "window", "f1", "tw", "f2", "rowmap", "f1_rows")})
+
+
+@functools.lru_cache(maxsize=16)
+def factored_dft(dft_size: int, device: torch.device) -> FactoredDft:
+    """``FactoredDft`` of ``factored_split(dft_size)``, cached on
+    ``device``."""
+    split = factored_split(dft_size)
+    if split is None:
+        raise ValueError(f"no factored split for {dft_size} taps")
+    n1, n2 = split
+    n = n1 * n2
+    k2_max = min(FACTORED_K2, -(-n2 // 2))
+    ang1 = 2 * np.pi * np.outer(np.arange(n1), np.arange(n1)) / n1
+    rows = np.concatenate([np.cos(ang1), -np.sin(ang1)])  # [2 n1, n1]
+    f1_rows = torch.stack(bf16_round_slices(rows, 3))     # [3, 2 n1, n1]
+    k1 = np.arange(n1)
+    w, h, g = np.meshgrid(np.arange(4), np.arange(2), np.arange(8),
+                          indexing="ij")
+    # chunk c, row 16 w + 8 h + g <- bin-order row h * n1 + 32 c + 8 w + g
+    order = np.concatenate([(h * n1 + 32 * c + 8 * w + g).reshape(-1)
+                            for c in range(n1 // 32)])
+    f1 = f1_rows[:, order].reshape(3, n1 // 32, 64, n1).transpose(0, 1)
+    tw = np.zeros((n1, FACTORED_N2, 2))
+    ang_t = 2 * np.pi * np.outer(k1, np.arange(n2)) / n
+    tw[:, :n2, 0], tw[:, :n2, 1] = np.cos(ang_t), np.sin(ang_t)
+    f2 = np.zeros((FACTORED_N2, 2 * FACTORED_K2))
+    ang2 = 2 * np.pi * np.outer(np.arange(n2), np.arange(k2_max)) / n2
+    f2[:n2, :k2_max] = np.cos(ang2)
+    f2[:n2, FACTORED_K2 : FACTORED_K2 + k2_max] = np.sin(ang2)
+    c, r, k2 = np.meshgrid(np.arange(n1 // 32), np.arange(32),
+                           np.arange(FACTORED_K2), indexing="ij")
+    rowmap = (32 * c + r + n1 * k2).reshape(-1)
+    return FactoredDft(
+        n, n1, n2,
+        window=torch.as_tensor(hann_periodic(n), dtype=torch.float32),
+        f1=f1.contiguous(),
+        tw=torch.as_tensor(tw, dtype=torch.float32),
+        f2=torch.stack(bf16_round_slices(f2, 3)),
+        rowmap=torch.as_tensor(rowmap, dtype=torch.int32),
+        f1_rows=f1_rows).to(device)
+
+
+def bf16_cascade(v: torch.Tensor, ks: int) -> list:
+    """The bf16 residual cascade of a float32 tensor: slice i rounds (to
+    nearest even) what slices < i left (the kernels' staging and
+    ``cut3``)."""
+    slices = []
+    for i in range(ks):
+        h = v.to(torch.bfloat16)
+        if i + 1 < ks:
+            v = v - h.to(torch.float32)
+        slices.append(h)
+    return slices
+
+
+def factored_power(samples: torch.Tensor, fac: FactoredDft, *,
+                   n_frames: int, hop: int, offset: int,
+                   dot_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The DFT power of K1's factored path in plain PyTorch, the kernel's
+    schedule: ``samples [B, T]`` f32 -> ``[B, n_frames, 16 n1]`` f32, bin
+    ``k1 + n1 k2`` in column ``k1 + n1 k2`` (bins at or past ``N / 2``
+    hold what the kernel computes there and the projection drops). Frame
+    ``k`` is samples ``offset + k*hop ...`` (zero past the clip) times the
+    float32 window, reshaped to ``[n1, n2]`` (``n = n2 n1 + n2``) and cut
+    into three bf16 slices; stage 1 sums the six pairs ``FACTORED_PAIRS``
+    against ``f1``'s slices in one ``dot_dtype`` matmul over their
+    concatenation, the float32 twiddle ``Z = Y W`` follows, Z is cut into
+    three slices, and stage 2 sums the six pairs against ``f2`` the same
+    way; the power is ``(C_re + S_im)^2 + (C_im - S_re)^2``."""
+    b = samples.shape[0]
+    n, n1, n2 = fac.n, fac.n1, fac.n2
+    x = samples.to(torch.float32)
+    need = offset + (n_frames - 1) * hop + n
+    if x.shape[-1] < need:
+        x = torch.nn.functional.pad(x, (0, need - x.shape[-1]))
+    frames = x[:, offset:need].unfold(-1, n, hop) * fac.window
+    xr = torch.nn.functional.pad(frames.reshape(b, n_frames, n1, n2),
+                                 (0, FACTORED_N2 - n2))
+    xs = bf16_cascade(xr, 3)                         # [B, F, n1, 32] each
+    a1 = torch.cat([fac.f1_rows[j] for _, j in FACTORED_PAIRS], dim=-1)
+    b1 = torch.cat([xs[i] for i, _ in FACTORED_PAIRS], dim=-2)
+    y = (a1.to(dot_dtype) @ b1.to(dot_dtype)).to(torch.float32)
+    yr, yi = y[..., :n1, :], y[..., n1:, :]          # [B, F, n1, 32]
+    c, s = fac.tw[..., 0], fac.tw[..., 1]
+    zr = yr * c + yi * s
+    zi = yi * c - yr * s
+    zs = [torch.cat([r, i], dim=-2)
+          for r, i in zip(bf16_cascade(zr, 3), bf16_cascade(zi, 3))]
+    a2 = torch.cat([zs[i] for i, _ in FACTORED_PAIRS], dim=-1)
+    b2 = torch.cat([fac.f2[j] for _, j in FACTORED_PAIRS], dim=0)
+    d2 = (a2.to(dot_dtype) @ b2.to(dot_dtype)).to(torch.float32)
+    k2 = FACTORED_K2
+    xre = d2[..., :n1, :k2] + d2[..., n1:, k2:]
+    xim = d2[..., n1:, :k2] - d2[..., :n1, k2:]
+    # [B, F, n1 (k1), 16 (k2)] -> bins k1 + n1 k2 in order
+    return (xre * xre + xim * xim).transpose(-1, -2).reshape(
+        b, n_frames, k2 * n1)
+
+
+def sig_mel_factored_reference(samples: torch.Tensor, fac: FactoredDft,
+                               mt: torch.Tensor, *, n_frames: int, hop: int,
+                               offset: int, n_mels: int,
+                               mel_precision: str = "bf2",
+                               dot_dtype: torch.dtype = torch.float32
+                               ) -> torch.Tensor:
+    """The plain version of K1's factored path on whatever device
+    ``samples`` lies on: ``samples [B, T]`` f32 -> whisper values ``[B,
+    n_frames, n_mels]``: ``factored_power`` projected by ``mt`` (bins in
+    order: the bf2 stack ``[F0; F1; F0]`` or the f32 projection), then
+    ``out_vals``, as in ``sig_mel_reference``."""
+    b = samples.shape[0]
+    if n_frames <= 0:
+        return samples.new_zeros((b, 0, n_mels))
+    power = factored_power(samples, fac, n_frames=n_frames, hop=hop,
+                           offset=offset, dot_dtype=dot_dtype)
+    if mel_precision == "bf2":
+        p0 = power.to(torch.bfloat16)
+        p1 = (power - p0.to(torch.float32)).to(torch.bfloat16)
+        energy = (torch.cat([p0, p0, p1], dim=-1).to(torch.float32)
+                  @ mt.to(torch.float32))
+    elif mel_precision == "highest":
+        energy = power @ mt.to(torch.float32)
+    else:
+        raise ValueError("mel_precision must be 'bf2' or 'highest'")
+    return out_vals(energy, "whisper", 0.0)[..., :n_mels].contiguous()
 
 
 def sig_mel_quantized_reference(samples: torch.Tensor, m_big: torch.Tensor,
@@ -253,33 +468,73 @@ def _bound() -> ctypes.CDLL:
         p,                      # stream
     ]
     lib.melspec_sig_mel.restype = ctypes.c_int
-    lib.melspec_sig_mel_layout.argtypes = [i, i, i, i, i, i, i, p, p]
+    lib.melspec_sig_mel_factored.argtypes = [
+        p, ll, ll, i, i, i, i,  # x, batch, T, n_frames, hop, offset, tile
+        i, i, p, p, p, p, p,    # n1, n2, window, f1, tw, f2, rowmap
+        p, i, i, i, i,          # mt, npow, n_mels, n_mels_pad, bf2
+        p, p, p, p,             # out, q, lo, hi
+        p, ctypes.c_float, i,   # vad, vad_thr, vad_start_y
+        p,                      # stream
+    ]
+    lib.melspec_sig_mel_factored.restype = ctypes.c_int
+    lib.melspec_sig_mel_layout.argtypes = [i, i, i, i, i, i, i, i, i, p, p,
+                                           p]
     lib.melspec_sig_mel_layout.restype = ctypes.c_longlong
     lib.melspec_cuda_error_string.argtypes = [ctypes.c_int]
     lib.melspec_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
+class Layout(NamedTuple):
+    """K1's block layout: a block's shared memory, its frames, its chunks'
+    DFT columns and whether it is the factored path."""
+
+    smem: int
+    frames: int
+    cols: int
+    factored: bool
+
+
 def block_layout(ks: int, hop: int, pack: int, pack_off: int, width: int,
-                 npow: int, n_mels_pad: int) -> tuple:
-    """``(shared memory bytes, frames per block, DFT columns per chunk)``
-    of the block layout K1 takes for a head (asks the built kernel, which
+                 npow: int, n_mels_pad: int, split=None) -> Layout:
+    """K1's block layout for a head (asks the built kernel, which
     decides it): 128-frame blocks of 128-column chunks where they fit and
     the head has at most 128 padded mel columns, else 64-frame blocks of
-    256-column chunks where they fit, else 32-frame blocks of 256-column
-    chunks (the wide hops: 960/480, 1024/480, 2048/512)."""
-    frames, cols = ctypes.c_int(), ctypes.c_int()
+    256-column chunks where they fit, else, for a head with a factored
+    ``split`` (``factored_route``), the factored path's 64-frame blocks
+    of 512 power columns (1024 DFT columns), else 32-frame blocks of
+    256-column chunks."""
+    n1, n2 = split or (0, 0)
+    code, frames, cols = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     smem = _bound().melspec_sig_mel_layout(ks, hop, pack, pack_off, width,
-                                           npow, n_mels_pad,
+                                           npow, n_mels_pad, n1, n2,
+                                           ctypes.byref(code),
                                            ctypes.byref(frames),
                                            ctypes.byref(cols))
-    return int(smem), frames.value, cols.value
+    if smem < 0:
+        raise ValueError(f"K1 has no layout for hop {hop}, {pack} taps at "
+                         f"{pack_off}, width {width}, split {split}")
+    return Layout(int(smem), frames.value, cols.value, code.value == 3)
 
 
-def _smem_bytes(ks: int, hop: int, pack: int, pack_off: int, width: int,
-                npow: int, n_mels_pad: int) -> int:
-    """Shared memory one K1 block needs (asks the built kernel)."""
-    return block_layout(ks, hop, pack, pack_off, width, npow, n_mels_pad)[0]
+def head_layout(head: SigHead, hop: int, ks: int = 3) -> Layout:
+    """K1's block layout for ``head`` at ``hop`` with ``ks`` signal
+    slices, the one place that decides the route: the head's factored
+    split (``factored_route``) handed to ``block_layout``, so a launch,
+    ``k1_accepts`` and ``k1_vad_tile`` agree."""
+    width = head.m_big.shape[1]
+    npow = width if head.n_bins_pad == 0 else head.n_bins_pad
+    split = factored_route(head.dft_size, ks=ks, pair_i=head.pair_i,
+                           pack=head.pack, pack_off=head.pack_off,
+                           width=width, npow=npow, out_mode=head.out_mode)
+    return block_layout(ks, hop, head.pack, head.pack_off, width, npow,
+                        head.mt.shape[1], split)
+
+
+def _smem_bytes(head: SigHead, hop: int, ks: int) -> int:
+    """Shared memory one K1 block needs for ``head`` (asks the built
+    kernel)."""
+    return head_layout(head, hop, ks).smem
 
 
 def vad_tile(block_frames: int) -> int:
@@ -288,16 +543,15 @@ def vad_tile(block_frames: int) -> int:
     return min(TILE_FRAMES, block_frames)
 
 
-def k1_vad_tile(device, *, ks: int, hop: int, pack: int, pack_off: int,
-                width: int, npow: int, n_mels_pad: int) -> int:
-    """The tile of K1's VAD counts for a head: on CUDA that of the block
-    layout the launch takes (asks the built kernel), on the CPU, where
-    the plain version runs, ``TILE_FRAMES``. ``fix_raw`` recomputes the
-    columns at its edges."""
+def k1_vad_tile(head: SigHead, hop: int, device, ks: int = 3) -> int:
+    """The tile of K1's VAD counts for ``head`` at ``hop``: on CUDA that
+    of the block layout the launch takes (``head_layout``: 64 frames, 32
+    in the chunk walk's 32-frame blocks), on the CPU, where the plain
+    version runs, ``TILE_FRAMES``. ``fix_raw`` recomputes the columns at
+    its edges."""
     if torch.device(device).type != "cuda":
         return TILE_FRAMES
-    return vad_tile(block_layout(ks, hop, pack, pack_off, width, npow,
-                                 n_mels_pad)[1])
+    return vad_tile(head_layout(head, hop, ks).frames)
 
 
 def block_order(pair_i) -> list:
@@ -351,8 +605,7 @@ def k1_accepts(head: SigHead, *, hop: int, ks: int = 3) -> bool:
     if shape_refusal(width, split, head.mt.shape[1], "K1") is not None:
         return False
     npow = width if split == 0 else split
-    smem = _smem_bytes(ks, hop, head.pack, head.pack_off, width, npow,
-                       head.mt.shape[1])
+    smem = _smem_bytes(head, hop, ks)
     return _smem_refusal(smem, hop, head.pack, head.pack_off, npow) is None
 
 
@@ -423,14 +676,16 @@ def raise_for(lib, rc: int, what: str) -> None:
 
 def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
             n_bins_pad, n_mels, mel_precision, pack_off, out_mode, guard,
-            live, epilogue: str | None = None,
+            live, dft_size: int = 0, epilogue: str | None = None,
             vad: tuple = (0.0, 0)) -> tuple:
     """One K1 launch. ``live``: the power columns that can be nonzero
-    (None: every one). ``epilogue``: None (the float mel), ``"quant"``
-    (the u8 records ``q, lo, hi`` and no float mel) or ``"vad"`` (the mel
-    and the Sobel counts at ``vad = (thr, start_y)``). Returns the outputs
-    as a tuple."""
-    global launches
+    (None: every one). ``dft_size``: the head's (``SigHead``); where
+    ``head_layout`` gives layout 3, the factored path runs, from
+    ``factored_dft``'s tables (``m_big`` is not read). ``epilogue``: None (the float mel), ``"quant"`` (the u8
+    records ``q, lo, hi`` and no float mel) or ``"vad"`` (the mel and the
+    Sobel counts at ``vad = (thr, start_y)``). Returns the outputs as a
+    tuple."""
+    global launches, factored_launches
     dev = samples.device
     pair_i, npow, n_mels_pad, bf2 = check_head(
         samples, m_big, pair_i, mt, ks=ks, pack=pack, pack_off=pack_off,
@@ -441,8 +696,10 @@ def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
     if epilogue == "vad" and n_mels < 3:
         raise ValueError("the Sobel VAD needs n_mels >= 3")
     width = m_big.shape[1]
-    smem, frames, _ = block_layout(ks, hop, pack, pack_off, width, npow,
-                                   n_mels_pad)
+    live = npow if live is None else live
+    smem, frames, _, factored = head_layout(
+        SigHead(m_big, pair_i, mt, n_bins_pad, pack, n_mels, pack_off,
+                out_mode, guard, live, dft_size), hop, ks)
     refusal = _smem_refusal(smem, hop, pack, pack_off, npow)
     if refusal is not None:
         raise NotImplementedError(refusal)
@@ -464,10 +721,7 @@ def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
     if b == 0 or n_frames <= 0:
         return outs
     samples = samples.contiguous()
-    live = npow if live is None else live
-    m_big = aligned(m_big)
     mt = aligned(mt)
-    blocks = block_table(pair_i, dev)
     lib = _bound()
 
     def ptr(t):
@@ -475,16 +729,29 @@ def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.melspec_sig_mel(
-            samples.data_ptr(), b, t, n_frames, hop, offset,
-            vad_tile(frames),
-            m_big.data_ptr(), width, pack, pack_off, blocks.data_ptr(),
-            len(pair_i), ks, npow, live, mt.data_ptr(), n_mels, n_mels_pad,
-            int(bf2), OUT_MODES.index(out_mode), clamped_guard(guard),
-            ptr(out), ptr(q), ptr(lo), ptr(hi), ptr(counts), vad[0],
-            int(vad[1]), stream)
+        if factored:
+            fac = factored_dft(dft_size, dev)
+            rc = lib.melspec_sig_mel_factored(
+                samples.data_ptr(), b, t, n_frames, hop, offset,
+                vad_tile(frames), fac.n1, fac.n2, fac.window.data_ptr(),
+                fac.f1.data_ptr(), fac.tw.data_ptr(), fac.f2.data_ptr(),
+                fac.rowmap.data_ptr(), mt.data_ptr(), npow, n_mels,
+                n_mels_pad, int(bf2), ptr(out), ptr(q), ptr(lo), ptr(hi),
+                ptr(counts), vad[0], int(vad[1]), stream)
+        else:
+            m_big = aligned(m_big)
+            blocks = block_table(pair_i, dev)
+            rc = lib.melspec_sig_mel(
+                samples.data_ptr(), b, t, n_frames, hop, offset,
+                vad_tile(frames),
+                m_big.data_ptr(), width, pack, pack_off, blocks.data_ptr(),
+                len(pair_i), ks, npow, live, mt.data_ptr(), n_mels,
+                n_mels_pad, int(bf2), OUT_MODES.index(out_mode),
+                clamped_guard(guard), ptr(out), ptr(q), ptr(lo), ptr(hi),
+                ptr(counts), vad[0], int(vad[1]), stream)
     raise_for(lib, rc, "K1 (sig_mel)")
     launches += 1
+    factored_launches += int(factored)
     if epilogue is not None:
         epilogue_launches[epilogue] += 1
     return outs
@@ -504,18 +771,20 @@ def sig_mel(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
             offset: int, pack: int, n_bins_pad: int, n_mels: int,
             mel_precision: str = "bf2", pack_off: int = 0,
             out_mode: str = "whisper", guard: float = 0.0,
-            live: int | None = None) -> torch.Tensor:
+            live: int | None = None, dft_size: int = 0) -> torch.Tensor:
     """K1 on a CUDA signal, its plain version on a CPU one (same
     arguments as ``sig_mel_reference``; ``live``, the head's
     ``live_columns``, lets K1 skip the power columns that are zero, and
-    None has it multiply every one). On the CPU the DFT dot is summed
-    exactly (float64): the f32 sum of a CPU BLAS changes with its thread
-    count, and on near-silent mel bins that order alone can cost more
-    than the accuracy gates allow."""
+    None has it multiply every one; ``dft_size``, the head's, takes the
+    factored path where ``factored_route`` gives a split and the head's
+    own layout would be 32-frame blocks). On the CPU the DFT dot is
+    summed exactly (float64): the f32 sum of a CPU BLAS changes with its
+    thread count, and on near-silent mel bins that order alone can cost
+    more than the accuracy gates allow."""
     kw = dict(ks=ks, n_frames=n_frames, hop=hop, offset=offset, pack=pack,
               n_bins_pad=n_bins_pad, n_mels=n_mels,
               mel_precision=mel_precision, pack_off=pack_off,
-              out_mode=out_mode, guard=guard, live=live)
+              out_mode=out_mode, guard=guard, live=live, dft_size=dft_size)
     return _on_device(
         samples, lambda: _launch(samples, m_big, pair_i, mt, **kw)[0],
         lambda: sig_mel_reference(samples, m_big, pair_i, mt,
@@ -526,7 +795,7 @@ def sig_mel_quantized(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
                       mt: torch.Tensor, *, ks: int, n_frames: int, hop: int,
                       offset: int, pack: int, n_bins_pad: int, n_mels: int,
                       mel_precision: str = "bf2",
-                      live: int | None = None) -> tuple:
+                      live: int | None = None, dft_size: int = 0) -> tuple:
     """K1 in whisper mode with the quant epilogue on a CUDA signal, its
     plain version on a CPU one (float64 DFT dot, as ``sig_mel``): ``(q
     [B, n_frames, n_mels] u8, lo [B, n_frames], hi [B, n_frames])``, each
@@ -534,7 +803,7 @@ def sig_mel_quantized(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
     mel."""
     kw = dict(ks=ks, n_frames=n_frames, hop=hop, offset=offset, pack=pack,
               n_bins_pad=n_bins_pad, n_mels=n_mels,
-              mel_precision=mel_precision, live=live)
+              mel_precision=mel_precision, live=live, dft_size=dft_size)
     return _on_device(
         samples,
         lambda: _launch(samples, m_big, pair_i, mt, pack_off=0,
@@ -548,7 +817,7 @@ def sig_mel_vad(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
                 mt: torch.Tensor, *, ks: int, n_frames: int, hop: int,
                 offset: int, pack: int, n_bins_pad: int, n_mels: int,
                 vad: tuple, mel_precision: str = "bf2",
-                live: int | None = None) -> tuple:
+                live: int | None = None, dft_size: int = 0) -> tuple:
     """K1 in whisper mode with the Sobel VAD epilogue on a CUDA signal,
     its plain version on a CPU one (float64 DFT dot): ``(mel [B,
     n_frames, n_mels], counts [B, n_frames] int32)`` at ``vad = (thr,
@@ -556,7 +825,7 @@ def sig_mel_vad(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
     tile are 0 (see ``tile_vad_counts``)."""
     kw = dict(ks=ks, n_frames=n_frames, hop=hop, offset=offset, pack=pack,
               n_bins_pad=n_bins_pad, n_mels=n_mels,
-              mel_precision=mel_precision, live=live)
+              mel_precision=mel_precision, live=live, dft_size=dft_size)
     return _on_device(
         samples,
         lambda: _launch(samples, m_big, pair_i, mt, pack_off=0,

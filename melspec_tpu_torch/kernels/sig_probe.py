@@ -10,11 +10,20 @@ shows what the part it removes costs, and where the parts overlap.
 prints one JSON line per variant (its ms and the difference to the full
 kernel), then K1 and K2 at the batch path's and the frontend step's
 shapes, and K1 in its 64-frame layout (whisper 1024/256 at 22.05 kHz,
-64 x 30 s), and exits non-zero without a card (K1's 32-frame layout is
-timed by chip_smoke.py's phase wide_hops). The variants are text cuts of
+64 x 30 s), and exits non-zero without a card (K1's factored path of the
+wide hops is timed by chip_smoke.py's phase wide_hops and the ``factored``
+mode below). The variants are text cuts of
 ``csrc/sig_common.cuh``; each must match the source exactly once, which
 a CPU test checks, so an edit of the device code that moves one of them
 fails there first.
+
+    python3 -m melspec_tpu_torch.kernels.sig_probe factored
+
+does the same for K1's factored path of the wide hops
+(``csrc/sig_factored.cuh``; ``FACTORED_CUTS``: stage 1's and stage 2's
+``wgmma``s, the next frame's taps or their load alone, the projection),
+each variant timed
+at 960/480/40, 1024/480/64 and 2048/512/128 on 64 x 30 s.
 
     PYTHONPATH=<tree> python3 -P melspec_tpu_torch/kernels/sig_probe.py \
         dump <dir>
@@ -26,10 +35,23 @@ earlier commit's, can be driven by this file) on inputs made from fixed
 seeds: ``whisper_mel_sig`` at 400/160/128 and 1024/256/80 at 22.05 kHz
 (batch and streaming, both projections), ``whisper_mel_vad_sig`` and
 ``whisper_mel_quantized`` at 400/160/128 and the fused whisper + Kaldi
-step (K2). It writes each output's SHA-256 to ``<dir>/dump.json``;
-``compare`` holds the hashes of every dump equal case by case (bit-equal
-outputs) and exits non-zero where any differs, as
-``resample_probe.py``'s modes do for K3/K4.
+step (K2), then the wide hops (``WIDE``: 960/480/40, 1024/480/64 at 48
+kHz, 2048/512/128 at 22.05 kHz, batch and streaming, both projections,
+and the VAD and quant routes; cases named ``wide_...``). It writes each
+output's SHA-256 to ``<dir>/dump.json``; ``compare`` holds the hashes of
+every dump equal case by case (bit-equal outputs) and exits non-zero
+where any differs, as ``resample_probe.py``'s modes do for K3/K4; a case
+that a dump lacks counts as differing.
+
+    PYTHONPATH=<tree> python3 -P melspec_tpu_torch/kernels/sig_probe.py time
+
+times K1 of that package, public API only as ``dump``, at the chunk-walk
+layouts of the main path (``TIMED``: whisper 400/160/128, the batch
+path's launch in 128-frame blocks, and 1024/256/80 at 22.05 kHz in
+64-frame blocks) on 64 x 30 s, per call (``device_time_ms``, the host
+path included) and per launch (``per_launch_ms``, back to back), and
+prints one JSON line; run it for two trees in one call, alternating
+which runs first, to compare them.
 """
 
 from __future__ import annotations
@@ -56,9 +78,42 @@ CUTS = {
         "      wgmma_128(d, a[1], gmma_desc(st + 2 * kCoreK, kLbo, kSbo));",
         "    d[0] += __uint_as_float(a[0][0] ^ a[1][3] ^ st);"),
 }
+FACTORED = build.CSRC_DIR / "sig_factored.cuh"
+# K1's factored path: variant -> (the text it cuts, what replaces it)
+FACTORED_CUTS = {
+    "no_stage1_mma": (
+        "      wgmma_32(d1, cc.a1[f_pair_j(p)][s],\n"
+        "               gmma_desc(b1 + f_pair_i(p) * FStage<N1>::kSlice1 +\n"
+        "                             s * 2 * kCoreK,\n"
+        "                         kLbo, FStage<N1>::kSbo1));",
+        "      d1[p] += __uint_as_float(cc.a1[f_pair_j(p)][s][0] ^ b1);"),
+    "no_stage2_mma": (
+        "      wgmma_32(d2, a2[f_pair_i(p)][s],\n"
+        "               gmma_desc(b2 + f_pair_j(p) * kFB2Slice + s * 2 * "
+        "kCoreK,\n                         kLbo, kFSbo2));",
+        "      d2[p] += __uint_as_float(a2[f_pair_i(p)][s][0] ^ b2);"),
+    "no_next_frame": (
+        "  if (more) f_store<N1>(v, swin, b1p);", ""),
+    "no_next_load": (
+        "          f_load<N1>(xb, T,\n"
+        "                     s_tile + static_cast<long long>(f0 + i + 1) * "
+        "hop,\n                     f.n2, v);",
+        "          v[0][0] = static_cast<float>(i);"),
+    "no_projection": (
+        "      if (h.bf2)\n"
+        "        project_bf2<3, kNe>(h, ch, pb, work, en, f.rowmap);\n"
+        "      else\n"
+        "        project_f32<3, kNe>(h, ch, pb, en, f.rowmap);",
+        "      en[0][0][0] += pb[ch];"),
+}
 B, SECONDS = 64, 30.0
-FUNCTIONS = ("melspec_sig_mel", "melspec_sig_mel_layout",
-             "melspec_cuda_error_string")
+# the configs of mode time: K1's 128- and 64-frame chunk-walk layouts
+TIMED = [(400, 160, 128, 16000.0), (1024, 256, 80, 22050.0)]
+# the wide hops of dump (K1's factored path)
+WIDE = [(960, 480, 40, 48000.0), (1024, 480, 64, 48000.0),
+        (2048, 512, 128, 22050.0)]
+FUNCTIONS = ("melspec_sig_mel", "melspec_sig_mel_factored",
+             "melspec_sig_mel_layout", "melspec_cuda_error_string")
 
 
 def variant_source(name: str, text: str | None = None) -> str:
@@ -66,6 +121,43 @@ def variant_source(name: str, text: str | None = None) -> str:
     is); raises unless the cut's text occurs exactly once."""
     cuts = [] if name == "full" else [CUTS[name]]
     return build.edited(HEADER, cuts, f"sig_probe cut {name!r}", text)
+
+
+def factored_source(name: str, text: str | None = None) -> str:
+    """``sig_factored.cuh`` with ``FACTORED_CUTS[name]`` made (``"full"``:
+    as it is); raises unless the cut's text occurs exactly once."""
+    cuts = [] if name == "full" else [FACTORED_CUTS[name]]
+    return build.edited(FACTORED, cuts, f"sig_probe cut {name!r}", text)
+
+
+def run_factored(dev: torch.device, timer) -> list:
+    """Each factored variant's K1 time (``timer(fn)`` -> ms) at the three
+    wide hops on ``B`` x ``SECONDS``."""
+    from melspec_tpu_torch.ops import framing, mel_kernel
+
+    rng = np.random.default_rng(0)
+    calls = {}
+    for fft, hop, n_mels, sr in WIDE:
+        x = torch.from_numpy((rng.normal(size=(B, int(SECONDS * sr)))
+                              * 0.2).astype(np.float32)).to(dev)
+        head = mel_kernel.whisper_head(fft, n_mels, sr, dev)
+        kw = dict(ks=3, n_frames=framing.num_frames_batch(x.shape[-1], fft,
+                                                          hop),
+                  hop=hop, offset=0, **head.kw())
+        calls[f"{fft}_{hop}_{n_mels}"] = (
+            lambda x=x, h=head, kw=kw: sig_mel.sig_mel(
+                x, h.m_big, h.pair_i, h.mt, **kw))
+    names = ["full", *FACTORED_CUTS]
+    libs = build.build_variants("sig_probe_factored", "sig_mel", {
+        name: {FACTORED.name: factored_source(name)} for name in names})
+    rows = []
+    for name in names:
+        with build.bound_to(sig_mel, libs[name], FUNCTIONS):
+            rows.append(dict(variant=name, ms={k: timer(fn)
+                                               for k, fn in calls.items()}))
+    for r in rows:
+        r["saves_ms"] = {k: rows[0]["ms"][k] - v for k, v in r["ms"].items()}
+    return rows
 
 
 def run(dev: torch.device, timer) -> list:
@@ -118,6 +210,27 @@ def run(dev: torch.device, timer) -> list:
     return rows
 
 
+def time_main_path(dev: torch.device, timer) -> dict:
+    """K1's time (``timer(fn)`` -> ms) at each ``TIMED`` config on ``B``
+    x ``SECONDS``, through ``whisper_head`` and ``sig_mel`` (the public
+    API, as ``dump``)."""
+    from melspec_tpu_torch.ops import framing, mel_kernel
+
+    rng = np.random.default_rng(0)
+    ms = {}
+    for fft, hop, n_mels, sr in TIMED:
+        x = torch.from_numpy((rng.normal(size=(B, int(SECONDS * sr)))
+                              * 0.2).astype(np.float32)).to(dev)
+        head = mel_kernel.whisper_head(fft, n_mels, sr, dev)
+        kw = dict(ks=3, n_frames=framing.num_frames_batch(x.shape[-1], fft,
+                                                          hop),
+                  hop=hop, offset=0, **head.kw())
+        ms[f"{fft}_{hop}_{n_mels}"] = timer(
+            lambda x=x, h=head, kw=kw: sig_mel.sig_mel(
+                x, h.m_big, h.pair_i, h.mt, **kw))
+    return ms
+
+
 def _digest(t: torch.Tensor) -> str:
     return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
 
@@ -155,6 +268,23 @@ def dump_cases(dev: torch.device) -> list:
     fused = WhisperKaldiFused(device=dev)
     out.append(("k2_whisper_kaldi_vad",
                 lambda: fused.compute_with_vad(x, settings)))
+    for fft, hop, n_mels, sr in WIDE:
+        a = (fft, hop, n_mels, sr)
+        xw = signal(4, int(10 * sr) + 37)
+        for streaming in (False, True):
+            for precision in ("bf2", "highest"):
+                out.append((
+                    f"wide_sig_{fft}_{hop}_{n_mels}/{streaming}/{precision}",
+                    lambda x=xw, a=a, s=streaming, p=precision: (
+                        mel_kernel.whisper_mel_sig(
+                            x, *a, streaming=s, mel_precision=p,
+                            device=dev),)))
+        out.append((f"wide_vad_{fft}_{hop}_{n_mels}",
+                    lambda x=xw, a=a: mel_kernel.whisper_mel_vad_sig(
+                        x, settings, *a, device=dev)))
+        out.append((f"wide_quant_{fft}_{hop}_{n_mels}",
+                    lambda x=xw, a=a: mel_kernel.whisper_mel_quantized(
+                        x, *a, device=dev)))
     return out
 
 
@@ -184,7 +314,7 @@ def dump(out_dir: Path, dev: torch.device) -> dict:
 
 def compare(dirs) -> int:
     dumps = [json.loads((Path(d) / "dump.json").read_text()) for d in dirs]
-    names = list(dumps[0]["cases"])
+    names = list(dict.fromkeys(n for d in dumps for n in d["cases"]))
     differ = [n for n in names
               if len({json.dumps(d["cases"].get(n, {}).get("sha256"))
                       for d in dumps}) != 1]
@@ -207,12 +337,26 @@ def main(argv=None) -> int:
         return 0
     if argv[:1] == ["compare"] and len(argv) >= 3:
         return compare(argv[1:])
-    if argv:
+    if argv not in ([], ["factored"], ["time"]):
         print(__doc__, file=sys.stderr)
         return 2
-    from melspec_tpu_torch.utils.timing import device_time_ms
+    from melspec_tpu_torch.utils.timing import device_time_ms, per_launch_ms
 
-    for r in run(torch.device("cuda"), device_time_ms):
+    if argv == ["time"]:
+        import melspec_tpu_torch
+
+        dev = torch.device("cuda")
+        print(json.dumps(dict(
+            package=str(Path(melspec_tpu_torch.__file__).parent),
+            device=torch.cuda.get_device_name(0),
+            ms=time_main_path(dev, device_time_ms),
+            ms_per_launch=time_main_path(
+                dev, lambda fn: per_launch_ms(fn, launches=50)))),
+            flush=True)
+        return 0
+
+    probe = run_factored if argv else run
+    for r in probe(torch.device("cuda"), device_time_ms):
         print(json.dumps(r), flush=True)
     return 0
 

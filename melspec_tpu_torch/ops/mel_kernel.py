@@ -1,7 +1,9 @@
 """Whisper log-mel through the fused kernels (port of
 ``melspec_tpu.ops.mel_kernel``): the signal-input sig route on K1 (with
 its u8 wire-record and Sobel VAD epilogues, ``whisper_mel_quantized`` and
-``whisper_mel_vad_sig``) and the precision dial's framed routes on K5-K8.
+``whisper_mel_vad_sig``; at the wide hops K1's factored path, from the
+DFT size the matrices carry) and the precision dial's framed routes on
+K5-K8.
 
 The host builders make the device matrices exactly as the JAX package
 does. For K1 the window-folded real-DFT matrix is cut into rounded-bf16
@@ -21,7 +23,8 @@ for a CUDA kernel), the quant epilogue's ``qabl`` ablations,
 kernels' 256- and 512-frame tiles with the frame-count padding to them —
 all TPU tiling. K1 frames any ``[B, T]`` signal as it is, and its VAD
 epilogue's tile-boundary columns follow its own tile (64 frames, 32 in
-its 32-frame blocks); the framed
+its 32-frame blocks, which the wide whisper heads of the (3, 2) schedule
+leave for the factored path's 64); the framed
 kernels mask their ragged last block, so the framed route passes exactly
 ``B * n_frames`` frames.
 """
@@ -225,9 +228,10 @@ def _sig_device_matrices(fft_size: int, n_mels: int, sampling_rate: float,
 class SigMatrices:
     """K1's device matrices: ``m_big`` bf16 ``[K_tot, 2*n_bins_pad]``,
     ``pair_i``, ``mt`` f32 ``[n_bins_pad, n_mels_pad]``, ``mt_bf2`` bf16
-    ``[3*n_bins_pad, n_mels_pad]``, the re|im split point ``n_bins_pad``
-    and the power columns that can be nonzero (``live_columns`` of the
-    host matrix)."""
+    ``[3*n_bins_pad, n_mels_pad]``, the re|im split point ``n_bins_pad``,
+    the power columns that can be nonzero (``live_columns`` of the host
+    matrix) and ``dft_size``, the N whose Hann-windowed DFT ``m_big`` is
+    (``SigHead.dft_size``; 0 for matrices from elsewhere)."""
 
     m_big: torch.Tensor
     pair_i: tuple
@@ -235,6 +239,7 @@ class SigMatrices:
     mt_bf2: torch.Tensor
     n_bins_pad: int
     live: int
+    dft_size: int = 0
 
     def to(self, device) -> "SigMatrices":
         return dataclasses.replace(
@@ -249,7 +254,7 @@ def sig_matrices(fft_size: int, n_mels: int, sampling_rate: float, ks: int,
     m_big, pair_i, mt, mt_bf2, n_bins_pad, _, _ = _sig_device_matrices(
         fft_size, n_mels, float(sampling_rate), ks, ks, cutoff)
     return SigMatrices(m_big, pair_i, mt, mt_bf2, n_bins_pad,
-                       live_columns(m_big, n_bins_pad)).to(device)
+                       live_columns(m_big, n_bins_pad), fft_size).to(device)
 
 
 def whisper_head(fft_size: int, n_mels: int, sampling_rate: float,
@@ -260,7 +265,8 @@ def whisper_head(fft_size: int, n_mels: int, sampling_rate: float,
     mats = sig_matrices(fft_size, n_mels, float(sampling_rate), 3, 2,
                         device)
     return SigHead(mats.m_big, mats.pair_i, mats.mt_bf2, mats.n_bins_pad,
-                   fft_size, n_mels, pack_off=pack_off, live=mats.live)
+                   fft_size, n_mels, pack_off=pack_off, live=mats.live,
+                   dft_size=mats.dft_size)
 
 
 def _k1_input(samples, fft_size: int, hop_size: int, streaming: bool,
@@ -296,7 +302,8 @@ def _sig_kw(ks: int, fft_size: int, hop_size: int, n_mels: int,
         raise ValueError("mel_precision must be 'bf2' or 'highest'")
     return dict(ks=ks, n_frames=n_frames, hop=hop_size,
                 offset=offset, pack=fft_size, n_bins_pad=mats.n_bins_pad,
-                n_mels=n_mels, mel_precision=mel_precision, live=mats.live)
+                n_mels=n_mels, mel_precision=mel_precision, live=mats.live,
+                dft_size=mats.dft_size)
 
 
 def whisper_mel_sig(
@@ -406,7 +413,7 @@ def whisper_mel_vad_sig(
     K1 counts each frame's edges on the tile it holds in shared memory;
     the two columns whose 3-frame patch crosses each boundary of its
     tiles (``kernels/sig_mel.py::k1_vad_tile``: 64 frames, 32 in the
-    32-frame blocks of the wide hops) are recomputed here from the mel
+    32-frame blocks) are recomputed here from the mel
     output (``ops.vad.fix_raw``). A clip of 1-2 frames has no Sobel column: it
     returns ``whisper_mel_sig``'s real mel and an empty ``raw``. On a CPU
     signal the plain version runs."""
@@ -427,9 +434,9 @@ def whisper_mel_vad_sig(
                  "bf2")
     mel, counts = sig_mel_vad(x, mats.m_big, mats.pair_i, mats.mt_bf2,
                               vad=vad_args(settings, n_mels), **kw)
-    tile = k1_vad_tile(x.device, ks=3, hop=hop_size, pack=fft_size,
-                       pack_off=0, width=mats.m_big.shape[1],
-                       npow=mats.n_bins_pad, n_mels_pad=mats.mt.shape[1])
+    head = SigHead(mats.m_big, mats.pair_i, mats.mt_bf2, mats.n_bins_pad,
+                   fft_size, n_mels, live=mats.live, dft_size=mats.dft_size)
+    tile = k1_vad_tile(head, hop_size, x.device)
     raw = fix_raw(counts, mel, n_frames, n_frames - 2, settings, tile)
     return (mel[0], raw[0]) if squeeze else (mel, raw)
 
@@ -615,7 +622,8 @@ def resolve_pallas_impl(fft_size: int, hop_size: int, n_mels: int,
     else ``"sig"`` where the macro-row geometry applies and, on CUDA, K1
     takes the config's head (``kernels/sig_mel.py::k1_accepts``: 256,
     512, 1024 or 2048 DFT columns, a span within a block's shared memory
-    in 128-, 64- or 32-frame blocks); else
+    in 128-, 64- or 32-frame blocks, or the factored path's tables at
+    the wide hops); else
     ``"bf3"``. The
     head is built on the CPU; no kernel runs."""
     if hp:
@@ -631,7 +639,7 @@ def resolve_pallas_impl(fft_size: int, hop_size: int, n_mels: int,
     mats = sig_matrices(fft_size, n_mels, float(sampling_rate), ks, cutoff,
                         torch.device("cpu"))
     head = SigHead(mats.m_big, mats.pair_i, mats.mt_bf2, mats.n_bins_pad,
-                   fft_size, n_mels, live=mats.live)
+                   fft_size, n_mels, live=mats.live, dft_size=mats.dft_size)
     return "sig" if k1_accepts(head, hop=hop_size, ks=ks) else "bf3"
 
 

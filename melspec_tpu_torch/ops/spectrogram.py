@@ -128,7 +128,8 @@ def auto_fft_impl(fft_size: int, hop_size: int, n_mels: int,
     ``"sig"`` where the macro-row geometry applies, the dtype is float32
     and K1 takes the config's head (``k1_accepts``: 256, 512, 1024 or 2048
     DFT columns, a span within a block's shared memory in 128-, 64- or
-    32-frame blocks), else ``"bf3"``. The
+    32-frame blocks, or the factored path's tables at the wide hops), else
+    ``"bf3"``. The
     head is built on the CPU; no kernel runs."""
     if torch.device(device).type != "cuda":
         return "fft"

@@ -1,6 +1,7 @@
 """K1 on the card against its plain PyTorch version, at every head width
-(256, 512, 1024, 2048 columns) and block layout (128, 64 and 32 frames:
-the wide hops 2048/512 at 22.05 kHz, 1024/480 and 960/480 at 48 kHz).
+(256, 512, 1024, 2048 columns) and block layout (128 and 64 frames, and
+the factored path of the wide hops 2048/512 at 22.05 kHz, 1024/480 and
+960/480 at 48 kHz, also against its own plain version).
 Needs a CUDA device and nvcc; skipped elsewhere. On a machine with the
 card (no JAX needed):
 
@@ -32,6 +33,7 @@ The card counterpart of each test of the JAX package's
   ``test_resample_kernel_parity``.
 """
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -220,7 +222,7 @@ def test_jfk_gate_at_256_and_1024_columns(dev, fft, hop, n_mels, sr):
     assert float((got.double() - want).abs().max()) <= 1e-5
 
 
-# the wide hops: K1's 32-frame blocks (2048/512 also its 2048 columns)
+# the wide hops: K1's factored path (2048/512 also its 2048 columns)
 WIDE_CONFIGS = [(2048, 512, 128, 22050.0), (1024, 480, 64, 48000.0),
                 (960, 480, 40, 48000.0)]
 ROOT = Path(__file__).resolve().parents[1]
@@ -239,31 +241,155 @@ def _noise(dev, seed, shape, scale=0.2):
 
 
 @pytest.mark.parametrize("fft,hop,n_mels,sr", WIDE_CONFIGS)
-def test_k1_takes_the_wide_heads_in_32_frame_blocks(dev, fft, hop, n_mels,
-                                                    sr):
-    """``k1_accepts`` holds, and the built kernel reports 32-frame blocks
-    of 256-column chunks within a block's shared memory; K2, which keeps
-    to 1024 columns and its 128- and 64-frame blocks, refuses these
-    heads."""
+def test_k1_takes_the_wide_heads_on_its_factored_path(dev, fft, hop,
+                                                      n_mels, sr):
+    """``k1_accepts`` holds, and the built kernel reports the factored
+    layout (64-frame blocks, 1024 DFT columns a chunk) within a block's
+    shared memory where the host gives the head's split, and the 32-frame
+    chunk walk without it; the VAD tile is 64; K2, which keeps to 1024
+    columns and its 128- and 64-frame blocks, refuses these heads."""
     head = mel_kernel.whisper_head(fft, n_mels, sr, dev)
     assert sig_mel.k1_accepts(head, hop=hop)
-    smem, frames, cols = sig_mel.block_layout(
-        3, hop, fft, 0, head.m_big.shape[1], head.n_bins_pad,
-        head.mt.shape[1])
-    assert (frames, cols) == (32, 256) and smem <= sig_mel.MAX_SMEM_BYTES
-    assert sig_mel.k1_vad_tile(dev, ks=3, hop=hop, pack=fft, pack_off=0,
-                               width=head.m_big.shape[1],
-                               npow=head.n_bins_pad,
-                               n_mels_pad=head.mt.shape[1]) == 32
+    smem, frames, cols, factored = sig_mel.head_layout(head, hop)
+    assert (frames, cols, factored) == (64, 1024, True)
+    assert smem <= sig_mel.MAX_SMEM_BYTES
+    bare = dataclasses.replace(head, dft_size=0)
+    assert tuple(sig_mel.head_layout(bare, hop))[1:] == (32, 256, False)
+    assert sig_mel.k1_vad_tile(head, hop, dev) == 64
     assert not sig_multi.k2_accepts((head,), hop=hop)
+
+
+@pytest.mark.parametrize("fft,hop,n_mels,sr", WIDE_CONFIGS)
+@pytest.mark.parametrize("streaming", [False, True])
+@pytest.mark.parametrize("precision", ["bf2", "highest"])
+def test_k1_factored_matches_its_plain_version(dev, fft, hop, n_mels, sr,
+                                               streaming, precision):
+    """The factored path (one launch of it) against its plain version
+    ``sig_mel_factored_reference`` and the exact result (float64-dot
+    ``sig_mel_reference``), on three ragged clips that end inside a
+    64-frame tile: within max(2e-5, floor) of exact and that plus the
+    floor of the plain version, the floor being the plain version's
+    distance from exact (the bars of chip_smoke.py's phase wide_hops)."""
+    mats = mel_kernel.sig_matrices(fft, n_mels, sr, 3, 2, dev)
+    mt = mats.mt_bf2 if precision == "bf2" else mats.mt
+    x = _noise(dev, fft + hop + 1, (3, int(sr) + 37))
+    before = sig_mel.factored_launches
+    got = mel_kernel.whisper_mel_sig(x, fft, hop, n_mels, sr,
+                                     streaming=streaming,
+                                     mel_precision=precision, device=dev)
+    torch.cuda.synchronize()
+    assert sig_mel.factored_launches == before + 1
+    offset = framing.streaming_frame_offset(fft, hop) if streaming else 0
+    nf = got.shape[1]
+    assert nf % 64
+    plain = sig_mel.sig_mel_factored_reference(
+        x, sig_mel.factored_dft(fft, dev), mt, n_frames=nf, hop=hop,
+        offset=offset, n_mels=n_mels, mel_precision=precision)
+    exact = sig_mel.sig_mel_reference(
+        x, mats.m_big, mats.pair_i, mt, ks=3, n_frames=nf, hop=hop,
+        offset=offset, pack=fft, n_bins_pad=mats.n_bins_pad, n_mels=n_mels,
+        mel_precision=precision, dot_dtype=torch.float64)
+    floor = float((plain - exact).abs().max())
+    bar = max(2e-5, floor)
+    assert float((got - exact).abs().max()) <= bar
+    assert float((got - plain).abs().max()) <= bar + floor
+
+
+@pytest.mark.parametrize("fft,hop,n_mels,sr", [(2048, 512, 200, 22050.0),
+                                              (1024, 480, 160, 48000.0)])
+def test_k1_factored_at_256_mel_columns(dev, fft, hop, n_mels, sr):
+    """The factored path's kernels for heads of 256 padded mel columns
+    (both splits) against its plain version and the exact result, at the
+    bars of test_k1_factored_matches_its_plain_version."""
+    head = mel_kernel.whisper_head(fft, n_mels, sr, dev)
+    assert head.mt.shape[1] == 256
+    x = _noise(dev, n_mels, (2, int(sr) + 5))
+    before = sig_mel.factored_launches
+    got = mel_kernel.whisper_mel_sig(x, fft, hop, n_mels, sr, device=dev)
+    torch.cuda.synchronize()
+    assert sig_mel.factored_launches == before + 1
+    nf = got.shape[1]
+    plain = sig_mel.sig_mel_factored_reference(
+        x, sig_mel.factored_dft(fft, dev), head.mt, n_frames=nf, hop=hop,
+        offset=0, n_mels=n_mels)
+    exact = sig_mel.sig_mel_reference(
+        x, head.m_big, head.pair_i, head.mt, ks=3, n_frames=nf, hop=hop,
+        offset=0, dot_dtype=torch.float64, **head.kw())
+    floor = float((plain - exact).abs().max())
+    bar = max(2e-5, floor)
+    assert float((got - exact).abs().max()) <= bar
+    assert float((got - plain).abs().max()) <= bar + floor
+
+
+@pytest.mark.parametrize("which", ["whisper_2048_512_matrices",
+                                   "kaldi_48k"])
+def test_k1_chunk_walk_in_32_frame_blocks(dev, which):
+    """The heads the factored path does not take keep the 32-frame chunk
+    walk: a wide whisper head's matrices without their DFT size, and
+    Kaldi fbank at 48 kHz (its preprocessing folded into the matrix), each
+    against the dense plain version at K1's bars, with no factored
+    launch."""
+    from melspec_tpu_torch.config import FbankConfig
+    from melspec_tpu_torch.ops.fbank import sig_head
+
+    if which == "kaldi_48k":
+        cfg = FbankConfig(sample_rate=48000.0, apply_cmn=False)
+        head, hop, sr = sig_head(cfg).to(dev), cfg.frame_shift_samples, 48e3
+    else:
+        w = mel_kernel.whisper_head(2048, 128, 22050.0, dev)
+        head = sig_mel.SigHead(w.m_big, w.pair_i, w.mt, w.n_bins_pad,
+                               2048, 128, live=w.live)
+        hop, sr = 512, 22050.0
+    assert tuple(sig_mel.head_layout(head, hop))[1:] == (32, 256, False)
+    x = _noise(dev, hop, (2, int(sr) + 11))
+    nf = framing.num_frames_batch(x.shape[-1], head.pack, hop)
+    kw = dict(ks=3, n_frames=nf, hop=hop, offset=0, **head.kw())
+    before = (sig_mel.launches, sig_mel.factored_launches)
+    got = sig_mel.sig_mel(x, head.m_big, head.pair_i, head.mt, **kw)
+    torch.cuda.synchronize()
+    assert (sig_mel.launches, sig_mel.factored_launches) == (
+        before[0] + 1, before[1])
+    want = sig_mel.sig_mel_reference(x, head.m_big, head.pair_i, head.mt,
+                                     **kw)
+    exact = sig_mel.sig_mel_reference(x, head.m_big, head.pair_i, head.mt,
+                                      dot_dtype=torch.float64, **kw)
+    tol = 1e-5 if head.out_mode == "whisper" else 2e-4
+    floor = float((want - exact).abs().max())
+    assert float((got - exact).abs().max()) <= max(tol, floor)
+    assert float((got - want).abs().max()) <= max(tol, floor) + floor
+
+
+@pytest.mark.parametrize("fft,hop,n_mels,sr", WIDE_CONFIGS)
+def test_k1_wide_heads_raise_without_the_factored_path(dev, fft, hop,
+                                                       n_mels, sr,
+                                                       monkeypatch):
+    """No fallback hides the factored path: where its launch fails, the
+    call raises instead of taking the 32-frame chunk walk or K5."""
+    real = sig_mel._bound()
+
+    class Failing:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        @staticmethod
+        def melspec_sig_mel_factored(*args):
+            return 1  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(sig_mel, "_bound", lambda: Failing())
+    x = _noise(dev, fft, (2, int(sr)))
+    before = sig_mel.launches
+    with pytest.raises(RuntimeError, match="K1"):
+        mel_kernel.whisper_mel_sig(x, fft, hop, n_mels, sr, device=dev)
+    assert sig_mel.launches == before
 
 
 @pytest.mark.parametrize("fft,hop,n_mels,sr", WIDE_CONFIGS)
 @pytest.mark.parametrize("streaming", [False, True])
 def test_k1_matches_plain_at_the_wide_heads(dev, fft, hop, n_mels, sr,
                                             streaming):
-    """At test_k1_matches_plain_at_256_and_1024_columns's bars, on three
-    ragged clips that end inside a 32-frame block."""
+    """At test_k1_matches_plain_at_256_and_1024_columns's bars (the dense
+    plain version's), on three ragged clips that end inside a 32-frame
+    block, through the factored path."""
     head = mel_kernel.whisper_head(fft, n_mels, sr, dev)
     x = _noise(dev, fft + hop, (3, int(sr) + 37))
     before = sig_mel.launches
@@ -287,7 +413,11 @@ def test_k1_matches_plain_at_the_wide_heads(dev, fft, hop, n_mels, sr,
 @pytest.mark.parametrize("fft,hop,n_mels,sr", WIDE_CONFIGS)
 def test_jfk_gate_at_the_wide_heads(dev, fft, hop, n_mels, sr):
     """The JFK clip through K1 at the wide heads within 1e-5 of the
-    float64 route of the same config."""
+    float64 route of the same config, and within max(1e-5, floor) + floor
+    of the factored plain version, the floor being that plain version's
+    distance from the exact result (float64-dot ``sig_mel_reference``):
+    the kernel computes its plain version's schedule, whatever that
+    schedule's own distance from float64."""
     from melspec_tpu_torch.ops.spectrogram import WhisperMelPipeline
 
     jfk = _jfk(dev)[None]
@@ -297,16 +427,27 @@ def test_jfk_gate_at_the_wide_heads(dev, fft, hop, n_mels, sr):
                                   jfk.double())
     assert got.shape == want.shape
     assert float((got.double() - want).abs().max()) <= 1e-5
+    head = mel_kernel.whisper_head(fft, n_mels, sr, dev)
+    nf = got.shape[1]
+    plain = sig_mel.sig_mel_factored_reference(
+        jfk, sig_mel.factored_dft(fft, dev), head.mt, n_frames=nf, hop=hop,
+        offset=0, n_mels=n_mels)
+    exact = sig_mel.sig_mel_reference(
+        jfk, head.m_big, head.pair_i, head.mt, ks=3, n_frames=nf, hop=hop,
+        offset=0, dot_dtype=torch.float64, **head.kw())
+    floor = float((plain - exact).abs().max())
+    assert float((got - plain).abs().max()) <= max(1e-5, floor) + floor
 
 
 @pytest.mark.parametrize("fft,hop,n_mels,sr", WIDE_CONFIGS)
 @pytest.mark.parametrize("streaming", [False, True])
 def test_wide_head_epilogues_are_exact(dev, fft, hop, n_mels, sr,
                                        streaming):
-    """The VAD epilogue in 32-frame blocks: its mel is K1's, its raw
-    equals ``classify_columns`` of that mel (the columns at every 32-frame
-    boundary recomputed), its counts ``tile_vad_counts`` at the 32-frame
-    tile; the u8 records equal ``quantize_frames`` of K1's mel."""
+    """The VAD epilogue on the factored path: its mel is K1's, its raw
+    equals ``classify_columns`` of that mel (the columns at every 64-frame
+    boundary recomputed), its counts ``tile_vad_counts`` at the launch's
+    tile (``k1_vad_tile``: 64); the u8 records equal ``quantize_frames``
+    of K1's mel."""
     from melspec_tpu_torch.config import DetectionSettings
     from melspec_tpu_torch.ops.quant import quantize_frames
     from melspec_tpu_torch.ops.vad import classify_columns
@@ -336,7 +477,55 @@ def test_wide_head_epilogues_are_exact(dev, fft, hop, n_mels, sr,
     k_mel, counts = sig_mel.sig_mel_vad(
         x, head.m_big, head.pair_i, head.mt, ks=3, n_frames=mel.shape[1],
         hop=hop, offset=offset, pack=fft, n_bins_pad=head.n_bins_pad,
-        n_mels=n_mels, vad=vad, live=head.live)
+        n_mels=n_mels, vad=vad, live=head.live, dft_size=head.dft_size)
+    tile = sig_mel.k1_vad_tile(head, hop, dev)
+    assert tile == 64
+    assert torch.equal(k_mel, mel)
+    assert torch.equal(counts, sig_mel.tile_vad_counts(mel, *vad, tile))
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+def test_chunk_walk_epilogues_are_exact(dev, streaming):
+    """The epilogues in the chunk walk's 32-frame blocks, through the
+    entry points at a whisper head with no factored split (1000/480 at
+    48 kHz): the VAD route's raw equals
+    ``classify_columns`` of K1's mel (the columns at every 32-frame
+    boundary recomputed), K1's counts ``tile_vad_counts`` at tile 32, the
+    u8 records ``quantize_frames`` of the mel; no factored launch."""
+    from melspec_tpu_torch.config import DetectionSettings
+    from melspec_tpu_torch.ops.quant import quantize_frames
+    from melspec_tpu_torch.ops.vad import classify_columns
+
+    fft, hop, n_mels, sr = 1000, 480, 80, 48000.0
+    head = mel_kernel.whisper_head(fft, n_mels, sr, dev)
+    assert tuple(sig_mel.head_layout(head, hop))[1:] == (32, 256, False)
+    assert sig_mel.k1_vad_tile(head, hop, dev) == 32
+    settings = DetectionSettings()
+    x = _noise(dev, fft, (3, 2 * int(sr) + 11), 0.3)
+    before = (sig_mel.factored_launches, dict(sig_mel.epilogue_launches))
+    mel = mel_kernel.whisper_mel_sig(x, fft, hop, n_mels, sr,
+                                     streaming=streaming, device=dev)
+    mel_v, raw = mel_kernel.whisper_mel_vad_sig(x, settings, fft, hop,
+                                                n_mels, sr,
+                                                streaming=streaming,
+                                                device=dev)
+    q = mel_kernel.whisper_mel_quantized(x, fft, hop, n_mels, sr,
+                                         streaming=streaming, device=dev)
+    torch.cuda.synchronize()
+    assert sig_mel.factored_launches == before[0]
+    assert sig_mel.epilogue_launches == {"quant": before[1]["quant"] + 1,
+                                         "vad": before[1]["vad"] + 1}
+    assert mel.shape[1] > 64 and torch.equal(mel_v, mel)
+    assert torch.equal(raw, classify_columns(mel.transpose(-1, -2),
+                                             settings))
+    for a, b in zip(q, quantize_frames(mel)):
+        assert torch.equal(a, b)
+    vad = sig_mel.vad_args(settings, n_mels)
+    offset = framing.streaming_frame_offset(fft, hop) if streaming else 0
+    k_mel, counts = sig_mel.sig_mel_vad(
+        x, head.m_big, head.pair_i, head.mt, ks=3, n_frames=mel.shape[1],
+        hop=hop, offset=offset, pack=fft, n_bins_pad=head.n_bins_pad,
+        n_mels=n_mels, vad=vad, live=head.live, dft_size=head.dft_size)
     assert torch.equal(k_mel, mel)
     assert torch.equal(counts, sig_mel.tile_vad_counts(mel, *vad, 32))
 

@@ -1,6 +1,7 @@
 """K1's time probe on the CPU (it runs on the card only): every cut of
-the device code matches ``csrc/sig_common.cuh`` exactly once, a cut that
-no longer matches raises, and the command refuses without a card."""
+the device code matches ``csrc/sig_common.cuh`` (the factored path's:
+``csrc/sig_factored.cuh``) exactly once, a cut that no longer matches
+raises, and the command refuses without a card."""
 
 import subprocess
 import sys
@@ -43,3 +44,17 @@ def test_cli_refuses_without_cuda():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 1 and "CUDA is not available" in res.stderr
     assert res.stdout == ""
+
+
+@pytest.mark.parametrize("name", ["full", *sig_probe.FACTORED_CUTS])
+def test_factored_cuts_match_their_header_once(name):
+    """The factored path's cuts each match ``csrc/sig_factored.cuh``
+    exactly once."""
+    text = sig_probe.FACTORED.read_text()
+    got = sig_probe.factored_source(name, text)
+    if name == "full":
+        assert got == text
+    else:
+        old, new = sig_probe.FACTORED_CUTS[name]
+        assert old not in got
+        assert len(got) - len(text) == len(new) - len(old)
