@@ -41,7 +41,16 @@ show each went through its kernels:
   against the factored plain version and the exact result, with K1's,
   the factored plain version's, K5's and the library composition's
   times, K1's two bounds (the dense DFT's and the factored design's) and
-  the L2 bytes its loads request; and every whisper config of
+  the L2 bytes its loads request; Kaldi fbank and NeMo log-mel at n_fft
+  2048 (phase ``ln_fft``): 64 x 30 s at 48 kHz through ``Fbank`` /
+  ``BatchLogMel`` on their auto routes, K1 once each on its float64 FFT
+  path (``csrc/sig_fft.cuh``: Kaldi's DC removal and preemphasis and the
+  window per frame), on noise and on JFK band-limited to 48 kHz and on
+  noise high-passed at 300 Hz, against its plain version, a float64
+  pipeline and the dense plain version and exact result, timed beside the
+  32-frame chunk walk it replaces for these heads and the composition
+  with both bounds, and at 44.1 kHz through ``sig_mel``; and every
+  whisper config of
   the mirrored JAX tests (phase ``broad_configs``: the five of
   tests/test_configs_broad.py, the six of tests/test_fuzz_differential.py)
   through both entry points, each route's kernel counted;
@@ -108,6 +117,7 @@ It exits non-zero at once where CUDA is not available.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import re
 import statistics
@@ -187,12 +197,16 @@ SEED = 0
 # tensor-core rate and HBM3 bandwidth (P1's denominator)
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = load_probe.PEAK_HBM_BYTES
-# and the float32 rate outside the tensor cores (K3/K4 "highest")
+# and the float32 rate outside the tensor cores (K3/K4 "highest"), and the
+# float64 one (the same data sheet; K1's float64 FFT path)
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 34e12
 K1_SOURCE = "melspec_tpu_torch/csrc/sig_mel.cu"
 # K1's factored wide-hop path (layout 3; its DFT instruction)
 K1_FACTORED_SOURCE = "melspec_tpu_torch/csrc/sig_factored.cuh"
 FACTORED_MMA = "wgmma m64n32k16"
+# K1's float64 FFT path (the Kaldi / NeMo heads at n_fft 2048)
+K1_FFT_SOURCE = "melspec_tpu_torch/csrc/sig_fft.cuh"
 K1_REPLACES = "melspec_tpu/ops/mel_kernel.py:1547"
 K2_SOURCE = "melspec_tpu_torch/csrc/sig_multi.cu"
 K2_REPLACES = "melspec_tpu/ops/sig_multihead.py:151"
@@ -324,13 +338,20 @@ FUZZ_CONFIGS = [(400, 379, 20, 8000.0), (256, 48, 80, 22050.0),
 BROAD_B, BROAD_SECONDS = 4, 2.0
 NEMO_8K = BatchLogMelConfig(sample_rate=8000, n_fft=256, win_length=200,
                             hop_length=80)
-# phase chunk_walk: K1's 32-frame chunk walk, which the wide hops' heads
-# of the other frontends keep (their matrices fold in Kaldi's or NeMo's
-# preprocessing), driven through their sig routes at WIDE_B x
-# WIDE_SECONDS: Kaldi fbank (25 / 10 ms) and NeMo log-mel at 48 kHz
+# phase ln_fft: Kaldi fbank (25 / 10 ms) and NeMo log-mel (n_fft 2048,
+# 25 ms window, 10 ms hop) at 48 kHz, which K1 ran in its 32-frame chunk
+# walk until its float64 FFT path took them, through their auto routes at
+# WIDE_B x WIDE_SECONDS; at 44.1 kHz (no macro-row geometry: the entry
+# points take rdft) K1 on their heads directly, at WIDE_CHECK_B
 KALDI_48K = FbankConfig(sample_rate=48000.0, apply_cmn=False)
 NEMO_48K = BatchLogMelConfig(sample_rate=48000, n_fft=2048,
                              win_length=1200, hop_length=480)
+KALDI_44K = FbankConfig(sample_rate=44100.0, apply_cmn=False)
+NEMO_44K = BatchLogMelConfig(sample_rate=44100, n_fft=2048,
+                             win_length=1102, hop_length=441)
+# the FFT path against its plain version: the same float64 power, the
+# projection's float32 sums in another order
+LN_FFT_PLAIN_TOL = 1e-5
 # the live per-hop service (phase live_stream), plain PyTorch as in JAX:
 # the JFK master regression through RingBuffer in 32-sample pushes at
 # 512/160/80 (float64 at JAX's 1e-6 from the golden; float32 reported
@@ -500,9 +521,9 @@ def phase_build() -> None:
          ptxas=report, ptxas_c7519=ptxas_c7519(built), sass=sass)
     # K1 and K2: the DFT on HGMMA, the bf2 projection on HMMA; K6 on int8
     # (IGMMA or IMMA), K7 on 16-bit floats (HGMMA or HMMA); K5 / K8 on
-    # bf16 HGMMA
+    # bf16 HGMMA; K1's float64 FFT path on the float64 units (DFMA)
     need = {"sig_mel": [("HGMMA",), ("HMMA",)],
-            "K1_factored": [("HGMMA",), ("HMMA",)],
+            "K1_factored": [("HGMMA",), ("HMMA",)], "K1_fft": [("DFMA",)],
             "sig_multi": [("HGMMA",), ("HMMA",)],
             "K6": [("IGMMA", "IMMA")], "K7": [("HGMMA", "HMMA")],
             "K5": [("HGMMA_BF16",)], "K8": [("HGMMA_BF16",)]}
@@ -536,13 +557,15 @@ def tensor_core_sass(names) -> dict:
     with one line of each, and of the HGMMA lines on bf16 operands
     (HGMMA_BF16); ``framed_ozaki`` is split by kernel (K6: the instances
     of scheme 0, K7: scheme 1, K5 and K8: scheme 2, which both launch),
-    ``sig_mel`` into its chunk-walk kernels and its factored path
-    (K1_factored)."""
+    ``sig_mel`` into its chunk-walk kernels, its factored path
+    (K1_factored) and its float64 FFT path (K1_fft, whose float64 FMAs,
+    DFMA, are counted too)."""
     tool = Path(build.find_nvcc()).with_name("cuobjdump")
-    ops = ("HGMMA", "HMMA", "IGMMA", "IMMA", "HGMMA_BF16")
+    ops = ("HGMMA", "HMMA", "IGMMA", "IMMA", "HGMMA_BF16", "DFMA")
     scheme = {"ozaki_kernelILi0E": "K6", "ozaki_kernelILi1E": "K7",
               "ozaki_kernelILi2E": "K5"}
     k1_kinds = {"sig_mel_factored_kernel": "K1_factored",
+                "sig_mel_fft_kernel": "K1_fft",
                 "sig_mel_kernel": "sig_mel"}
     out = {}
     for name in names:
@@ -558,12 +581,14 @@ def tensor_core_sass(names) -> dict:
                 key = next(k for s, k in k1_kinds.items() if s in ln)
             for op in ops:
                 hit = (" HGMMA." in ln and ".BF16" in ln
-                       if op == "HGMMA_BF16" else f" {op}." in ln)
+                       if op == "HGMMA_BF16"
+                       else f" {op}." in ln or f" {op} " in ln)
                 if hit:
                     by.setdefault(key, {}).setdefault(op, []).append(
                         ln.split(";")[0].split("*/")[-1].strip())
         keys = {"framed_ozaki": ("K5", "K6", "K7"),
-                "sig_mel": ("sig_mel", "K1_factored")}.get(name, (name,))
+                "sig_mel": ("sig_mel", "K1_factored",
+                            "K1_fft")}.get(name, (name,))
         for k in keys:
             found = by.get(k, {})
             out[k] = {op: dict(count=len(found.get(op, [])),
@@ -804,6 +829,7 @@ def tick_device_ms(front, st, x: torch.Tensor, **kw) -> float:
 def zero_counts() -> None:
     sig_mel.launches = 0
     sig_mel.factored_launches = 0
+    sig_mel.fft_launches = 0
     sig_mel.epilogue_launches.update(quant=0, vad=0)
     sig_multi.launches = 0
     kres.launches.update(K3=0, K4=0)
@@ -1641,8 +1667,10 @@ def chunk_walk_heads() -> dict:
     at the wide rates (Kaldi fbank, 25 / 10 ms; NeMo log-mel at its n_fft,
     25 ms window, 10 ms hop) and for the whisper heads of another slice
     schedule ((2, 1)): none of them is the Hann-windowed DFT of the (3, 2)
-    schedule, so where its span needs 32-frame blocks it keeps the chunk
-    walk (asks the built kernel; no launch)."""
+    schedule, so none takes the factored path; the heads that carry the
+    float64 FFT path's description (``fft``: Kaldi and NeMo at n_fft 2048)
+    take that path, and the rest keep their dense layout (asks the built
+    kernel; no launch)."""
     heads = {}
     for sr in (22050.0, 44100.0, 48000.0):
         kc = FbankConfig(sample_rate=sr, apply_cmn=False)
@@ -1667,7 +1695,8 @@ def chunk_walk_heads() -> dict:
         frames, cols, factored = k1_layout(h, hop, ks)
         out[name] = dict(width=h.m_big.shape[1], pack=h.pack, hop=hop,
                          ks=ks, block_frames=frames, chunk_cols=cols,
-                         factored=factored,
+                         factored=factored, carries_fft=h.fft is not None,
+                         fft=(frames, cols) == (1, sig_mel.FFT_N),
                          accepted=sig_mel.k1_accepts(h, hop=hop, ks=ks))
     return out
 
@@ -1770,76 +1799,251 @@ def phase_wide_hops(dev) -> dict:
               or max(r["pipeline_vs_f64"], r["auto_vs_f64"]) > AUTO_TOL
               or r["vs_exact"] > bars["vs_exact"]
               or r["vs_factored_plain"] > bars["vs_factored_plain"]]
-    fails += [n for n, r in walk.items() if r["factored"]]
+    fails += [n for n, r in walk.items()
+              if r["factored"] or r["fft"] != r["carries_fft"]]
     if fails:
         raise AssertionError(f"wide hops: {fails}")
     return dict(times=res, counts=counts, factored=factored, bars=bars,
                 chunk_walk_heads=walk)
 
 
-def phase_chunk_walk(dev) -> dict:
-    """K1's 32-frame chunk walk, which the wide hops' Kaldi and NeMo heads
-    keep, through the entry points a user calls: ``Fbank(KALDI_48K,
-    fft_impl="sig").compute`` and ``BatchLogMel(NEMO_48K,
-    fft_impl="sig").compute`` on ``WIDE_B`` x ``WIDE_SECONDS`` clips at 48
-    kHz, the counts zeroed before each call and read after it: K1 once,
-    never on its factored path, in 32-frame blocks, and no other kernel.
-    The first ``WIDE_CHECK_B`` clips of K1's output against the plain
-    version and the exact result at ``ln_bars``; then, on the same input,
-    K1's time per call, its plain version's and the library
-    composition's beside its bound (``head_work``)."""
+def fft_work(head, frames: int) -> dict:
+    """FLOPs of K1's float64 FFT path over ``frames`` frames, the
+    design's work by type: in float64 the taps (the window's product a
+    tap; with Kaldi's preemphasis the mean's sum, the mean's and the
+    preemphasis's differences and product a tap), the 1024-point complex
+    FFT (five radix-4 passes of 256 butterflies: three complex products
+    of 6 and eight complex sums of 2), the real-input split (10 a bin)
+    and the power (3 a bin); in float32 the bf2 projection (three
+    products and sums a run value: 6) and the output (1 a mel)."""
+    pack, fft = head.pack, head.fft
+    taps = pack * (1 if fft.preemph is None else 5)
+    f64 = taps + 5 * 256 * (3 * 6 + 8 * 2) + 1024 * (10 + 3)
+    f32 = 6 * fft.nnz + head.n_mels
+    return dict(flops_f64=frames * f64, flops_f32=frames * f32)
+
+
+def fft_bound(head, frames: int, x, outs) -> dict:
+    """The least time of the float64 FFT path: its float64 and float32
+    work over their peaks (the larger: the units run side by side) against
+    the bytes it must move (the signal and the outputs once, the window,
+    the twiddle table and the projection's runs once)."""
+    work = fft_work(head, frames)
+    t_ops = max(work["flops_f64"] / PEAK_F64_FLOPS,
+                work["flops_f32"] / PEAK_F32_FLOPS) * 1e3
+    f = head.fft
+    nbytes = (x.numel() * 4 + sum(o.numel() * o.element_size() for o in outs)
+              + f.window.numel() * 8 + (sig_mel.FFT_N // 2) * 16
+              + sum(t.numel() * t.element_size()
+                    for t in (f.mel_off, f.mel_lo, f.f0, f.f1)))
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return dict(work, bytes=nbytes, bound_ops_ms=t_ops,
+                bound_bytes_ms=t_bytes, bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def ln_clips(sr: int, n: int, dev) -> torch.Tensor:
+    """Two real and tilted clips of ``n`` samples at ``sr``: JFK
+    band-limited to ``sr`` (nothing above 8 kHz: upsampled speech, looped
+    to length) and white noise high-passed at 300 Hz (empty low bins,
+    which Kaldi's preemphasis lowers further)."""
+    jfk = read_wav_f32le(TESTDATA / "jfk_f32le.wav").astype(np.float64)
+    m = int(round(len(jfk) * sr / 16000))
+    up = np.fft.irfft(np.fft.rfft(jfk), m) * (m / len(jfk))
+    spec = np.fft.rfft(np.random.default_rng(SEED + 61).normal(size=n)
+                       * 0.1)
+    spec[: int(300 * n / sr)] = 0
+    x = np.stack([np.resize(up, n), np.fft.irfft(spec, n)])
+    return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+def held_fft(got, x, truth, head, nf, hop) -> dict:
+    """K1's output for a head on its float64 FFT path against the path's
+    plain version (``sig_mel_fft_reference``), against ``truth`` (the
+    entry point's float64 rdft route: an independent float64 pipeline),
+    and against the dense plain version (``sig_mel_reference``, the JAX
+    kernel's float32 numerics) and the exact result (its float64 dot),
+    with the distance of each of those two from ``truth``."""
+    kw = dict(ks=3, n_frames=nf, hop=hop, offset=0, **head.kw())
+    plain = sig_mel.sig_mel_fft_reference(x, n_frames=nf, hop=hop,
+                                          offset=0, **sig_mel.fft_args(head))
+    dense = sig_mel.sig_mel_reference(x, head.m_big, head.pair_i, head.mt,
+                                      **kw)
+    exact = sig_mel.sig_mel_reference(x, head.m_big, head.pair_i, head.mt,
+                                      dot_dtype=torch.float64, **kw)
+    torch.cuda.synchronize()
+    if got.shape != plain.shape or got.shape != truth.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} vs "
+                             f"{tuple(plain.shape)}, {tuple(truth.shape)}")
+    return dict(finite=bool(torch.isfinite(got).all()),
+                vs_fft_plain=max_abs(got, plain),
+                vs_f64=max_abs(got.double(), truth),
+                fft_plain_vs_f64=max_abs(plain.double(), truth),
+                vs_plain=max_abs(got, dense),
+                plain_vs_f64=max_abs(dense.double(), truth),
+                vs_exact=max_abs(got, exact),
+                exact_vs_f64=max_abs(exact.double(), truth))
+
+
+def fft_fails(r) -> bool:
+    """Whether a row of ``held_fft`` misses its bars: ``LN_FFT_PLAIN_TOL``
+    from the plain version, ``LN_TOL`` from the float64 pipeline, and
+    ``LN_TOL`` plus their own distance from it from the dense plain
+    version and the exact result."""
+    return (not r["finite"] or r["vs_fft_plain"] > LN_FFT_PLAIN_TOL
+            or r["vs_f64"] > LN_TOL
+            or r["vs_plain"] > LN_TOL + r["plain_vs_f64"]
+            or r["vs_exact"] > LN_TOL + r["exact_vs_f64"])
+
+
+def phase_ln_fft(dev) -> dict:
+    """Kaldi fbank and NeMo log-mel at n_fft 2048 on K1's float64 FFT
+    path, which took them off the 32-frame chunk walk. At 48 kHz through
+    the entry points a user calls, on their auto routes
+    (``Fbank(KALDI_48K).compute``, ``BatchLogMel(NEMO_48K).compute``,
+    which must pick "sig") on ``WIDE_B`` x ``WIDE_SECONDS`` clips of
+    noise and, in a second call, on JFK band-limited to 48 kHz and on
+    noise high-passed at 300 Hz (``ln_clips``), the counts zeroed before
+    each call and read after it: K1 once, on its FFT path, and no other
+    kernel. The first ``WIDE_CHECK_B`` noise clips and both real clips
+    against the path's plain version, the float64 rdft route of the same
+    entry point, the dense plain version and the exact result
+    (``held_fft``, ``fft_fails``); then, on the noise, K1's time per
+    call, its plain version's, the dense plain version's, the 32-frame
+    chunk walk's on the same head without its FFT description (the route
+    these heads took before; ``sig_mel.cu``'s dense path is unchanged)
+    and the library composition's, beside both bounds (``head_work``: the
+    dense DFT's; ``fft_bound``: the FFT design's) and K1 / composition.
+    At 44.1 kHz (Kaldi 1102/441, NeMo 2048/1102/441) the JAX package has
+    no macro-row geometry, so the auto routes take rdft (reported); K1
+    runs on the heads directly (``sig_mel``) on ``WIDE_CHECK_B`` x
+    ``WIDE_SECONDS`` noise and the real clips: one FFT launch, the same
+    bars and its time. The 32-frame chunk walk itself runs in phase
+    k1_widths (``CHUNK_WALK_WHISPER``)."""
     rng = np.random.default_rng(SEED + 59)
-    res, counts, factored = {}, {}, {}
-    for name, cfg, front, library in (
-            ("kaldi_48k", KALDI_48K,
-             Fbank(KALDI_48K, fft_impl="sig", device=dev), library_kaldi),
-            ("nemo_48k", NEMO_48K,
-             BatchLogMel(NEMO_48K, fft_impl="sig", device=dev),
-             library_nemo)):
-        x = signal(rng, WIDE_B, int(WIDE_SECONDS * 48000), dev)
-        h = front.sig_head
+    res, counts, ffts = {}, {}, {}
+
+    def run(name, call):
         zero_counts()
-        got = front.compute(x)
+        out = call()
         torch.cuda.synchronize()
         counts[name] = read_counts()
-        factored[name] = sig_mel.factored_launches
-        sig, hop = x, KALDI_48K.frame_shift_samples
-        if name == "nemo_48k":
-            got = got.transpose(-1, -2)
-            sig = torch.nn.functional.pad(x, (cfg.n_fft // 2,) * 2)
-            hop = cfg.hop_length
-        nf = got.shape[1]
-        frames, cols, fact = k1_layout(h, hop)
-        r = dict(block_frames=frames, chunk_cols=cols, factored=fact,
-                 width=h.m_big.shape[1], pack=h.pack, hop=hop,
-                 shape=list(sig.shape), n_frames=nf,
-                 check_shape=[WIDE_CHECK_B, sig.shape[-1]],
-                 **held(got[:WIDE_CHECK_B], sig[:WIDE_CHECK_B], h, nf, hop))
-        kw = dict(ks=3, n_frames=nf, hop=hop, offset=0, **h.kw())
-        r["ms"] = time_ms(lambda: sig_mel.sig_mel(sig, h.m_big, h.pair_i,
-                                                  h.mt, **kw))
-        r["plain_ms"] = time_ms(lambda: sig_mel.sig_mel_reference(
-            sig, h.m_big, h.pair_i, h.mt, **kw), reps=3, warmup=1)
-        r["library_composition_ms"] = time_ms(library(x, cfg))
-        r.update(bound(head_work(h, WIDE_B * nf),
-                       head_bytes([h], sig, [got])))
-        r.update(share_of_bound=r["bound_ms"] / r["ms"],
-                 k1_over_composition=r["ms"] / r["library_composition_ms"])
-        res[name] = r
-        del x, sig, got
-    bars = ln_bars(list(res.values()))
-    emit("chunk_walk", launches=counts, factored_launches=factored,
-         bars=bars, **res)
+        ffts[name] = sig_mel.fft_launches
+        return out
+
+    for sr, kaldi_cfg, nemo_cfg in ((48000, KALDI_48K, NEMO_48K),
+                                    (44100, KALDI_44K, NEMO_44K)):
+        b = WIDE_B if sr == 48000 else WIDE_CHECK_B
+        for kind, cfg, cls, library in (
+                ("kaldi", kaldi_cfg, Fbank, library_kaldi),
+                ("nemo", nemo_cfg, BatchLogMel, library_nemo)):
+            name = f"{kind}_{sr // 1000}k"
+            x = signal(rng, b, int(WIDE_SECONDS * sr), dev)
+            real = ln_clips(sr, int(10 * sr), dev)
+            front = cls(cfg, device=dev)
+            f64 = cls(cfg, dtype=torch.float64, fft_impl="rdft", device=dev)
+            h = (fbank_sig_head(cfg) if kind == "kaldi"
+                 else batch_logmel.sig_head(cfg)).to(dev)
+            hop = cfg.frame_shift_samples if kind == "kaldi" \
+                else cfg.hop_length
+
+            def framed(v):
+                return v if kind == "kaldi" else torch.nn.functional.pad(
+                    v, (cfg.n_fft // 2,) * 2)
+
+            def frames_of(v):
+                return (framing.num_frames_batch(v.shape[-1], h.pack, hop)
+                        if kind == "kaldi"
+                        else framing.num_frames_centered(v.shape[-1], hop))
+
+            def k1(sig, nf, head=h):
+                return sig_mel.sig_mel(sig, head.m_big, head.pair_i,
+                                       head.mt, ks=3, n_frames=nf, hop=hop,
+                                       offset=0, **head.kw())
+
+            def truth(v):
+                t = f64.compute(v.double())
+                return t if kind == "kaldi" else t.transpose(-1, -2)
+
+            if sr == 48000:
+                if front.fft_impl != "sig":
+                    raise AssertionError(f"{name}: auto route "
+                                         f"{front.fft_impl!r}")
+
+                def entry(v):
+                    t = front.compute(v)
+                    return t if kind == "kaldi" else t.transpose(-1, -2)
+            else:
+
+                def entry(v):
+                    return k1(framed(v), frames_of(v))
+            got = run(name, lambda: entry(x))
+            got_real = run(f"{name}_real", lambda: entry(real))
+            nf, nfr = got.shape[1], got_real.shape[1]
+            frames, cols, fact = k1_layout(h, hop)
+            xc = x[:WIDE_CHECK_B]
+            r = dict(route=front.fft_impl, block_frames=frames,
+                     chunk_cols=cols, factored=fact, width=h.m_big.shape[1],
+                     pack=h.pack, pack_off=h.pack_off, hop=hop,
+                     shape=list(framed(x).shape), n_frames=nf,
+                     check_shape=list(xc.shape),
+                     **held_fft(got[:WIDE_CHECK_B], framed(xc),
+                                truth(xc), h, nf, hop))
+            r["real"] = dict(
+                clips=["jfk_band_limited", "noise_high_passed_300hz"],
+                shape=list(real.shape),
+                **held_fft(got_real, framed(real), truth(real), h, nfr,
+                           hop))
+            del got_real
+            # K1 alone on the framed signal (NeMo's centre padding, a copy
+            # the entry point makes, outside the timing)
+            sig = framed(x)
+            r["ms"] = time_ms(lambda: k1(sig, nf))
+            bound_fft = fft_bound(h, b * nf, sig, [got])
+            r.update(bound_fft=bound_fft, bound_ms=bound_fft["bound_ms"],
+                     bound_by=bound_fft["bound_by"],
+                     share_of_bound=bound_fft["bound_ms"] / r["ms"])
+            if sr == 48000:
+                kw = dict(ks=3, n_frames=nf, hop=hop, offset=0, **h.kw())
+                walk_head = dataclasses.replace(h, fft=None)
+                r["chunk_walk_ms"] = time_ms(lambda: k1(sig, nf, walk_head),
+                                             reps=3, warmup=1)
+                r["fft_plain_ms"] = time_ms(
+                    lambda: sig_mel.sig_mel_fft_reference(
+                        sig, n_frames=nf, hop=hop, offset=0,
+                        **sig_mel.fft_args(h)), reps=3, warmup=1)
+                r["plain_ms"] = time_ms(lambda: sig_mel.sig_mel_reference(
+                    sig, h.m_big, h.pair_i, h.mt, **kw), reps=3, warmup=1)
+                r["library_composition_ms"] = time_ms(library(x, cfg))
+                dense = bound(head_work(h, b * nf), head_bytes([h], sig,
+                                                                [got]))
+                r.update(bound_dense=dense,
+                         k1_over_composition=(
+                             r["ms"] / r["library_composition_ms"]),
+                         chunk_walk_over_k1=r["chunk_walk_ms"] / r["ms"])
+            del sig
+            res[name] = r
+            del x, real, got
+        # the plain versions at 64 x 30 s leave tens of GB in the caching
+        # allocator; give them back before the phases that start processes
+        # on the card (phase parallel's gloo ranks)
+        torch.cuda.empty_cache()
+    emit("ln_fft", launches=counts, fft_launches=ffts,
+         bars=dict(vs_fft_plain=LN_FFT_PLAIN_TOL, vs_f64=LN_TOL,
+                   vs_plain_and_exact="LN_TOL + their distance from f64"),
+         **res)
     fails = [k for k, c in counts.items()
              if {n: v for n, v in c.items() if v} != {"K1": 1}
-             or factored[k] != 0]
+             or ffts[k] != 1]
     fails += [n for n, r in res.items()
-              if (r["block_frames"], r["factored"]) != (32, False)
-              or r["vs_exact"] > bars["vs_exact"]
-              or r["vs_plain"] > bars["vs_plain"]]
+              if (r["block_frames"], r["chunk_cols"], r["factored"])
+              != (1, sig_mel.FFT_N, False)
+              or fft_fails(r) or fft_fails(r["real"])]
+    fails += [n for n, r in res.items()
+              if r["route"] != ("sig" if n.endswith("48k") else "rdft")]
     if fails:
-        raise AssertionError(f"chunk walk: {fails}")
-    return dict(times=res, counts=counts, bars=bars)
+        raise AssertionError(f"ln fft: {fails}")
+    return dict(times=res, counts=counts, ffts=ffts)
 
 
 def phase_broad_configs(dev) -> dict:
@@ -3860,7 +4064,7 @@ def main() -> int:
     k2 = phase_k2(dev, rows, ln["rows"])
     widths = phase_k1_widths(dev, rows, ln["rows"])
     wide = phase_wide_hops(dev)
-    walk = phase_chunk_walk(dev)
+    ln_fft = phase_ln_fft(dev)
     broad = phase_broad_configs(dev)
     front = phase_frontend_step(dev, k2)
     framed_rows = phase_framed_vs_plain(dev)
@@ -3874,8 +4078,7 @@ def main() -> int:
     serve = phase_serve_streams(dev)
     par = phase_parallel(dev, k2)
     k1_rows = rows + widths["rows"] + [dial["auto"]["auto_1024"]]
-    k1_ln_rows = ln["rows"] + widths["ln_rows"] + list(
-        walk["times"].values())
+    k1_ln_rows = ln["rows"] + widths["ln_rows"]
     vs_plain = max(r["vs_plain"] for r in k1_rows + k1_ln_rows)
     by_path = {"batch": {"K1": main["launches"]}, **serving,
                "frontend": front["counts"]["large_v3_30s"],
@@ -3887,7 +4090,7 @@ def main() -> int:
                   for k, v in ten_vad.items()},
                "load_probe": {"P1": sum(probe["counts"].values())},
                "wide_hops": sum_counts(wide["counts"]),
-               "chunk_walk": sum_counts(walk["counts"]),
+               "ln_fft": sum_counts(ln_fft["counts"]),
                "broad_configs": sum_counts(broad["counts"])}
     serve_paths = {"serve_streams_sig_48k": serve["run_a"]["launches"],
                    "serve_streams_rdft_8k": serve["run_b"]["launches"]}
@@ -3961,12 +4164,7 @@ def main() -> int:
         "dft_mma": DFT_MMA,
         "widths_refused": widths["refused"],
         "wide_hops": "K1_factored",
-        "chunk_walk": {k: {f: v[f] for f in (
-            "block_frames", "chunk_cols", "ms", "plain_ms", "bound_ms",
-            "bound_by", "share_of_bound", "library_composition_ms",
-            "k1_over_composition", "vs_plain", "vs_exact",
-            "plain_vs_exact", "shape")}
-            for k, v in walk["times"].items()},
+        "ln_fft": "K1_fft",
         "serving_bulk_ms": bulk["k1_serving_ms"],
         "ln_modes": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
                                            "bound_by",
@@ -3994,6 +4192,30 @@ def main() -> int:
             "bound_dense", "bound_factored", "l2_bytes_counted",
             "vs_exact", "vs_factored_plain", "shape")}
             for k, v in wide["times"].items()},
+    }, {
+        "name": "K1_fft", "route": "cuda", "source": K1_FFT_SOURCE,
+        "replaces": K1_REPLACES, "launches": sum(ln_fft["ffts"].values()),
+        "launches_by_path": ln_fft["ffts"],
+        "max_abs_err": max(max(v["vs_fft_plain"], v["real"]["vs_fft_plain"])
+                           for v in ln_fft["times"].values()),
+        "max_abs_vs_f64": max(max(v["vs_f64"], v["real"]["vs_f64"])
+                              for v in ln_fft["times"].values()),
+        "max_abs_vs_exact": max(max(v["vs_exact"], v["real"]["vs_exact"])
+                                for v in ln_fft["times"].values()),
+        **{f: ln_fft["times"]["kaldi_48k"][g] for f, g in (
+            ("ms", "ms"), ("plain_ms", "fft_plain_ms"),
+            ("bound_ms", "bound_ms"), ("bound_by", "bound_by"),
+            ("share_of_bound", "share_of_bound"), ("shape", "shape"))},
+        "library_ms": None, "config": "kaldi_48k",
+        "ln_heads": {k: {f: v[f] for f in (
+            "route", "block_frames", "chunk_cols", "pack", "pack_off", "hop",
+            "ms", "fft_plain_ms", "plain_ms", "chunk_walk_ms",
+            "library_composition_ms", "k1_over_composition",
+            "chunk_walk_over_k1", "bound_dense", "bound_fft", "bound_ms",
+            "bound_by", "share_of_bound", "vs_fft_plain", "vs_f64",
+            "vs_plain", "plain_vs_f64", "vs_exact", "exact_vs_f64", "real",
+            "shape") if f in v}
+            for k, v in ln_fft["times"].items()},
     }, {
         "name": "K2", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES, "launches": launches("K2"),

@@ -59,9 +59,12 @@
 // 128- and 64-frame spans do not fit, and where the host gives the
 // factored split) take layout 3 instead: the two-stage DFT of
 // sig_factored.cuh in persistent 64-frame blocks
-// (melspec_sig_mel_factored). The 32-frame dense layout stays for the
-// heads that fold other preprocessing into their matrix (Kaldi, NeMo)
-// and for other slice schedules.
+// (melspec_sig_mel_factored). The ln heads of a 2048-point DFT (Kaldi
+// fbank and NeMo log-mel at 44.1 / 48 kHz), where the host hands their
+// window, preprocessing and bin-order filters, take the float64 FFT of
+// sig_fft.cuh instead (melspec_sig_mel_fft), one frame at a time a block.
+// The 32-frame dense layout stays for the other heads that fold
+// preprocessing into their matrix and for other slice schedules.
 //
 // Plain C interface, built with nvcc and bound with ctypes
 // (melspec_tpu_torch/kernels/sig_mel.py). Every launch is followed by
@@ -69,6 +72,7 @@
 
 #include "sig_common.cuh"
 #include "sig_factored.cuh"
+#include "sig_fft.cuh"
 
 namespace {
 
@@ -390,6 +394,80 @@ int melspec_sig_mel_factored(const float* x, long long batch, long long T,
   kernel<<<static_cast<unsigned>(grid), kThreads, static_cast<size_t>(dyn),
            static_cast<cudaStream_t>(stream)>>>(p, f);
   return cudaGetLastError();
+}
+
+// K1's float64 FFT path (sig_fft.cuh) for an ln head whose frame is pack
+// taps at pack_off inside a 2048-point DFT: window float64 [pack]; tw
+// float64 pairs [1024], (cos, -sin)(2 pi e / 2048); preemph Kaldi's
+// coefficient (its DC removal and preemphasis before the window), or < 0
+// for neither; each mel's run of bins (mel_off [n_mels + 1], mel_lo
+// [n_mels]) and its bf2 filters f0, f1 (bf16, concatenated runs of nnz
+// values in all, bins below 1024); out_mode 1 (ln(e + guard)) or 2
+// (ln(max(e, guard))); out [batch, n_frames, n_mels]. Returns 0 or the cudaError_t of the launch
+// (cudaErrorInvalidValue for arguments the kernel does not take).
+int melspec_sig_mel_fft(const float* x, long long batch, long long T,
+                        int n_frames, int hop, int offset, int pack,
+                        int pack_off, const double* window, const void* tw,
+                        double preemph, const int* mel_off,
+                        const int* mel_lo, const void* f0, const void* f1,
+                        int nnz, int n_mels, int out_mode, float guard,
+                        float* out, void* stream) {
+  if (batch <= 0 || n_frames <= 0) return cudaSuccess;
+  if (hop <= 0 || offset < 0 || pack <= 0 || pack_off < 0 ||
+      pack + pack_off > kFftN || n_mels <= 0 || nnz < 0 || out == nullptr ||
+      (out_mode != kLnGuard && out_mode != kLnFloor) || !(guard > 0.0f) ||
+      reinterpret_cast<uintptr_t>(tw) % 16)
+    return cudaErrorInvalidValue;
+  const long long smem = fft_smem(n_mels, nnz);
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(sig_mel_fft_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sig_mel_fft_kernel, kFftThreads, static_cast<size_t>(smem));
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  Fft p;
+  p.x = x;
+  p.T = T;
+  p.frames = batch * n_frames;
+  p.n_frames = n_frames;
+  p.hop = hop;
+  p.pack = pack;
+  // the frame's first tap (pack_off: a circular shift of the DFT's frame,
+  // which leaves its power as it is)
+  p.start = static_cast<long long>(offset) + pack_off;
+  p.window = window;
+  p.tw = static_cast<const double2*>(tw);
+  p.preemph = preemph;
+  p.mel_off = mel_off;
+  p.mel_lo = mel_lo;
+  p.f0 = static_cast<const __nv_bfloat16*>(f0);
+  p.f1 = static_cast<const __nv_bfloat16*>(f1);
+  p.nnz = nnz;
+  p.n_mels = n_mels;
+  p.out_mode = out_mode;
+  p.guard = guard;
+  p.out = out;
+  const long long blocks = static_cast<long long>(sms) * per_sm;
+  const long long grid = p.frames < blocks ? p.frames : blocks;
+  sig_mel_fft_kernel<<<static_cast<unsigned>(grid), kFftThreads,
+                       static_cast<size_t>(smem),
+                       static_cast<cudaStream_t>(stream)>>>(p);
+  return cudaGetLastError();
+}
+
+// the shared memory of one block of the float64 FFT path for a projection
+// of n_mels runs of nnz values in all
+long long melspec_sig_mel_fft_smem(int n_mels, int nnz) {
+  return fft_smem(n_mels, nnz) +
+         static_cast<long long>(sizeof(double)) * kFftWarps;
 }
 
 const char* melspec_cuda_error_string(int code) {

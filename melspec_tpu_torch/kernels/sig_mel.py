@@ -12,8 +12,9 @@ wrapper launches the kernel for a CUDA tensor (or raises) and runs its
 plain version (``sig_mel_reference``, ``sig_mel_quantized_reference``,
 ``sig_mel_vad_reference``) only for a CPU tensor. ``launches`` counts
 kernel launches, ``epilogue_launches`` those that ran an epilogue and
-``factored_launches`` those of the factored wide-hop path; nothing else
-adds to them.
+``factored_launches`` those of the factored wide-hop path and
+``fft_launches`` those of the float64 FFT path; nothing else adds to
+them.
 
 The factored path (``csrc/sig_factored.cuh``, block layout 3) takes the
 whisper heads whose 128- and 64-frame spans do not fit a block (the wide
@@ -23,8 +24,20 @@ DFTs of ``factored_split(dft_size)`` (``N = N1 x N2``) with a float32
 twiddle between them, from the host tables of ``factored_dft``. Its
 plain version is ``sig_mel_factored_reference``; on the CPU these heads
 keep ``sig_mel_reference`` (float64 dot) as every head does. A head the
-host gives no split (Kaldi's and NeMo's, whose matrices fold in other
-preprocessing, or another slice schedule) keeps the 32-frame chunk walk.
+host gives no split (another slice schedule, a size with no split, or
+matrices from elsewhere) keeps the 32-frame chunk walk.
+
+The float64 FFT path (``csrc/sig_fft.cuh``) takes the ln heads whose
+frame lies inside a DFT of ``FFT_N`` = 2048 points and that carry its
+description (``FftHead``: Kaldi fbank and NeMo log-mel at n_fft 2048,
+44.1 / 48 kHz): the frame's window and Kaldi's DC removal and
+preemphasis applied per frame, the DFT as a 2048-point real FFT, all in
+float64, then K1's bf2 projection and ln. The two-stage path's float32
+roundings are relative to the frame's whole spectrum and swamp the
+near-empty bins of real clips, which the ln modes keep; in float64 every
+bin's power is exact to float32. Its plain version is
+``sig_mel_fft_reference``; on the CPU these heads keep
+``sig_mel_reference`` (float64 dot) as every head does.
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -72,10 +86,91 @@ FACTORED_N1 = (32, 64)
 # k1 x 16 k2 = 512 power columns
 FACTORED_N2 = 32
 FACTORED_K2 = 16
+# the float64 FFT path's DFT size (csrc/sig_fft.cuh: kFftN); it computes
+# the bins below FFT_N / 2, so a head's filter row of the Nyquist bin
+# must be at most NYQUIST_TOL
+FFT_N = 2048
+NYQUIST_TOL = 1e-14
 
 launches = 0
 epilogue_launches = {"quant": 0, "vad": 0}
 factored_launches = 0
+fft_launches = 0
+
+
+def mel_runs(mt: torch.Tensor) -> tuple:
+    """Each projection column's run of bins in a bf2 stack ``mt [3 H,
+    nmp]`` (``[F0; F1; F0]``): ``(mel_off int32 [nmp + 1], mel_lo int32
+    [nmp], f0, f1)``, column m's run the bins ``mel_lo[m] ..`` from its
+    first to its last nonzero F0 or F1 row, its values ``f0`` / ``f1[
+    mel_off[m] : mel_off[m + 1]]`` (bf16)."""
+    half = mt.shape[0] // 3
+    f0, f1 = mt[:half], mt[half : 2 * half]
+    nz = (f0 != 0) | (f1 != 0)
+    offs, los, a, b = [0], [], [], []
+    for m in range(mt.shape[1]):
+        idx = torch.nonzero(nz[:, m]).flatten()
+        lo, hi = (int(idx[0]), int(idx[-1]) + 1) if idx.numel() else (0, 0)
+        los.append(lo)
+        a.append(f0[lo:hi, m])
+        b.append(f1[lo:hi, m])
+        offs.append(offs[-1] + hi - lo)
+    return (torch.tensor(offs, dtype=torch.int32),
+            torch.tensor(los, dtype=torch.int32), torch.cat(a).contiguous(),
+            torch.cat(b).contiguous())
+
+
+@dataclasses.dataclass(frozen=True)
+class FftHead:
+    """What K1's float64 FFT path needs of an ln head whose matrix folds
+    a frame of ``pack`` taps, and per-frame preprocessing, into a DFT of
+    ``FFT_N`` points (Kaldi fbank, NeMo log-mel at n_fft 2048):
+    ``window`` float64 ``[pack]``, the window of the frame's taps;
+    ``preemph`` None (no preprocessing) or Kaldi's coefficient p (DC
+    removal, then in-frame preemphasis: ``d[i] - p d[i-1]`` with ``d = x -
+    mean``, ``d[0]`` as it is; ``fbank.kaldi_preproc_matrix``); ``mt`` the
+    bf2 projection ``[F0; F1; F0]`` of the bins below ``FFT_N / 2``, bin
+    order (bf16 ``[3 FFT_N / 2, nmp]``), and its ``mel_runs`` with
+    ``nnz``, their values in all (computed where the head is built unless
+    given). A malformed field raises ``ValueError``."""
+
+    window: torch.Tensor
+    preemph: float | None
+    mt: torch.Tensor
+    mel_off: torch.Tensor | None = None
+    mel_lo: torch.Tensor | None = None
+    f0: torch.Tensor | None = None
+    f1: torch.Tensor | None = None
+    nnz: int | None = None
+
+    def __post_init__(self):
+        half = FFT_N // 2
+        w, mt = self.window, self.mt
+        if (w.dtype != torch.float64 or w.dim() != 1
+                or not 0 < w.shape[0] <= FFT_N):
+            raise ValueError(f"FftHead: the window must be float64 [pack] "
+                             f"with pack <= {FFT_N}; got {w.dtype} "
+                             f"{tuple(w.shape)}")
+        if self.preemph is not None and not (math.isfinite(self.preemph)
+                                             and self.preemph >= 0.0):
+            raise ValueError(f"FftHead: preemph must be None or finite and "
+                             f">= 0; got {self.preemph}")
+        if (mt.dtype != torch.bfloat16 or mt.dim() != 2
+                or mt.shape[0] != 3 * half
+                or not torch.equal(mt[2 * half :], mt[:half])):
+            raise ValueError(f"FftHead: mt must be the bf2 stack [F0; F1; "
+                             f"F0] of {half} bins; got {mt.dtype} "
+                             f"{tuple(mt.shape)}")
+        if self.mel_off is None:
+            for name, v in zip(("mel_off", "mel_lo", "f0", "f1"),
+                               mel_runs(mt)):
+                object.__setattr__(self, name, v)
+            object.__setattr__(self, "nnz", int(self.mel_off[-1]))
+
+    def to(self, device) -> "FftHead":
+        return dataclasses.replace(self, **{
+            k: getattr(self, k).to(device)
+            for k in ("window", "mt", "mel_off", "mel_lo", "f0", "f1")})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,8 +185,11 @@ class SigHead:
     ``live`` the power columns that can be nonzero (``live_columns``),
     computed from ``m_big`` where the head is built (on the CPU) unless
     given; ``dft_size`` the N whose periodic-Hann-windowed split DFT
-    ``m_big`` is (whisper heads), 0 for any other matrix: where
-    ``factored_route`` takes it, K1 runs the factored path."""
+    ``m_big`` is (whisper heads), or whose DFT ``m_big`` folds with
+    ``fft``'s window and preprocessing (Kaldi, NeMo), 0 for any other
+    matrix: where ``factored_route`` takes it, K1 runs the factored path;
+    ``fft`` the description of K1's float64 FFT path, which a head
+    carrying it takes."""
 
     m_big: torch.Tensor
     pair_i: tuple
@@ -104,6 +202,7 @@ class SigHead:
     guard: float = 0.0
     live: int | None = None
     dft_size: int = 0
+    fft: FftHead | None = None
 
     def __post_init__(self):
         if self.live is None:
@@ -121,11 +220,12 @@ class SigHead:
                     n_bins_pad=self.n_bins_pad, n_mels=self.n_mels,
                     mel_precision=self.mel_precision,
                     out_mode=self.out_mode, guard=self.guard,
-                    live=self.live, dft_size=self.dft_size)
+                    live=self.live, dft_size=self.dft_size, fft=self.fft)
 
     def to(self, device) -> "SigHead":
-        return dataclasses.replace(self, m_big=self.m_big.to(device),
-                                   mt=self.mt.to(device))
+        return dataclasses.replace(
+            self, m_big=self.m_big.to(device), mt=self.mt.to(device),
+            fft=None if self.fft is None else self.fft.to(device))
 
 
 def clamped_guard(guard: float) -> float:
@@ -156,6 +256,7 @@ def sig_mel_reference(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
                       mel_precision: str = "bf2", pack_off: int = 0,
                       out_mode: str = "whisper", guard: float = 0.0,
                       live: int | None = None, dft_size: int = 0,
+                      fft: FftHead | None = None,
                       dot_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The JAX kernel's math written out in plain PyTorch, on whatever
     device ``samples`` lies on: ``samples [B, T]`` f32 -> ``[B, n_frames,
@@ -171,8 +272,9 @@ def sig_mel_reference(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
     DFT dot is one ``torch.matmul`` in ``dot_dtype``: float32 as in the
     JAX kernel, or float64, which sums the exact bf16 x bf16 products with
     no rounding that reaches float32 — the exact value the float32
-    versions are held against. ``live`` and ``dft_size`` are K1's and not
-    used here: the plain version multiplies every column of ``m_big``."""
+    versions are held against. ``live``, ``dft_size`` and ``fft`` are
+    K1's and not used here: the plain version multiplies every column of
+    ``m_big``."""
     b = samples.shape[0]
     if n_frames <= 0:
         return samples.new_zeros((b, 0, n_mels))
@@ -399,6 +501,72 @@ def sig_mel_factored_reference(samples: torch.Tensor, fac: FactoredDft,
     return out_vals(energy, "whisper", 0.0)[..., :n_mels].contiguous()
 
 
+def fft_taps(samples: torch.Tensor, *, n_frames: int, hop: int,
+             start: int, window: torch.Tensor,
+             preemph: float | None) -> torch.Tensor:
+    """Each frame's windowed taps as K1's float64 FFT path stages them:
+    the ``len(window)`` samples from ``start + k*hop`` (zero past the
+    clip), in float64, with ``preemph`` Kaldi's DC removal and in-frame
+    preemphasis before the ``window`` (``FftHead``), ``[B, n_frames,
+    pack]`` float64."""
+    pack = window.shape[0]
+    x = samples.to(torch.float64)
+    need = start + (n_frames - 1) * hop + pack
+    if x.shape[-1] < need:
+        x = torch.nn.functional.pad(x, (0, need - x.shape[-1]))
+    d = x[:, start:need].unfold(-1, pack, hop)
+    if preemph is not None:
+        d = d - d.mean(dim=-1, keepdim=True)
+        d = torch.cat([d[..., :1], d[..., 1:] - preemph * d[..., :-1]],
+                      dim=-1)
+    return d * window.to(torch.float64)
+
+
+def fft_power(samples: torch.Tensor, *, n_frames: int, hop: int,
+              offset: int, pack_off: int, window: torch.Tensor,
+              preemph: float | None) -> torch.Tensor:
+    """The power of K1's float64 FFT path: ``fft_taps`` from ``offset +
+    pack_off`` zero-padded to ``FFT_N`` (a circular shift of the frame at
+    ``pack_off``: the same power), the float64 real DFT, ``|X[k]|^2``
+    for the bins ``k < FFT_N / 2`` rounded once to float32, ``[B,
+    n_frames, FFT_N / 2]``."""
+    y = fft_taps(samples, n_frames=n_frames, hop=hop,
+                 start=offset + pack_off, window=window, preemph=preemph)
+    spec = torch.fft.rfft(y, n=FFT_N)[..., : FFT_N // 2]
+    return (spec.real * spec.real + spec.imag * spec.imag).to(torch.float32)
+
+
+def sig_mel_fft_reference(samples: torch.Tensor, fft: FftHead, *,
+                          n_frames: int, hop: int, offset: int,
+                          pack_off: int, n_mels: int, out_mode: str,
+                          guard: float) -> torch.Tensor:
+    """The plain version of K1's float64 FFT path on whatever device
+    ``samples`` lies on: ``samples [B, T]`` f32 -> ``[B, n_frames,
+    n_mels]`` values of ``out_mode`` (an ln mode) with ``guard``:
+    ``fft_power`` with ``fft``'s window and preprocessing, split into
+    bf16 ``p0``, ``p1`` and projected by ``fft.mt`` in float32, then
+    ``out_vals``, as in ``sig_mel_reference``. ``fft_args(head)`` gives a
+    head's arguments."""
+    b = samples.shape[0]
+    if n_frames <= 0:
+        return samples.new_zeros((b, 0, n_mels))
+    power = fft_power(samples, n_frames=n_frames, hop=hop, offset=offset,
+                      pack_off=pack_off, window=fft.window,
+                      preemph=fft.preemph)
+    p0 = power.to(torch.bfloat16)
+    p1 = (power - p0.to(torch.float32)).to(torch.bfloat16)
+    energy = (torch.cat([p0, p0, p1], dim=-1).to(torch.float32)
+              @ fft.mt.to(torch.float32))
+    return out_vals(energy, out_mode, guard)[..., :n_mels].contiguous()
+
+
+def fft_args(head: SigHead) -> dict:
+    """``sig_mel_fft_reference``'s arguments for ``head`` (which carries
+    ``fft``) besides the signal and its frame grid."""
+    return dict(fft=head.fft, pack_off=head.pack_off, n_mels=head.n_mels,
+                out_mode=head.out_mode, guard=head.guard)
+
+
 def sig_mel_quantized_reference(samples: torch.Tensor, m_big: torch.Tensor,
                                 pair_i, mt: torch.Tensor, **kw) -> tuple:
     """The quant epilogue's plain version: the whisper mel of
@@ -477,6 +645,17 @@ def _bound() -> ctypes.CDLL:
         p,                      # stream
     ]
     lib.melspec_sig_mel_factored.restype = ctypes.c_int
+    lib.melspec_sig_mel_fft.argtypes = [
+        p, ll, ll, i, i, i,     # x, batch, T, n_frames, hop, offset
+        i, i, p, p,             # pack, pack_off, window, tw
+        ctypes.c_double,        # preemph
+        p, p, p, p, i,          # mel_off, mel_lo, f0, f1, nnz
+        i, i, ctypes.c_float,   # n_mels, out_mode, guard
+        p, p,                   # out, stream
+    ]
+    lib.melspec_sig_mel_fft.restype = ctypes.c_int
+    lib.melspec_sig_mel_fft_smem.argtypes = [i, i]
+    lib.melspec_sig_mel_fft_smem.restype = ctypes.c_longlong
     lib.melspec_sig_mel_layout.argtypes = [i, i, i, i, i, i, i, i, i, p, p,
                                            p]
     lib.melspec_sig_mel_layout.restype = ctypes.c_longlong
@@ -487,7 +666,9 @@ def _bound() -> ctypes.CDLL:
 
 class Layout(NamedTuple):
     """K1's block layout: a block's shared memory, its frames, its chunks'
-    DFT columns and whether it is the factored path."""
+    DFT columns and whether it is the factored path. The float64 FFT
+    path is ``(smem, 1, FFT_N, False)``: a block takes one frame at a
+    time and the whole DFT."""
 
     smem: int
     frames: int
@@ -519,9 +700,13 @@ def block_layout(ks: int, hop: int, pack: int, pack_off: int, width: int,
 
 def head_layout(head: SigHead, hop: int, ks: int = 3) -> Layout:
     """K1's block layout for ``head`` at ``hop`` with ``ks`` signal
-    slices, the one place that decides the route: the head's factored
-    split (``factored_route``) handed to ``block_layout``, so a launch,
-    ``k1_accepts`` and ``k1_vad_tile`` agree."""
+    slices, the one place that decides the route: a head carrying
+    ``fft`` takes the float64 FFT path (``fft_layout``, which raises
+    where the head does not match its description), any other head its
+    factored split (``factored_route``) handed to ``block_layout``, so a
+    launch, ``k1_accepts`` and ``k1_vad_tile`` agree."""
+    if head.fft is not None:
+        return fft_layout(head)
     width = head.m_big.shape[1]
     npow = width if head.n_bins_pad == 0 else head.n_bins_pad
     split = factored_route(head.dft_size, ks=ks, pair_i=head.pair_i,
@@ -529,6 +714,55 @@ def head_layout(head: SigHead, hop: int, ks: int = 3) -> Layout:
                            width=width, npow=npow, out_mode=head.out_mode)
     return block_layout(ks, hop, head.pack, head.pack_off, width, npow,
                         head.mt.shape[1], split)
+
+
+def fft_layout(head: SigHead) -> Layout:
+    """The float64 FFT path's layout for ``head``, which carries ``fft``,
+    after the checks its launch applies: a ``ValueError`` where the head
+    does not match the description (another DFT size or output mode, a
+    window that is not its ``pack`` taps, a frame past the DFT, a
+    projection of other columns or precision), so no head meant for the
+    path quietly takes another route. The shared memory asks the built
+    kernel."""
+    f = head.fft
+    why = None
+    if head.dft_size != FFT_N:
+        why = f"dft_size {head.dft_size}, not {FFT_N}"
+    elif head.out_mode not in ("ln_guard", "ln_floor"):
+        why = f"out_mode {head.out_mode!r}, not an ln mode"
+    elif f.window.shape[0] != head.pack:
+        why = f"a window of {f.window.shape[0]} taps for pack {head.pack}"
+    elif head.pack_off + head.pack > FFT_N:
+        why = f"taps [{head.pack_off}, {head.pack_off + head.pack}) past it"
+    elif (head.mel_precision != "bf2"
+          or f.mt.shape[1] != head.mt.shape[1]):
+        why = (f"a {head.mel_precision} head of {head.mt.shape[1]} mel "
+               f"columns for a bf2 projection of {f.mt.shape[1]}")
+    if why is not None:
+        raise ValueError(f"K1's float64 FFT path: {why}")
+    smem = _bound().melspec_sig_mel_fft_smem(head.n_mels, f.nnz)
+    return Layout(int(smem), 1, FFT_N, False)
+
+
+# the float64 FFT path's radix-4 passes that turn their inputs (csrc/
+# sig_fft.cuh: fft_pass, kFftTw)
+FFT_PASSES = (4, 16, 64, 256)
+
+
+@functools.lru_cache(maxsize=8)
+def fft_twiddles(device: torch.device) -> torch.Tensor:
+    """The float64 FFT path's twiddle tables, ``(cos, -sin)(2 pi e /
+    FFT_N)`` as float64 ``[rows, 2]`` on ``device``: ``e = k`` for the
+    bins ``k < FFT_N / 2``, then for each pass of ``Ns`` in
+    ``FFT_PASSES`` the ``e = r m (FFT_N / 4) / Ns`` of its input ``r =
+    1..3`` and sub-transform index ``m < Ns``, at ``(r - 1) Ns + m``."""
+    e = [np.arange(FFT_N // 2)]
+    for ns in FFT_PASSES:
+        r, m = np.meshgrid(np.arange(1, 4), np.arange(ns), indexing="ij")
+        e.append((r * m * (FFT_N // 4) // ns).reshape(-1))
+    ang = 2 * np.pi * np.concatenate(e) / FFT_N
+    return torch.as_tensor(np.stack([np.cos(ang), -np.sin(ang)], axis=-1),
+                           device=device).contiguous()
 
 
 def _smem_bytes(head: SigHead, hop: int, ks: int) -> int:
@@ -676,16 +910,19 @@ def raise_for(lib, rc: int, what: str) -> None:
 
 def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
             n_bins_pad, n_mels, mel_precision, pack_off, out_mode, guard,
-            live, dft_size: int = 0, epilogue: str | None = None,
-            vad: tuple = (0.0, 0)) -> tuple:
+            live, dft_size: int = 0, fft: FftHead | None = None,
+            epilogue: str | None = None, vad: tuple = (0.0, 0)) -> tuple:
     """One K1 launch. ``live``: the power columns that can be nonzero
-    (None: every one). ``dft_size``: the head's (``SigHead``); where
-    ``head_layout`` gives layout 3, the factored path runs, from
-    ``factored_dft``'s tables (``m_big`` is not read). ``epilogue``: None (the float mel), ``"quant"`` (the u8
+    (None: every one). ``dft_size``, ``fft``: the head's (``SigHead``);
+    where ``head_layout`` gives layout 3, the factored path runs, from
+    ``factored_dft``'s tables, and with ``fft`` the float64 FFT path, from
+    its description (``m_big`` is not read by either; a launch that
+    fails raises: no other route stands in). ``epilogue``: None (the
+    float mel), ``"quant"`` (the u8
     records ``q, lo, hi`` and no float mel) or ``"vad"`` (the mel and the
     Sobel counts at ``vad = (thr, start_y)``). Returns the outputs as a
     tuple."""
-    global launches, factored_launches
+    global launches, factored_launches, fft_launches
     dev = samples.device
     pair_i, npow, n_mels_pad, bf2 = check_head(
         samples, m_big, pair_i, mt, ks=ks, pack=pack, pack_off=pack_off,
@@ -699,7 +936,7 @@ def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
     live = npow if live is None else live
     smem, frames, _, factored = head_layout(
         SigHead(m_big, pair_i, mt, n_bins_pad, pack, n_mels, pack_off,
-                out_mode, guard, live, dft_size), hop, ks)
+                out_mode, guard, live, dft_size, fft), hop, ks)
     refusal = _smem_refusal(smem, hop, pack, pack_off, npow)
     if refusal is not None:
         raise NotImplementedError(refusal)
@@ -729,7 +966,21 @@ def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if factored:
+        if fft is not None:
+            if any(getattr(fft, k).device != dev for k in (
+                    "window", "mel_off", "mel_lo", "f0", "f1")):
+                raise ValueError("the head's FftHead must lie on the "
+                                 "signal's device")
+            rc = lib.melspec_sig_mel_fft(
+                samples.data_ptr(), b, t, n_frames, hop, offset, pack,
+                pack_off, fft.window.contiguous().data_ptr(),
+                fft_twiddles(dev).data_ptr(),
+                -1.0 if fft.preemph is None else float(fft.preemph),
+                fft.mel_off.data_ptr(), fft.mel_lo.data_ptr(),
+                fft.f0.data_ptr(), fft.f1.data_ptr(), fft.nnz, n_mels,
+                OUT_MODES.index(out_mode), clamped_guard(guard),
+                out.data_ptr(), stream)
+        elif factored:
             fac = factored_dft(dft_size, dev)
             rc = lib.melspec_sig_mel_factored(
                 samples.data_ptr(), b, t, n_frames, hop, offset,
@@ -752,6 +1003,7 @@ def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
     raise_for(lib, rc, "K1 (sig_mel)")
     launches += 1
     factored_launches += int(factored)
+    fft_launches += int(fft is not None)
     if epilogue is not None:
         epilogue_launches[epilogue] += 1
     return outs
@@ -771,20 +1023,23 @@ def sig_mel(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
             offset: int, pack: int, n_bins_pad: int, n_mels: int,
             mel_precision: str = "bf2", pack_off: int = 0,
             out_mode: str = "whisper", guard: float = 0.0,
-            live: int | None = None, dft_size: int = 0) -> torch.Tensor:
+            live: int | None = None, dft_size: int = 0,
+            fft: FftHead | None = None) -> torch.Tensor:
     """K1 on a CUDA signal, its plain version on a CPU one (same
     arguments as ``sig_mel_reference``; ``live``, the head's
     ``live_columns``, lets K1 skip the power columns that are zero, and
     None has it multiply every one; ``dft_size``, the head's, takes the
     factored path where ``factored_route`` gives a split and the head's
-    own layout would be 32-frame blocks). On the CPU the DFT dot is
+    own layout would be 32-frame blocks; ``fft``, the head's, the float64
+    FFT path). On the CPU the DFT dot is
     summed exactly (float64): the f32 sum of a CPU BLAS changes with its
     thread count, and on near-silent mel bins that order alone can cost
     more than the accuracy gates allow."""
     kw = dict(ks=ks, n_frames=n_frames, hop=hop, offset=offset, pack=pack,
               n_bins_pad=n_bins_pad, n_mels=n_mels,
               mel_precision=mel_precision, pack_off=pack_off,
-              out_mode=out_mode, guard=guard, live=live, dft_size=dft_size)
+              out_mode=out_mode, guard=guard, live=live, dft_size=dft_size,
+              fft=fft)
     return _on_device(
         samples, lambda: _launch(samples, m_big, pair_i, mt, **kw)[0],
         lambda: sig_mel_reference(samples, m_big, pair_i, mt,

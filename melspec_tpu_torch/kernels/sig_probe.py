@@ -25,6 +25,14 @@ does the same for K1's factored path of the wide hops
 each variant timed
 at 960/480/40, 1024/480/64 and 2048/512/128 on 64 x 30 s.
 
+    python3 -m melspec_tpu_torch.kernels.sig_probe fft
+
+does the same for K1's float64 FFT path of the Kaldi fbank and NeMo
+log-mel heads (``csrc/sig_fft.cuh``; ``FFT_CUTS``: the taps' load,
+Kaldi's frame mean (its reduction and barrier), the preprocessing a tap,
+the FFT's last four passes, the projection), each variant timed at both
+heads at 48 kHz (``LN_RATE``) on 64 x 30 s.
+
     PYTHONPATH=<tree> python3 -P melspec_tpu_torch/kernels/sig_probe.py \
         dump <dir>
     python3 -m melspec_tpu_torch.kernels.sig_probe compare <dir>...
@@ -37,7 +45,10 @@ seeds: ``whisper_mel_sig`` at 400/160/128 and 1024/256/80 at 22.05 kHz
 ``whisper_mel_quantized`` at 400/160/128 and the fused whisper + Kaldi
 step (K2), then the wide hops (``WIDE``: 960/480/40, 1024/480/64 at 48
 kHz, 2048/512/128 at 22.05 kHz, batch and streaming, both projections,
-and the VAD and quant routes; cases named ``wide_...``). It writes each
+and the VAD and quant routes; cases named ``wide_...``) and Kaldi fbank
+and NeMo log-mel at 48 kHz through ``Fbank`` / ``BatchLogMel`` (``ln_...``:
+the float64 FFT path since it takes them, the 32-frame chunk walk
+before). It writes each
 output's SHA-256 to ``<dir>/dump.json``; ``compare`` holds the hashes of
 every dump equal case by case (bit-equal outputs) and exits non-zero
 where any differs, as ``resample_probe.py``'s modes do for K3/K4; a case
@@ -106,13 +117,38 @@ FACTORED_CUTS = {
         "        project_f32<3, kNe>(h, ch, pb, en, f.rowmap);",
         "      en[0][0][0] += pb[ch];"),
 }
+FFT = build.CSRC_DIR / "sig_fft.cuh"
+# K1's float64 FFT path: variant -> its (text, replacement) cuts
+FFT_CUTS = {
+    "no_load": [(
+        "    fft_load(p, p.x + b * p.T, p.start + static_cast<long long>(kf) * "
+        "p.hop,\n             t, xv);\n",
+        "    for (int q = 0; q < kFftTaps; ++q) xv[q] = q + g;\n")],
+    "no_mean": [(
+        "const double mean = kaldi ? fft_block_sum(part, red) / p.pack : 0.0;",
+        "const double mean = part;")],
+    "no_preprocessing": [(
+        "      y[q] = wv[q] * d;", "      y[q] = xv[q];")],
+    "no_passes_2_to_5": [
+        ("    fft_pass<4>(buf1, buf0, stw, t);\n", ""),
+        ("    fft_pass<16>(buf0, buf1, stw, t);\n", ""),
+        ("    fft_pass<64>(buf1, buf0, stw, t);\n", ""),
+        ("    fft_pass<256>(buf0, buf1, stw, t);\n", "")],
+    "no_projection": [(
+        "      for (int j = sub; j < n; j += kFftMelLanes) {",
+        "      for (int j = sub; j < 0; j += kFftMelLanes) {")],
+}
 B, SECONDS = 64, 30.0
 # the configs of mode time: K1's 128- and 64-frame chunk-walk layouts
 TIMED = [(400, 160, 128, 16000.0), (1024, 256, 80, 22050.0)]
 # the wide hops of dump (K1's factored path)
 WIDE = [(960, 480, 40, 48000.0), (1024, 480, 64, 48000.0),
         (2048, 512, 128, 22050.0)]
+# the Kaldi and NeMo heads of the FFT path (mode fft, dump): n_fft 2048,
+# 25 ms frames, 10 ms hop at 48 kHz
+LN_RATE = 48000
 FUNCTIONS = ("melspec_sig_mel", "melspec_sig_mel_factored",
+             "melspec_sig_mel_fft", "melspec_sig_mel_fft_smem",
              "melspec_sig_mel_layout", "melspec_cuda_error_string")
 
 
@@ -128,6 +164,48 @@ def factored_source(name: str, text: str | None = None) -> str:
     as it is); raises unless the cut's text occurs exactly once."""
     cuts = [] if name == "full" else [FACTORED_CUTS[name]]
     return build.edited(FACTORED, cuts, f"sig_probe cut {name!r}", text)
+
+
+def fft_source(name: str, text: str | None = None) -> str:
+    """``sig_fft.cuh`` with ``FFT_CUTS[name]`` made (``"full"``: as it
+    is); raises unless each cut's text occurs exactly once."""
+    cuts = [] if name == "full" else FFT_CUTS[name]
+    return build.edited(FFT, cuts, f"sig_probe cut {name!r}", text)
+
+
+def ln_fronts(dev: torch.device) -> dict:
+    """Kaldi fbank and NeMo log-mel at ``LN_RATE`` on their sig routes
+    (public API only)."""
+    from melspec_tpu_torch.config import BatchLogMelConfig, FbankConfig
+    from melspec_tpu_torch.ops.batch_logmel import BatchLogMel
+    from melspec_tpu_torch.ops.fbank import Fbank
+
+    return {"kaldi": Fbank(FbankConfig(sample_rate=float(LN_RATE),
+                                       apply_cmn=False),
+                           fft_impl="sig", device=dev),
+            "nemo": BatchLogMel(BatchLogMelConfig(
+                sample_rate=LN_RATE, n_fft=2048, win_length=LN_RATE // 40,
+                hop_length=LN_RATE // 100), fft_impl="sig", device=dev)}
+
+
+def run_fft(dev: torch.device, timer) -> list:
+    """Each FFT-path variant's K1 time (``timer(fn)`` -> ms), through
+    ``Fbank`` / ``BatchLogMel`` at ``LN_RATE`` on ``B`` x ``SECONDS``."""
+    x = torch.from_numpy((np.random.default_rng(0).normal(
+        size=(B, int(SECONDS * LN_RATE))) * 0.2).astype(np.float32)).to(dev)
+    calls = {name: (lambda f=front: f.compute(x))
+             for name, front in ln_fronts(dev).items()}
+    names = ["full", *FFT_CUTS]
+    libs = build.build_variants("sig_probe_fft", "sig_mel", {
+        name: {FFT.name: fft_source(name)} for name in names})
+    rows = []
+    for name in names:
+        with build.bound_to(sig_mel, libs[name], FUNCTIONS):
+            rows.append(dict(variant=name, ms={k: timer(fn)
+                                               for k, fn in calls.items()}))
+    for r in rows:
+        r["saves_ms"] = {k: rows[0]["ms"][k] - v for k, v in r["ms"].items()}
+    return rows
 
 
 def run_factored(dev: torch.device, timer) -> list:
@@ -285,6 +363,10 @@ def dump_cases(dev: torch.device) -> list:
         out.append((f"wide_quant_{fft}_{hop}_{n_mels}",
                     lambda x=xw, a=a: mel_kernel.whisper_mel_quantized(
                         x, *a, device=dev)))
+    xl = signal(4, 10 * LN_RATE + 37)
+    for name, front in ln_fronts(dev).items():
+        out.append((f"ln_{name}_{LN_RATE}",
+                    lambda x=xl, f=front: (f.compute(x),)))
     return out
 
 
@@ -337,7 +419,7 @@ def main(argv=None) -> int:
         return 0
     if argv[:1] == ["compare"] and len(argv) >= 3:
         return compare(argv[1:])
-    if argv not in ([], ["factored"], ["time"]):
+    if argv not in ([], ["factored"], ["fft"], ["time"]):
         print(__doc__, file=sys.stderr)
         return 2
     from melspec_tpu_torch.utils.timing import device_time_ms, per_launch_ms
@@ -355,7 +437,8 @@ def main(argv=None) -> int:
             flush=True)
         return 0
 
-    probe = run_factored if argv else run
+    probe = {"factored": run_factored, "fft": run_fft}.get(
+        argv[0], run) if argv else run
     for r in probe(torch.device("cuda"), device_time_ms):
         print(json.dumps(r), flush=True)
     return 0

@@ -42,7 +42,8 @@ from melspec_tpu_torch.ops.fastmath import ln_best
 from melspec_tpu_torch.ops.filterbank import mel_filterbank
 from melspec_tpu_torch.ops.hp_dft import hp_rdft_power_windowed
 from melspec_tpu_torch.ops.mel_kernel import (_sig_frontend_matrices,
-                                              bf2_stack, sig_geometry)
+                                              bf2_stack, sig_fft_head,
+                                              sig_geometry)
 from melspec_tpu_torch.ops.windows import hann_centered
 
 
@@ -66,15 +67,21 @@ def sig_head(config: BatchLogMelConfig) -> SigHead:
     ``win_length`` window, so each K block keeps only that interior
     (``pack = win``, ``pack_off = (n_fft - win) // 2``); ``npack="auto"``
     N-packs the 257-bin head into 512 columns; bf2 projection;
-    ``ln(e + guard)``."""
+    ``ln(e + guard)``. Where K1's float64 FFT path can take it (n_fft
+    2048: 44.1 / 48 kHz), the head also carries its DFT size, the float64
+    window of its ``win_length`` taps and the projection in bin order
+    (``sig_fft_head``)."""
     pack_off = (config.n_fft - config.win_length) // 2
+    window = hann_centered(config.n_fft, config.win_length)
     m_big, pair_i, mt, n_bins_pad, _, _, _ = _sig_frontend_matrices(
-        config.n_fft, config.fft_bins,
-        hann_centered(config.n_fft, config.win_length), nemo_filters(config),
+        config.n_fft, config.fft_bins, window, nemo_filters(config),
         ks=3, km=3, cutoff=2, pack=config.win_length, pack_off=pack_off)
+    dft_size, fft = sig_fft_head(
+        config.n_fft, window[pack_off : pack_off + config.win_length], mt)
     return SigHead(m_big, pair_i, bf2_stack(mt), n_bins_pad,
                    config.win_length, config.n_mels, pack_off=pack_off,
-                   out_mode="ln_guard", guard=float(config.log_zero_guard))
+                   out_mode="ln_guard", guard=float(config.log_zero_guard),
+                   dft_size=dft_size, fft=fft)
 
 
 def auto_fft_impl(config: BatchLogMelConfig, dtype, device) -> str:

@@ -38,7 +38,8 @@ from melspec_tpu_torch.ops.fastmath import ln_best
 from melspec_tpu_torch.ops.filterbank import kaldi_filterbank
 from melspec_tpu_torch.ops.hp_dft import hp_rdft_power_windowed
 from melspec_tpu_torch.ops.mel_kernel import (_sig_frontend_matrices,
-                                              bf2_stack, sig_geometry)
+                                              bf2_stack, sig_fft_head,
+                                              sig_geometry)
 from melspec_tpu_torch.ops.windows import povey
 
 F32_EPSILON = 1.1920929e-07
@@ -66,18 +67,25 @@ def sig_head(config: FbankConfig) -> SigHead:
     """Kaldi's K1 head on the CPU: window, DC removal and preemphasis
     folded into the spectral matrices (exact: all three are linear in the
     frame), the N-packed 512-column layout that ``npack="auto"`` picks for
-    the 257-bin head, the bf2 projection, ``ln(max(e, floor))``."""
+    the 257-bin head, the bf2 projection, ``ln(max(e, floor))``. Where
+    K1's float64 FFT path can take it (n_fft 2048: 44.1 / 48 kHz), the
+    head also carries its DFT size, the float64 Povey window, the
+    preemphasis coefficient (that path removes the mean and preemphasizes
+    per frame) and the projection in bin order (``sig_fft_head``)."""
     n = config.frame_length_samples
+    window = povey(n)
     m_big, pair_i, mt, n_bins_pad, _, _, _ = _sig_frontend_matrices(
-        config.fft_size, config.fft_size // 2 + 1, povey(n),
+        config.fft_size, config.fft_size // 2 + 1, window,
         kaldi_filterbank(config.sample_rate, config.fft_size,
                          config.num_mel_bins, config.low_freq,
                          config.effective_high_freq),
         ks=3, km=3, cutoff=2, pack=n,
         preproc=kaldi_preproc_matrix(n, float(config.preemphasis)))
+    dft_size, fft = sig_fft_head(config.fft_size, window, mt,
+                                 float(config.preemphasis))
     return SigHead(m_big, pair_i, bf2_stack(mt), n_bins_pad, n,
                    config.num_mel_bins, out_mode="ln_floor",
-                   guard=energy_floor(config))
+                   guard=energy_floor(config), dft_size=dft_size, fft=fft)
 
 
 def auto_fft_impl(config: FbankConfig, dtype, device) -> str:
@@ -172,8 +180,9 @@ class Fbank:
         nf = self.num_frames(n)
         floor = energy_floor(cfg)
         if self.fft_impl == "sig":
-            # K1: DC removal, preemphasis and the Povey window are folded
-            # into the head's matrices; ln(max(., floor)) in the kernel
+            # K1: DC removal, preemphasis and the Povey window folded
+            # into the head's matrices (on the float64 FFT path, applied
+            # per frame); ln(max(., floor)) in the kernel
             h = self.sig_head
             lead = x.shape[:-1]
             feats = sig_mel(x.reshape((-1, n)).to(torch.float32), h.m_big,

@@ -42,7 +42,9 @@ from melspec_tpu_torch._device import as_signal, resolve_device
 from melspec_tpu_torch.config import DetectionSettings
 from melspec_tpu_torch.kernels.framed_mel import (IMPLS, FramedMatrices,
                                                   framed_mel)
-from melspec_tpu_torch.kernels.sig_mel import (SigHead, k1_accepts,
+from melspec_tpu_torch.kernels.sig_mel import (FFT_N, NYQUIST_TOL,
+                                               FftHead, SigHead,
+                                               k1_accepts,
                                                k1_vad_tile, live_columns,
                                                sig_mel,
                                                sig_mel_quantized,
@@ -202,6 +204,27 @@ def _sig_frontend_matrices(fft_size: int, n_bins: int, window: np.ndarray,
         pack_off=pack_off)
     return (m_big, pair_i, mt, 0 if npack else n_bins_pad, n_mels_pad,
             k_pad, npack)
+
+
+def sig_fft_head(fft_size: int, window: np.ndarray, mt: np.ndarray,
+                 preemph: float | None = None) -> tuple:
+    """``(dft_size, FftHead)`` of an ln head whose frame is
+    ``len(window)`` taps inside an ``fft_size``-point DFT (Kaldi fbank,
+    NeMo log-mel), for K1's float64 FFT path: the float64 window, the
+    preprocessing (``preemph``: Kaldi's DC removal and preemphasis, None
+    for none) and the bf2 projection in bin order, ``bf2_stack`` of the
+    float64 ``mt``'s rows of the bins below ``fft_size / 2`` (so its rows
+    equal those of the head's own stack bit for bit). ``(0, None)`` where
+    the path does not take the head: a DFT of other than ``FFT_N``
+    points, or filters whose Nyquist row, which it does not compute,
+    exceeds ``NYQUIST_TOL``; such a head keeps its chunk walk."""
+    half = fft_size // 2
+    if (fft_size != FFT_N or len(window) > fft_size
+            or float(np.abs(mt[half]).max()) > NYQUIST_TOL):
+        return 0, None
+    return fft_size, FftHead(
+        torch.as_tensor(np.asarray(window, np.float64)),
+        None if preemph is None else float(preemph), bf2_stack(mt[:half]))
 
 
 @functools.lru_cache(maxsize=8)

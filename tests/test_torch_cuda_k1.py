@@ -1,7 +1,8 @@
 """K1 on the card against its plain PyTorch version, at every head width
 (256, 512, 1024, 2048 columns) and block layout (128 and 64 frames, and
 the factored path of the wide hops 2048/512 at 22.05 kHz, 1024/480 and
-960/480 at 48 kHz, also against its own plain version).
+960/480 at 48 kHz, also against its own plain version) and the float64
+FFT path of Kaldi fbank and NeMo log-mel at n_fft 2048 (44.1 and 48 kHz).
 Needs a CUDA device and nvcc; skipped elsewhere. On a machine with the
 card (no JAX needed):
 
@@ -322,19 +323,22 @@ def test_k1_factored_at_256_mel_columns(dev, fft, hop, n_mels, sr):
 
 
 @pytest.mark.parametrize("which", ["whisper_2048_512_matrices",
-                                   "kaldi_48k"])
+                                   "kaldi_48k_matrices"])
 def test_k1_chunk_walk_in_32_frame_blocks(dev, which):
     """The heads the factored path does not take keep the 32-frame chunk
     walk: a wide whisper head's matrices without their DFT size, and
-    Kaldi fbank at 48 kHz (its preprocessing folded into the matrix), each
-    against the dense plain version at K1's bars, with no factored
-    launch."""
+    Kaldi fbank's at 48 kHz without their FFT description (its
+    preprocessing folded into the matrix, as matrices from elsewhere
+    come: ``convert``'s), each against the dense plain version at K1's
+    bars, with no factored launch."""
     from melspec_tpu_torch.config import FbankConfig
     from melspec_tpu_torch.ops.fbank import sig_head
 
-    if which == "kaldi_48k":
+    if which == "kaldi_48k_matrices":
         cfg = FbankConfig(sample_rate=48000.0, apply_cmn=False)
-        head, hop, sr = sig_head(cfg).to(dev), cfg.frame_shift_samples, 48e3
+        head = dataclasses.replace(sig_head(cfg), dft_size=0,
+                                   fft=None).to(dev)
+        hop, sr = cfg.frame_shift_samples, 48e3
     else:
         w = mel_kernel.whisper_head(2048, 128, 22050.0, dev)
         head = sig_mel.SigHead(w.m_big, w.pair_i, w.mt, w.n_bins_pad,
@@ -357,6 +361,132 @@ def test_k1_chunk_walk_in_32_frame_blocks(dev, which):
     floor = float((want - exact).abs().max())
     assert float((got - exact).abs().max()) <= max(tol, floor)
     assert float((got - want).abs().max()) <= max(tol, floor) + floor
+
+
+def _ln_front(kind, sr, n_mels, dev):
+    """Kaldi fbank or NeMo log-mel (n_fft 2048) at ``sr`` with ``n_mels``:
+    ``(head on dev, hop, entry point or None, float64 rdft entry point)``;
+    at 44.1 kHz the entry points have no sig route (no macro-row
+    geometry), so the head alone."""
+    from melspec_tpu_torch.config import BatchLogMelConfig, FbankConfig
+    from melspec_tpu_torch.ops import batch_logmel, fbank
+
+    if kind == "kaldi":
+        cfg = FbankConfig(sample_rate=float(sr), num_mel_bins=n_mels,
+                          apply_cmn=False)
+        cls, head, hop = (fbank.Fbank, fbank.sig_head(cfg),
+                          cfg.frame_shift_samples)
+    else:
+        cfg = BatchLogMelConfig(sample_rate=sr, n_fft=2048, n_mels=n_mels,
+                                win_length=sr // 40, hop_length=sr // 100)
+        cls, head, hop = (batch_logmel.BatchLogMel,
+                          batch_logmel.sig_head(cfg), cfg.hop_length)
+    front = cls(cfg, device=dev) if sr == 48000 else None
+    f64 = cls(cfg, dtype=torch.float64, fft_impl="rdft", device=dev)
+    return head.to(dev), hop, front, f64
+
+
+def _clip(kind_of_clip, sr, dev, seed):
+    """Three clips of 0.7 s: noise, noise with a 0.5 DC offset, three
+    stretches of JFK band-limited to ``sr`` (nothing above 8 kHz: upsampled
+    speech) or noise high-passed at 300 Hz (empty low bins)."""
+    from melspec_tpu_torch.io.wav import read_wav_f32le
+
+    n = int(sr * 0.7) + 37
+    rng = np.random.default_rng(seed)
+    if kind_of_clip in ("noise", "dc"):
+        x = rng.normal(size=(3, n)) * 0.2 + (0.5 * (kind_of_clip == "dc"))
+    elif kind_of_clip == "jfk":
+        j = read_wav_f32le(Path(__file__).resolve().parent.parent
+                           / "testdata" / "jfk_f32le.wav").astype(np.float64)
+        m = int(round(len(j) * sr / 16000))
+        up = np.fft.irfft(np.fft.rfft(j), m) * (m / len(j))
+        x = np.stack([up[k * sr : k * sr + n] for k in range(3)])
+    else:
+        spec = np.fft.rfft(rng.normal(size=(3, n)) * 0.1, axis=-1)
+        spec[:, : int(300 * n / sr)] = 0
+        x = np.fft.irfft(spec, n, axis=-1)
+    return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("kind", ["kaldi", "nemo"])
+@pytest.mark.parametrize("sr", [48000, 44100])
+@pytest.mark.parametrize("clip", ["noise", "dc", "jfk", "high_passed"])
+@pytest.mark.parametrize("n_mels", [80, 160])
+def test_k1_fft_ln_heads(dev, kind, sr, clip, n_mels):
+    """Kaldi fbank and NeMo log-mel at n_fft 2048 on K1's float64 FFT
+    path (one launch, counted as such; at 48 kHz through the auto route of
+    ``Fbank`` / ``BatchLogMel``, at 44.1 kHz through ``sig_mel`` on the
+    head) on noise, a 0.5 DC offset, JFK and high-passed noise: within
+    1e-5 of the path's plain version (the same float64 power; the
+    projection's sums in another order); within 2e-4 (chip_smoke.py's
+    ``LN_TOL``) of the float64 rdft route of the same entry point, an
+    independent float64 pipeline; and within 2e-4 plus their own distance
+    from it of the dense plain version (the JAX kernel's float32
+    numerics) and of the exact result (its float64 dot)."""
+    head, hop, front, f64 = _ln_front(kind, sr, n_mels, dev)
+    assert tuple(sig_mel.head_layout(head, hop))[1:] == (1, 2048, False)
+    x = _clip(clip, sr, dev, sr + n_mels)
+    sig = x if kind == "kaldi" else torch.nn.functional.pad(x, (1024, 1024))
+    nf = (framing.num_frames_batch(x.shape[-1], head.pack, hop)
+          if kind == "kaldi" else framing.num_frames_centered(x.shape[-1],
+                                                               hop))
+    kw = dict(ks=3, n_frames=nf, hop=hop, offset=0, **head.kw())
+    before = (sig_mel.launches, sig_mel.fft_launches,
+              sig_mel.factored_launches)
+    if front is None:
+        got = sig_mel.sig_mel(sig, head.m_big, head.pair_i, head.mt, **kw)
+    else:
+        assert front.fft_impl == "sig"
+        got = front.compute(x)
+        if kind == "nemo":
+            got = got.transpose(-1, -2)
+    torch.cuda.synchronize()
+    assert (sig_mel.launches, sig_mel.fft_launches,
+            sig_mel.factored_launches) == (before[0] + 1, before[1] + 1,
+                                           before[2])
+    assert got.shape == (3, nf, n_mels) and bool(torch.isfinite(got).all())
+    plain = sig_mel.sig_mel_fft_reference(sig, n_frames=nf, hop=hop,
+                                          offset=0, **sig_mel.fft_args(head))
+    truth = f64.compute(x.double())
+    if kind == "nemo":
+        truth = truth.transpose(-1, -2)
+    dense = sig_mel.sig_mel_reference(sig, head.m_big, head.pair_i,
+                                      head.mt, **kw)
+    exact = sig_mel.sig_mel_reference(sig, head.m_big, head.pair_i,
+                                      head.mt, dot_dtype=torch.float64, **kw)
+
+    def dist(a, b):
+        return float((a.double() - b.double()).abs().max())
+
+    assert dist(got, plain) <= 1e-5
+    assert dist(got, truth) <= 2e-4
+    for other in (dense, exact):
+        assert dist(got, other) <= 2e-4 + dist(other, truth)
+
+
+@pytest.mark.parametrize("kind", ["kaldi", "nemo"])
+def test_k1_fft_ln_heads_raise_without_it(dev, kind, monkeypatch):
+    """No fallback hides the float64 FFT path of the Kaldi and NeMo
+    heads: where its launch fails, the call raises instead of taking the
+    chunk walk or the composition."""
+    head, hop, front, _ = _ln_front(kind, 48000, 80, dev)
+    real = sig_mel._bound()
+
+    class Failing:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        @staticmethod
+        def melspec_sig_mel_fft(*args):
+            return 1  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(sig_mel, "_bound", lambda: Failing())
+    x = _noise(dev, 3, (2, 48000))
+    before = sig_mel.launches
+    with pytest.raises(RuntimeError, match="K1"):
+        front.compute(x)
+    assert sig_mel.launches == before
 
 
 @pytest.mark.parametrize("fft,hop,n_mels,sr", WIDE_CONFIGS)

@@ -102,16 +102,20 @@ def test_wide_whisper_heads_take_the_factored_route(monkeypatch, fft, hop,
 
 def test_other_heads_keep_the_chunk_walk():
     """No split for the heads whose matrix is not the Hann-windowed DFT
-    (Kaldi fbank, NeMo log-mel, each with its preprocessing folded in),
-    for another slice schedule, for a whisper head whose size has no
-    split, or for matrices without a DFT size (``convert``'s)."""
+    (Kaldi fbank, NeMo log-mel, each with its preprocessing folded in:
+    at n_fft 2048 they carry the float64 FFT path's description instead,
+    ``tests/test_torch_factored_ln.py``, and without it keep the chunk
+    walk), for another slice schedule, for a whisper head whose size has
+    no split, or for matrices without a DFT size (``convert``'s)."""
     kaldi = Fbank(FbankConfig(sample_rate=48000.0, apply_cmn=False),
                   fft_impl="sig", device=CPU).sig_head
     nemo = BatchLogMel(BatchLogMelConfig(sample_rate=48000, n_fft=2048,
                                          win_length=1200, hop_length=480),
                        fft_impl="sig", device=CPU).sig_head
-    assert kaldi.dft_size == 0 and nemo.dft_size == 0
-    assert _route(kaldi) is None and _route(nemo) is None
+    assert kaldi.dft_size == 2048 and nemo.dft_size == 2048
+    assert kaldi.fft is not None and nemo.fft is not None
+    assert _route(dataclasses.replace(kaldi, fft=None)) is None
+    assert _route(dataclasses.replace(nemo, fft=None)) is None
     two = mel_kernel.sig_matrices(1024, 64, 48000.0, 2, 1, CPU)
     head2 = sig_mel.SigHead(two.m_big, two.pair_i, two.mt_bf2,
                             two.n_bins_pad, 1024, 64, live=two.live,

@@ -1,6 +1,7 @@
 """K1's time probe on the CPU (it runs on the card only): every cut of
 the device code matches ``csrc/sig_common.cuh`` (the factored path's:
-``csrc/sig_factored.cuh``) exactly once, a cut that no longer matches
+``csrc/sig_factored.cuh``; the float64 FFT path's: ``csrc/sig_fft.cuh``)
+exactly once, a cut that no longer matches
 raises, and the command refuses without a card."""
 
 import subprocess
@@ -58,3 +59,18 @@ def test_factored_cuts_match_their_header_once(name):
         old, new = sig_probe.FACTORED_CUTS[name]
         assert old not in got
         assert len(got) - len(text) == len(new) - len(old)
+
+
+@pytest.mark.parametrize("name", ["full", *sig_probe.FFT_CUTS])
+def test_fft_cuts_match_their_header_once(name):
+    """The float64 FFT path's cuts each match ``csrc/sig_fft.cuh``
+    exactly once."""
+    text = sig_probe.FFT.read_text()
+    got = sig_probe.fft_source(name, text)
+    if name == "full":
+        assert got == text
+    else:
+        cuts = sig_probe.FFT_CUTS[name]
+        assert all(old not in got for old, _ in cuts)
+        assert len(got) - len(text) == sum(len(new) - len(old)
+                                           for old, new in cuts)
