@@ -49,7 +49,10 @@ show each went through its kernels:
   noise high-passed at 300 Hz, against its plain version, a float64
   pipeline and the dense plain version and exact result, timed beside the
   32-frame chunk walk it replaces for these heads and the composition
-  with both bounds, and at 44.1 kHz through ``sig_mel``; and every
+  with both bounds, and at 44.1 kHz through ``sig_mel``; then Kaldi
+  fbank at 64 and 80 kHz, ``Mfcc`` over the 64 kHz fbank and Kaldi at 48
+  kHz with preemphasis -0.5 and 0 (DC removal alone, bit-equal), each
+  through its auto route on the same path; and every
   whisper config of
   the mirrored JAX tests (phase ``broad_configs``: the five of
   tests/test_configs_broad.py, the six of tests/test_fuzz_differential.py)
@@ -145,7 +148,7 @@ from melspec_tpu_torch.kernels import (build, framed_mel,  # noqa: E402
 from melspec_tpu_torch.kernels import resample as kres  # noqa: E402
 from melspec_tpu_torch.config import (BatchLogMelConfig,  # noqa: E402
                                       DetectionSettings, FbankConfig,
-                                      MelConfig, VadFrameTiming)
+                                      MelConfig, MfccConfig, VadFrameTiming)
 from melspec_tpu_torch.io.tga import (interleave_frames,  # noqa: E402
                                       parse_tga_8bit, tga_8bit_data,
                                       to_array2)
@@ -157,6 +160,8 @@ from melspec_tpu_torch.ops.fbank import \
     sig_head as fbank_sig_head  # noqa: E402
 from melspec_tpu_torch.ops.filterbank import (kaldi_filterbank,  # noqa: E402
                                               mel_filterbank)
+from melspec_tpu_torch.ops.mfcc import (Mfcc,  # noqa: E402
+                                        cepstral_lifter_coeffs, dct_matrix)
 from melspec_tpu_torch.ops.resample import (_phase_matrix,  # noqa: E402
                                             resample_poly)
 from melspec_tpu_torch.ops.sig_multihead import (  # noqa: E402
@@ -352,6 +357,22 @@ NEMO_44K = BatchLogMelConfig(sample_rate=44100, n_fft=2048,
 # the FFT path against its plain version: the same float64 power, the
 # projection's float32 sums in another order
 LN_FFT_PLAIN_TOL = 1e-5
+# and the rows the FFT path takes beside those, each through its auto
+# route at WIDE_B x WIDE_SECONDS (2998 frames a clip at every rate): Kaldi
+# fbank at 64 and 80 kHz (frames of 1600 and 2000 taps in the 2048-point
+# DFT), MFCC over the 64 kHz fbank (its lifted DCT a PyTorch matmul), and
+# Kaldi at 48 kHz with preemphasis <= 0, which means DC removal alone as in
+# JAX (the head hands the path 0), so p = -0.5 must equal p = 0 bit for bit
+KALDI_64K = FbankConfig(sample_rate=64000.0, apply_cmn=False)
+KALDI_80K = FbankConfig(sample_rate=80000.0, apply_cmn=False)
+LN_FFT_MORE = {
+    "kaldi_64k": KALDI_64K, "kaldi_80k": KALDI_80K,
+    "mfcc_64k": MfccConfig(fbank=KALDI_64K),
+    "kaldi_48k_p-0.5": dataclasses.replace(KALDI_48K, preemphasis=-0.5),
+    "kaldi_48k_p0": dataclasses.replace(KALDI_48K, preemphasis=0.0)}
+# the rows whose K1 time stands beside its plain version's and the
+# composition's (the p <= 0 rows: K1's time and bound alone)
+LN_FFT_TIMED = ("kaldi_64k", "kaldi_80k")
 # the live per-hop service (phase live_stream), plain PyTorch as in JAX:
 # the JFK master regression through RingBuffer in 32-sample pushes at
 # 512/160/80 (float64 at JAX's 1e-6 from the golden; float32 reported
@@ -1896,6 +1917,112 @@ def fft_fails(r) -> bool:
             or r["vs_exact"] > LN_TOL + r["exact_vs_f64"])
 
 
+def held_mfcc(got, x, truth, head, nf, hop, cfg) -> dict:
+    """MFCC (``cfg``) over K1's FFT path against the cepstra of the
+    path's plain version (its fbank through the lifted DCT in float64,
+    then the config's CMN over time) and against ``truth`` (the float64
+    rdft ``Mfcc``), with the lifted DCT's largest row gain that carries
+    the fbank's bars to the cepstra (``tests/test_torch_mfcc.py``)."""
+    m = dct_matrix(cfg.num_ceps, cfg.fbank.num_mel_bins) \
+        * cepstral_lifter_coeffs(cfg.num_ceps, cfg.cepstral_lifter)[:, None]
+    plain = sig_mel.sig_mel_fft_reference(x, n_frames=nf, hop=hop, offset=0,
+                                          **sig_mel.fft_args(head))
+    ceps = plain.double() @ torch.as_tensor(m.T, device=x.device)
+    if cfg.apply_cmn:
+        ceps = ceps - ceps.mean(dim=-2, keepdim=True)
+    torch.cuda.synchronize()
+    if got.shape != ceps.shape or got.shape != truth.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} vs "
+                             f"{tuple(ceps.shape)}, {tuple(truth.shape)}")
+    return dict(finite=bool(torch.isfinite(got).all()),
+                gain=float((np.abs(m).sum(axis=1)).max()),
+                ceps_vs_fft_plain=max_abs(got.double(), ceps),
+                ceps_vs_f64=max_abs(got.double(), truth),
+                fft_plain_ceps_vs_f64=max_abs(ceps, truth))
+
+
+def mfcc_fails(r) -> bool:
+    """Whether a row of ``held_mfcc`` misses its bars: the fbank's
+    ``LN_FFT_PLAIN_TOL`` and ``LN_TOL`` times the DCT's row gain."""
+    return (not r["finite"]
+            or r["ceps_vs_fft_plain"] > LN_FFT_PLAIN_TOL * r["gain"]
+            or r["ceps_vs_f64"] > LN_TOL * r["gain"])
+
+
+def ln_fft_more(dev, rng, run) -> tuple:
+    """Phase ln_fft's rows beside Kaldi / NeMo at 48 and 44.1 kHz
+    (``LN_FFT_MORE``), each through its entry point's auto route on
+    ``WIDE_B`` x ``WIDE_SECONDS`` of noise and on ``ln_clips``, counted by
+    ``run``; the fbank rows held as the 48 kHz rows (``held_fft``), with
+    K1's time and both bounds, and for ``LN_FFT_TIMED`` its plain
+    version's and the library composition's; the MFCC row by
+    ``held_mfcc``. Returns ``(fbank rows, MFCC rows, p <= 0 rows' outputs
+    bit-equal)``."""
+    res, mfcc_rows, outs = {}, {}, {}
+    for name, cfg in LN_FFT_MORE.items():
+        is_mfcc = isinstance(cfg, MfccConfig)
+        fcfg = cfg.fbank if is_mfcc else cfg
+        sr = int(fcfg.sample_rate)
+        cls = Mfcc if is_mfcc else Fbank
+        # the p <= 0 rows on the same noise, so their outputs can be equal
+        p_row = name.startswith("kaldi_48k_p")
+        x = signal(np.random.default_rng(SEED + 67) if p_row else rng,
+                   WIDE_B, int(WIDE_SECONDS * sr), dev)
+        real = ln_clips(sr, int(10 * sr), dev)
+        front = cls(cfg, device=dev)
+        route = (front.fbank if is_mfcc else front).fft_impl
+        if route != "sig":
+            raise AssertionError(f"{name}: auto route {route!r}")
+        f64 = cls(cfg, dtype=torch.float64, fft_impl="rdft", device=dev)
+        h = fbank_sig_head(fcfg).to(dev)
+        hop = fcfg.frame_shift_samples
+        got = run(name, lambda: front.compute(x))
+        got_real = run(f"{name}_real", lambda: front.compute(real))
+        nf = got.shape[1]
+        xc = x[:WIDE_CHECK_B]
+
+        def held(out, v):
+            args = (out, v, f64.compute(v.double()), h, out.shape[1], hop)
+            return held_mfcc(*args, cfg) if is_mfcc else held_fft(*args)
+
+        r = dict(route=route, pack=h.pack, pack_off=h.pack_off, hop=hop,
+                 preemph=h.fft.preemph, shape=list(x.shape), n_frames=nf,
+                 check_shape=list(xc.shape), **held(got[:WIDE_CHECK_B], xc),
+                 real=dict(clips=["jfk_band_limited",
+                                  "noise_high_passed_300hz"],
+                           shape=list(real.shape), **held(got_real, real)))
+        if is_mfcc:
+            mfcc_rows[name] = r
+        else:
+            frames, cols, fact = k1_layout(h, hop)
+            r.update(block_frames=frames, chunk_cols=cols, factored=fact,
+                     width=h.m_big.shape[1])
+            if p_row:
+                outs[name] = (got, got_real)
+            r["ms"] = time_ms(lambda: sig_mel.sig_mel(
+                x, h.m_big, h.pair_i, h.mt, ks=3, n_frames=nf, hop=hop,
+                offset=0, **h.kw()))
+            bound_fft = fft_bound(h, WIDE_B * nf, x, [got])
+            r.update(bound_fft=bound_fft, bound_ms=bound_fft["bound_ms"],
+                     bound_by=bound_fft["bound_by"],
+                     share_of_bound=bound_fft["bound_ms"] / r["ms"])
+            if name in LN_FFT_TIMED:
+                r["fft_plain_ms"] = time_ms(
+                    lambda: sig_mel.sig_mel_fft_reference(
+                        x, n_frames=nf, hop=hop, offset=0,
+                        **sig_mel.fft_args(h)), reps=3, warmup=1)
+                r["library_composition_ms"] = time_ms(
+                    library_kaldi(x, fcfg))
+                r["k1_over_composition"] = (r["ms"]
+                                            / r["library_composition_ms"])
+            res[name] = r
+        del x, real, got, got_real
+        torch.cuda.empty_cache()
+    a, b = outs["kaldi_48k_p-0.5"], outs["kaldi_48k_p0"]
+    equal = all(torch.equal(u, v) for u, v in zip(a, b))
+    return res, mfcc_rows, equal
+
+
 def phase_ln_fft(dev) -> dict:
     """Kaldi fbank and NeMo log-mel at n_fft 2048 on K1's float64 FFT
     path, which took them off the 32-frame chunk walk. At 48 kHz through
@@ -1919,7 +2046,9 @@ def phase_ln_fft(dev) -> dict:
     runs on the heads directly (``sig_mel``) on ``WIDE_CHECK_B`` x
     ``WIDE_SECONDS`` noise and the real clips: one FFT launch, the same
     bars and its time. The 32-frame chunk walk itself runs in phase
-    k1_widths (``CHUNK_WALK_WHISPER``)."""
+    k1_widths (``CHUNK_WALK_WHISPER``). Then ``ln_fft_more``: Kaldi at 64
+    and 80 kHz, MFCC at 64 kHz and Kaldi at 48 kHz with p = -0.5 and p =
+    0, through their auto routes, each K1 once on its FFT path."""
     rng = np.random.default_rng(SEED + 59)
     res, counts, ffts = {}, {}, {}
 
@@ -2028,10 +2157,13 @@ def phase_ln_fft(dev) -> dict:
         # allocator; give them back before the phases that start processes
         # on the card (phase parallel's gloo ranks)
         torch.cuda.empty_cache()
+    more, mfcc_rows, p_equal = ln_fft_more(dev, rng, run)
+    res.update(more)
     emit("ln_fft", launches=counts, fft_launches=ffts,
          bars=dict(vs_fft_plain=LN_FFT_PLAIN_TOL, vs_f64=LN_TOL,
-                   vs_plain_and_exact="LN_TOL + their distance from f64"),
-         **res)
+                   vs_plain_and_exact="LN_TOL + their distance from f64",
+                   mfcc="the fbank's bars times the lifted DCT's row gain"),
+         p_at_most_zero_bit_equal=p_equal, **res, **mfcc_rows)
     fails = [k for k, c in counts.items()
              if {n: v for n, v in c.items() if v} != {"K1": 1}
              or ffts[k] != 1]
@@ -2040,10 +2172,15 @@ def phase_ln_fft(dev) -> dict:
               != (1, sig_mel.FFT_N, False)
               or fft_fails(r) or fft_fails(r["real"])]
     fails += [n for n, r in res.items()
-              if r["route"] != ("sig" if n.endswith("48k") else "rdft")]
+              if r["route"] != ("rdft" if "_44k" in n else "sig")]
+    fails += [n for n, r in mfcc_rows.items()
+              if mfcc_fails(r) or mfcc_fails(r["real"])]
+    if not p_equal:
+        fails.append("kaldi_48k_p-0.5 != kaldi_48k_p0")
     if fails:
         raise AssertionError(f"ln fft: {fails}")
-    return dict(times=res, counts=counts, ffts=ffts)
+    return dict(times=res, counts=counts, ffts=ffts, mfcc=mfcc_rows,
+                p_at_most_zero_bit_equal=p_equal)
 
 
 def phase_broad_configs(dev) -> dict:
@@ -4214,8 +4351,10 @@ def main() -> int:
             "chunk_walk_over_k1", "bound_dense", "bound_fft", "bound_ms",
             "bound_by", "share_of_bound", "vs_fft_plain", "vs_f64",
             "vs_plain", "plain_vs_f64", "vs_exact", "exact_vs_f64", "real",
-            "shape") if f in v}
+            "shape", "preemph") if f in v}
             for k, v in ln_fft["times"].items()},
+        "mfcc": ln_fft["mfcc"],
+        "p_at_most_zero_bit_equal": ln_fft["p_at_most_zero_bit_equal"],
     }, {
         "name": "K2", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES, "launches": launches("K2"),

@@ -88,9 +88,11 @@ FACTORED_N2 = 32
 FACTORED_K2 = 16
 # the float64 FFT path's DFT size (csrc/sig_fft.cuh: kFftN); it computes
 # the bins below FFT_N / 2, so a head's filter row of the Nyquist bin
-# must be at most NYQUIST_TOL
+# must be at most NYQUIST_TOL: the rounding noise of a zero weight (Kaldi's
+# top filter ends at Nyquist and weighs it 1.4e-14 at 80 kHz, 160 mels),
+# which moves a mel's energy by at most 1e-12 of the Nyquist bin's power
 FFT_N = 2048
-NYQUIST_TOL = 1e-14
+NYQUIST_TOL = 1e-12
 
 launches = 0
 epilogue_launches = {"quant": 0, "vad": 0}
@@ -128,7 +130,9 @@ class FftHead:
     ``window`` float64 ``[pack]``, the window of the frame's taps;
     ``preemph`` None (no preprocessing) or Kaldi's coefficient p (DC
     removal, then in-frame preemphasis: ``d[i] - p d[i-1]`` with ``d = x -
-    mean``, ``d[0]`` as it is; ``fbank.kaldi_preproc_matrix``); ``mt`` the
+    mean``, ``d[0]`` as it is; ``fbank.kaldi_preproc_matrix``; 0 is DC
+    removal alone, which ``fbank.sig_head`` gives for every Kaldi ``p <=
+    0``, as in JAX; a negative value is refused); ``mt`` the
     bf2 projection ``[F0; F1; F0]`` of the bins below ``FFT_N / 2``, bin
     order (bf16 ``[3 FFT_N / 2, nmp]``), and its ``mel_runs`` with
     ``nnz``, their values in all (computed where the head is built unless

@@ -46,9 +46,9 @@ seeds: ``whisper_mel_sig`` at 400/160/128 and 1024/256/80 at 22.05 kHz
 step (K2), then the wide hops (``WIDE``: 960/480/40, 1024/480/64 at 48
 kHz, 2048/512/128 at 22.05 kHz, batch and streaming, both projections,
 and the VAD and quant routes; cases named ``wide_...``) and Kaldi fbank
-and NeMo log-mel at 48 kHz through ``Fbank`` / ``BatchLogMel`` (``ln_...``:
-the float64 FFT path since it takes them, the 32-frame chunk walk
-before). It writes each
+and NeMo log-mel at 48, 64 and 80 kHz through ``Fbank`` / ``BatchLogMel``
+(``ln_...``: the float64 FFT path since it takes them, the 32-frame
+chunk walk before). It writes each
 output's SHA-256 to ``<dir>/dump.json``; ``compare`` holds the hashes of
 every dump equal case by case (bit-equal outputs) and exits non-zero
 where any differs, as ``resample_probe.py``'s modes do for K3/K4; a case
@@ -145,8 +145,10 @@ TIMED = [(400, 160, 128, 16000.0), (1024, 256, 80, 22050.0)]
 WIDE = [(960, 480, 40, 48000.0), (1024, 480, 64, 48000.0),
         (2048, 512, 128, 22050.0)]
 # the Kaldi and NeMo heads of the FFT path (mode fft, dump): n_fft 2048,
-# 25 ms frames, 10 ms hop at 48 kHz
+# 25 ms frames, 10 ms hop at 48 kHz; dump also at 64 and 80 kHz (frames of
+# 1600 and 2000 taps)
 LN_RATE = 48000
+LN_RATES = (48000, 64000, 80000)
 FUNCTIONS = ("melspec_sig_mel", "melspec_sig_mel_factored",
              "melspec_sig_mel_fft", "melspec_sig_mel_fft_smem",
              "melspec_sig_mel_layout", "melspec_cuda_error_string")
@@ -173,19 +175,19 @@ def fft_source(name: str, text: str | None = None) -> str:
     return build.edited(FFT, cuts, f"sig_probe cut {name!r}", text)
 
 
-def ln_fronts(dev: torch.device) -> dict:
-    """Kaldi fbank and NeMo log-mel at ``LN_RATE`` on their sig routes
+def ln_fronts(dev: torch.device, rate: int = LN_RATE) -> dict:
+    """Kaldi fbank and NeMo log-mel at ``rate`` on their sig routes
     (public API only)."""
     from melspec_tpu_torch.config import BatchLogMelConfig, FbankConfig
     from melspec_tpu_torch.ops.batch_logmel import BatchLogMel
     from melspec_tpu_torch.ops.fbank import Fbank
 
-    return {"kaldi": Fbank(FbankConfig(sample_rate=float(LN_RATE),
+    return {"kaldi": Fbank(FbankConfig(sample_rate=float(rate),
                                        apply_cmn=False),
                            fft_impl="sig", device=dev),
             "nemo": BatchLogMel(BatchLogMelConfig(
-                sample_rate=LN_RATE, n_fft=2048, win_length=LN_RATE // 40,
-                hop_length=LN_RATE // 100), fft_impl="sig", device=dev)}
+                sample_rate=rate, n_fft=2048, win_length=rate // 40,
+                hop_length=rate // 100), fft_impl="sig", device=dev)}
 
 
 def run_fft(dev: torch.device, timer) -> list:
@@ -363,10 +365,11 @@ def dump_cases(dev: torch.device) -> list:
         out.append((f"wide_quant_{fft}_{hop}_{n_mels}",
                     lambda x=xw, a=a: mel_kernel.whisper_mel_quantized(
                         x, *a, device=dev)))
-    xl = signal(4, 10 * LN_RATE + 37)
-    for name, front in ln_fronts(dev).items():
-        out.append((f"ln_{name}_{LN_RATE}",
-                    lambda x=xl, f=front: (f.compute(x),)))
+    for rate in LN_RATES:
+        xl = signal(4, 10 * rate + 37)
+        for name, front in ln_fronts(dev, rate).items():
+            out.append((f"ln_{name}_{rate}",
+                        lambda x=xl, f=front: (f.compute(x),)))
     return out
 
 

@@ -68,10 +68,11 @@ def sig_head(config: FbankConfig) -> SigHead:
     folded into the spectral matrices (exact: all three are linear in the
     frame), the N-packed 512-column layout that ``npack="auto"`` picks for
     the 257-bin head, the bf2 projection, ``ln(max(e, floor))``. Where
-    K1's float64 FFT path can take it (n_fft 2048: 44.1 / 48 kHz), the
+    K1's float64 FFT path can take it (n_fft 2048: 44.1 to 80 kHz), the
     head also carries its DFT size, the float64 Povey window, the
     preemphasis coefficient (that path removes the mean and preemphasizes
-    per frame) and the projection in bin order (``sig_fft_head``)."""
+    per frame) and the projection in bin order (``sig_fft_head``).
+    ``preemph`` is 0 for every ``p <= 0`` and for NaN, as in JAX."""
     n = config.frame_length_samples
     window = povey(n)
     m_big, pair_i, mt, n_bins_pad, _, _, _ = _sig_frontend_matrices(
@@ -81,8 +82,11 @@ def sig_head(config: FbankConfig) -> SigHead:
                          config.effective_high_freq),
         ks=3, km=3, cutoff=2, pack=n,
         preproc=kaldi_preproc_matrix(n, float(config.preemphasis)))
+    p = float(config.preemphasis)
+    # JAX preemphasizes only where p > 0; any other p (NaN too) is DC
+    # removal alone, which the FFT path reads from a coefficient of 0
     dft_size, fft = sig_fft_head(config.fft_size, window, mt,
-                                 float(config.preemphasis))
+                                 p if p > 0.0 else 0.0)
     return SigHead(m_big, pair_i, bf2_stack(mt), n_bins_pad, n,
                    config.num_mel_bins, out_mode="ln_floor",
                    guard=energy_floor(config), dft_size=dft_size, fft=fft)

@@ -2,7 +2,8 @@
 (256, 512, 1024, 2048 columns) and block layout (128 and 64 frames, and
 the factored path of the wide hops 2048/512 at 22.05 kHz, 1024/480 and
 960/480 at 48 kHz, also against its own plain version) and the float64
-FFT path of Kaldi fbank and NeMo log-mel at n_fft 2048 (44.1 and 48 kHz).
+FFT path of Kaldi fbank and NeMo log-mel at n_fft 2048 (44.1, 48, 64 and
+80 kHz; Kaldi at 48 kHz also with preemphasis <= 0, DC removal alone).
 Needs a CUDA device and nvcc; skipped elsewhere. On a machine with the
 card (no JAX needed):
 
@@ -363,17 +364,17 @@ def test_k1_chunk_walk_in_32_frame_blocks(dev, which):
     assert float((got - want).abs().max()) <= max(tol, floor) + floor
 
 
-def _ln_front(kind, sr, n_mels, dev):
-    """Kaldi fbank or NeMo log-mel (n_fft 2048) at ``sr`` with ``n_mels``:
-    ``(head on dev, hop, entry point or None, float64 rdft entry point)``;
-    at 44.1 kHz the entry points have no sig route (no macro-row
-    geometry), so the head alone."""
+def _ln_front(kind, sr, n_mels, dev, preemph=0.97):
+    """Kaldi fbank (with ``preemph``) or NeMo log-mel (n_fft 2048) at
+    ``sr`` with ``n_mels``: ``(head on dev, hop, entry point or None,
+    float64 rdft entry point)``; at 44.1 kHz the entry points have no sig
+    route (no macro-row geometry), so the head alone."""
     from melspec_tpu_torch.config import BatchLogMelConfig, FbankConfig
     from melspec_tpu_torch.ops import batch_logmel, fbank
 
     if kind == "kaldi":
         cfg = FbankConfig(sample_rate=float(sr), num_mel_bins=n_mels,
-                          apply_cmn=False)
+                          preemphasis=preemph, apply_cmn=False)
         cls, head, hop = (fbank.Fbank, fbank.sig_head(cfg),
                           cfg.frame_shift_samples)
     else:
@@ -381,7 +382,7 @@ def _ln_front(kind, sr, n_mels, dev):
                                 win_length=sr // 40, hop_length=sr // 100)
         cls, head, hop = (batch_logmel.BatchLogMel,
                           batch_logmel.sig_head(cfg), cfg.hop_length)
-    front = cls(cfg, device=dev) if sr == 48000 else None
+    front = cls(cfg, device=dev) if sr != 44100 else None
     f64 = cls(cfg, dtype=torch.float64, fft_impl="rdft", device=dev)
     return head.to(dev), hop, front, f64
 
@@ -410,21 +411,43 @@ def _clip(kind_of_clip, sr, dev, seed):
 
 
 @pytest.mark.parametrize("kind", ["kaldi", "nemo"])
-@pytest.mark.parametrize("sr", [48000, 44100])
+@pytest.mark.parametrize("sr", [48000, 44100, 64000, 80000])
 @pytest.mark.parametrize("clip", ["noise", "dc", "jfk", "high_passed"])
 @pytest.mark.parametrize("n_mels", [80, 160])
 def test_k1_fft_ln_heads(dev, kind, sr, clip, n_mels):
     """Kaldi fbank and NeMo log-mel at n_fft 2048 on K1's float64 FFT
-    path (one launch, counted as such; at 48 kHz through the auto route of
-    ``Fbank`` / ``BatchLogMel``, at 44.1 kHz through ``sig_mel`` on the
-    head) on noise, a 0.5 DC offset, JFK and high-passed noise: within
-    1e-5 of the path's plain version (the same float64 power; the
-    projection's sums in another order); within 2e-4 (chip_smoke.py's
-    ``LN_TOL``) of the float64 rdft route of the same entry point, an
-    independent float64 pipeline; and within 2e-4 plus their own distance
-    from it of the dense plain version (the JAX kernel's float32
-    numerics) and of the exact result (its float64 dot)."""
-    head, hop, front, f64 = _ln_front(kind, sr, n_mels, dev)
+    path (one launch, counted as such; at 48, 64 and 80 kHz through the
+    auto route of ``Fbank`` / ``BatchLogMel``, at 44.1 kHz through
+    ``sig_mel`` on the head) on noise, a 0.5 DC offset, JFK and
+    high-passed noise: within 1e-5 of the path's plain version (the same
+    float64 power; the projection's sums in another order); within 2e-4
+    (chip_smoke.py's ``LN_TOL``) of the float64 rdft route of the same
+    entry point, an independent float64 pipeline; and within 2e-4 plus
+    their own distance from it of the dense plain version (the JAX
+    kernel's float32 numerics) and of the exact result (its float64
+    dot)."""
+    _held_fft_head(dev, *_ln_front(kind, sr, n_mels, dev), kind, sr, clip,
+                   n_mels)
+
+
+@pytest.mark.parametrize("preemph", [-0.5, 0.0])
+@pytest.mark.parametrize("clip", ["noise", "dc", "jfk", "high_passed"])
+def test_k1_fft_kaldi_preemph_at_most_zero(dev, preemph, clip):
+    """Kaldi fbank at 48 kHz with ``preemphasis <= 0`` (DC removal alone,
+    as in JAX) through ``Fbank``'s auto route on the FFT path, at
+    ``test_k1_fft_ln_heads``'s bars, and p = -0.5 equal to p = 0 bit for
+    bit."""
+    front_args = _ln_front("kaldi", 48000, 80, dev, preemph)
+    assert front_args[0].fft.preemph == 0.0
+    got = _held_fft_head(dev, *front_args, "kaldi", 48000, clip, 80)
+    zero = _ln_front("kaldi", 48000, 80, dev, 0.0)[2]
+    assert torch.equal(got, zero.compute(_clip(clip, 48000, dev, 48080)))
+
+
+def _held_fft_head(dev, head, hop, front, f64, kind, sr, clip, n_mels):
+    """One launch of K1 on ``head``'s FFT path on ``clip``, through
+    ``front`` (or ``sig_mel`` where it is None), held at
+    ``test_k1_fft_ln_heads``'s bars; returns its output."""
     assert tuple(sig_mel.head_layout(head, hop))[1:] == (1, 2048, False)
     x = _clip(clip, sr, dev, sr + n_mels)
     sig = x if kind == "kaldi" else torch.nn.functional.pad(x, (1024, 1024))
@@ -463,6 +486,7 @@ def test_k1_fft_ln_heads(dev, kind, sr, clip, n_mels):
     assert dist(got, truth) <= 2e-4
     for other in (dense, exact):
         assert dist(got, other) <= 2e-4 + dist(other, truth)
+    return got
 
 
 @pytest.mark.parametrize("kind", ["kaldi", "nemo"])

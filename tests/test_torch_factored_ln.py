@@ -1,10 +1,10 @@
 """K1's float64 FFT path for the Kaldi fbank and NeMo log-mel heads at
-n_fft 2048 (44.1 / 48 kHz) on the CPU: the route table, what the heads
-carry for it (window, preprocessing, projection in bin order and its runs
-of bins), a float64 model of the kernel's FFT (``csrc/sig_fft.cuh``:
+n_fft 2048 (44.1, 48, 64 and 80 kHz) on the CPU: the route table, what
+the heads carry for it (window, preprocessing, projection in bin order
+and its runs of bins), a float64 model of the kernel's FFT (``csrc/sig_fft.cuh``:
 five radix-4 Stockham passes, then the real-input split), and its plain
 version ``sig_mel_fft_reference`` against a numpy float64 pipeline (on
-noise, with a DC offset, on JFK resampled to 44.1 / 48 kHz and on
+noise, with a DC offset, on JFK resampled to each of those rates and on
 high-passed noise) and against JAX's fused kernel (Pallas in interpret
 mode). The kernel itself runs on the card (``tests/test_torch_cuda_k1.py``,
 ``chip_smoke.py``'s phase ``ln_fft``).
@@ -14,7 +14,7 @@ Bars: 2e-4 for the ln outputs, the noise bar of the ln heads in
 and the ln bar of ``chip_smoke.py`` (``LN_TOL``), against the float64
 pipeline and against JAX; 1e-12 of the spectrum's largest value for the
 FFT model against ``np.fft``; the projection's rows and runs bit for bit;
-the Nyquist row of the filters at most ``sig_mel.NYQUIST_TOL`` (1e-14)."""
+the Nyquist row of the filters at most ``sig_mel.NYQUIST_TOL`` (1e-12)."""
 
 import dataclasses
 from pathlib import Path
@@ -37,9 +37,13 @@ from melspec_tpu_torch.ops.windows import hann_centered, povey
 
 CPU = torch.device("cpu")
 LN_BAR = 2e-4
-RATES = (16000, 22050, 44100, 48000)
+RATES = (16000, 22050, 44100, 48000, 64000, 80000)
 # n_fft of NeMo's head at each rate (25 ms window, 10 ms hop)
-NEMO_FFT = {16000: 512, 22050: 1024, 44100: 2048, 48000: 2048}
+NEMO_FFT = {16000: 512, 22050: 1024, 44100: 2048, 48000: 2048, 64000: 2048,
+            80000: 2048}
+# the rates whose Kaldi and NeMo heads take the float64 FFT path (n_fft
+# 2048; at 64 and 80 kHz frames of 1600 and 2000 taps)
+FFT_RATES = (44100, 48000, 64000, 80000)
 FFT_SMEM = 60_000
 TESTDATA = Path(__file__).resolve().parent.parent / "testdata"
 
@@ -91,16 +95,16 @@ class _Lib:
 @pytest.mark.parametrize("sr", RATES)
 def test_route_table(monkeypatch, kind, sr):
     """The route ``head_layout`` decides (the built library stood in
-    for): the float64 FFT path for Kaldi and NeMo at n_fft 2048 (44.1 /
-    48 kHz), its shared memory asked with the head's mel columns and run
-    values; at 16 and 22.05 kHz (n_fft 512, 1024) the head carries no
+    for): the float64 FFT path for Kaldi and NeMo at n_fft 2048 (44.1,
+    48, 64 and 80 kHz), its shared memory asked with the head's mel
+    columns and run values; at 16 and 22.05 kHz (n_fft 512, 1024) the head carries no
     description and its dense layout is asked with no split. Never the
     tensor-core factored path (its split is for whisper heads), and the
     same for the launch, ``k1_accepts`` and ``k1_vad_tile``."""
     lib = _Lib()
     monkeypatch.setattr(sig_mel, "_bound", lambda: lib)
     head, hop = _head(kind, sr)
-    on_fft = sr in (44100, 48000)
+    on_fft = sr in FFT_RATES
     assert (head.dft_size, head.fft is not None) == (
         (2048, True) if on_fft else (0, False))
     lay = sig_mel.head_layout(head, hop)
@@ -140,7 +144,7 @@ def test_convert_matrices_keep_the_chunk_walk(monkeypatch):
 
 
 @pytest.mark.parametrize("kind", ["kaldi", "nemo"])
-@pytest.mark.parametrize("sr", [44100, 48000])
+@pytest.mark.parametrize("sr", FFT_RATES)
 def test_what_the_head_carries(kind, sr):
     """The FFT description: the DFT size, the float64 window of the pack
     taps (Povey, or the interior of NeMo's centred Hann at pack_off), the
@@ -165,12 +169,12 @@ def test_what_the_head_carries(kind, sr):
 
 
 @pytest.mark.parametrize("kind", ["kaldi", "nemo"])
-@pytest.mark.parametrize("sr", [44100, 48000])
+@pytest.mark.parametrize("sr", FFT_RATES)
 def test_bin_order_projection_is_the_npacked_stack(kind, sr):
     """The bin-order bf2 stack (3 x 1024 rows) equals the N-packed
     stack's re rows of bins 0-1023 bit for bit (built from the same
     float64 filters, rounded once), and the Nyquist row of the filters,
-    which the FFT path does not compute, is at most 1e-14."""
+    which the FFT path does not compute, is at most 1e-12."""
     head, _ = _head(kind, sr)
     f = head.fft
     npow, rows = 1024, head.mt.shape[0] // 3
@@ -190,7 +194,7 @@ def test_bin_order_projection_is_the_npacked_stack(kind, sr):
 
 
 @pytest.mark.parametrize("kind", ["kaldi", "nemo"])
-@pytest.mark.parametrize("sr", [44100, 48000])
+@pytest.mark.parametrize("sr", FFT_RATES)
 def test_mel_runs_rebuild_the_projection(kind, sr):
     """Each mel column's run of bins (``mel_runs``: offsets, first bin,
     the F0 and F1 values) rebuilds the bin-order stack's F0 and F1
@@ -208,6 +212,32 @@ def test_mel_runs_rebuild_the_projection(kind, sr):
     assert torch.equal(f0, f.mt[:half]) and torch.equal(f1,
                                                         f.mt[half:2 * half])
     assert f.nnz == off[-1] == f.f0.numel() == f.f1.numel()
+
+
+@pytest.mark.parametrize("n_mels", [128, 160])
+def test_kaldi_heads_whose_nyquist_weight_is_rounding(n_mels):
+    """Kaldi's top filter ends at Nyquist, so its weight there is the
+    rounding noise of a zero: 1.2e-14 / 1.4e-14 at 80 kHz with 128 / 160
+    mels, under ``NYQUIST_TOL``. Those heads take the FFT path too, and
+    its plain version lands within 2e-4 of the port's float64 rdft
+    ``Fbank`` on 2 clips of 0.1 s."""
+    cfg = FbankConfig(sample_rate=80000.0, num_mel_bins=n_mels,
+                      apply_cmn=False)
+    filt = kaldi_filterbank(cfg.sample_rate, cfg.fft_size, n_mels,
+                            cfg.low_freq, cfg.effective_high_freq)
+    assert 1e-14 < np.abs(filt[:, 1024]).max() <= sig_mel.NYQUIST_TOL
+    head = fbank.sig_head(cfg)
+    assert head.dft_size == 2048 and head.fft is not None
+    x = _signal(n_mels, (2, 8000))
+    hop = cfg.frame_shift_samples
+    nf = framing.num_frames_batch(x.shape[-1], head.pack, hop)
+    got = sig_mel.sig_mel_fft_reference(torch.from_numpy(x), n_frames=nf,
+                                        hop=hop, offset=0,
+                                        **sig_mel.fft_args(head))
+    want = fbank.Fbank(cfg, dtype=torch.float64, fft_impl="rdft",
+                       device=CPU).compute(x)
+    assert got.shape == want.shape == (2, nf, n_mels)
+    assert float((got.double() - want).abs().max()) <= LN_BAR
 
 
 def test_heads_the_fft_path_cannot_take(monkeypatch):
@@ -362,7 +392,7 @@ def _fft_plain(kind, sr, x):
 
 
 @pytest.mark.parametrize("kind", ["kaldi", "nemo"])
-@pytest.mark.parametrize("sr", [44100, 48000])
+@pytest.mark.parametrize("sr", FFT_RATES)
 @pytest.mark.parametrize("dc", [0.0, 0.5])
 def test_plain_version_against_float64_numpy(kind, sr, dc):
     """The FFT path's plain version (float64 preprocessing, window and
@@ -392,10 +422,10 @@ def _high_passed(sr, n, seed):
 
 
 @pytest.mark.parametrize("kind", ["kaldi", "nemo"])
-@pytest.mark.parametrize("sr", [44100, 48000])
+@pytest.mark.parametrize("sr", FFT_RATES)
 @pytest.mark.parametrize("clip", ["jfk", "high_passed"])
 def test_plain_version_on_real_and_tilted_clips(kind, sr, clip):
-    """On JFK resampled to 44.1 / 48 kHz (an empty band above 8 kHz) and
+    """On JFK resampled to 44.1-80 kHz (an empty band above 8 kHz) and
     on noise high-passed at 300 Hz (empty low bins, which Kaldi's
     preemphasis lowers further), the FFT path's plain version stays within
     2e-4 of the float64 numpy pipeline on every bin: in float64 the
@@ -426,6 +456,28 @@ def test_plain_version_against_jax_sig_route(kind):
         c = _nemo_cfg(48000)
         want = np.asarray(jbl.BatchLogMel(JBatchLogMelConfig(
             sample_rate=48000, n_fft=2048, win_length=c.win_length,
+            hop_length=c.hop_length), fft_impl="sig").compute(x))
+        want = np.swapaxes(want, -1, -2)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= LN_BAR
+
+
+@pytest.mark.parametrize("kind", ["kaldi", "nemo"])
+@pytest.mark.parametrize("sr", [64000, 80000])
+def test_plain_version_against_jax_sig_route_at_64_and_80k(kind, sr):
+    """As ``test_plain_version_against_jax_sig_route``, at 64 and 80 kHz
+    (frames of 1600 and 2000 taps inside the 2048-point DFT; hops 640 and
+    800), on 2 clips of 0.1 s."""
+    x = _signal(sr + 77, (2, sr // 10))
+    got = _fft_plain(kind, sr, x).numpy()
+    if kind == "kaldi":
+        want = np.asarray(jfbank.Fbank(JFbankConfig(
+            sample_rate=float(sr), apply_cmn=False), fft_impl="sig")
+            .compute(x))
+    else:
+        c = _nemo_cfg(sr)
+        want = np.asarray(jbl.BatchLogMel(JBatchLogMelConfig(
+            sample_rate=sr, n_fft=2048, win_length=c.win_length,
             hop_length=c.hop_length), fft_impl="sig").compute(x))
         want = np.swapaxes(want, -1, -2)
     assert got.shape == want.shape

@@ -1,8 +1,9 @@
 """K1's time probe on the CPU (it runs on the card only): every cut of
 the device code matches ``csrc/sig_common.cuh`` (the factored path's:
 ``csrc/sig_factored.cuh``; the float64 FFT path's: ``csrc/sig_fft.cuh``)
-exactly once, a cut that no longer matches
-raises, and the command refuses without a card."""
+exactly once, a cut that no longer matches raises, the Kaldi and NeMo
+fronts of its ``dump`` carry the FFT path at each rate, and the command
+refuses without a card."""
 
 import subprocess
 import sys
@@ -74,3 +75,19 @@ def test_fft_cuts_match_their_header_once(name):
         assert all(old not in got for old, _ in cuts)
         assert len(got) - len(text) == sum(len(new) - len(old)
                                            for old, new in cuts)
+
+
+@pytest.mark.parametrize("rate", sig_probe.LN_RATES)
+def test_ln_fronts_carry_the_fft_heads(rate):
+    """``dump``'s Kaldi and NeMo fronts at each of ``LN_RATES`` (48, 64,
+    80 kHz) are on the sig route with heads that carry the float64 FFT
+    path's description, frames of ``rate / 40`` taps."""
+    import torch
+
+    fronts = sig_probe.ln_fronts(torch.device("cpu"), rate)
+    assert sorted(fronts) == ["kaldi", "nemo"]
+    for front in fronts.values():
+        assert front.fft_impl == "sig"
+        assert front.sig_head.dft_size == 2048
+        assert front.sig_head.fft is not None
+        assert front.sig_head.pack == rate // 40
