@@ -21,6 +21,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Sequence, Tuple
 
+from melspec_tpu_torch.utils import profiling
+
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -90,9 +92,17 @@ def load_all(names: Iterable[str]) -> Dict[str, Built]:
     whatever is not built yet, then load every library."""
     names = list(dict.fromkeys(names))
     todo = [n for n in names if n not in _loaded]
-    procs = {}
     if todo:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with profiling.span("setup.library", library=",".join(todo)) as sp:
+            sp.set(built=_build_and_load(todo))
+    return {n: _loaded[n] for n in names}
+
+
+def _build_and_load(todo: list) -> bool:
+    """Build the libraries of ``todo`` that are not built yet, then load
+    each; whether ``nvcc`` ran."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
     for name in todo:
         so = _target(name)
         if so.is_file():
@@ -106,7 +116,7 @@ def load_all(names: Iterable[str]) -> Dict[str, Built]:
     for name in todo:
         _loaded[name] = Built(ctypes.CDLL(str(_target(name))),
                               logs.get(name, ""))
-    return {n: _loaded[n] for n in names}
+    return bool(procs)
 
 
 def load(name: str) -> Built:

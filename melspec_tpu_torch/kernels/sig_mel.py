@@ -57,6 +57,7 @@ from melspec_tpu_torch.ops.hp_dft import bf16_round_slices
 from melspec_tpu_torch.ops.quant import quantize_frames
 from melspec_tpu_torch.ops.vad import sobel_gradient_sq
 from melspec_tpu_torch.ops.windows import hann_periodic
+from melspec_tpu_torch.utils import profiling
 
 LOG10_FLOOR = 1e-10
 # the smallest normal float32: ln_accurate's bit decomposition takes
@@ -381,6 +382,7 @@ class FactoredDft:
 
 
 @functools.lru_cache(maxsize=16)
+@profiling.spanned("setup.heads", head="factored_dft")
 def factored_dft(dft_size: int, device: torch.device) -> FactoredDft:
     """``FactoredDft`` of ``factored_split(dft_size)``, cached on
     ``device``."""
@@ -754,6 +756,7 @@ FFT_PASSES = (4, 16, 64, 256)
 
 
 @functools.lru_cache(maxsize=8)
+@profiling.spanned("setup.heads", head="fft_twiddles")
 def fft_twiddles(device: torch.device) -> torch.Tensor:
     """The float64 FFT path's twiddle tables, ``(cos, -sin)(2 pi e /
     FFT_N)`` as float64 ``[rows, 2]`` on ``device``: ``e = k`` for the

@@ -45,6 +45,7 @@ from melspec_tpu_torch.ops.mel_kernel import (_sig_frontend_matrices,
                                               bf2_stack, sig_fft_head,
                                               sig_geometry)
 from melspec_tpu_torch.ops.windows import hann_centered
+from melspec_tpu_torch.utils import profiling
 
 
 def pad_len(length: int, pad_to: int) -> int:
@@ -62,6 +63,7 @@ def nemo_filters(config: BatchLogMelConfig) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=8)
+@profiling.spanned("setup.heads", head="nemo")
 def sig_head(config: BatchLogMelConfig) -> SigHead:
     """NeMo's K1 head on the CPU: centered frames are zero outside the
     ``win_length`` window, so each K block keeps only that interior
@@ -84,6 +86,7 @@ def sig_head(config: BatchLogMelConfig) -> SigHead:
                    dft_size=dft_size, fft=fft)
 
 
+@profiling.spanned("setup.route", route="batch_logmel.auto_fft_impl")
 def auto_fft_impl(config: BatchLogMelConfig, dtype, device) -> str:
     """``fft_impl="auto"`` on ``device``: ``"sig"`` on CUDA where the
     config qualifies (macro-row geometry, float32) and K1 takes its head
@@ -139,7 +142,8 @@ class BatchLogMel:
         self.sig_head = None
         if fft_impl == "sig":
             head = sig_head(config) if matrices is None else matrices
-            self.sig_head = head.to(self.device)
+            with profiling.span("setup.heads", head="nemo", upload=True):
+                self.sig_head = head.to(self.device)
 
     @property
     def filters(self) -> np.ndarray:

@@ -41,6 +41,7 @@ from melspec_tpu_torch.ops.mel_kernel import (_sig_frontend_matrices,
                                               bf2_stack, sig_fft_head,
                                               sig_geometry)
 from melspec_tpu_torch.ops.windows import povey
+from melspec_tpu_torch.utils import profiling
 
 F32_EPSILON = 1.1920929e-07
 
@@ -63,6 +64,7 @@ def energy_floor(config: FbankConfig) -> float:
 
 
 @functools.lru_cache(maxsize=8)
+@profiling.spanned("setup.heads", head="kaldi")
 def sig_head(config: FbankConfig) -> SigHead:
     """Kaldi's K1 head on the CPU: window, DC removal and preemphasis
     folded into the spectral matrices (exact: all three are linear in the
@@ -92,6 +94,7 @@ def sig_head(config: FbankConfig) -> SigHead:
                    guard=energy_floor(config), dft_size=dft_size, fft=fft)
 
 
+@profiling.spanned("setup.route", route="fbank.auto_fft_impl")
 def auto_fft_impl(config: FbankConfig, dtype, device) -> str:
     """``fft_impl="auto"`` on ``device``: ``"sig"`` on CUDA where the
     config qualifies (macro-row geometry, power spectra, log output,
@@ -165,7 +168,8 @@ class Fbank:
         self.sig_head = None
         if fft_impl == "sig":
             head = sig_head(config) if matrices is None else matrices
-            self.sig_head = head.to(self.device)
+            with profiling.span("setup.heads", head="kaldi", upload=True):
+                self.sig_head = head.to(self.device)
 
     @property
     def dense_filterbank(self) -> np.ndarray:

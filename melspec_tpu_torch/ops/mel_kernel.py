@@ -55,6 +55,7 @@ from melspec_tpu_torch.ops.vad import fix_raw
 from melspec_tpu_torch.ops.filterbank import mel_filterbank
 from melspec_tpu_torch.ops.hp_dft import bf16_round_slices, matrix_slices
 from melspec_tpu_torch.ops.windows import hann_periodic
+from melspec_tpu_torch.utils import profiling
 
 __all__ = [
     "FramedMatrices", "SigHead", "SigMatrices", "framed_input",
@@ -271,6 +272,7 @@ class SigMatrices:
 
 
 @functools.lru_cache(maxsize=16)
+@profiling.spanned("setup.heads", head="whisper")
 def sig_matrices(fft_size: int, n_mels: int, sampling_rate: float, ks: int,
                  cutoff: int, device: torch.device) -> SigMatrices:
     """The whisper matrices for ``(ks, cutoff)``, cached on ``device``."""

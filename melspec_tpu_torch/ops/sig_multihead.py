@@ -39,6 +39,7 @@ from melspec_tpu_torch.ops.mel_kernel import (_sig_frontend_matrices,
                                               whisper_head)
 from melspec_tpu_torch.ops.vad import fix_raw
 from melspec_tpu_torch.ops.windows import hann_centered
+from melspec_tpu_torch.utils import profiling
 
 __all__ = ["WhisperKaldiFused", "WhisperKaldiNemoFused", "check_k2",
            "head_subset", "pair_heads"]
@@ -125,7 +126,9 @@ class WhisperKaldiFused:
         if matrices is not None:
             heads = tuple(matrices)
         check_k2(heads, mc.hop_size, self.device)
-        self.heads = tuple(h.to(self.device) for h in heads)
+        with profiling.span("setup.heads", head="whisper+kaldi",
+                            upload=True):
+            self.heads = tuple(h.to(self.device) for h in heads)
 
     def _signal(self, samples) -> torch.Tensor:
         x = as_signal(samples, self.device)
@@ -159,6 +162,7 @@ class WhisperKaldiFused:
 
 
 @functools.lru_cache(maxsize=8)
+@profiling.spanned("setup.heads", head="nemo_fold")
 def nemo_fold_head(config: BatchLogMelConfig) -> SigHead:
     """The NeMo head of the three-head pass, on the CPU: its 512-tap
     centered frame and the cross-frame preemphasis ``y[t] = x[t] -

@@ -35,6 +35,7 @@ from melspec_tpu_torch.ops.hp_dft import bf3_rdft_power, hp_rdft_power
 from melspec_tpu_torch.ops.mel_kernel import (sig_geometry, whisper_head,
                                               whisper_mel_sig)
 from melspec_tpu_torch.ops.windows import hann_periodic
+from melspec_tpu_torch.utils import profiling
 
 LOG10_FLOOR = 1e-10
 
@@ -122,6 +123,7 @@ def log_mel_from_power(power: torch.Tensor, filters_t: torch.Tensor,
     return log10_best(torch.clamp_min(energy, LOG10_FLOOR), dtype)
 
 
+@profiling.spanned("setup.route", route="spectrogram.auto_fft_impl")
 def auto_fft_impl(fft_size: int, hop_size: int, n_mels: int,
                   sampling_rate: float, dtype, device) -> str:
     """``fft_impl="auto"`` on ``device``: ``"fft"`` on the CPU; on CUDA
@@ -263,7 +265,13 @@ class WhisperMelPipeline:
         exactly). The budget is the frames tensor for the plain routes
         (``MELSPEC_FRAMES_BUDGET_BYTES``, default 1 GiB) and the input +
         output footprint for ``"sig"`` (``MELSPEC_SIG_BUDGET_BYTES``,
-        default 8 GiB). With ``"sig"`` each chunk is one K1 launch."""
+        default 8 GiB). With ``"sig"`` each chunk is one K1 launch.
+        Traced (``utils/profiling.py``), a call is the span
+        ``mel_batch``."""
+        with profiling.span("mel_batch", self.device):
+            return self._mel_batch(samples)
+
+    def _mel_batch(self, samples) -> torch.Tensor:
         samples = self._as_input(samples)
         nf = framing.num_frames_batch(samples.shape[-1], self.fft_size,
                                       self.hop_size)

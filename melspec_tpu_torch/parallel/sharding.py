@@ -58,6 +58,7 @@ from melspec_tpu_torch.streaming.serving import (MultiStreamFrontend,
 from melspec_tpu_torch.streaming.state_io import (_flatten, _unflatten,
                                                   load_stream_state,
                                                   save_stream_state)
+from melspec_tpu_torch.utils import profiling
 
 __all__ = ["Mesh", "frontend_route", "make_mesh", "shard_batch",
            "sharded_frontend_step", "sharded_multistream", "sharded_serving",
@@ -337,6 +338,7 @@ def sharded_serving(
     return front, front.init, tick_fn
 
 
+@profiling.spanned("setup.route", route="frontend_route")
 def frontend_route(mel_config: MelConfig, fbank_config: FbankConfig,
                    device) -> str:
     """The whisper + Kaldi route of ``sharded_frontend_step`` on
@@ -381,7 +383,13 @@ def sharded_frontend_step(
     CUDA, K2 takes their heads (``frontend_route``), their spectral passes
     and the VAD run as one launch of kernel K2 (``WhisperKaldiFused``);
     otherwise each frontend runs on its own. NeMo runs through
-    ``BatchLogMel``, on kernel K1 on CUDA."""
+    ``BatchLogMel``, on kernel K1 on CUDA.
+
+    Traced (``utils/profiling.py``), a call is the span ``frontend_step``
+    and its four stages, which tile it on the device: ``.spectral``
+    (whisper and Kaldi with the raw VAD), ``.nemo``, ``.vad`` (smoothing,
+    the valid-frame mask, the aggregates and their sum over the group)
+    and ``.quant`` (the u8 block and its range)."""
     if mesh is None:
         mesh = make_mesh(axis=axis, device=device)
     elif device is not None and resolve_device(device) != mesh.device:
@@ -404,30 +412,37 @@ def sharded_frontend_step(
     fft, hop = mel_config.fft_size, mel_config.hop_size
 
     def local_step(x: torch.Tensor, n_valid: torch.Tensor) -> dict:
-        if fused is not None:
-            # one spectral pass for whisper + kaldi, the Sobel VAD fused
-            # as the kernel's epilogue
-            mel, fbank_feats, raw = fused.compute_with_vad(x, settings)
-        else:
-            mel = whisper.mel_batch(x)                        # [b, F, n_mels]
-            fbank_feats = kaldi._compute(x)                  # [b, F'', bins]
-            raw = classify_columns(mel.transpose(-1, -2), settings)  # [b, F-2]
-        nemo_feats = nemo._compute(x)                        # [b, bins, F']
-        smoothed = smooth_mask(raw, 4)
-
-        # per-FRAME validity from per-row valid-SAMPLE counts: a
-        # zero-padded tail row contributes only its real frames
-        nf = smoothed.shape[-1]
-        vframes = torch.where(n_valid >= fft, (n_valid - fft) // hop + 1, 0)
-        vcols = torch.clamp(vframes - 2, 0, nf).to(torch.int32)  # Sobel -2
-        mask = torch.arange(nf, device=x.device)[None, :] < vcols[:, None]
-        counts = torch.stack([torch.sum(smoothed & mask, dtype=torch.int32),
-                              torch.sum(vcols, dtype=torch.int32)])
-        active, total = _all_reduce_sum(mesh, counts)
-
-        # 8-bit quantization of the rank's mel block; a degenerate range
-        # (constant mel) maps to 0
-        q, lo, hi = quantize_tensor(mel)
+        stage = profiling.stages(x.device)
+        with stage("frontend_step.spectral"):
+            if fused is not None:
+                # one spectral pass for whisper + kaldi, the Sobel VAD
+                # fused as the kernel's epilogue
+                mel, fbank_feats, raw = fused.compute_with_vad(x, settings)
+            else:
+                mel = whisper.mel_batch(x)                    # [b, F, n_mels]
+                fbank_feats = kaldi._compute(x)              # [b, F'', bins]
+                raw = classify_columns(mel.transpose(-1, -2),
+                                       settings)              # [b, F-2]
+        with stage("frontend_step.nemo"):
+            nemo_feats = nemo._compute(x)                    # [b, bins, F']
+        with stage("frontend_step.vad"):
+            smoothed = smooth_mask(raw, 4)
+            # per-FRAME validity from per-row valid-SAMPLE counts: a
+            # zero-padded tail row contributes only its real frames
+            nf = smoothed.shape[-1]
+            vframes = torch.where(n_valid >= fft, (n_valid - fft) // hop + 1,
+                                  0)
+            vcols = torch.clamp(vframes - 2, 0, nf).to(torch.int32)  # -2
+            mask = torch.arange(nf, device=x.device)[None, :] < vcols[:, None]
+            counts = torch.stack([
+                torch.sum(smoothed & mask, dtype=torch.int32),
+                torch.sum(vcols, dtype=torch.int32)])
+            active, total = _all_reduce_sum(mesh, counts)
+        with stage("frontend_step.quant"):
+            # 8-bit quantization of the rank's mel block; a degenerate
+            # range (constant mel) maps to 0
+            q, lo, hi = quantize_tensor(mel)
+            q_range = torch.stack([lo, hi])[None]
         return {
             "mel": mel,
             "nemo": nemo_feats,
@@ -436,12 +451,16 @@ def sharded_frontend_step(
             "vad_active_columns": active,
             "vad_total_columns": total,
             "mel_q8": q,
-            "mel_q8_range": torch.stack([lo, hi])[None],
+            "mel_q8_range": q_range,
         }
 
     def call(samples, valid=None) -> dict:
         """``valid``: a bool row mask, or per-row valid-sample counts
         (integers)."""
+        with profiling.span("frontend_step", dev):
+            return _call(samples, valid)
+
+    def _call(samples, valid) -> dict:
         x = as_signal(samples, dev)
         n = x.shape[-1]
         if valid is None:

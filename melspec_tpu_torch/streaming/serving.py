@@ -43,6 +43,7 @@ from melspec_tpu_torch.streaming.resample import (MultiResampleState,
                                                   MultiStreamResampler)
 from melspec_tpu_torch.streaming.state_io import (load_stream_state,
                                                   save_stream_state)
+from melspec_tpu_torch.utils import profiling
 from melspec_tpu_torch.utils.instances import shared_instance
 
 
@@ -403,6 +404,7 @@ def shared_frontend(config: MelConfig = MelConfig(), n_streams: int = 16,
         fft_impl=fft_impl, record_norm=record_norm, device=dev)
 
 
+@profiling.spanned("setup.route", route="calibrate_fft_impl")
 def calibrate_fft_impl(config: MelConfig = MelConfig(), n_streams: int = 16,
                        hops: int = 4,
                        settings: DetectionSettings = DetectionSettings(),

@@ -93,7 +93,7 @@ def _inputs(block: str) -> dict:
 
 
 def test_section_has_the_snippets():
-    assert len(PY_BLOCKS) == 5
+    assert len(PY_BLOCKS) == 6
     assert len(_commands()) >= 10
 
 
@@ -116,6 +116,15 @@ def _check(ns: dict, block: str) -> None:
         assert tuple(ns["out"]["mel"].shape) == (24, 98, 80)
         assert int(ns["out"]["vad_total_columns"]) > 0
         assert ns["q"].shape == (256, 1, 128) and ns["va"].dtype == torch.bool
+    elif "profiling.enable()" in block:   # one step, traced
+        assert ns["spans"]["frontend_step"]["count"] == 1
+        assert [r.name for r in ns["recs"] if r.call == ns["recs"][-1].call
+                ] == ["frontend_step", "frontend_step.spectral",
+                      "frontend_step.nemo", "frontend_step.vad",
+                      "frontend_step.quant"]
+        assert ns["launches"]["sig_mel.launches"] >= 0
+        assert tuple(ns["mel"].shape) == (2, 98, 80)
+        ns["profiling"].clear()
     elif "SpeechToMel" in block:
         assert tuple(ns["mels"].shape) == (256, 128)
         assert ns["ok"].tolist() == [False]  # 160 samples never pushed
