@@ -724,7 +724,7 @@ def phase_main_path(dev, rows) -> dict:
                                    3, 2, dev)
     kw = dict(ks=3, n_frames=nf, hop=c.hop_size, offset=0, pack=c.fft_size,
               n_bins_pad=mats.n_bins_pad, n_mels=c.n_mels,
-              mel_precision="bf2", live=mats.live)
+              mel_precision="bf2", live=mats.live, stages=mats.stages)
     pipe_ms = time_ms(lambda: pipe.mel_batch(x))
     k1_ms = time_ms(lambda: sig_mel.sig_mel(x, mats.m_big, mats.pair_i,
                                             mats.mt_bf2, **kw))
@@ -738,8 +738,12 @@ def phase_main_path(dev, rows) -> dict:
     head = mel_kernel.whisper_head(c.fft_size, c.n_mels, c.sampling_rate, dev)
     flops = head_work(head, frames)
     layout = k1_layout(head, c.hop_size)
+    stage_bytes = (k1_stage_bytes(head)
+                   if sig_mel.head_layout(head, c.hop_size).pipelined
+                   else None)
     l2 = dict(block_frames=layout[0], chunk_cols=layout[1],
-              **l2_bytes_counted([head], c.hop_size, b, nf, layout))
+              **l2_bytes_counted([head], c.hop_size, b, nf, layout,
+                                 stage_bytes))
     nbytes = (x.numel() * 4 + mats.m_big.numel() * 2
               + mats.mt_bf2.numel() * 2 + out.numel() * 4)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
@@ -1261,7 +1265,7 @@ def phase_bulk(dev, rows) -> dict:
             mel_sig, mats.m_big, mats.pair_i, mats.mt_bf2, ks=3,
             n_frames=hops, hop=c.hop_size, offset=c.hop_size,
             pack=c.fft_size, n_bins_pad=mats.n_bins_pad, n_mels=c.n_mels,
-            live=mats.live)
+            live=mats.live, stages=mats.stages)
 
     k1_errs = compare(k1(), mel_sig, c.fft_size, c.hop_size, c.n_mels,
                       c.hop_size, hops, dev)
@@ -1327,19 +1331,25 @@ def head_bytes(heads, x, outs) -> int:
 
 
 def l2_bytes_counted(heads, hop: int, batch: int, n_frames: int,
-                     layout: tuple) -> dict:
+                     layout: tuple, stage_bytes: int | None = None) -> dict:
     """The bytes one launch of K1 (one head) or K2 (several) requests
-    from L2, counted from the kernels' loads (csrc/sig_common.cuh), not
-    measured: per block of ``layout = (frames, chunk columns)``, its
-    signal span (float32) and, per head, every live DFT column of every K
-    block's taps (bf16; zero-filled rows and dead columns are not read)
-    and the projection rows of each column chunk's live power columns
-    (three bf16 stacks, or one float32 matrix)."""
+    from L2, counted from the kernels' loads, not measured: per block of
+    ``layout = (frames, chunk columns)``, its signal span (float32), then
+    either K1's stage stream, which each block of its pipelined walk
+    (csrc/sig_pipe.cuh) reads whole (``stage_bytes``: its zeros past the
+    taps, its pad values and its projection pieces included), or, on the
+    synchronous walk (csrc/sig_common.cuh), per head every live DFT
+    column of every K block's taps (bf16; zero-filled rows and dead
+    columns are not read) and the projection rows of each column chunk's
+    live power columns (three bf16 stacks, or one float32 matrix)."""
     frames, cols = layout[:2]
     blocks = batch * -(-n_frames // frames)
     span = max((frames - 1) * hop + h.pack_off + -(-h.pack // 32) * 32
                for h in heads)
     per_block = span * 4
+    if stage_bytes is not None:
+        per_block += stage_bytes
+        heads = ()
     for h in heads:
         split = h.n_bins_pad != 0
         cp = cols // 2 if split else cols
@@ -1351,6 +1361,16 @@ def l2_bytes_counted(heads, hop: int, batch: int, n_frames: int,
                           if h.mel_precision == "bf2" else k * nmp * 4)
     return dict(blocks=blocks, l2_bytes_counted_per_block=per_block,
                 l2_bytes_counted=blocks * per_block)
+
+
+def k1_stage_bytes(head) -> int:
+    """The bytes of K1's stage stream for ``head`` (the head's own,
+    from its ``StageSlot``)."""
+    width = head.m_big.shape[1]
+    npow = head.n_bins_pad or width
+    return 2 * head.stages.stream(head.m_big, head.mt, head.pair_i,
+                                  pack=head.pack, npow=npow,
+                                  live=head.live).numel()
 
 
 def k1_layout(head, hop: int, ks: int = 3) -> tuple:
@@ -3046,7 +3066,8 @@ def phase_vad_wire_path(dev, rows) -> dict:
         mats = mel_kernel.sig_matrices(400, n_mels, 16000.0, 3, 2, dev)
         head = mel_kernel.whisper_head(400, n_mels, 16000.0, dev)
         kw = dict(ks=3, n_frames=nf, hop=160, offset=0, pack=400,
-                  n_bins_pad=mats.n_bins_pad, n_mels=n_mels, live=mats.live)
+                  n_bins_pad=mats.n_bins_pad, n_mels=n_mels, live=mats.live,
+                  stages=mats.stages)
         vad = sig_mel.vad_args(settings, n_mels)
         k_mel, k_counts = sig_mel.sig_mel_vad(
             x, mats.m_big, mats.pair_i, mats.mt_bf2, vad=vad, **kw)

@@ -127,6 +127,22 @@ struct Lay {
   static constexpr int kVadTile = kTile < kTileFrames ? kTile : kTileFrames;
 };
 
+// C = 4: Lay<0>'s tile walked by the warp-specialised pipeline of
+// sig_pipe.cuh (K1 only): the same frames, chunks and warp tiles, its own
+// ring
+template <>
+struct Lay<4> : Lay<0> {};
+
+// a barrier of the warps that compute the tile: the block's (C = 4: the
+// eight warps beside the producer warp, named barrier 1)
+template <int C>
+__device__ __forceinline__ void sync_tile() {
+  if constexpr (C == 4)
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+  else
+    __syncthreads();
+}
+
 // whether this warp's 16 rows of its warpgroup's m64 tile hold frames
 template <int C>
 __device__ __forceinline__ bool rows_live() {
@@ -931,7 +947,7 @@ __device__ __forceinline__ void head_tile(const Head& h, unsigned char* work,
     return;
   }
   // logs wait in shared memory until the row max is known
-  __syncthreads();  // every warp is done with the ring and power tile
+  sync_tile<C>();  // every warp is done with the ring and power tile
   float* slg = reinterpret_cast<float*>(work);
 #pragma unroll
   for (int m = 0; m < 2; ++m)
@@ -947,7 +963,7 @@ __device__ __forceinline__ void head_tile(const Head& h, unsigned char* work,
             log10_accurate(max_nan(en[m][j][2 * hh + 1], kLogFloor)));
       }
     }
-  __syncthreads();
+  sync_tile<C>();
   // row max, whisper norm, store (a null h.out stores nothing: the quant
   // route writes records, not the float mel); a warp per tile / 8 rows
   for (int f = 0; f < L::kTile / kWarps; ++f) {
@@ -1139,9 +1155,9 @@ __host__ inline bool head_ok(int width, int npow, int live, int n_mels,
          n_mels <= n_mels_pad;
 }
 
-// frames per block of layout c
+// frames per block of layout c (4: as 0)
 __host__ __device__ inline int layout_frames(int c) {
-  return c == 0   ? Lay<0>::kTile
+  return c == 0 || c == 4 ? Lay<0>::kTile
          : c == 1 ? Lay<1>::kTile
          : c == 2 ? Lay<2>::kTile
                   : Lay<3>::kTile;
@@ -1149,7 +1165,7 @@ __host__ __device__ inline int layout_frames(int c) {
 
 // DFT columns per chunk of layout c
 __host__ __device__ inline int layout_cols(int c) {
-  return c == 0   ? Lay<0>::kCols
+  return c == 0 || c == 4 ? Lay<0>::kCols
          : c == 1 ? Lay<1>::kCols
          : c == 2 ? Lay<2>::kCols
                   : Lay<3>::kCols;
@@ -1157,7 +1173,7 @@ __host__ __device__ inline int layout_cols(int c) {
 
 // the VAD counts' tile of layout c
 __host__ __device__ inline int layout_vad_tile(int c) {
-  return c == 0   ? Lay<0>::kVadTile
+  return c == 0 || c == 4 ? Lay<0>::kVadTile
          : c == 1 ? Lay<1>::kVadTile
          : c == 2 ? Lay<2>::kVadTile
                   : Lay<3>::kVadTile;

@@ -55,6 +55,15 @@
 // tile (32 KB split, 64 KB N-packed; half that in 32-frame blocks); the log
 // tile reuses the last two.
 //
+// K1 walks its 128-frame blocks as layout 4, not 0: the same walk as a
+// warp-specialised pipeline (sig_pipe.cuh), m_big brought in stage by
+// stage by a producer warp from a stream the host lays out once a head,
+// the consumers on mbarriers with no block barrier in the walk; the
+// outputs are layout 0's bit for bit. A block takes 128 frames where that
+// pipeline's ring of at least four slots fits beside its span (layout 0's
+// four-stage ring and its barriers), else 64. Layout 0's synchronous walk
+// is K2's (sig_multi.cu).
+//
 // The wide whisper heads (960/480, 1024/480, 2048/512: whisper heads whose
 // 128- and 64-frame spans do not fit, and where the host gives the
 // factored split) take layout 3 instead: the two-stage DFT of
@@ -73,6 +82,7 @@
 #include "sig_common.cuh"
 #include "sig_factored.cuh"
 #include "sig_fft.cuh"
+#include "sig_pipe.cuh"
 
 namespace {
 
@@ -94,33 +104,92 @@ struct Params {
   // so that the chunk-walk kernels read every other field where they did
   // before it was added
   long long batch;
+  Pipe pipe;  // layout 4 (sig_pipe.cuh)
 };
 
+// Layout 4: Lay<0>'s tile on the warp-specialised pipeline of
+// sig_pipe.cuh. Warps 0-7 stage the span and compute, warp 8 brings the
+// stages in (warps 9-11 only hand their registers over).
+__device__ __forceinline__ void pipe_block(const Params& p,
+                                           unsigned char* smem, int* tab) {
+  const int cp = chunk_pow<0>(p.head.width, p.head.npow);
+  unsigned char* work = smem + span_bytes(p.ks, p.span);
+  unsigned char* bars = work + p.pipe.slots * kPipeSlot +
+                        4LL * Lay<0>::kTile * cp;
+  Ring rg;
+  rg.data0 = smem_addr(work);
+  rg.bars = smem_addr(bars);
+  rg.slots = p.pipe.slots;
+  rg.slot = 0;
+  rg.phase = 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < rg.slots; ++s) {
+      mbar_init(rg.full(s), 1);
+      mbar_init(rg.empty(s), kWarps);
+    }
+    // the barriers' initialisation, seen by the bulk copies' completions
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= kThreads) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (threadIdx.x == kThreads) pipe_produce(p.head, p.pipe, rg);
+    __syncwarp();
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kConsumerRegs));
+    const int b = blockIdx.x / p.tiles;
+    const int k0 = (blockIdx.x - b * p.tiles) * Lay<0>::kTile;
+    __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(smem);
+    stage_span(p.x + static_cast<long long>(b) * p.T, p.T,
+               p.offset + static_cast<long long>(k0) * p.span.hop, p.span,
+               p.ks, sx);
+    const bool keep = p.q != nullptr || p.vad != nullptr;
+    pipe_head(p.head, tab, sx, p.span, work, rg, b, k0, p.n_frames, keep);
+    if (keep) {
+      sync_tile<4>();  // the tile's normalized rows, from every warp
+      const float* vals = reinterpret_cast<const float*>(work);
+      if (p.q)
+        quant_records<4>(vals, p.head.n_mels_pad, p.head.n_mels, b, k0,
+                         p.n_frames, p.q, p.lo, p.hi);
+      if (p.vad)
+        vad_counts<4>(vals, p.head.n_mels_pad, p.head.n_mels,
+                      p.vad_start_y, p.vad_thr, b, k0, p.n_frames, p.vad);
+    }
+  }
+}
+
 template <int C>
-__global__ void __launch_bounds__(kThreads, 1) sig_mel_kernel(const Params p) {
+__global__ void __launch_bounds__(C == 4 ? kPipeThreads : kThreads, 1)
+    sig_mel_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int tab[2 * kMaxBlocks];
-  const int b = blockIdx.x / p.tiles;
-  const int k0 = (blockIdx.x - b * p.tiles) * Lay<C>::kTile;
+  if constexpr (C == 4) {
+    pipe_block(p, smem, tab);
+  } else {
+    const int b = blockIdx.x / p.tiles;
+    const int k0 = (blockIdx.x - b * p.tiles) * Lay<C>::kTile;
 
-  // layout: the span's ks bf16 slices, then the work region (ring and
-  // power tile during the chunk walk, the log tile after it)
-  __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(smem);
-  unsigned char* work = smem + span_bytes(p.ks, p.span);
-  stage_span(p.x + static_cast<long long>(b) * p.T, p.T,
-             p.offset + static_cast<long long>(k0) * p.span.hop, p.span,
-             p.ks, sx);
-  const bool keep = p.q != nullptr || p.vad != nullptr;
-  run_head<C>(p.head, tab, sx, p.span, work, b, k0, p.n_frames, keep);
-  if (!keep) return;
-  __syncthreads();  // the tile's normalized rows, from every warp
-  const float* vals = reinterpret_cast<const float*>(work);
-  if (p.q)
-    quant_records<C>(vals, p.head.n_mels_pad, p.head.n_mels, b, k0,
-                      p.n_frames, p.q, p.lo, p.hi);
-  if (p.vad)
-    vad_counts<C>(vals, p.head.n_mels_pad, p.head.n_mels, p.vad_start_y,
-                   p.vad_thr, b, k0, p.n_frames, p.vad);
+    // layout: the span's ks bf16 slices, then the work region (ring and
+    // power tile during the chunk walk, the log tile after it)
+    __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(smem);
+    unsigned char* work = smem + span_bytes(p.ks, p.span);
+    stage_span(p.x + static_cast<long long>(b) * p.T, p.T,
+               p.offset + static_cast<long long>(k0) * p.span.hop, p.span,
+               p.ks, sx);
+    const bool keep = p.q != nullptr || p.vad != nullptr;
+    run_head<C>(p.head, tab, sx, p.span, work, b, k0, p.n_frames, keep);
+    if (!keep) return;
+    __syncthreads();  // the tile's normalized rows, from every warp
+    const float* vals = reinterpret_cast<const float*>(work);
+    if (p.q)
+      quant_records<C>(vals, p.head.n_mels_pad, p.head.n_mels, b, k0,
+                        p.n_frames, p.q, p.lo, p.hi);
+    if (p.vad)
+      vad_counts<C>(vals, p.head.n_mels_pad, p.head.n_mels, p.vad_start_y,
+                     p.vad_thr, b, k0, p.n_frames, p.vad);
+  }
 }
 
 // The factored layout's kernel: persistent blocks over the tiles of 64
@@ -162,20 +231,35 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// The block layout of a launch (sig_common.cuh::pick_layout, the three
-// chunk-walk layouts), then layout 3 in place of 2 where the host gives
-// the head's factored split n1 x n2 (n1 > 0): returns its code, writes
-// its span (the chunk-walk layouts') and shared memory
+// The block layout of a launch (sig_common.cuh::pick_layout over the
+// three chunk-walk layouts, 128-frame blocks needing the pipelined walk's
+// ring of kPipeMinSlots slots), then layout 4 in place of 0 (as many
+// slots as fit, up to kPipeMaxSlots: written to *slots), and layout 3 in
+// place of 2 where the host gives the head's factored split n1 x n2 (n1 >
+// 0): returns its code, writes its span (the chunk-walk layouts') and
+// shared memory
 int layout(int ks, int hop, int pack, int pack_off, int width, int npow,
-           int n_mels_pad, int n1, int n2, Span* span, long long* bytes) {
+           int n_mels_pad, int n1, int n2, Span* span, long long* bytes,
+           int* slots = nullptr) {
   auto span_of = [&](int c) {
     return make_span(hop, span_len(layout_frames(c), hop, pack, pack_off));
   };
   auto need = [&](int c) {
-    return span_bytes(ks, span_of(c)) + layout_work_bytes(c, width, npow);
+    return span_bytes(ks, span_of(c)) +
+           (c == 0 ? pipe_work_bytes(width, npow, kPipeMinSlots)
+                   : layout_work_bytes(c, width, npow));
   };
   int c = pick_layout(n_mels_pad, need, 2, bytes);
   *span = span_of(c);
+  if (c == 0) {
+    const long long fixed =
+        span_bytes(ks, *span) + pipe_work_bytes(width, npow, 0) + kStaticSmem;
+    int s = static_cast<int>((kSmemLimit - fixed) / kPipeSlot);
+    s = s < kPipeMaxSlots ? s : kPipeMaxSlots;
+    c = 4;
+    *bytes = fixed + static_cast<long long>(s) * kPipeSlot;
+    if (slots) *slots = s;
+  }
   if (c == 2 && n1 > 0) {
     c = 3;
     *bytes = factored_bytes(n1) + kStaticSmem;
@@ -195,8 +279,9 @@ bool factored_ok(int n1, int n2, int npow) {
 extern "C" {
 
 // The block layout K1 takes for a head: returns one block's shared memory
-// and writes its code (0-2: 128-, 64-, 32-frame chunk walk; 3: the
-// factored DFT) to *code, its frames (128, 64, 32; 64) to *block_frames
+// and writes its code (1, 2: 64-, 32-frame chunk walk; 3: the factored
+// DFT; 4: the 128-frame walk on the pipeline of sig_pipe.cuh) to *code,
+// its frames (64, 32; 64; 128) to *block_frames
 // and the DFT columns of its chunks (128 or 256; 1024) to *chunk_cols.
 // n1 x n2 is the head's factored split, or n1 = 0 for a head the
 // factored path does not take (the host decides which: whisper heads of
@@ -220,10 +305,23 @@ long long melspec_sig_mel_layout(int ks, int hop, int pack, int pack_off,
   return bytes;
 }
 
+// The bytes of the head's stage stream that layout 4 reads in place of
+// m_big (kernels/sig_mel.py::pipe_stages lays it out)
+long long melspec_sig_mel_pipe_bytes(int width, int npow, int live,
+                                     int n_blocks, int pack, int n_mels_pad,
+                                     int bf2) {
+  if (!head_ok(width, npow, live, 1, n_mels_pad, 2048) || n_blocks <= 0 ||
+      pack <= 0)
+    return -1;
+  return pipe_bytes(width, npow, live, n_blocks, pack, n_mels_pad, bf2);
+}
+
 // Returns 0 or the cudaError_t of the launch (cudaErrorInvalidValue for
 // arguments the kernel does not take). tile_frames is the caller's tile of
 // the VAD counts' zeros and must be the launch layout's (64, or 32 in
-// 32-frame blocks). live is
+// 32-frame blocks). stages is the head's stage stream where its layout is
+// 4 (melspec_sig_mel_pipe_bytes bytes, 16-byte aligned), else ignored.
+// live is
 // the count of power columns that may be nonzero (a multiple of 8): the
 // kernel skips the rest. out may be null when q is given (the quant route
 // writes no float mel); q (with lo, hi) and vad select the epilogues, both
@@ -235,7 +333,8 @@ int melspec_sig_mel(const float* x, long long batch, long long T,
                     int live, const void* mt, int n_mels, int n_mels_pad,
                     int bf2, int out_mode, float guard, float* out,
                     unsigned char* q, float* lo, float* hi, int* vad,
-                    float vad_thr, int vad_start_y, void* stream) {
+                    float vad_thr, int vad_start_y, const void* stages,
+                    void* stream) {
   if (batch <= 0 || n_frames <= 0) return cudaSuccess;
   if (hop <= 0 || pack <= 0 || offset < 0 || pack_off < 0 || ks <= 0 ||
       ks > kMaxSlices || n_blocks <= 0 || n_blocks > kMaxBlocks ||
@@ -252,10 +351,14 @@ int melspec_sig_mel(const float* x, long long batch, long long T,
     return cudaErrorInvalidValue;
   Params p;
   long long smem;
+  int slots = 0;
   const int lay = layout(ks, hop, pack, pack_off, width, npow, n_mels_pad, 0,
-                         0, &p.span, &smem);
+                         0, &p.span, &smem, &slots);
   const int frames = layout_frames(lay);
   if (smem > kSmemLimit || tile_frames != layout_vad_tile(lay))
+    return cudaErrorInvalidValue;
+  if (lay == 4 && (stages == nullptr ||
+                   reinterpret_cast<uintptr_t>(stages) % 16 != 0))
     return cudaErrorInvalidValue;
   const long long tiles = (n_frames + frames - 1) / frames;
   const long long grid = batch * tiles;
@@ -288,7 +391,9 @@ int melspec_sig_mel(const float* x, long long batch, long long T,
   p.vad = vad;
   p.vad_thr = vad_thr;
   p.vad_start_y = vad_start_y;
-  auto kernel = lay == 0   ? sig_mel_kernel<0>
+  p.pipe.stages = static_cast<const unsigned char*>(stages);
+  p.pipe.slots = slots;
+  auto kernel = lay == 4   ? sig_mel_kernel<4>
                 : lay == 1 ? sig_mel_kernel<1>
                            : sig_mel_kernel<2>;
   const long long dyn = smem - kStaticSmem;
@@ -296,8 +401,8 @@ int melspec_sig_mel(const float* x, long long batch, long long T,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(dyn));
   if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned>(grid), kThreads, static_cast<size_t>(dyn),
-           static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<static_cast<unsigned>(grid), lay == 4 ? kPipeThreads : kThreads,
+           static_cast<size_t>(dyn), static_cast<cudaStream_t>(stream)>>>(p);
   return cudaGetLastError();
 }
 

@@ -11,10 +11,18 @@ whisper mode's two epilogues: the per-frame u8 wire record
 wrapper launches the kernel for a CUDA tensor (or raises) and runs its
 plain version (``sig_mel_reference``, ``sig_mel_quantized_reference``,
 ``sig_mel_vad_reference``) only for a CPU tensor. ``launches`` counts
-kernel launches, ``epilogue_launches`` those that ran an epilogue and
-``factored_launches`` those of the factored wide-hop path and
-``fft_launches`` those of the float64 FFT path; nothing else adds to
-them.
+kernel launches, ``epilogue_launches`` those that ran an epilogue,
+``factored_launches`` those of the factored wide-hop path,
+``fft_launches`` those of the float64 FFT path and
+``pipelined_launches`` those of the pipelined 128-frame walk; nothing
+else adds to them.
+
+The pipelined walk (``csrc/sig_pipe.cuh``, block layout 4) is how K1
+walks every 128-frame block: a producer warp brings m_big in stage by
+stage by bulk copy from a stream the host lays out once per head in the
+ring's own bytes (``pipe_stages``, kept in the head's ``StageSlot``),
+and the bf2 projection's rows with it; the outputs are those of the
+128-frame chunk walk (K2's) bit for bit.
 
 The factored path (``csrc/sig_factored.cuh``, block layout 3) takes the
 whisper heads whose 128- and 64-frame spans do not fit a block (the wide
@@ -95,10 +103,20 @@ FACTORED_K2 = 16
 FFT_N = 2048
 NYQUIST_TOL = 1e-12
 
+# the pipelined walk (csrc/sig_pipe.cuh): its block's frames, the DFT
+# columns of a chunk (Lay<0>::kCols), the bf16 values of a stage's
+# 8-column group (kCoreN: 4 core matrices of 8 rows x 8 columns, then 8 of
+# padding) and the mt rows of one stack a projection piece (kPipeRows)
+PIPE_FRAMES = 128
+PIPE_CHUNK_COLS = 128
+PIPE_GROUP = 264
+PIPE_ROWS = 32
+
 launches = 0
 epilogue_launches = {"quant": 0, "vad": 0}
 factored_launches = 0
 fft_launches = 0
+pipelined_launches = 0
 
 
 def mel_runs(mt: torch.Tensor) -> tuple:
@@ -121,6 +139,30 @@ def mel_runs(mt: torch.Tensor) -> tuple:
     return (torch.tensor(offs, dtype=torch.int32),
             torch.tensor(los, dtype=torch.int32), torch.cat(a).contiguous(),
             torch.cat(b).contiguous())
+
+
+class StageSlot:
+    """Where a head keeps its pipelined walk's stage stream
+    (``pipe_stages``): the head's first launch on the pipelined walk
+    builds it, its later launches reuse it. One stream per projection
+    dtype (``SigMatrices`` launches with either), each kept with the
+    matrices and arguments it was laid out from, so a launch with others
+    lays out its own."""
+
+    def __init__(self):
+        self._streams = {}
+
+    def stream(self, m_big: torch.Tensor, mt: torch.Tensor, pair_i: tuple,
+               *, pack: int, npow: int, live: int) -> torch.Tensor:
+        key = (pair_i, pack, npow, live)
+        hit = self._streams.get(mt.dtype)
+        if (hit is not None and hit[0] is m_big and hit[1] is mt
+                and hit[2] == key):
+            return hit[3]
+        stream = stage_stream(m_big, mt, pair_i, pack=pack, npow=npow,
+                              live=live)
+        self._streams[mt.dtype] = (m_big, mt, key, stream)
+        return stream
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,7 +236,8 @@ class SigHead:
     ``fft``'s window and preprocessing (Kaldi, NeMo), 0 for any other
     matrix: where ``factored_route`` takes it, K1 runs the factored path;
     ``fft`` the description of K1's float64 FFT path, which a head
-    carrying it takes."""
+    carrying it takes; ``stages`` the slot of its pipelined walk's stage
+    stream (a copy on another device starts an empty one)."""
 
     m_big: torch.Tensor
     pair_i: tuple
@@ -208,6 +251,8 @@ class SigHead:
     live: int | None = None
     dft_size: int = 0
     fft: FftHead | None = None
+    stages: StageSlot = dataclasses.field(default_factory=StageSlot,
+                                          compare=False, repr=False)
 
     def __post_init__(self):
         if self.live is None:
@@ -225,12 +270,14 @@ class SigHead:
                     n_bins_pad=self.n_bins_pad, n_mels=self.n_mels,
                     mel_precision=self.mel_precision,
                     out_mode=self.out_mode, guard=self.guard,
-                    live=self.live, dft_size=self.dft_size, fft=self.fft)
+                    live=self.live, dft_size=self.dft_size, fft=self.fft,
+                    stages=self.stages)
 
     def to(self, device) -> "SigHead":
         return dataclasses.replace(
             self, m_big=self.m_big.to(device), mt=self.mt.to(device),
-            fft=None if self.fft is None else self.fft.to(device))
+            fft=None if self.fft is None else self.fft.to(device),
+            stages=StageSlot())
 
 
 def clamped_guard(guard: float) -> float:
@@ -262,6 +309,7 @@ def sig_mel_reference(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
                       out_mode: str = "whisper", guard: float = 0.0,
                       live: int | None = None, dft_size: int = 0,
                       fft: FftHead | None = None,
+                      stages: StageSlot | None = None,
                       dot_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The JAX kernel's math written out in plain PyTorch, on whatever
     device ``samples`` lies on: ``samples [B, T]`` f32 -> ``[B, n_frames,
@@ -277,8 +325,8 @@ def sig_mel_reference(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
     DFT dot is one ``torch.matmul`` in ``dot_dtype``: float32 as in the
     JAX kernel, or float64, which sums the exact bf16 x bf16 products with
     no rounding that reaches float32 — the exact value the float32
-    versions are held against. ``live``, ``dft_size`` and ``fft`` are
-    K1's and not used here: the plain version multiplies every column of
+    versions are held against. ``live``, ``dft_size``, ``fft`` and
+    ``stages`` are K1's and not used here: the plain version multiplies every column of
     ``m_big``."""
     b = samples.shape[0]
     if n_frames <= 0:
@@ -639,9 +687,11 @@ def _bound() -> ctypes.CDLL:
         i, ctypes.c_float,      # out_mode, guard
         p, p, p, p,             # out, q, lo, hi
         p, ctypes.c_float, i,   # vad, vad_thr, vad_start_y
-        p,                      # stream
+        p, p,                   # stages, stream
     ]
     lib.melspec_sig_mel.restype = ctypes.c_int
+    lib.melspec_sig_mel_pipe_bytes.argtypes = [i] * 7
+    lib.melspec_sig_mel_pipe_bytes.restype = ctypes.c_longlong
     lib.melspec_sig_mel_factored.argtypes = [
         p, ll, ll, i, i, i, i,  # x, batch, T, n_frames, hop, offset, tile
         i, i, p, p, p, p, p,    # n1, n2, window, f1, tw, f2, rowmap
@@ -681,16 +731,23 @@ class Layout(NamedTuple):
     cols: int
     factored: bool
 
+    @property
+    def pipelined(self) -> bool:
+        """Whether K1 walks it on the pipelined walk: every 128-frame
+        block of K1 does."""
+        return self.frames == PIPE_FRAMES
+
 
 def block_layout(ks: int, hop: int, pack: int, pack_off: int, width: int,
                  npow: int, n_mels_pad: int, split=None) -> Layout:
     """K1's block layout for a head (asks the built kernel, which
-    decides it): 128-frame blocks of 128-column chunks where they fit and
-    the head has at most 128 padded mel columns, else 64-frame blocks of
-    256-column chunks where they fit, else, for a head with a factored
-    ``split`` (``factored_route``), the factored path's 64-frame blocks
-    of 512 power columns (1024 DFT columns), else 32-frame blocks of
-    256-column chunks."""
+    decides it): 128-frame blocks of 128-column chunks on the pipelined
+    walk where they and its ring of four stages fit and the head has at
+    most 128 padded mel columns, else 64-frame blocks of 256-column chunks
+    where they fit, else, for a head with a factored ``split``
+    (``factored_route``), the factored path's 64-frame blocks of 512
+    power columns (1024 DFT columns), else 32-frame blocks of 256-column
+    chunks."""
     n1, n2 = split or (0, 0)
     code, frames, cols = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     smem = _bound().melspec_sig_mel_layout(ks, hop, pack, pack_off, width,
@@ -720,6 +777,110 @@ def head_layout(head: SigHead, hop: int, ks: int = 3) -> Layout:
                            width=width, npow=npow, out_mode=head.out_mode)
     return block_layout(ks, hop, head.pack, head.pack_off, width, npow,
                         head.mt.shape[1], split)
+
+
+def pipe_groups(split: bool, live_in: int) -> int:
+    """8-column groups of the pipelined walk's stages in a chunk of
+    ``live_in`` live power columns (``csrc/sig_pipe.cuh::pipe_groups``): 4
+    where they hold them (split: each live re group beside its im group),
+    else all 16."""
+    return 4 if -(-live_in // 8) * (2 if split else 1) <= 4 else 16
+
+
+def pipe_plan(width: int, npow: int, live: int) -> list:
+    """The pipelined walk's chunks of a head: ``(groups, live columns,
+    projection rows)`` each, the rows its live columns rounded up to 16
+    (``csrc/sig_pipe.cuh``: ``pipe_groups``, ``pipe_live``,
+    ``pipe_kmax``)."""
+    split = npow != width
+    cp = PIPE_CHUNK_COLS // (2 if split else 1)
+    out = []
+    for ch in range(-(-live // cp)):
+        n = min(cp, live - ch * cp)
+        out.append((pipe_groups(split, n), n, (n + 15) & ~15))
+    return out
+
+
+def pipe_index(k_tot: int, width: int, npow: int, live: int,
+               blocks: list, pack: int, nmp: int, bf2: bool) -> torch.Tensor:
+    """Where each bf16 value of the pipelined walk's stage stream comes
+    from: an int64 index into ``m_big`` ``[k_tot, width]`` flattened,
+    then (``bf2``) ``mt`` ``[3 npow, nmp]`` flattened, then one zero.
+    Per chunk of ``pipe_plan``: for each K block of ``blocks`` (the
+    head's ``block_order``) and each 32-row stage of its ``pack`` taps,
+    the stage as the ring holds it: ``groups`` column groups of
+    ``PIPE_GROUP`` values (core matrix ``k`` of rows ``8k .. 8k + 7`` by
+    row and column, then 8 of padding; split: the chunk's re groups, then
+    their im groups), zero past ``pack`` and in a group of no live
+    column; then (``bf2``) the chunk's projection rows in pieces of
+    ``PIPE_ROWS``, each piece's three stacks of ``[rows, nmp]`` swizzled
+    as the kernel reads them (16-byte group ``c`` of row ``r`` at ``c ^
+    (r & 7)``)."""
+    split = npow != width
+    cp = PIPE_CHUNK_COLS // (2 if split else 1)
+    cpb = -(-pack // 32)
+    n_steps = len(blocks) * cpb
+    mt0 = k_tot * width
+    zero = mt0 + (3 * npow * nmp if bf2 else 0)
+    kblk = torch.tensor([b for b, _ in blocks], dtype=torch.int64)
+    step = torch.arange(n_steps)
+    row = (step % cpb * 32).view(-1, 1, 1, 1, 1) + (
+        8 * torch.arange(4).view(1, 1, 4, 1, 1)
+        + torch.arange(8).view(1, 1, 1, 8, 1))
+    mrow = kblk[step // cpb].view(-1, 1, 1, 1, 1) * pack + row
+    parts = []
+    for ch, (groups, _, kmax) in enumerate(pipe_plan(width, npow, live)):
+        g = torch.arange(groups)
+        first = ch * cp + 8 * (g % (groups // 2) if split else g)
+        col0 = first + ((g >= groups // 2).long() * npow if split else 0)
+        col = col0.view(1, -1, 1, 1, 1) + torch.arange(8).view(1, 1, 1, 1, 8)
+        ok = (row < pack) & (first < live).view(1, -1, 1, 1, 1)
+        idx = torch.where(ok, mrow * width + col, torch.tensor(zero))
+        idx = idx.reshape(n_steps, groups, 256)
+        pad = torch.full((n_steps, groups, PIPE_GROUP - 256), zero,
+                         dtype=torch.int64)
+        parts.append(torch.cat([idx, pad], dim=2).reshape(-1))
+        if not bf2:
+            continue
+        for k0 in range(0, kmax, PIPE_ROWS):
+            r = torch.arange(min(PIPE_ROWS, kmax - k0)).view(-1, 1)
+            pos = torch.arange(nmp).view(1, -1)
+            colm = ((pos >> 3) ^ (r & 7)) * 8 + (pos & 7)
+            for s in range(3):
+                parts.append((mt0 + (s * npow + ch * cp + k0 + r) * nmp
+                              + colm).reshape(-1))
+    return torch.cat(parts) if parts else torch.zeros(0, dtype=torch.int64)
+
+
+def pipe_stages(m_big: torch.Tensor, mt: torch.Tensor, pair_i, *,
+                pack: int, npow: int, live: int) -> torch.Tensor:
+    """The pipelined walk's stage stream of a head (bf16, on ``m_big``'s
+    device): ``m_big`` and, for a bf2 head, ``mt`` gathered by
+    ``pipe_index`` in the head's block order, so each ring stage and each
+    projection piece is one contiguous copy."""
+    bf2 = mt.dtype == torch.bfloat16
+    idx = pipe_index(m_big.shape[0], m_big.shape[1], npow, live,
+                     block_order(tuple(int(i) for i in pair_i)), pack,
+                     mt.shape[1], bf2)
+    src = [m_big.reshape(-1)] + ([mt.reshape(-1)] if bf2 else [])
+    src.append(m_big.new_zeros(1))
+    return torch.cat(src)[idx.to(m_big.device)].contiguous()
+
+
+def stage_stream(m_big: torch.Tensor, mt: torch.Tensor, pair_i: tuple, *,
+                 pack: int, npow: int, live: int) -> torch.Tensor:
+    """``pipe_stages`` of a head for a launch, checked against the
+    kernel's own count of the stream's bytes."""
+    with profiling.span("setup.heads", head="k1_stages"):
+        stream = pipe_stages(m_big, mt, pair_i, pack=pack, npow=npow,
+                             live=live)
+    want = _bound().melspec_sig_mel_pipe_bytes(
+        m_big.shape[1], npow, live, len(pair_i), pack, mt.shape[1],
+        int(mt.dtype == torch.bfloat16))
+    if 2 * stream.numel() != want:
+        raise RuntimeError(f"K1's stage stream holds {2 * stream.numel()} "
+                           f"bytes; the kernel reads {want}")
+    return stream
 
 
 def fft_layout(head: SigHead) -> Layout:
@@ -918,9 +1079,13 @@ def raise_for(lib, rc: int, what: str) -> None:
 def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
             n_bins_pad, n_mels, mel_precision, pack_off, out_mode, guard,
             live, dft_size: int = 0, fft: FftHead | None = None,
-            epilogue: str | None = None, vad: tuple = (0.0, 0)) -> tuple:
+            stages: StageSlot | None = None, epilogue: str | None = None,
+            vad: tuple = (0.0, 0)) -> tuple:
     """One K1 launch. ``live``: the power columns that can be nonzero
     (None: every one). ``dft_size``, ``fft``: the head's (``SigHead``);
+    on the pipelined walk the head's stage stream comes from ``stages``
+    (its ``StageSlot``), or is laid out for this launch alone where that
+    is None;
     where ``head_layout`` gives layout 3, the factored path runs, from
     ``factored_dft``'s tables, and with ``fft`` the float64 FFT path, from
     its description (``m_big`` is not read by either; a launch that
@@ -929,7 +1094,7 @@ def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
     records ``q, lo, hi`` and no float mel) or ``"vad"`` (the mel and the
     Sobel counts at ``vad = (thr, start_y)``). Returns the outputs as a
     tuple."""
-    global launches, factored_launches, fft_launches
+    global launches, factored_launches, fft_launches, pipelined_launches
     dev = samples.device
     pair_i, npow, n_mels_pad, bf2 = check_head(
         samples, m_big, pair_i, mt, ks=ks, pack=pack, pack_off=pack_off,
@@ -941,9 +1106,11 @@ def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
         raise ValueError("the Sobel VAD needs n_mels >= 3")
     width = m_big.shape[1]
     live = npow if live is None else live
-    smem, frames, _, factored = head_layout(
-        SigHead(m_big, pair_i, mt, n_bins_pad, pack, n_mels, pack_off,
-                out_mode, guard, live, dft_size, fft), hop, ks)
+    head = SigHead(m_big, pair_i, mt, n_bins_pad, pack, n_mels, pack_off,
+                   out_mode, guard, live, dft_size, fft)
+    layout = head_layout(head, hop, ks)
+    smem, frames, _, factored = layout
+    pipe = layout.pipelined
     refusal = _smem_refusal(smem, hop, pack, pack_off, npow)
     if refusal is not None:
         raise NotImplementedError(refusal)
@@ -965,6 +1132,10 @@ def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
     if b == 0 or n_frames <= 0:
         return outs
     samples = samples.contiguous()
+    staged = None
+    if pipe:
+        staged = (stage_stream if stages is None else stages.stream)(
+            m_big, mt, pair_i, pack=pack, npow=npow, live=live)
     mt = aligned(mt)
     lib = _bound()
 
@@ -1006,11 +1177,12 @@ def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
                 len(pair_i), ks, npow, live, mt.data_ptr(), n_mels,
                 n_mels_pad, int(bf2), OUT_MODES.index(out_mode),
                 clamped_guard(guard), ptr(out), ptr(q), ptr(lo), ptr(hi),
-                ptr(counts), vad[0], int(vad[1]), stream)
+                ptr(counts), vad[0], int(vad[1]), ptr(staged), stream)
     raise_for(lib, rc, "K1 (sig_mel)")
     launches += 1
     factored_launches += int(factored)
     fft_launches += int(fft is not None)
+    pipelined_launches += int(pipe)
     if epilogue is not None:
         epilogue_launches[epilogue] += 1
     return outs
@@ -1031,14 +1203,17 @@ def sig_mel(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
             mel_precision: str = "bf2", pack_off: int = 0,
             out_mode: str = "whisper", guard: float = 0.0,
             live: int | None = None, dft_size: int = 0,
-            fft: FftHead | None = None) -> torch.Tensor:
+            fft: FftHead | None = None,
+            stages: StageSlot | None = None) -> torch.Tensor:
     """K1 on a CUDA signal, its plain version on a CPU one (same
     arguments as ``sig_mel_reference``; ``live``, the head's
     ``live_columns``, lets K1 skip the power columns that are zero, and
     None has it multiply every one; ``dft_size``, the head's, takes the
     factored path where ``factored_route`` gives a split and the head's
     own layout would be 32-frame blocks; ``fft``, the head's, the float64
-    FFT path). On the CPU the DFT dot is
+    FFT path; ``stages``, the head's ``StageSlot``, keeps the pipelined
+    walk's stage stream between launches, and None lays it out anew each
+    launch). On the CPU the DFT dot is
     summed exactly (float64): the f32 sum of a CPU BLAS changes with its
     thread count, and on near-silent mel bins that order alone can cost
     more than the accuracy gates allow."""
@@ -1046,7 +1221,7 @@ def sig_mel(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
               n_bins_pad=n_bins_pad, n_mels=n_mels,
               mel_precision=mel_precision, pack_off=pack_off,
               out_mode=out_mode, guard=guard, live=live, dft_size=dft_size,
-              fft=fft)
+              fft=fft, stages=stages)
     return _on_device(
         samples, lambda: _launch(samples, m_big, pair_i, mt, **kw)[0],
         lambda: sig_mel_reference(samples, m_big, pair_i, mt,
@@ -1057,7 +1232,8 @@ def sig_mel_quantized(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
                       mt: torch.Tensor, *, ks: int, n_frames: int, hop: int,
                       offset: int, pack: int, n_bins_pad: int, n_mels: int,
                       mel_precision: str = "bf2",
-                      live: int | None = None, dft_size: int = 0) -> tuple:
+                      live: int | None = None, dft_size: int = 0,
+                      stages: StageSlot | None = None) -> tuple:
     """K1 in whisper mode with the quant epilogue on a CUDA signal, its
     plain version on a CPU one (float64 DFT dot, as ``sig_mel``): ``(q
     [B, n_frames, n_mels] u8, lo [B, n_frames], hi [B, n_frames])``, each
@@ -1065,7 +1241,8 @@ def sig_mel_quantized(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
     mel."""
     kw = dict(ks=ks, n_frames=n_frames, hop=hop, offset=offset, pack=pack,
               n_bins_pad=n_bins_pad, n_mels=n_mels,
-              mel_precision=mel_precision, live=live, dft_size=dft_size)
+              mel_precision=mel_precision, live=live, dft_size=dft_size,
+              stages=stages)
     return _on_device(
         samples,
         lambda: _launch(samples, m_big, pair_i, mt, pack_off=0,
@@ -1079,7 +1256,8 @@ def sig_mel_vad(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
                 mt: torch.Tensor, *, ks: int, n_frames: int, hop: int,
                 offset: int, pack: int, n_bins_pad: int, n_mels: int,
                 vad: tuple, mel_precision: str = "bf2",
-                live: int | None = None, dft_size: int = 0) -> tuple:
+                live: int | None = None, dft_size: int = 0,
+                stages: StageSlot | None = None) -> tuple:
     """K1 in whisper mode with the Sobel VAD epilogue on a CUDA signal,
     its plain version on a CPU one (float64 DFT dot): ``(mel [B,
     n_frames, n_mels], counts [B, n_frames] int32)`` at ``vad = (thr,
@@ -1087,7 +1265,8 @@ def sig_mel_vad(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
     tile are 0 (see ``tile_vad_counts``)."""
     kw = dict(ks=ks, n_frames=n_frames, hop=hop, offset=offset, pack=pack,
               n_bins_pad=n_bins_pad, n_mels=n_mels,
-              mel_precision=mel_precision, live=live, dft_size=dft_size)
+              mel_precision=mel_precision, live=live, dft_size=dft_size,
+              stages=stages)
     return _on_device(
         samples,
         lambda: _launch(samples, m_big, pair_i, mt, pack_off=0,

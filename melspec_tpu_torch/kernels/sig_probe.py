@@ -1,20 +1,25 @@
 """Where K1's time goes on the card: K1 built from ``csrc/`` once as it
-is and once with each of the two largest parts of its chunk walk cut
-out (the m_big stream through the cp.async ring, the DFT's wgmma's),
-each timed on the batch path's launch (whisper large-v3, 400/160/128,
-64 x 30 s). A cut's output is not the function any more; its time only
-shows what the part it removes costs, and where the parts overlap.
+is and once with each part of its chunk walks cut out, each variant
+timed at 64 x 30 s. The pipelined 128-frame walk (``csrc/sig_pipe.cuh``,
+``PIPE_CUTS``: the producer's stage copy, the consumers' A loads, their
+DFT ``wgmma``s, the projection) is timed on the
+batch path's launch (whisper large-v3, 400/160/128) and NeMo's ln head
+(512/400/80, N-packed); the synchronous walk that K2 and K1's 64- and
+32-frame blocks keep (``csrc/sig_common.cuh``, ``CUTS``: the m_big
+stream through the cp.async ring, the DFT's wgmma's) on K1's 64-frame
+layout (whisper 1024/256 at 22.05 kHz). A cut's output is not the
+function any more; its time only shows what the part it removes costs,
+and where the parts overlap.
 
     python3 -m melspec_tpu_torch.kernels.sig_probe
 
 prints one JSON line per variant (its ms and the difference to the full
 kernel), then K1 and K2 at the batch path's and the frontend step's
-shapes, and K1 in its 64-frame layout (whisper 1024/256 at 22.05 kHz,
-64 x 30 s), and exits non-zero without a card (K1's factored path of the
-wide hops is timed by chip_smoke.py's phase wide_hops and the ``factored``
-mode below). The variants are text cuts of
-``csrc/sig_common.cuh``; each must match the source exactly once, which
-a CPU test checks, so an edit of the device code that moves one of them
+shapes, and K1 in its 64-frame layout, and exits non-zero without a
+card (K1's factored path of the wide hops is timed by chip_smoke.py's
+phase wide_hops and the ``factored`` mode below). The variants are text
+cuts of the headers; each must match its source exactly once, which a
+CPU test checks, so an edit of the device code that moves one of them
 fails there first.
 
     python3 -m melspec_tpu_torch.kernels.sig_probe factored
@@ -78,7 +83,7 @@ import torch
 from melspec_tpu_torch.kernels import build, sig_mel, sig_multi
 
 HEADER = build.CSRC_DIR / "sig_common.cuh"
-# variant -> (the text it cuts, what replaces it)
+# the synchronous walk's variant -> (the text it cuts, what replaces it)
 CUTS = {
     "no_m_big_stream": (
         "    if (nb < h.n_blocks) {",
@@ -88,6 +93,29 @@ CUTS = {
         "    if (tt + 16 < h.pack)\n"
         "      wgmma_128(d, a[1], gmma_desc(st + 2 * kCoreK, kLbo, kSbo));",
         "    d[0] += __uint_as_float(a[0][0] ^ a[1][3] ^ st);"),
+}
+PIPE = build.CSRC_DIR / "sig_pipe.cuh"
+# the pipelined walk's variant -> (the text it cuts, what replaces it);
+# the consumers still wait for and release every slot, so the ring keeps
+# its order
+PIPE_CUTS = {
+    "no_stage_copy": (
+        "    mbar_expect_tx(rg.full(rg.slot), bytes);\n"
+        "    bulk_copy(rg.data(rg.slot), src, bytes, rg.full(rg.slot));\n",
+        "    mbar_arrive(rg.full(rg.slot));\n"),
+    "no_a_loads": (
+        "          a[k][rw + 2 * hh] =\n"
+        "              kFast ? lds32(e)\n",
+        "          a[k][rw + 2 * hh] =\n"
+        "              kFast ? e\n"),
+    "no_consumer_mma": (
+        "        wgmma_n<N>(d, a[u][0], gmma_desc(st, kLbo, kSbo));\n"
+        "        wgmma_n<N>(d, a[u][1], gmma_desc(st + 2 * kCoreK, kLbo, "
+        "kSbo));\n",
+        "        d[0] += __uint_as_float(a[u][0][0] ^ a[u][1][3] ^ st);\n"),
+    "no_projection": (
+        "    for (int kk = 0; kk < rows; kk += 16) {",
+        "    for (int kk = 0; kk < 0 * rows; kk += 16) {"),
 }
 FACTORED = build.CSRC_DIR / "sig_factored.cuh"
 # K1's factored path: variant -> (the text it cuts, what replaces it)
@@ -151,14 +179,23 @@ LN_RATE = 48000
 LN_RATES = (48000, 64000, 80000)
 FUNCTIONS = ("melspec_sig_mel", "melspec_sig_mel_factored",
              "melspec_sig_mel_fft", "melspec_sig_mel_fft_smem",
-             "melspec_sig_mel_layout", "melspec_cuda_error_string")
+             "melspec_sig_mel_layout", "melspec_sig_mel_pipe_bytes",
+             "melspec_cuda_error_string")
+
+
+def cut_file(name: str):
+    """The header that variant ``name`` cuts: ``sig_pipe.cuh`` for
+    ``PIPE_CUTS``, else ``sig_common.cuh``."""
+    return PIPE if name in PIPE_CUTS else HEADER
 
 
 def variant_source(name: str, text: str | None = None) -> str:
-    """``sig_common.cuh`` with variant ``name``'s cut (``"full"``: as it
-    is); raises unless the cut's text occurs exactly once."""
-    cuts = [] if name == "full" else [CUTS[name]]
-    return build.edited(HEADER, cuts, f"sig_probe cut {name!r}", text)
+    """``cut_file(name)`` with variant ``name``'s cut of ``CUTS`` or
+    ``PIPE_CUTS`` (``"full"``: ``sig_common.cuh`` as it is); raises
+    unless the cut's text occurs exactly once."""
+    cuts = [] if name == "full" else [{**CUTS, **PIPE_CUTS}[name]]
+    return build.edited(cut_file(name), cuts, f"sig_probe cut {name!r}",
+                        text)
 
 
 def factored_source(name: str, text: str | None = None) -> str:
@@ -241,8 +278,9 @@ def run_factored(dev: torch.device, timer) -> list:
 
 
 def run(dev: torch.device, timer) -> list:
-    """Each variant's K1 time at the batch path's launch (``timer(fn)``
-    -> ms), then K1 and K2 as they are."""
+    """Each variant's K1 time (``timer(fn)`` -> ms): the pipelined walk's
+    at the batch path's launch and NeMo's, the synchronous walk's at
+    1024/256/80; then K1 and K2 as they are."""
     from melspec_tpu_torch.config import WHISPER_LARGE_V3 as c
     from melspec_tpu_torch.config import DetectionSettings
     from melspec_tpu_torch.ops import framing, mel_kernel
@@ -256,20 +294,6 @@ def run(dev: torch.device, timer) -> list:
                                    dev)
     nf = framing.num_frames_batch(x.shape[-1], c.fft_size, c.hop_size)
     kw = dict(ks=3, n_frames=nf, hop=c.hop_size, offset=0, **head.kw())
-
-    def k1():
-        return sig_mel.sig_mel(x, head.m_big, head.pair_i, head.mt, **kw)
-
-    names = ["full", *CUTS]
-    libs = build.build_variants("sig_probe", "sig_mel", {
-        name: {HEADER.name: variant_source(name)} for name in names})
-    rows = []
-    for name in names:
-        with build.bound_to(sig_mel, libs[name], FUNCTIONS):
-            rows.append(dict(variant=name, ms=timer(k1)))
-    for r in rows:
-        r["saves_ms"] = rows[0]["ms"] - r["ms"]
-    fused = WhisperKaldiFused(c, device=dev)
     nemo = BatchLogMel(device=dev)
     wide = mel_kernel.whisper_head(1024, 80, 22050.0, dev)
     x22 = torch.from_numpy((rng.normal(size=(B, int(SECONDS * 22050)))
@@ -277,6 +301,29 @@ def run(dev: torch.device, timer) -> list:
     kw22 = dict(ks=3, n_frames=framing.num_frames_batch(x22.shape[-1], 1024,
                                                         256),
                 hop=256, offset=0, **wide.kw())
+
+    def k1():
+        return sig_mel.sig_mel(x, head.m_big, head.pair_i, head.mt, **kw)
+
+    def k1_22k():
+        return sig_mel.sig_mel(x22, wide.m_big, wide.pair_i, wide.mt, **kw22)
+
+    calls = {"whisper_400_160_128": k1, "nemo_512_400_80": (
+        lambda: nemo.compute(x)), "whisper_1024_256_80": k1_22k}
+    names = ["full", *PIPE_CUTS, *CUTS]
+    libs = build.build_variants("sig_probe", "sig_mel", {
+        name: {cut_file(name).name: variant_source(name)} for name in names})
+    rows = []
+    for name in names:
+        timed = (["whisper_1024_256_80"] if name in CUTS else
+                 ["whisper_400_160_128", "nemo_512_400_80"]
+                 if name in PIPE_CUTS else list(calls))
+        with build.bound_to(sig_mel, libs[name], FUNCTIONS):
+            rows.append(dict(variant=name,
+                             ms={k: timer(calls[k]) for k in timed}))
+    for r in rows:
+        r["saves_ms"] = {k: rows[0]["ms"][k] - v for k, v in r["ms"].items()}
+    fused = WhisperKaldiFused(c, device=dev)
     rows += [
         dict(variant="k1_whisper_128", ms=timer(k1)),
         dict(variant="k2_whisper_kaldi_vad", ms=timer(

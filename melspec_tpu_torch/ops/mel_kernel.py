@@ -44,7 +44,7 @@ from melspec_tpu_torch.kernels.framed_mel import (IMPLS, FramedMatrices,
                                                   framed_mel)
 from melspec_tpu_torch.kernels.sig_mel import (FFT_N, NYQUIST_TOL,
                                                FftHead, SigHead,
-                                               k1_accepts,
+                                               StageSlot, k1_accepts,
                                                k1_vad_tile, live_columns,
                                                sig_mel,
                                                sig_mel_quantized,
@@ -254,8 +254,9 @@ class SigMatrices:
     ``pair_i``, ``mt`` f32 ``[n_bins_pad, n_mels_pad]``, ``mt_bf2`` bf16
     ``[3*n_bins_pad, n_mels_pad]``, the re|im split point ``n_bins_pad``,
     the power columns that can be nonzero (``live_columns`` of the host
-    matrix) and ``dft_size``, the N whose Hann-windowed DFT ``m_big`` is
-    (``SigHead.dft_size``; 0 for matrices from elsewhere)."""
+    matrix), ``dft_size``, the N whose Hann-windowed DFT ``m_big`` is
+    (``SigHead.dft_size``; 0 for matrices from elsewhere), and ``stages``,
+    the slot of K1's pipelined stage stream (``SigHead.stages``)."""
 
     m_big: torch.Tensor
     pair_i: tuple
@@ -264,11 +265,16 @@ class SigMatrices:
     n_bins_pad: int
     live: int
     dft_size: int = 0
+    stages: StageSlot = dataclasses.field(default_factory=StageSlot,
+                                          compare=False, repr=False)
 
     def to(self, device) -> "SigMatrices":
+        if all(t.device == torch.device(device)
+               for t in (self.m_big, self.mt, self.mt_bf2)):
+            return self
         return dataclasses.replace(
             self, m_big=self.m_big.to(device), mt=self.mt.to(device),
-            mt_bf2=self.mt_bf2.to(device))
+            mt_bf2=self.mt_bf2.to(device), stages=StageSlot())
 
 
 @functools.lru_cache(maxsize=16)
@@ -291,7 +297,7 @@ def whisper_head(fft_size: int, n_mels: int, sampling_rate: float,
                         device)
     return SigHead(mats.m_big, mats.pair_i, mats.mt_bf2, mats.n_bins_pad,
                    fft_size, n_mels, pack_off=pack_off, live=mats.live,
-                   dft_size=mats.dft_size)
+                   dft_size=mats.dft_size, stages=mats.stages)
 
 
 def _k1_input(samples, fft_size: int, hop_size: int, streaming: bool,
@@ -328,7 +334,7 @@ def _sig_kw(ks: int, fft_size: int, hop_size: int, n_mels: int,
     return dict(ks=ks, n_frames=n_frames, hop=hop_size,
                 offset=offset, pack=fft_size, n_bins_pad=mats.n_bins_pad,
                 n_mels=n_mels, mel_precision=mel_precision, live=mats.live,
-                dft_size=mats.dft_size)
+                dft_size=mats.dft_size, stages=mats.stages)
 
 
 def whisper_mel_sig(

@@ -166,7 +166,7 @@ class MultiStreamMel:
                 signal, m.m_big, m.pair_i, m.mt_bf2, ks=3, n_frames=h,
                 hop=hop, offset=hop, pack=fft, n_bins_pad=m.n_bins_pad,
                 n_mels=self.config.n_mels, mel_precision="bf2", live=m.live,
-                dft_size=m.dft_size,
+                dft_size=m.dft_size, stages=m.stages,
             ).to(self.dtype)
         else:
             frames = framing.frame_signal(signal, fft, hop, h, offset=hop)

@@ -127,7 +127,8 @@ SETUP = "setup."
 # the kernels' launch counters, as (module of kernels/, attribute): read
 # where they live, never moved
 COUNTERS = (("sig_mel", "launches"), ("sig_mel", "factored_launches"),
-            ("sig_mel", "fft_launches"), ("sig_mel", "epilogue_launches"),
+            ("sig_mel", "fft_launches"), ("sig_mel", "pipelined_launches"),
+            ("sig_mel", "epilogue_launches"),
             ("sig_multi", "launches"), ("resample", "launches"),
             ("framed_mel", "launches"), ("load_probe", "launches"))
 _KERNELS = "melspec_tpu_torch.kernels."

@@ -839,3 +839,95 @@ def test_mfcc_external_anchor(dev):
     d = np.abs(got - want)
     assert d.max() < 0.2 and d.mean() < 0.03
     assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.99999
+
+
+def _pipe_heads(dev):
+    """K1's heads on its pipelined 128-frame walk: whisper 400/160 at 80
+    and 128 mels (split) and NeMo's ln head (512/400/80, N-packed, taps at
+    ``pack_off`` 56)."""
+    from melspec_tpu_torch.ops.batch_logmel import BatchLogMel
+
+    return {"whisper_80": mel_kernel.whisper_head(400, 80, 16000.0, dev),
+            "whisper_128": mel_kernel.whisper_head(400, 128, 16000.0, dev),
+            "nemo": BatchLogMel(fft_impl="sig", device=dev).sig_head}
+
+
+# (clips, samples): one clip of one tile; 133 clips of one tile (an odd
+# tile count, more blocks than the card's SMs); a frame count that is no
+# multiple of 128
+PIPE_SHAPES = [(1, 16000 + 37), (133, 16000 + 37), (3, 16000 * 5 + 1234)]
+
+
+@pytest.mark.parametrize("shape", PIPE_SHAPES)
+@pytest.mark.parametrize("which", ["whisper_80", "whisper_128", "nemo"])
+def test_k1_pipelined_equals_k2(dev, which, shape):
+    """K1 on its pipelined walk equals K2's output of the same head (K2
+    keeps the synchronous walk and sums in the same order) bit for bit,
+    at ragged shapes."""
+    head = _pipe_heads(dev)[which]
+    assert sig_mel.head_layout(head, 160).pipelined
+    x = torch.from_numpy((np.random.default_rng(sum(shape)).normal(
+        size=shape) * 0.2).astype(np.float32)).to(dev)
+    nf = framing.num_frames_batch(shape[1], 400, 160)
+    kw = dict(ks=3, n_frames=nf, hop=160, offset=0)
+    before = (sig_mel.launches, sig_mel.pipelined_launches)
+    k1 = sig_mel.sig_mel(x, head.m_big, head.pair_i, head.mt, **kw,
+                         **head.kw())
+    (k2,), _ = sig_multi.sig_multi(x, [head], **kw)
+    torch.cuda.synchronize()
+    assert (sig_mel.launches, sig_mel.pipelined_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(k1, k2)
+
+
+@pytest.mark.parametrize("shape", PIPE_SHAPES)
+def test_k1_pipelined_epilogues_equal_k2(dev, shape):
+    """The VAD and quant epilogues on the pipelined walk: K1's mel and
+    counts equal K2's (head 0 with the VAD epilogue), and K1's records
+    equal ``quantize_frames`` of K2's mel, bit for bit."""
+    from melspec_tpu_torch.config import DetectionSettings
+    from melspec_tpu_torch.ops.quant import quantize_frames
+
+    head = _pipe_heads(dev)["whisper_128"]
+    x = torch.from_numpy((np.random.default_rng(sum(shape) + 1).normal(
+        size=shape) * 0.2).astype(np.float32)).to(dev)
+    nf = framing.num_frames_batch(shape[1], 400, 160)
+    kw = dict(ks=3, n_frames=nf, hop=160, offset=0)
+    vad = sig_mel.vad_args(DetectionSettings(), head.n_mels)
+    args = (x, head.m_big, head.pair_i, head.mt)
+    hkw = dict(pack=head.pack, n_bins_pad=head.n_bins_pad,
+               n_mels=head.n_mels, live=head.live)
+    before = sig_mel.pipelined_launches
+    mel, counts = sig_mel.sig_mel_vad(*args, vad=vad, **kw, **hkw)
+    q, lo, hi = sig_mel.sig_mel_quantized(*args, **kw, **hkw)
+    (k2,), k2_counts = sig_multi.sig_multi(x, [head], vad=vad, **kw)
+    torch.cuda.synchronize()
+    assert sig_mel.pipelined_launches == before + 2
+    assert torch.equal(mel, k2) and torch.equal(counts, k2_counts)
+    wq, wlo, whi = quantize_frames(k2)
+    assert torch.equal(q, wq) and torch.equal(lo, wlo)
+    assert torch.equal(hi, whi)
+
+
+def test_pipelined_launches_count_where_the_walk_runs(dev):
+    """``sig_mel.pipelined_launches`` counts whisper 400/160/128's and
+    NeMo 512/400/80's launches, which take the pipelined walk, and not a
+    head of 256 mels, which keeps the 64-frame blocks."""
+    from melspec_tpu_torch.ops.batch_logmel import BatchLogMel
+
+    x = torch.from_numpy((np.random.default_rng(5).normal(
+        size=(2, 16000 * 3)) * 0.2).astype(np.float32)).to(dev)
+    for run in (lambda: mel_kernel.whisper_mel_sig(x, 400, 160, 128,
+                                                  device=dev),
+                lambda: BatchLogMel(fft_impl="sig", device=dev).compute(x)):
+        before = (sig_mel.launches, sig_mel.pipelined_launches)
+        run()
+        assert (sig_mel.launches, sig_mel.pipelined_launches) == (
+            before[0] + 1, before[1] + 1)
+    wide = mel_kernel.whisper_head(400, 256, 16000.0, dev)
+    assert not sig_mel.head_layout(wide, 160).pipelined
+    assert sig_mel.head_layout(wide, 160).frames == 64
+    before = (sig_mel.launches, sig_mel.pipelined_launches)
+    mel_kernel.whisper_mel_sig(x, 400, 160, 256, device=dev)
+    assert (sig_mel.launches, sig_mel.pipelined_launches) == (
+        before[0] + 1, before[1])

@@ -281,7 +281,7 @@ def test_top_level_span_counts_kernel_launches(monkeypatch):
     c = profiling.counters()
     assert c["sig_mel.launches"] == 12 and c["sig_multi.launches"] == 5
     assert {"sig_mel.fft_launches", "sig_mel.factored_launches",
-            "sig_mel.epilogue_launches.vad", "resample.launches.K4",
+            "sig_mel.pipelined_launches", "sig_mel.epilogue_launches.vad", "resample.launches.K4",
             "framed_mel.launches.K5", "load_probe.launches.flat_span"} \
         <= set(c)
 

@@ -1,7 +1,7 @@
 """K1's time probe on the CPU (it runs on the card only): every cut of
-the device code matches ``csrc/sig_common.cuh`` (the factored path's:
-``csrc/sig_factored.cuh``; the float64 FFT path's: ``csrc/sig_fft.cuh``)
-exactly once, a cut that no longer matches raises, the Kaldi and NeMo
+the device code matches ``csrc/sig_common.cuh`` (the pipelined walk's:
+``csrc/sig_pipe.cuh``; the factored path's: ``csrc/sig_factored.cuh``;
+the float64 FFT path's: ``csrc/sig_fft.cuh``) exactly once, a cut that no longer matches raises, the Kaldi and NeMo
 fronts of its ``dump`` carry the FFT path at each rate, and the command
 refuses without a card."""
 
@@ -16,14 +16,16 @@ from melspec_tpu_torch.kernels import sig_probe
 ROOT = Path(__file__).resolve().parents[1]
 
 
-@pytest.mark.parametrize("name", ["full", *sig_probe.CUTS])
+@pytest.mark.parametrize("name", ["full", *sig_probe.CUTS,
+                                  *sig_probe.PIPE_CUTS])
 def test_cuts_match_the_header_once(name):
-    text = sig_probe.HEADER.read_text()
+    assert not set(sig_probe.CUTS) & set(sig_probe.PIPE_CUTS)
+    text = sig_probe.cut_file(name).read_text()
     got = sig_probe.variant_source(name, text)
     if name == "full":
         assert got == text
     else:
-        old, new = sig_probe.CUTS[name]
+        old, new = {**sig_probe.CUTS, **sig_probe.PIPE_CUTS}[name]
         assert old not in got and got.count(new) >= 1
         assert len(got) - len(text) == len(new) - len(old)
 
