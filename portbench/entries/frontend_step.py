@@ -7,7 +7,10 @@ u8 quantisation of the whisper mel over the whole block.
 (``portbench/reference``); ``compare`` gives ``mel_gap`` (the mel, and the
 u8 block with its range, in mel units), ``fbank_gap``, ``nemo_gap`` and
 ``vad_flips`` (smoothed columns that differ, plus the difference of the
-active-column count; infinite where the total column count differs)."""
+active-column count; infinite where the total column count differs).
+``FAULTS``: what the step's answer can suffer
+(``tests/test_portbench_control.py`` plants each): half of the batch left
+out, and each output altered where it is made."""
 
 from __future__ import annotations
 
@@ -15,6 +18,10 @@ import torch
 
 from portbench.lib.gaps import INF, max_gap, worst
 from portbench.reference import features, records, vad
+
+FAULTS = [("half_batch", None)] + [
+    ("altered", k) for k in ("mel", "fbank", "nemo", "vad_smoothed",
+                             "mel_q8")]
 
 
 def _configs(config: dict):
@@ -71,7 +78,10 @@ class Sut:
     def counters(self) -> dict:
         from melspec_tpu_torch.kernels import sig_mel, sig_multi
 
-        return {"K1": sig_mel.launches, "K2": sig_multi.launches}
+        return {"K1": sig_mel.launches, "K2": sig_multi.launches,
+                **{f"sig_mel.{c}": getattr(sig_mel, c) for c in (
+                    "pipelined_launches", "factored_launches",
+                    "fft_launches")}}
 
     def kernel_shapes(self) -> dict:
         w, k, n = (self.config["frontends"][f]

@@ -4,7 +4,9 @@ configuration's ``fft_impl`` (``"auto"`` takes K1 on the card), on
 
 ``reference`` is ``portbench/reference/features.py::whisper_log_mel`` on
 the same clips; ``compare`` gives ``mel_gap``, the largest absolute
-difference over every value of every checked call."""
+difference over every value of every checked call. ``FAULTS``: what the
+call's answer can suffer (``tests/test_portbench_control.py`` plants
+each): half of the batch left out, the mel altered where it is made."""
 
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ import torch
 
 from portbench.lib.gaps import max_gap, worst
 from portbench.reference import features
+
+FAULTS = [("half_batch", None), ("altered", None)]
 
 
 class Sut:
@@ -34,7 +38,10 @@ class Sut:
     def counters(self) -> dict:
         from melspec_tpu_torch.kernels import sig_mel
 
-        return {"K1": sig_mel.launches}
+        return {"K1": sig_mel.launches,
+                **{f"sig_mel.{c}": getattr(sig_mel, c) for c in (
+                    "pipelined_launches", "factored_launches",
+                    "fft_launches")}}
 
     def kernel_shapes(self) -> dict:
         fe, p = self.fe, self.params

@@ -8,12 +8,16 @@
   tape of recordings (``data/<file>``, int16 at its ``rate``) taken round
   the tape's end, at a seeded gain in ``gain_db``. Speech falls off
   towards high frequencies and holds pauses and digital silence, so the
-  log heads see near-empty bins and their floors.
+  log heads see near-empty bins and their floors. At a whole multiple k
+  of the tape's rate the tape is first up-sampled by k (``tape_at``):
+  band-limited, so every bin above the tape's Nyquist frequency is empty.
 
 A traffic file names a ring entry as ``{"signal": <name>, ...}``; the
 other keys are the signal's own parameters."""
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -51,16 +55,49 @@ def tape(file: str) -> tuple:
         return d["tape"], int(d["rate"])
 
 
+def tape_at(file: str, rate: float, device: torch.device) -> torch.Tensor:
+    """The tape ``file`` at ``rate``, float32 on ``device`` in [-1, 1): at
+    the tape's own rate its int16 samples over 32768; at ``k`` times it,
+    for a whole ``k``, the tape up-sampled by ``upsampled``. Any other
+    rate raises ``ValueError``."""
+    samples, tape_rate = tape(file)
+    k = rate / tape_rate
+    if k != int(k) or k < 1:
+        raise ValueError(f"{file} holds {tape_rate} Hz audio, and {rate} Hz "
+                         f"is no whole multiple of it")
+    if k == 1:
+        return torch.as_tensor(samples, device=device).to(
+            torch.float32) / 32768.0
+    return upsampled(file, int(k), device).to(device)
+
+
+@functools.lru_cache(maxsize=4)
+def upsampled(file: str, k: int, device: torch.device) -> torch.Tensor:
+    """The tape ``file`` up-sampled by ``k``, float32 on the CPU, worked
+    out once a process on ``device``: band-limited periodic interpolation
+    in float64 (the tape's rFFT zero-padded to ``k`` times its length and
+    inverted; the tape is read round its end, so it is periodic). Every
+    ``k``-th sample is the tape's, and every bin above the tape's Nyquist
+    frequency is empty. Kept on the host, so that the window's memory
+    peak holds no tape."""
+    samples, _ = tape(file)
+    src = torch.as_tensor(samples, device=device).to(torch.float64) / 32768.0
+    n = src.numel()
+    spec = torch.fft.rfft(src)
+    if n % 2 == 0:
+        # the tape's Nyquist bin stands for +n/2 and -n/2 alike; at k n
+        # points they are two bins, each holding half
+        spec[-1] *= 0.5
+    return (torch.fft.irfft(spec, n=k * n) * k).to(torch.float32).cpu()
+
+
 def recorded(g: torch.Generator, streams: int, n: int, rate: float,
              device: torch.device, file: str, gain_db: list,
              block: int = 16) -> torch.Tensor:
     """``[streams, n]`` float32 on ``device``: clips of the tape ``file``
-    from seeded starts, scaled by a seeded gain, uniform in decibels over
-    ``gain_db``."""
-    samples, tape_rate = tape(file)
-    if tape_rate != rate:
-        raise ValueError(f"{file} holds {tape_rate} Hz audio, not {rate}")
-    src = torch.as_tensor(samples, device=device).to(torch.float32) / 32768.0
+    at ``rate`` (``tape_at``) from seeded starts, scaled by a seeded gain,
+    uniform in decibels over ``gain_db``."""
+    src = tape_at(file, rate, device)
     start = torch.randint(0, src.numel(), (streams, 1), generator=g,
                           device=device)
     lo, hi = gain_db

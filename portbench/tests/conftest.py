@@ -1,6 +1,7 @@
-"""Shared pieces of the benchmark's CPU tests: the cells, small sizes for
-each traffic kind, and a run of a cell on the CPU (the program's plain
-routes), which skips only the harness's look for a card."""
+"""Shared pieces of the benchmark's CPU tests: the cells, their small
+sizes (``TINY`` of the cell's traffic module), and a run of a cell on the
+CPU (the program's plain routes), which skips only the harness's look for
+a card."""
 
 from __future__ import annotations
 
@@ -12,11 +13,6 @@ import torch
 from portbench import run
 from portbench.lib import registry
 
-# small sizes by traffic kind; every other parameter is the cell's own
-TINY = {
-    "offline_batches": {"batch": 2, "clip_seconds": 1.0,
-                        "trace_seconds": 0.2},
-}
 SEED = 2**31 + 977
 SECONDS = 0.8
 CPU = torch.device("cpu")
@@ -27,7 +23,10 @@ def cells() -> list:
 
 
 def tiny(cell: str) -> dict:
-    return TINY[registry.load_json("workloads", cell)["traffic"]]
+    """The small sizes of ``cell``'s traffic module (``TINY``); every other
+    parameter is the cell's own."""
+    return registry.load_module(
+        "traffic", registry.load_json("workloads", cell)["traffic"]).TINY
 
 
 def run_cpu(cell: str, trace: bool = False, control: bool = False,

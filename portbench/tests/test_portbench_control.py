@@ -3,9 +3,12 @@
 - the control: the reference computed in TF32 put in the program's place
   fails at least one of each cell's limits;
 - the faults, planted under a whole run (only the harness's look for a
-  card is skipped): half of the batch left out, an answer altered where
-  it is produced. No cell runs across chips, so no exchange can be left
-  out, and no cell carries state from call to call."""
+  card is skipped): those that the cell's entry declares in its
+  ``FAULTS``, ``(fault, key)`` pairs: ``half_batch`` (half of the batch
+  left out) and ``altered`` (an answer, the output ``key`` of a dict,
+  altered where it is produced). No cell runs across chips, so no
+  exchange can be left out, and no cell carries state from call to
+  call."""
 
 from __future__ import annotations
 
@@ -69,21 +72,26 @@ def _alter(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-# the faults each entry's outputs can have, by entry
-FAULTS = {
-    "whisper_mel_batch": [("half_batch", None), ("altered", None)],
-    "frontend_step": [("half_batch", None)] + [
-        ("altered", k) for k in ("mel", "fbank", "nemo", "vad_smoothed",
-                                 "mel_q8")],
-}
+FAULT_KINDS = ("half_batch", "altered")
 
 
 def _cases():
+    """``(cell, fault, key)`` for each fault that each cell's entry
+    declares; an entry without ``FAULTS`` gives none here and fails
+    ``test_every_entry_declares_its_faults``."""
     out = []
     for cell in cells():
-        name = registry.load_json("workloads", cell)["entry"]
-        out += [(cell, fault, key) for fault, key in FAULTS[name]]
+        faults = getattr(_entry(cell), "FAULTS", [])
+        out += [(cell, fault, key) for fault, key in faults]
     return out
+
+
+@pytest.mark.parametrize("name", registry.names("entries"))
+def test_every_entry_declares_its_faults(name):
+    faults = getattr(registry.load_module("entries", name), "FAULTS", None)
+    assert faults, f"entries/{name}.py declares no FAULTS"
+    for fault, key in faults:
+        assert fault in FAULT_KINDS and (key is None or isinstance(key, str))
 
 
 @pytest.mark.parametrize("cell,fault,key", _cases())

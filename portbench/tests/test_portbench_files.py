@@ -40,6 +40,13 @@ def test_cell_names_existing_files(cell):
     assert w["limits"] and all(v >= 0 for v in w["limits"].values())
 
 
+@pytest.mark.parametrize("name", registry.names("traffic"))
+def test_every_traffic_declares_its_tiny_sizes(name):
+    tiny = getattr(registry.load_module("traffic", name), "TINY", None)
+    assert isinstance(tiny, dict) and tiny, \
+        f"traffic/{name}.py declares no TINY"
+
+
 def test_unknown_names_are_refused():
     with pytest.raises(FileNotFoundError):
         registry.load_json("workloads", "no-such-cell")

@@ -12,7 +12,10 @@ for the check, drawn from the seed, besides the last call on each batch
 of the ring, so that every signal of the ring is checked.
 
 End-to-end metric: ``audio_x_realtime``, the seconds of audio of every
-call completed in the window over the window's wall seconds."""
+call completed in the window over the window's wall seconds.
+
+``TINY``: the parameters that the benchmark's CPU tests put in place of
+the cell's own, for a run at a small size."""
 
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ import numpy as np
 
 from portbench.lib.device import sync
 from portbench.lib.signals import generator, make
+
+TINY = {"batch": 2, "clip_seconds": 1.0, "trace_seconds": 0.2}
 
 
 def prepare(sut, run) -> dict:
