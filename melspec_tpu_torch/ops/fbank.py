@@ -32,6 +32,7 @@ import torch
 
 from melspec_tpu_torch._device import full_f32, resolve_device
 from melspec_tpu_torch.config import FbankConfig
+from melspec_tpu_torch.kernels import sig_mel as k1
 from melspec_tpu_torch.kernels.sig_mel import SigHead, k1_accepts, sig_mel
 from melspec_tpu_torch.ops import dft, framing
 from melspec_tpu_torch.ops.fastmath import ln_best
@@ -183,6 +184,17 @@ class Fbank:
     def _compute(self, x: torch.Tensor) -> torch.Tensor:
         """Features of ``x [..., T]`` (already on the device, in the
         pipeline dtype) with at least one frame."""
+        return self._cmn(self._spectral(x))
+
+    def _cmn(self, feats: torch.Tensor) -> torch.Tensor:
+        """With ``apply_cmn``, each bin's mean over the frames
+        subtracted."""
+        if self.config.apply_cmn:
+            feats = feats - feats.mean(dim=-2, keepdim=True)
+        return feats
+
+    def _spectral(self, x: torch.Tensor) -> torch.Tensor:
+        """``_compute`` before the CMN."""
         cfg = self.config
         n = x.shape[-1]
         nf = self.num_frames(n)
@@ -196,11 +208,8 @@ class Fbank:
             feats = sig_mel(x.reshape((-1, n)).to(torch.float32), h.m_big,
                             h.pair_i, h.mt, ks=3, n_frames=nf,
                             hop=self.frame_shift, offset=0, **h.kw())
-            feats = feats.reshape(lead + (nf, cfg.num_mel_bins)).to(
+            return feats.reshape(lead + (nf, cfg.num_mel_bins)).to(
                 self.dtype)
-            if cfg.apply_cmn:
-                feats = feats - feats.mean(dim=-2, keepdim=True)
-            return feats
 
         frames = framing.frame_signal(x, self.frame_len, self.frame_shift,
                                       nf)
@@ -248,16 +257,31 @@ class Fbank:
                 power = torch.sqrt(power)
             energy = power @ self.filters_t
         energy = torch.clamp_min(energy, floor)
-        feats = ln_best(energy, self.dtype) if cfg.use_log_fbank else energy
-        if cfg.apply_cmn:
-            feats = feats - feats.mean(dim=-2, keepdim=True)
-        return feats  # [..., nf, num_mel_bins]
+        # [..., nf, num_mel_bins]
+        return ln_best(energy, self.dtype) if cfg.use_log_fbank else energy
 
     def compute(self, samples,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """``samples [..., T]`` -> ``[..., num_frames, num_mel_bins]``.
         With ``config.dither > 0`` and a ``generator`` (on the pipeline's
-        device), Gaussian dither scaled by ``dither`` is added first."""
+        device), Gaussian dither scaled by ``dither`` is added first.
+
+        Traced (``utils/profiling.py``), a call is the span ``fbank``, with
+        the attrs ``k1_launches`` and ``fft_launches`` (K1's launches in
+        the call, and those on its float64 FFT path), and its stages,
+        which tile the features' work on the device: on the ``"sig"``
+        route ``fbank.spectral`` (the K1 launch) and ``fbank.cmn`` (the
+        per-bin mean and its subtraction), on the others ``fbank.plain``.
+        ``_compute``, which MFCC and the frontend step call, records
+        neither."""
+        with profiling.span("fbank", self.device) as sp:
+            launches, fft = k1.launches, k1.fft_launches
+            out = self._call(samples, generator)
+            sp.set(k1_launches=k1.launches - launches,
+                   fft_launches=k1.fft_launches - fft)
+            return out
+
+    def _call(self, samples, generator) -> torch.Tensor:
         x = torch.as_tensor(samples, device=self.device)
         if self.num_frames(x.shape[-1]) == 0:
             return torch.zeros(x.shape[:-1] + (0, self.config.num_mel_bins),
@@ -267,4 +291,11 @@ class Fbank:
             noise = torch.randn(x.shape, generator=generator,
                                 dtype=self.dtype, device=self.device)
             x = x + self.config.dither * noise
-        return self._compute(x)
+        stage = profiling.stages(self.device)
+        if self.fft_impl != "sig":
+            with stage("fbank.plain"):
+                return self._compute(x)
+        with stage("fbank.spectral"):
+            feats = self._spectral(x)
+        with stage("fbank.cmn"):
+            return self._cmn(feats)
