@@ -738,7 +738,7 @@ def phase_main_path(dev, rows) -> dict:
     head = mel_kernel.whisper_head(c.fft_size, c.n_mels, c.sampling_rate, dev)
     flops = head_work(head, frames)
     layout = k1_layout(head, c.hop_size)
-    stage_bytes = (k1_stage_bytes(head)
+    stage_bytes = (stage_bytes_of([head])
                    if sig_mel.head_layout(head, c.hop_size).pipelined
                    else None)
     l2 = dict(block_frames=layout[0], chunk_cols=layout[1],
@@ -1335,9 +1335,9 @@ def l2_bytes_counted(heads, hop: int, batch: int, n_frames: int,
     """The bytes one launch of K1 (one head) or K2 (several) requests
     from L2, counted from the kernels' loads, not measured: per block of
     ``layout = (frames, chunk columns)``, its signal span (float32), then
-    either K1's stage stream, which each block of its pipelined walk
-    (csrc/sig_pipe.cuh) reads whole (``stage_bytes``: its zeros past the
-    taps, its pad values and its projection pieces included), or, on the
+    either the heads' stage streams, which each block of the pipelined
+    walk (csrc/sig_pipe.cuh) reads whole (``stage_bytes``: their zeros
+    past the taps, their pad values and projection pieces included), or, on the
     synchronous walk (csrc/sig_common.cuh), per head every live DFT
     column of every K block's taps (bf16; zero-filled rows and dead
     columns are not read) and the projection rows of each column chunk's
@@ -1363,14 +1363,10 @@ def l2_bytes_counted(heads, hop: int, batch: int, n_frames: int,
                 l2_bytes_counted=blocks * per_block)
 
 
-def k1_stage_bytes(head) -> int:
-    """The bytes of K1's stage stream for ``head`` (the head's own,
-    from its ``StageSlot``)."""
-    width = head.m_big.shape[1]
-    npow = head.n_bins_pad or width
-    return 2 * head.stages.stream(head.m_big, head.mt, head.pair_i,
-                                  pack=head.pack, npow=npow,
-                                  live=head.live).numel()
+def stage_bytes_of(heads) -> int:
+    """The bytes of the heads' stage streams, which a block of the
+    pipelined walk reads (each head's own, from its ``StageSlot``)."""
+    return sum(2 * s.numel() for s in sig_multi.stage_streams(heads))
 
 
 def k1_layout(head, hop: int, ks: int = 3) -> tuple:
@@ -1380,9 +1376,10 @@ def k1_layout(head, hop: int, ks: int = 3) -> tuple:
 
 
 def k2_layout(heads, hop: int, ks: int = 3) -> tuple:
-    """As ``k1_layout``, for K2's heads."""
+    """``(frames per block, DFT columns per chunk, pipelined)`` of K2's
+    layout for ``heads`` (asks the kernel)."""
     layout = sig_multi.block_layout(ks, hop, *sig_multi._layout(heads))
-    return layout[1], layout[3]
+    return layout.frames, layout.cols, layout.pipelined
 
 
 def library_nemo(x, cfg):
@@ -2527,8 +2524,10 @@ def phase_frontend_step(dev, k2: dict) -> dict:
             x, fused.heads, **kw), reps=3, warmup=1),
         library_composition_ms=time_ms(lib),
         **bound(flops, head_bytes(fused.heads, x, list(outs) + [cnt])),
-        **dict(zip(("block_frames", "chunk_cols"), layout)),
-        **l2_bytes_counted(fused.heads, 160, STEP_B, nf, layout))
+        **dict(zip(("block_frames", "chunk_cols", "pipelined"), layout)),
+        **l2_bytes_counted(fused.heads, 160, STEP_B, nf, layout,
+                           stage_bytes_of(fused.heads) if layout[2]
+                           else None))
     k2_times["share_of_bound"] = k2_times["bound_ms"] / k2_times["ms"]
     emit("k2_times", **k2_times)
     return dict(counts=counts, k2_times=k2_times, steps=out)

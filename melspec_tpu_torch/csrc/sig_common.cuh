@@ -20,13 +20,16 @@
 // every block reads each live column of every K block once, about 1.9 MB
 // at 400/160 (6 blocks x 400 rows x 400 live of 512 columns x 2 bytes),
 // whatever its frame count. The design:
-//   - A block owns 128 frames of one clip (Lay<0>: each of the two
-//     warpgroups takes 64 frames and all 128 columns of a chunk), or 64
+//   - A block owns 128 frames of one clip (Lay<0>'s geometry: each of the
+//     two warpgroups takes 64 frames and all 128 columns of a chunk;
+//     walked only by the pipelined walk of sig_pipe.cuh, layout 4), or 64
 //     (Lay<1>: each warpgroup takes all 64 frames and half of a 256-column
-//     chunk) where the 128-frame span does not fit in shared memory or a
-//     head has more than 128 padded mel columns, or 32 (Lay<2>: Lay<1>'s
-//     walk with rows 32-63 of each warpgroup's m64 tile held at zero)
-//     where neither fits (the wide hops: 960/480, 1024/480, 2048/512).
+//     chunk) where the 128-frame span and the pipelined ring do not fit
+//     in shared memory or a head has more than 128 padded mel columns, or
+//     32 (Lay<2>: Lay<1>'s walk with rows 32-63 of each warpgroup's m64
+//     tile held at zero) where neither fits (the wide hops: 960/480,
+//     1024/480, 2048/512). The synchronous walk below (run_head) is
+//     Lay<1>'s and Lay<2>'s.
 //     Either way a k16 step of the DFT is one wgmma m64n128k16 per
 //     warpgroup, A from registers, B from the ring by descriptor, and a
 //     thread holds 64 float32 DFT accumulators; the larger tile halves the
@@ -41,8 +44,8 @@
 //     is read as 32-bit tap pairs where the hop and the head's pack_off
 //     are even, else as 16-bit taps (the NeMo tri-head's pack_off of 257):
 //     two compiled paths.
-//   - The DFT columns are walked in chunks (Lay<0>: 128 columns, Lay<1>:
-//     256; split: half re columns with their im columns, each warpgroup's
+//   - The DFT columns are walked in chunks (128-frame blocks: 128
+//     columns, Lay<1>: 256; split: half re columns with their im columns, each warpgroup's
 //     re columns beside their im columns; N-packed: all single). A chunk's
 //     m_big rows stream through a 4-stage cp.async ring of 32-row stages,
 //     stored as wgmma's core matrices of 8 rows x 16 bytes, each warp's
@@ -98,16 +101,19 @@ constexpr unsigned kSbo = kCoreN;
 // The factored layout's ring for the projection rows (C = 3)
 constexpr int kFactoredRing = 48 * 1024;
 
-// The block layouts: C = 0 holds 128 frames, C = 1 64, C = 2 32, C = 3
-// (the factored wide-hop path of sig_factored.cuh) 64, with chunks of 512
-// power columns (1024 DFT columns) and its own ring size. The DFT:
-// warpgroup w takes frames [w * kWgFrames, + 64) and ring columns [w *
-// kWgCols, + 128) of a chunk of kCols (Lay<0>: its own 64 frames and all
-// 128 columns; Lay<1>: all 64 frames and half of 256 columns; Lay<2>:
-// Lay<1>'s split with only rows 0-31 of the m64 tile holding frames, so
-// warps 2 and 3 of each warpgroup give zero A rows and store no power).
-// The projection and the outputs: kWM warp rows of 32 frames x kWN warp
-// columns. A ring stage holds 32 m_big rows of a chunk.
+// The block layouts: C = 0 holds 128 frames (the geometry of layout 4,
+// the pipelined walk of sig_pipe.cuh: no kernel walks C = 0 otherwise), C
+// = 1 64, C = 2 32, C = 3 (the factored wide-hop path of
+// sig_factored.cuh) 64, with chunks of 512 power columns (1024 DFT
+// columns) and its own ring size. The DFT: warpgroup w takes frames [w *
+// kWgFrames, + 64) and ring columns [w * kWgCols, + 128) of a chunk of
+// kCols (Lay<0>: its own 64 frames and all 128 columns; Lay<1>: all 64
+// frames and half of 256 columns; Lay<2>: Lay<1>'s split with only rows
+// 0-31 of the m64 tile holding frames, so warps 2 and 3 of each
+// warpgroup give zero A rows and store no power). The projection and the
+// outputs: kWM warp rows of 32 frames x kWN warp columns. A ring stage
+// holds 32 m_big rows of a chunk; the synchronous walk's cp.async ring
+// (Lay<1>, Lay<2>) holds kSlots of them.
 template <int C>
 struct Lay {
   static constexpr int kWM = C == 0 ? 4 : (C == 2 ? 1 : 2);
@@ -128,8 +134,8 @@ struct Lay {
 };
 
 // C = 4: Lay<0>'s tile walked by the warp-specialised pipeline of
-// sig_pipe.cuh (K1 only): the same frames, chunks and warp tiles, its own
-// ring
+// sig_pipe.cuh (K1's and K2's 128-frame blocks): the same frames, chunks
+// and warp tiles, its own ring
 template <>
 struct Lay<4> : Lay<0> {};
 
@@ -223,11 +229,13 @@ __host__ __device__ inline int chunk_pow(int width, int npow) {
   return npow == width ? Lay<C>::kCols : Lay<C>::kCols / 2;
 }
 
-// shared memory after the span: the ring, then one chunk's power tile
-// (bf16 p0 and p1, or float32: 4 bytes a value either way); the log tile
-// [tile][nmp] of the epilogue reuses both
+// shared memory after the span in the synchronous walk's layouts (1, 2):
+// the ring, then one chunk's power tile (bf16 p0 and p1, or float32: 4
+// bytes a value either way); the log tile [tile][nmp] of the epilogue
+// reuses both
 template <int C>
 __host__ __device__ inline long long work_bytes(int width, int npow) {
+  static_assert(C == 1 || C == 2, "the synchronous walk's layouts");
   return Lay<C>::kRingBytes +
          4LL * Lay<C>::kTile * chunk_pow<C>(width, npow);
 }
@@ -519,9 +527,10 @@ __device__ __forceinline__ bool split_head(const Head& h) {
 // thread the same row of groups 8 apart.
 template <int C>
 struct Filler {
+  static_assert(C == 1 || C == 2, "the synchronous walk's layouts");
   using L = Lay<C>;
   static constexpr int kGroups = L::kCols / 8;              // per ring row
-  static constexpr int kPer = kChunk * kGroups / kThreads;  // passes: 2, 4
+  static constexpr int kPer = kChunk * kGroups / kThreads;  // passes: 4
   static constexpr int kPassBytes = 8 * kCoreN;
   const __nv_bfloat16* col;  // m_big column of this thread's first group
   // columns from it to its group of pass i: (i & 1) * col_odd + (i >> 1) *
@@ -591,9 +600,9 @@ __device__ __forceinline__ unsigned a_pair(unsigned xs, int e, int pos,
 
 // y[tile, chunk] = sum_blk x_{slice(blk)} . m_big[blk rows, chunk columns]
 // over the head's blocks in the given order, taps ascending in k16 steps,
-// bf16 wgmma with float32 accumulation. Each warpgroup takes 64 frames (a
-// warp 16 of them) and 128 ring columns of the chunk (Lay::kWgFrames,
-// kWgCols), so a k16 step is one m64n128k16 per warpgroup, A from
+// bf16 wgmma with float32 accumulation. Each warpgroup takes the block's
+// 64 frames (a warp 16 of them) and 128 ring columns of the chunk
+// (Lay::kWgCols), so a k16 step is one m64n128k16 per warpgroup, A from
 // registers (the warp's tap pairs of the segmented span: frame f of the
 // tile reads slice taps at f * hop + pack_off), B from the ring stage by
 // descriptor. d[4j + e] is n8 tile j of the warpgroup's columns, fragment
@@ -603,6 +612,7 @@ __device__ __forceinline__ void dft_chunk(const Head& h, const int* tab,
                                           int ch, unsigned sx,
                                           const Span& sp, unsigned ring,
                                           float (&d)[64]) {
+  static_assert(C == 1 || C == 2, "the synchronous walk's layouts");
   using L = Lay<C>;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -610,7 +620,7 @@ __device__ __forceinline__ void dft_chunk(const Head& h, const int* tab,
 #pragma unroll
   for (int i = 0; i < 64; ++i) d[i] = 0.0f;
   int roff[2];  // element offset of this thread's two frame rows
-  roff[0] = ((warp >> 2) * L::kWgFrames + (warp & 3) * 16 + g) * sp.stride;
+  roff[0] = ((warp & 3) * 16 + g) * sp.stride;
   roff[1] = roff[0] + 8 * sp.stride;
   const int cpb = (h.pack + kChunk - 1) / kChunk;  // stages per K block
   const int n_steps = h.n_blocks * cpb;
@@ -706,6 +716,7 @@ template <int C>
 __device__ __forceinline__ void store_power(const Head& h,
                                             const float (&d)[64],
                                             unsigned char* pb) {
+  static_assert(C == 1 || C == 2, "the synchronous walk's layouts");
   using L = Lay<C>;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -721,7 +732,7 @@ __device__ __forceinline__ void store_power(const Head& h,
     const int col = col0 + j * 8 + 2 * q;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      const int row = wg * L::kWgFrames + (warp & 3) * 16 + g + 8 * hh;
+      const int row = (warp & 3) * 16 + g + 8 * hh;
       float pw[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
@@ -978,15 +989,17 @@ __device__ __forceinline__ void head_tile(const Head& h, unsigned char* work,
   }
 }
 
-// One head over the block's frames: the chunk walk, then the output
-// values of the head's mode (head_tile). tab is a shared copy of the
-// head's block table.
+// One head over the block's frames: the synchronous chunk walk of the 64-
+// and 32-frame blocks, then the output values of the head's mode
+// (head_tile). tab is a shared copy of the head's block table. (The
+// 128-frame blocks walk on sig_pipe.cuh's pipeline: pipe_head.)
 template <int C>
 __device__ __forceinline__ void run_head(const Head& h, int* tab,
                                          const __nv_bfloat16* sx,
                                          const Span& sp, unsigned char* work,
                                          int b, int k0, int n_frames,
                                          bool keep_vals) {
+  static_assert(C == 1 || C == 2, "the synchronous walk's layouts");
   using L = Lay<C>;
   // the walk's setup inside the lambda, after head_tile's: this order
   // keeps the chunk walk's time as it was before head_tile
@@ -1122,9 +1135,9 @@ __device__ __forceinline__ void quant_records(const float* vals, int nmp,
   }
 }
 
-// The layout of a launch: C = 0 (128-frame blocks) where every head has
-// at most Lay<0>::kMaxMels padded mel columns and the block's shared
-// memory fits, else C = 1 (64-frame blocks) where it fits or max_layout is
+// The layout of a launch: C = 0 (128-frame blocks, which K1 and K2 walk
+// as layout 4) where every head has at most Lay<0>::kMaxMels padded mel
+// columns and the block's shared memory fits, else C = 1 (64-frame blocks) where it fits or max_layout is
 // 1, else C = 2 (32-frame blocks). `need(c)` is the block's dynamic shared
 // memory in layout c. Returns c and writes the block's shared memory in
 // that layout (dynamic + static); a caller refuses the launch where it
@@ -1179,11 +1192,9 @@ __host__ __device__ inline int layout_vad_tile(int c) {
                   : Lay<3>::kVadTile;
 }
 
-// work_bytes of layout c (0 to 2: the chunk-walk layouts)
+// work_bytes of layout c (1, 2: the synchronous walk's layouts)
 __host__ inline long long layout_work_bytes(int c, int width, int npow) {
-  return c == 0   ? work_bytes<0>(width, npow)
-         : c == 1 ? work_bytes<1>(width, npow)
-                  : work_bytes<2>(width, npow);
+  return c == 1 ? work_bytes<1>(width, npow) : work_bytes<2>(width, npow);
 }
 
 }  // namespace sigk

@@ -55,14 +55,14 @@
 // tile (32 KB split, 64 KB N-packed; half that in 32-frame blocks); the log
 // tile reuses the last two.
 //
-// K1 walks its 128-frame blocks as layout 4, not 0: the same walk as a
+// K1 walks its 128-frame blocks as layout 4: the chunk walk as a
 // warp-specialised pipeline (sig_pipe.cuh), m_big brought in stage by
 // stage by a producer warp from a stream the host lays out once a head,
 // the consumers on mbarriers with no block barrier in the walk; the
-// outputs are layout 0's bit for bit. A block takes 128 frames where that
-// pipeline's ring of at least four slots fits beside its span (layout 0's
-// four-stage ring and its barriers), else 64. Layout 0's synchronous walk
-// is K2's (sig_multi.cu).
+// outputs are those of the synchronous walk's sum order bit for bit. A
+// block takes 128 frames where that pipeline's ring of at least four
+// slots and its barriers fit beside its span, else 64. No kernel keeps a
+// synchronous 128-frame walk: K2 (sig_multi.cu) takes layout 4 too.
 //
 // The wide whisper heads (960/480, 1024/480, 2048/512: whisper heads whose
 // 128- and 64-frame spans do not fit, and where the host gives the
@@ -116,29 +116,11 @@ __device__ __forceinline__ void pipe_block(const Params& p,
   unsigned char* work = smem + span_bytes(p.ks, p.span);
   unsigned char* bars = work + p.pipe.slots * kPipeSlot +
                         4LL * Lay<0>::kTile * cp;
-  Ring rg;
-  rg.data0 = smem_addr(work);
-  rg.bars = smem_addr(bars);
-  rg.slots = p.pipe.slots;
-  rg.slot = 0;
-  rg.phase = 0;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < rg.slots; ++s) {
-      mbar_init(rg.full(s), 1);
-      mbar_init(rg.empty(s), kWarps);
-    }
-    // the barriers' initialisation, seen by the bulk copies' completions
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x >= kThreads) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
-        kProducerRegs));
-    if (threadIdx.x == kThreads) pipe_produce(p.head, p.pipe, rg);
+  Ring rg = pipe_ring(work, bars, p.pipe.slots);
+  if (pipe_producer()) {
+    if (threadIdx.x == kThreads) pipe_produce(p.head, p.pipe.stages, rg);
     __syncwarp();
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
-        kConsumerRegs));
     const int b = blockIdx.x / p.tiles;
     const int k0 = (blockIdx.x - b * p.tiles) * Lay<0>::kTile;
     __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -146,7 +128,8 @@ __device__ __forceinline__ void pipe_block(const Params& p,
                p.offset + static_cast<long long>(k0) * p.span.hop, p.span,
                p.ks, sx);
     const bool keep = p.q != nullptr || p.vad != nullptr;
-    pipe_head(p.head, tab, sx, p.span, work, rg, b, k0, p.n_frames, keep);
+    pipe_head(p.head, tab, sx, p.span, work, work, rg, b, k0, p.n_frames,
+              keep);
     if (keep) {
       sync_tile<4>();  // the tile's normalized rows, from every warp
       const float* vals = reinterpret_cast<const float*>(work);
@@ -254,8 +237,7 @@ int layout(int ks, int hop, int pack, int pack_off, int width, int npow,
   if (c == 0) {
     const long long fixed =
         span_bytes(ks, *span) + pipe_work_bytes(width, npow, 0) + kStaticSmem;
-    int s = static_cast<int>((kSmemLimit - fixed) / kPipeSlot);
-    s = s < kPipeMaxSlots ? s : kPipeMaxSlots;
+    const int s = pipe_slots(fixed);
     c = 4;
     *bytes = fixed + static_cast<long long>(s) * kPipeSlot;
     if (slots) *slots = s;

@@ -1,16 +1,18 @@
-// K1's 128-frame chunk walk as a warp-specialised pipeline (layout 4): the
-// tile, chunks, sums and outputs of Lay<0> (sig_common.cuh), with m_big
-// and the bf2 projection's rows brought in by a producer warp. K1 only:
-// K2 (sig_multi.cu), Lay<1> / Lay<2> and the factored and FFT paths keep
-// their own walks and share nothing of this file beyond the copy and
-// wgmma primitives.
+// The 128-frame chunk walk as a warp-specialised pipeline (layout 4): the
+// tile, chunks, sums and outputs of sig_common.cuh's chunk walk in
+// 128-frame blocks, with m_big and the bf2 projection's rows brought in
+// by a producer warp. K1 (sig_mel.cu) walks its one head on it; K2
+// (sig_multi.cu) walks each of its heads on it in turn, through one ring,
+// beside the span staged once for all of them. Lay<1> / Lay<2> and the
+// factored and FFT paths keep their own walks and share nothing of this
+// file beyond the copy and wgmma primitives.
 //
-// Why: in Lay<0>'s synchronous walk every 32-row stage waits for its
-// cp.async copies, then a block barrier, before all 256 threads issue the
-// next copies and the wgmma's; that chain, not any one part of it, held
-// the walk at about 530 ns a stage against 140 ns of tensor-core work.
-// The design:
-//   - The host lays the head's m_big out once, stage by stage, in the
+// Why: in the synchronous walk every 32-row stage waits for its cp.async
+// copies, then a block barrier, before all 256 threads issue the next
+// copies and the wgmma's; that chain, not any one part of it, held the
+// 128-frame walk at about 530 ns a stage against 140 ns of tensor-core
+// work. The design:
+//   - The host lays each head's m_big out once, stage by stage, in the
 //     ring's own bytes (kernels/sig_mel.py::pipe_stages): each stage of a
 //     chunk as wgmma's core matrices of 8 rows x 16 bytes, 528 bytes a
 //     column group, only the groups that hold live columns (pipe_groups:
@@ -22,22 +24,25 @@
 //     mbarrier.
 //   - One producer warp (warp 8, of a warpgroup whose other warps only
 //     hand their registers over) keeps the ring full, up to 8 slots where
-//     shared memory allows; setmaxnreg gives the producer warpgroup's
-//     registers to the consumers (232 a thread).
-//   - The two consumer warpgroups (warps 0-7, as in Lay<0>) wait on a
+//     shared memory allows, head after head; setmaxnreg gives the
+//     producer warpgroup's registers to the consumers (232 a thread).
+//   - The two consumer warpgroups (warps 0-7) wait on a
 //     slot's "full" barrier, run its wgmma's (m64n128k16, or m64n32k16 on
-//     a narrow chunk, A from registers as in Lay<0>, each
+//     a narrow chunk, A from registers, each
 //     tap's place in the segmented span computed from the tap alone) and
 //     release it on its "empty" barrier: no block barrier inside the walk.
 //     The projection's pieces arrive through the same ring, ahead of the
 //     chunk's power.
+//   - K2's log tile lies past the ring (pipe_tile_bytes), so the producer
+//     brings the next head's stages in while a head's epilogue runs.
 // Two blocks a cluster sharing each stage by multicast were built and
 // measured slower (PERF.md §6): the L2 stream does not hold the walk
 // back, and the pair's barriers tie each block to the slower of the two.
 // Sums: every output sums the head's K blocks in the given order and each
 // block's taps in ascending k16 steps, then the projection's power columns
-// in ascending k16 steps, as Lay<0>: K1's outputs are Lay<0>'s bit for
-// bit.
+// in ascending k16 steps, as the synchronous walk of the other layouts
+// does: K1's and K2's outputs are equal bit for bit, whichever layout
+// each takes.
 
 #pragma once
 
@@ -111,6 +116,21 @@ __host__ inline long long pipe_bytes(int width, int npow, int live,
 __host__ inline long long pipe_work_bytes(int width, int npow, int slots) {
   return static_cast<long long>(slots) * kPipeSlot +
          4LL * Lay<0>::kTile * chunk_pow<0>(width, npow) + kPipeBarBytes;
+}
+
+// K2's tile region past the ring for a head: its chunk's power tile or its
+// log tile [tile][nmp], whichever is larger, so no head's epilogue
+// writes the ring
+__host__ inline long long pipe_tile_bytes(int width, int npow, int nmp) {
+  const int cols = chunk_pow<0>(width, npow);
+  return 4LL * Lay<0>::kTile * (cols > nmp ? cols : nmp);
+}
+
+// the ring's slots beside `fixed` bytes of a block's shared memory: as
+// many as fit, up to kPipeMaxSlots
+__host__ inline int pipe_slots(long long fixed) {
+  const long long s = (kSmemLimit - fixed) / kPipeSlot;
+  return static_cast<int>(s < kPipeMaxSlots ? s : kPipeMaxSlots);
 }
 
 // ---- mbarrier and bulk copy primitives (sm_90) ------------------------------
@@ -201,12 +221,52 @@ struct Ring {
   }
 };
 
+// The ring of `slots` slots at data, its barriers at bars, initialised by
+// thread 0 (full: the producer's one arrival with its bytes; empty: one
+// arrival a consumer warp) and seen by every thread of the block and by
+// the bulk copies' completions; at its first slot
+__device__ __forceinline__ Ring pipe_ring(unsigned char* data,
+                                          unsigned char* bars, int slots) {
+  Ring rg;
+  rg.data0 = smem_addr(data);
+  rg.bars = smem_addr(bars);
+  rg.slots = slots;
+  rg.slot = 0;
+  rg.phase = 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < rg.slots; ++s) {
+      mbar_init(rg.full(s), 1);
+      mbar_init(rg.empty(s), kWarps);
+    }
+    // the barriers' initialisation, seen by the bulk copies' completions
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return rg;
+}
+
+// Whether this thread is of the producer warpgroup (warps 8-11), which
+// hands its registers to the two consumer warpgroups; each side sets its
+// own count (warpgroup-uniform, as setmaxnreg needs)
+__device__ __forceinline__ bool pipe_producer() {
+  if (threadIdx.x >= kThreads) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    return true;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kConsumerRegs));
+  return false;
+}
+
 // The producer (one thread): every stage of the head's chunks in order,
 // then (bf2) the chunk's projection pieces, each into the next slot once
-// the consumers have released it
-__device__ __forceinline__ void pipe_produce(const Head& h, const Pipe& pp,
-                                             Ring rg) {
-  const unsigned char* src = pp.stages;
+// the consumers have released it; the ring goes on where it stops, for a
+// next head
+__device__ __forceinline__ void pipe_produce(const Head& h,
+                                             const unsigned char* stages,
+                                             Ring& rg) {
+  const unsigned char* src = stages;
   auto put = [&](unsigned bytes) {
     mbar_wait(rg.empty(rg.slot), rg.phase ^ 1);
     mbar_expect_tx(rg.full(rg.slot), bytes);
@@ -480,14 +540,16 @@ __device__ __forceinline__ void pipe_chunk_n(int groups, const Head& h,
 }
 
 // One head over the block's frames on the pipelined walk, then its output
-// values (head_tile): the consumers' part of run_head<0>. tab is a shared
-// copy of the head's block table.
+// values (head_tile), the log tile at vals: the consumers' part of
+// run_head. tab is a shared copy of the head's block table; the ring goes
+// on where the head leaves it.
 __device__ __forceinline__ void pipe_head(const Head& h, int* tab,
                                           const __nv_bfloat16* sx,
                                           const Span& sp, unsigned char* work,
-                                          Ring& rg, int b, int k0,
-                                          int n_frames, bool keep_vals) {
-  head_tile<4>(h, work, b, k0, n_frames, keep_vals, [&](Frag& en) {
+                                          unsigned char* vals, Ring& rg,
+                                          int b, int k0, int n_frames,
+                                          bool keep_vals) {
+  head_tile<4>(h, vals, b, k0, n_frames, keep_vals, [&](Frag& en) {
     const bool split = split_head(h);
     const int cp = chunk_pow<0>(h.width, h.npow);
     unsigned char* pb = work + rg.slots * kPipeSlot;

@@ -18,11 +18,12 @@ kernel launches, ``epilogue_launches`` those that ran an epilogue,
 else adds to them.
 
 The pipelined walk (``csrc/sig_pipe.cuh``, block layout 4) is how K1
-walks every 128-frame block: a producer warp brings m_big in stage by
-stage by bulk copy from a stream the host lays out once per head in the
-ring's own bytes (``pipe_stages``, kept in the head's ``StageSlot``),
+and K2 walk every 128-frame block: a producer warp brings m_big in stage
+by stage by bulk copy from a stream the host lays out once per head in
+the ring's own bytes (``pipe_stages``, kept in the head's ``StageSlot``),
 and the bf2 projection's rows with it; the outputs are those of the
-128-frame chunk walk (K2's) bit for bit.
+synchronous chunk walk's sum order bit for bit, so K1 and K2 agree on a
+head whichever layout each takes.
 
 The factored path (``csrc/sig_factored.cuh``, block layout 3) takes the
 whisper heads whose 128- and 64-frame spans do not fit a block (the wide
@@ -144,7 +145,8 @@ def mel_runs(mt: torch.Tensor) -> tuple:
 class StageSlot:
     """Where a head keeps its pipelined walk's stage stream
     (``pipe_stages``): the head's first launch on the pipelined walk
-    builds it, its later launches reuse it. One stream per projection
+    (K1's, or K2's with the head among its heads) builds it, its later
+    launches reuse it. One stream per projection
     dtype (``SigMatrices`` launches with either), each kept with the
     matrices and arguments it was laid out from, so a launch with others
     lays out its own."""
@@ -870,16 +872,18 @@ def pipe_stages(m_big: torch.Tensor, mt: torch.Tensor, pair_i, *,
 def stage_stream(m_big: torch.Tensor, mt: torch.Tensor, pair_i: tuple, *,
                  pack: int, npow: int, live: int) -> torch.Tensor:
     """``pipe_stages`` of a head for a launch, checked against the
-    kernel's own count of the stream's bytes."""
-    with profiling.span("setup.heads", head="k1_stages"):
+    kernels' own count of the stream's bytes (``csrc/sig_pipe.cuh::
+    pipe_bytes``, which K1 and K2 share; asked of K1's library)."""
+    with profiling.span("setup.heads", head="stages"):
         stream = pipe_stages(m_big, mt, pair_i, pack=pack, npow=npow,
                              live=live)
     want = _bound().melspec_sig_mel_pipe_bytes(
         m_big.shape[1], npow, live, len(pair_i), pack, mt.shape[1],
         int(mt.dtype == torch.bfloat16))
     if 2 * stream.numel() != want:
-        raise RuntimeError(f"K1's stage stream holds {2 * stream.numel()} "
-                           f"bytes; the kernel reads {want}")
+        raise RuntimeError(f"the head's stage stream holds "
+                           f"{2 * stream.numel()} bytes; the kernels read "
+                           f"{want}")
     return stream
 
 

@@ -7,21 +7,31 @@ Replaces ``melspec_tpu/ops/sig_multihead.py::_pallas_sig_multi`` (body
 taps, layout, projection and output mode); head 0 may carry the Sobel VAD
 epilogue. ``sig_multi`` launches the kernel for a CUDA tensor (or raises)
 and runs ``sig_multi_reference`` only for a CPU tensor. ``launches``
-counts kernel launches; nothing else adds to it.
+counts kernel launches and ``pipelined_launches`` those of the pipelined
+128-frame walk; nothing else adds to them.
+
+K2 walks its 128-frame blocks as K1 does (``csrc/sig_pipe.cuh``, block
+layout 4): a producer warp brings each head's stage stream
+(``sig_mel.pipe_stages``, laid out by the head's first pipelined launch
+and kept in its ``StageSlot``) in head order through one ring beside the
+span that every head reads. Where the span, that ring's four slots and
+its tile region do not fit, the heads take 64-frame blocks on the
+synchronous walk. The outputs are equal bit for bit either way.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from melspec_tpu_torch.kernels import build
 from melspec_tpu_torch.kernels.sig_mel import (MAX_SMEM_BYTES, OUT_MODES,
-                                               TILE_FRAMES, SigHead, aligned,
+                                               PIPE_FRAMES, TILE_FRAMES,
+                                               SigHead, aligned,
                                                block_table, check_head,
                                                clamped_guard, raise_for,
                                                shape_refusal,
@@ -36,6 +46,7 @@ MAX_HEADS = 4
 WIDTHS = (256, 512, 1024)
 
 launches = 0
+pipelined_launches = 0
 
 
 def sig_multi_reference(samples: torch.Tensor, heads: Sequence[SigHead], *,
@@ -68,11 +79,11 @@ def _bound() -> ctypes.CDLL:
                                 # npows, lives
         p, p, p, p, p,          # n_mels, n_mels_pad, bf2, out_modes, guards
         p, ctypes.c_float, i,   # vad, vad_thr, vad_start_y
-        p,                      # stream
+        p, p,                   # stages (array), stream
     ]
     lib.melspec_sig_multi.restype = ctypes.c_int
     lib.melspec_sig_multi_layout.argtypes = [i, i, i, p, p, p, p, p, p, p,
-                                             p]
+                                             p, p, p]
     lib.melspec_sig_multi_layout.restype = ll
     lib.melspec_cuda_error_string.argtypes = [ctypes.c_int]
     lib.melspec_cuda_error_string.restype = ctypes.c_char_p
@@ -83,27 +94,49 @@ def _ints(values) -> ctypes.Array:
     return (ctypes.c_int * len(values))(*values)
 
 
+class Layout(NamedTuple):
+    """K2's block layout: a block's shared memory, its frames, the staged
+    span's samples, its chunks' DFT columns, the layout's code (4: the
+    pipelined walk; 1: 64-frame blocks on the synchronous walk) and the
+    pipelined walk's ring slots (0 in layout 1)."""
+
+    smem: int
+    frames: int
+    span: int
+    cols: int
+    code: int
+    slots: int
+
+    @property
+    def pipelined(self) -> bool:
+        """Whether K2 walks it on the pipelined walk: every 128-frame
+        block of K2 does."""
+        return self.frames == PIPE_FRAMES
+
+
 def block_layout(ks: int, hop: int, packs, pack_offs, widths, npows,
-                 nmps) -> tuple:
-    """``(shared memory bytes, frames per block, staged span samples, DFT
-    columns per chunk)`` of the block layout K2 takes for the heads'
-    integer fields (asks the built kernel, which decides it, as K1's
-    ``block_layout``)."""
-    frames, span, cols = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+                 nmps) -> Layout:
+    """The block layout K2 takes for the heads' integer fields (asks the
+    built kernel, which decides it from the heads' shapes, as K1's
+    ``block_layout``): 128-frame blocks on the pipelined walk where the
+    span, a ring of four slots, the region of any head's power or log
+    tile and the ring's barriers fit, with as many slots as fit (up to
+    8); else 64-frame blocks."""
+    code, frames, span, cols, slots = (ctypes.c_int() for _ in range(5))
     smem = _bound().melspec_sig_multi_layout(
         ks, hop, len(packs), _ints(packs), _ints(pack_offs), _ints(widths),
-        _ints(npows), _ints(nmps), ctypes.byref(frames), ctypes.byref(span),
-        ctypes.byref(cols))
-    return int(smem), frames.value, span.value, cols.value
+        _ints(npows), _ints(nmps), ctypes.byref(code), ctypes.byref(frames),
+        ctypes.byref(span), ctypes.byref(cols), ctypes.byref(slots))
+    return Layout(int(smem), frames.value, span.value, cols.value,
+                  code.value, slots.value)
 
 
 def _smem_bytes(ks: int, hop: int, packs, pack_offs, widths, npows,
                 nmps) -> tuple:
     """One K2 block's shared memory and staged span (samples) (asks the
     built kernel)."""
-    smem, _, span, _ = block_layout(ks, hop, packs, pack_offs, widths,
-                                    npows, nmps)
-    return smem, span
+    layout = block_layout(ks, hop, packs, pack_offs, widths, npows, nmps)
+    return layout.smem, layout.span
 
 
 def _layout(heads: Sequence[SigHead]) -> tuple:
@@ -143,8 +176,19 @@ def k2_accepts(heads: Sequence[SigHead], *, hop: int, ks: int = 3) -> bool:
     return _refusal(tuple(heads), ks, hop) is None
 
 
+def stage_streams(heads: Sequence[SigHead]) -> list:
+    """Each head's stage stream for K2's pipelined walk, from the head's
+    own ``StageSlot`` (laid out by its first pipelined launch, K1's or
+    K2's, and reused after)."""
+    return [h.stages.stream(h.m_big, h.mt, tuple(int(i) for i in h.pair_i),
+                            pack=h.pack,
+                            npow=h.n_bins_pad or h.m_big.shape[1],
+                            live=h.live)
+            for h in heads]
+
+
 def _launch(samples, heads, *, ks, n_frames, hop, offset, vad) -> tuple:
-    global launches
+    global launches, pipelined_launches
     dev = samples.device
     if not 0 < len(heads) <= MAX_HEADS:
         raise ValueError(f"K2 takes 1..{MAX_HEADS} heads; got {len(heads)}")
@@ -164,7 +208,9 @@ def _launch(samples, heads, *, ks, n_frames, hop, offset, vad) -> tuple:
     refusal = _refusal(heads, ks, hop)
     if refusal is not None:
         raise NotImplementedError(refusal)
-    packs, pack_offs, widths, npows, _ = _layout(heads)
+    packs, pack_offs, widths, npows, nmps = _layout(heads)
+    pipe = block_layout(ks, hop, packs, pack_offs, widths, npows,
+                        nmps).pipelined
     b, t = samples.shape
     outs = tuple(torch.empty((b, n_frames, h.n_mels), dtype=torch.float32,
                              device=dev) for h in heads)
@@ -175,6 +221,7 @@ def _launch(samples, heads, *, ks, n_frames, hop, offset, vad) -> tuple:
     samples = samples.contiguous()
     keep = [(aligned(h.m_big), aligned(h.mt), block_table(pair_i, dev))
             for h, (pair_i, _, _, _) in zip(heads, checked)]
+    staged = stage_streams(heads) if pipe else None
     lib = _bound()
     vp, ci = ctypes.c_void_p, ctypes.c_int
     thr, start_y = vad if vad is not None else (0.0, 0)
@@ -196,9 +243,12 @@ def _launch(samples, heads, *, ks, n_frames, hop, offset, vad) -> tuple:
             arr(ci, [OUT_MODES.index(h.out_mode) for h in heads]),
             arr(ctypes.c_float, [clamped_guard(h.guard) for h in heads]),
             None if counts is None else counts.data_ptr(), thr, start_y,
+            None if staged is None else arr(vp, [s.data_ptr()
+                                                 for s in staged]),
             stream)
     raise_for(lib, rc, "K2 (sig_multi)")
     launches += 1
+    pipelined_launches += int(pipe)
     return outs, counts
 
 

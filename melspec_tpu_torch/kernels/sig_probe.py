@@ -1,13 +1,15 @@
-"""Where K1's time goes on the card: K1 built from ``csrc/`` once as it
-is and once with each part of its chunk walks cut out, each variant
-timed at 64 x 30 s. The pipelined 128-frame walk (``csrc/sig_pipe.cuh``,
-``PIPE_CUTS``: the producer's stage copy, the consumers' A loads, their
-DFT ``wgmma``s, the projection) is timed on the
-batch path's launch (whisper large-v3, 400/160/128) and NeMo's ln head
-(512/400/80, N-packed); the synchronous walk that K2 and K1's 64- and
-32-frame blocks keep (``csrc/sig_common.cuh``, ``CUTS``: the m_big
-stream through the cp.async ring, the DFT's wgmma's) on K1's 64-frame
-layout (whisper 1024/256 at 22.05 kHz). A cut's output is not the
+"""Where K1's and K2's time goes on the card: each built from ``csrc/``
+once as it is and once with each part of its chunk walks cut out, each
+variant timed at 64 x 30 s. The pipelined 128-frame walk
+(``csrc/sig_pipe.cuh``, ``PIPE_CUTS``: the producer's stage copy, the
+consumers' A loads, their DFT ``wgmma``s, the projection) is timed on
+K1's batch path's launch (whisper large-v3, 400/160/128), NeMo's ln head
+(512/400/80, N-packed) and K2 at the frontend step's launch (whisper
+large-v3 + Kaldi 80 + the VAD epilogue, ``k2_whisper_kaldi_vad``); the
+synchronous walk that the 64- and 32-frame blocks keep
+(``csrc/sig_common.cuh``, ``CUTS``: the m_big stream through the
+cp.async ring, the DFT's wgmma's) on K1's 64-frame layout (whisper
+1024/256 at 22.05 kHz). A cut's output is not the
 function any more; its time only shows what the part it removes costs,
 and where the parts overlap.
 
@@ -48,7 +50,9 @@ earlier commit's, can be driven by this file) on inputs made from fixed
 seeds: ``whisper_mel_sig`` at 400/160/128 and 1024/256/80 at 22.05 kHz
 (batch and streaming, both projections), ``whisper_mel_vad_sig`` and
 ``whisper_mel_quantized`` at 400/160/128 and the fused whisper + Kaldi
-step (K2), then the wide hops (``WIDE``: 960/480/40, 1024/480/64 at 48
+step (K2), K2's other head sets (``K2_CASES``: whisper large-v3 + Kaldi
+with the VAD, the NeMo-fold three heads, the 8 kHz pair, and 133 ragged
+clips of the large-v3 pair on ``sig_multi`` itself), then the wide hops (``WIDE``: 960/480/40, 1024/480/64 at 48
 kHz, 2048/512/128 at 22.05 kHz, batch and streaming, both projections,
 and the VAD and quant routes; cases named ``wide_...``) and Kaldi fbank
 and NeMo log-mel at 48, 64 and 80 kHz through ``Fbank`` / ``BatchLogMel``
@@ -64,7 +68,8 @@ that a dump lacks counts as differing.
 times K1 of that package, public API only as ``dump``, at the chunk-walk
 layouts of the main path (``TIMED``: whisper 400/160/128, the batch
 path's launch in 128-frame blocks, and 1024/256/80 at 22.05 kHz in
-64-frame blocks) on 64 x 30 s, per call (``device_time_ms``, the host
+64-frame blocks) and K2 at the frontend step's launch
+(``k2_whisper_kaldi_vad``) on 64 x 30 s, per call (``device_time_ms``, the host
 path included) and per launch (``per_launch_ms``, back to back), and
 prints one JSON line; run it for two trees in one call, alternating
 which runs first, to compare them.
@@ -181,6 +186,11 @@ FUNCTIONS = ("melspec_sig_mel", "melspec_sig_mel_factored",
              "melspec_sig_mel_fft", "melspec_sig_mel_fft_smem",
              "melspec_sig_mel_layout", "melspec_sig_mel_pipe_bytes",
              "melspec_cuda_error_string")
+K2_FUNCTIONS = ("melspec_sig_multi", "melspec_sig_multi_layout",
+                "melspec_cuda_error_string")
+# dump's K2 cases beside k2_whisper_kaldi_vad
+K2_CASES = ("k2_large_v3_kaldi_vad", "k2_nemo_fold_vad", "k2_8k_pair_vad",
+            "k2_large_v3_133_ragged")
 
 
 def cut_file(name: str):
@@ -277,10 +287,26 @@ def run_factored(dev: torch.device, timer) -> list:
     return rows
 
 
+def k2_step(dev: torch.device, x: torch.Tensor):
+    """K2 at the frontend step's launch on ``x`` (16 kHz): whisper
+    large-v3 + Kaldi 80 with the VAD epilogue (public API only)."""
+    from melspec_tpu_torch.config import WHISPER_LARGE_V3 as c
+    from melspec_tpu_torch.config import DetectionSettings
+    from melspec_tpu_torch.ops import framing
+    from melspec_tpu_torch.ops.sig_multihead import WhisperKaldiFused
+
+    fused = WhisperKaldiFused(c, device=dev)
+    kw = dict(ks=3, n_frames=framing.num_frames_batch(
+        x.shape[-1], c.fft_size, c.hop_size), hop=c.hop_size,
+        vad=sig_mel.vad_args(DetectionSettings(), c.n_mels))
+    return lambda: sig_multi.sig_multi(x, fused.heads, **kw)
+
+
 def run(dev: torch.device, timer) -> list:
-    """Each variant's K1 time (``timer(fn)`` -> ms): the pipelined walk's
-    at the batch path's launch and NeMo's, the synchronous walk's at
-    1024/256/80; then K1 and K2 as they are."""
+    """Each variant's time (``timer(fn)`` -> ms): the pipelined walk's at
+    K1's batch path's launch, NeMo's and K2's frontend step launch, the
+    synchronous walk's at K1's 1024/256/80; then K1 and K2 as they
+    are."""
     from melspec_tpu_torch.config import WHISPER_LARGE_V3 as c
     from melspec_tpu_torch.config import DetectionSettings
     from melspec_tpu_torch.ops import framing, mel_kernel
@@ -310,17 +336,25 @@ def run(dev: torch.device, timer) -> list:
 
     calls = {"whisper_400_160_128": k1, "nemo_512_400_80": (
         lambda: nemo.compute(x)), "whisper_1024_256_80": k1_22k}
+    k2 = k2_step(dev, x)
     names = ["full", *PIPE_CUTS, *CUTS]
-    libs = build.build_variants("sig_probe", "sig_mel", {
-        name: {cut_file(name).name: variant_source(name)} for name in names})
+    variants = {name: {cut_file(name).name: variant_source(name)}
+                for name in names}
+    libs = build.build_variants("sig_probe", "sig_mel", variants)
+    k2_libs = build.build_variants("sig_probe_k2", "sig_multi", {
+        name: variants[name] for name in ["full", *PIPE_CUTS]})
     rows = []
     for name in names:
         timed = (["whisper_1024_256_80"] if name in CUTS else
                  ["whisper_400_160_128", "nemo_512_400_80"]
                  if name in PIPE_CUTS else list(calls))
         with build.bound_to(sig_mel, libs[name], FUNCTIONS):
-            rows.append(dict(variant=name,
-                             ms={k: timer(calls[k]) for k in timed}))
+            ms = {k: timer(calls[k]) for k in timed}
+            if name in k2_libs:
+                with build.bound_to(sig_multi, k2_libs[name],
+                                    K2_FUNCTIONS):
+                    ms["k2_whisper_kaldi_vad"] = timer(k2)
+        rows.append(dict(variant=name, ms=ms))
     for r in rows:
         r["saves_ms"] = {k: rows[0]["ms"][k] - v for k, v in r["ms"].items()}
     fused = WhisperKaldiFused(c, device=dev)
@@ -340,7 +374,8 @@ def run(dev: torch.device, timer) -> list:
 def time_main_path(dev: torch.device, timer) -> dict:
     """K1's time (``timer(fn)`` -> ms) at each ``TIMED`` config on ``B``
     x ``SECONDS``, through ``whisper_head`` and ``sig_mel`` (the public
-    API, as ``dump``)."""
+    API, as ``dump``), and K2's at the frontend step's launch
+    (``k2_step``) on the same 16 kHz signal."""
     from melspec_tpu_torch.ops import framing, mel_kernel
 
     rng = np.random.default_rng(0)
@@ -355,6 +390,8 @@ def time_main_path(dev: torch.device, timer) -> dict:
         ms[f"{fft}_{hop}_{n_mels}"] = timer(
             lambda x=x, h=head, kw=kw: sig_mel.sig_mel(
                 x, h.m_big, h.pair_i, h.mt, **kw))
+        if sr == 16000.0:
+            ms["k2_whisper_kaldi_vad"] = timer(k2_step(dev, x))
     return ms
 
 
@@ -395,6 +432,7 @@ def dump_cases(dev: torch.device) -> list:
     fused = WhisperKaldiFused(device=dev)
     out.append(("k2_whisper_kaldi_vad",
                 lambda: fused.compute_with_vad(x, settings)))
+    out += k2_cases(dev, signal, settings)
     for fft, hop, n_mels, sr in WIDE:
         a = (fft, hop, n_mels, sr)
         xw = signal(4, int(10 * sr) + 37)
@@ -418,6 +456,37 @@ def dump_cases(dev: torch.device) -> list:
             out.append((f"ln_{name}_{rate}",
                         lambda x=xl, f=front: (f.compute(x),)))
     return out
+
+
+def k2_cases(dev: torch.device, signal, settings) -> list:
+    """``dump``'s ``K2_CASES`` (``signal(b, n)`` -> inputs from the
+    dump's seed): whisper large-v3 + Kaldi with the VAD (the frontend
+    step's heads), WhisperKaldiNemoFused's three heads with the VAD, the 8
+    kHz whisper + Kaldi pair with the VAD, and the large-v3 pair with the
+    VAD on 133 clips of 2 s + 37 samples (1,536 blocks, a frame count no
+    multiple of 128) through ``sig_multi`` itself. Public API only."""
+    from melspec_tpu_torch.config import WHISPER_LARGE_V3 as c
+    from melspec_tpu_torch.config import FbankConfig, MelConfig
+    from melspec_tpu_torch.ops import framing
+    from melspec_tpu_torch.ops.sig_multihead import (WhisperKaldiFused,
+                                                     WhisperKaldiNemoFused)
+
+    large = WhisperKaldiFused(c, device=dev)
+    tri = WhisperKaldiNemoFused(device=dev)
+    pair8 = WhisperKaldiFused(MelConfig(200, 80, 80, 8000.0), FbankConfig(
+        sample_rate=8000.0, apply_cmn=False), device=dev)
+    x = signal(8, 16000 * 10 + 37)
+    x8 = signal(8, 8000 * 10 + 37)
+    x133 = signal(133, 16000 * 2 + 37)
+    vad = sig_mel.vad_args(settings, c.n_mels)
+    nf = framing.num_frames_batch(x133.shape[-1], c.fft_size, c.hop_size)
+    launches = (
+        lambda: large.compute_with_vad(x, settings),
+        lambda: tri.compute_with_vad(x, settings),
+        lambda: pair8.compute_with_vad(x8, settings),
+        lambda: sig_multi.sig_multi(x133, large.heads, ks=3, n_frames=nf,
+                                    hop=c.hop_size, vad=vad))
+    return list(zip(K2_CASES, launches))
 
 
 def _flat(outs) -> list:

@@ -129,7 +129,8 @@ SETUP = "setup."
 COUNTERS = (("sig_mel", "launches"), ("sig_mel", "factored_launches"),
             ("sig_mel", "fft_launches"), ("sig_mel", "pipelined_launches"),
             ("sig_mel", "epilogue_launches"),
-            ("sig_multi", "launches"), ("resample", "launches"),
+            ("sig_multi", "launches"), ("sig_multi", "pipelined_launches"),
+            ("resample", "launches"),
             ("framed_mel", "launches"), ("load_probe", "launches"))
 _KERNELS = "melspec_tpu_torch.kernels."
 

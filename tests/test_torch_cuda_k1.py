@@ -861,9 +861,9 @@ PIPE_SHAPES = [(1, 16000 + 37), (133, 16000 + 37), (3, 16000 * 5 + 1234)]
 @pytest.mark.parametrize("shape", PIPE_SHAPES)
 @pytest.mark.parametrize("which", ["whisper_80", "whisper_128", "nemo"])
 def test_k1_pipelined_equals_k2(dev, which, shape):
-    """K1 on its pipelined walk equals K2's output of the same head (K2
-    keeps the synchronous walk and sums in the same order) bit for bit,
-    at ragged shapes."""
+    """K1 on its pipelined walk equals K2's output of the same head (K2's
+    own kernel, on the pipelined walk too, summing in the same order) bit
+    for bit, at ragged shapes."""
     head = _pipe_heads(dev)[which]
     assert sig_mel.head_layout(head, 160).pipelined
     x = torch.from_numpy((np.random.default_rng(sum(shape)).normal(

@@ -231,3 +231,91 @@ def test_k1_odd_pack_off_matches_plain(dev, h):
     bar = max(1e-5 if h == 0 else LN_TOL, floor)
     assert float((got - exact).abs().max()) <= bar
     assert float((got - want).abs().max()) <= bar + floor
+
+
+# (clips, samples): 133 clips of 198 frames (no multiple of 128; more
+# blocks than the card's SMs), and 3 clips of 506 frames
+K2_PIPE_SHAPES = [(133, 16000 * 2 + 37), (3, 16000 * 5 + 1234)]
+
+
+def _k2_against_k1(x, front, *, tri):
+    """K2's launch of ``front``'s heads with the VAD epilogue against K1's
+    launch of each head (on the layout K1 takes for it, counted in
+    ``sig_mel.pipelined_launches`` where pipelined): every output and the
+    VAD counts bit for bit; returns K2's block layout and which heads K1
+    walked pipelined."""
+    xin = torch.nn.functional.pad(x, (front._nemo_pad, 0)) if tri else x
+    nf = (framing.num_frames_centered(x.shape[-1], 160) if tri
+          else framing.num_frames_batch(x.shape[-1], 400, 160))
+    assert nf % 128
+    vad = sig_mel.vad_args(SETTINGS, front.mel_config.n_mels)
+    layout = sig_multi.block_layout(3, 160,
+                                    *sig_multi._layout(front.heads))
+    outs, counts = sig_multi.sig_multi(xin, front.heads, ks=3, n_frames=nf,
+                                       hop=160, vad=vad)
+    piped = [sig_mel.head_layout(h, 160).pipelined for h in front.heads]
+    before = sig_mel.pipelined_launches
+    for h, got in zip(front.heads, outs):
+        k1 = sig_mel.sig_mel(xin, h.m_big, h.pair_i, h.mt, ks=3,
+                             n_frames=nf, hop=160, offset=0, **h.kw())
+        assert torch.equal(got, k1)
+    torch.cuda.synchronize()
+    assert sig_mel.pipelined_launches == before + sum(piped)
+    assert torch.equal(counts, sig_mel.tile_vad_counts(outs[0], *vad))
+    return layout, piped
+
+
+@pytest.mark.parametrize("shape", K2_PIPE_SHAPES)
+def test_k2_pipelined_equals_k1_pipelined(dev, shape):
+    """asr-trio's heads (whisper large-v3 + Kaldi 80, the VAD epilogue)
+    on K2's pipelined walk equal K1's pipelined launches of each head."""
+    x = _signal(dev, *shape, sum(shape) + 23)
+    front = WhisperKaldiFused(MelConfig(400, 160, 128), device=dev)
+    layout, piped = _k2_against_k1(x, front, tri=False)
+    assert layout.pipelined and (layout.code, layout.slots) == (4, 4)
+    assert piped == [True, True]
+
+
+@pytest.mark.parametrize("shape", K2_PIPE_SHAPES)
+def test_k2_nemo_fold_equals_k1_pipelined(dev, shape):
+    """The NeMo-fold three heads, which K2 runs in 64-frame blocks (four
+    ring slots beside their span do not fit), equal K1's launches of each
+    head bit for bit, two of them on K1's pipelined walk (the Kaldi head
+    at pack_off 257 misses its four slots by 192 bytes there too): the sum
+    order is one."""
+    x = _signal(dev, *shape, sum(shape) + 29)
+    layout, piped = _k2_against_k1(x, WhisperKaldiNemoFused(device=dev),
+                                   tri=True)
+    assert not layout.pipelined and (layout.code, layout.frames) == (1, 64)
+    assert piped == [True, False, True]
+
+
+def test_k2_pipelined_launches_count_layout_4_only(dev):
+    """``sig_multi.pipelined_launches`` rises by one a launch on layout 4
+    (asr-trio's heads) and not on a 64-frame launch (the NeMo-fold
+    set); ``launches`` by one each."""
+    x = _signal(dev, 2, 16000 * 3, 31)
+    for front, piped in ((WhisperKaldiFused(MelConfig(400, 160, 128),
+                                            device=dev), 1),
+                         (WhisperKaldiNemoFused(device=dev), 0)):
+        before = (sig_multi.launches, sig_multi.pipelined_launches)
+        front.compute_with_vad(x, SETTINGS)
+        torch.cuda.synchronize()
+        assert (sig_multi.launches, sig_multi.pipelined_launches) == (
+            before[0] + 1, before[1] + piped)
+
+
+def test_k2_layout_on_the_card(dev):
+    """The built library's layout for the head sets of
+    ``tests/test_torch_k2_pipe.py``: the code, frames, slots and shared
+    memory its byte model gives."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "k2_pipe", Path(__file__).with_name("test_torch_k2_pipe.py"))
+    k2_pipe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(k2_pipe)
+    for name, (heads, hop) in k2_pipe._sets().items():
+        got = sig_multi.block_layout(3, hop, *sig_multi._layout(heads))
+        assert (got.code, got.frames, got.slots, got.smem) == \
+            k2_pipe.LAYOUTS[name], name
