@@ -443,11 +443,9 @@ def held(got, x, head, nf, hop, offset=0) -> dict:
     """A kernel's output for one head (``SigHead``) against the head's
     plain version (f32 dot) and the exact result (float64 dot), on the
     same signal ``x`` framed at ``offset`` into ``nf`` frames."""
-    kw = dict(ks=3, n_frames=nf, hop=hop, offset=offset, **head.kw())
-    plain = sig_mel.sig_mel_reference(x, head.m_big, head.pair_i, head.mt,
-                                      **kw)
-    exact = sig_mel.sig_mel_reference(x, head.m_big, head.pair_i, head.mt,
-                                      dot_dtype=torch.float64, **kw)
+    kw = dict(ks=3, n_frames=nf, hop=hop, offset=offset)
+    plain = sig_mel.sig_mel_reference(x, head, **kw)
+    exact = sig_mel.sig_mel_reference(x, head, dot_dtype=torch.float64, **kw)
     torch.cuda.synchronize()
     if got.shape != plain.shape:
         raise AssertionError(f"shape {tuple(got.shape)} vs "
@@ -466,12 +464,10 @@ def held_factored(got, x, head, nf, hop, offset=0) -> dict:
     factored plain version (``sig_mel_factored_reference``, float32 dots),
     and that plain version against the exact result (float64-dot
     ``sig_mel_reference``), on the same signal and frames."""
-    kw = dict(ks=3, n_frames=nf, hop=hop, offset=offset, **head.kw())
-    fplain = sig_mel.sig_mel_factored_reference(
-        x, sig_mel.factored_dft(head.dft_size, x.device), head.mt,
-        n_frames=nf, hop=hop, offset=offset, n_mels=head.n_mels)
-    exact = sig_mel.sig_mel_reference(x, head.m_big, head.pair_i, head.mt,
-                                      dot_dtype=torch.float64, **kw)
+    kw = dict(ks=3, n_frames=nf, hop=hop, offset=offset)
+    fplain = sig_mel.sig_mel_factored_reference(x, head, n_frames=nf,
+                                                hop=hop, offset=offset)
+    exact = sig_mel.sig_mel_reference(x, head, dot_dtype=torch.float64, **kw)
     torch.cuda.synchronize()
     return dict(vs_factored_plain=max_abs(got, fplain),
                 factored_plain_vs_exact=max_abs(fplain, exact))
@@ -720,22 +716,16 @@ def phase_main_path(dev, rows) -> dict:
     bars = tolerances(rows + [errs])
     check([errs], bars, "main path")
 
-    mats = mel_kernel.sig_matrices(c.fft_size, c.n_mels, c.sampling_rate,
-                                   3, 2, dev)
-    kw = dict(ks=3, n_frames=nf, hop=c.hop_size, offset=0, pack=c.fft_size,
-              n_bins_pad=mats.n_bins_pad, n_mels=c.n_mels,
-              mel_precision="bf2", live=mats.live, stages=mats.stages)
+    head = mel_kernel.whisper_head(c.fft_size, c.n_mels, c.sampling_rate, dev)
+    kw = dict(ks=3, n_frames=nf, hop=c.hop_size, offset=0)
     pipe_ms = time_ms(lambda: pipe.mel_batch(x))
-    k1_ms = time_ms(lambda: sig_mel.sig_mel(x, mats.m_big, mats.pair_i,
-                                            mats.mt_bf2, **kw))
-    plain_ms = time_ms(lambda: sig_mel.sig_mel_reference(
-        x, mats.m_big, mats.pair_i, mats.mt_bf2, **kw))
+    k1_ms = time_ms(lambda: sig_mel.sig_mel(x, head, **kw))
+    plain_ms = time_ms(lambda: sig_mel.sig_mel_reference(x, head, **kw))
     lib = library_mel(x, c.fft_size, c.hop_size, c.n_mels)
     lib_ms = time_ms(lib)
     lib_err = float((lib() - out).abs().max())
 
     frames = b * nf
-    head = mel_kernel.whisper_head(c.fft_size, c.n_mels, c.sampling_rate, dev)
     flops = head_work(head, frames)
     layout = k1_layout(head, c.hop_size)
     stage_bytes = (stage_bytes_of([head])
@@ -744,8 +734,8 @@ def phase_main_path(dev, rows) -> dict:
     l2 = dict(block_frames=layout[0], chunk_cols=layout[1],
               **l2_bytes_counted([head], c.hop_size, b, nf, layout,
                                  stage_bytes))
-    nbytes = (x.numel() * 4 + mats.m_big.numel() * 2
-              + mats.mt_bf2.numel() * 2 + out.numel() * 4)
+    nbytes = (x.numel() * 4 + head.m_big.numel() * 2
+              + head.mt.numel() * 2 + out.numel() * 4)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     audio_s = b * seconds
     emit("main_path", shape=[b, x.shape[-1]], n_mels=c.n_mels,
@@ -1255,17 +1245,14 @@ def phase_bulk(dev, rows) -> dict:
     errs["tick_vs_plain"] = max(v["vs_plain"] for v in tick.values())
 
     # K1 at the serving tick's bulk shape: offset = hop over the concat
-    mats = mel_kernel.sig_matrices(c.fft_size, c.n_mels, c.sampling_rate,
-                                   3, 2, dev)
+    head = mel_kernel.whisper_head(c.fft_size, c.n_mels, c.sampling_rate,
+                                   dev)
     mel_sig = torch.cat([torch.zeros(s, c.fft_size, device=dev),
                          k4[:, : hops * c.hop_size]], dim=1)
 
     def k1():
-        return sig_mel.sig_mel(
-            mel_sig, mats.m_big, mats.pair_i, mats.mt_bf2, ks=3,
-            n_frames=hops, hop=c.hop_size, offset=c.hop_size,
-            pack=c.fft_size, n_bins_pad=mats.n_bins_pad, n_mels=c.n_mels,
-            live=mats.live, stages=mats.stages)
+        return sig_mel.sig_mel(mel_sig, head, ks=3, n_frames=hops,
+                               hop=c.hop_size, offset=c.hop_size)
 
     k1_errs = compare(k1(), mel_sig, c.fft_size, c.hop_size, c.n_mels,
                       c.hop_size, hops, dev)
@@ -1465,14 +1452,13 @@ def phase_k1_ln_modes(dev) -> dict:
             ("ln_floor_kaldi", kaldi, x, kaldi.num_frames(x.shape[-1]),
              library_kaldi(x, kcfg))):
         h = front.sig_head
-        kw = dict(ks=3, n_frames=nf, hop=160, offset=0, **h.kw())
-        out = sig_mel.sig_mel(sig, h.m_big, h.pair_i, h.mt, **kw)
+        kw = dict(ks=3, n_frames=nf, hop=160, offset=0)
+        out = sig_mel.sig_mel(sig, h, **kw)
         times[name] = dict(
             shape=list(sig.shape), frames=STEP_B * nf,
-            ms=time_ms(lambda: sig_mel.sig_mel(sig, h.m_big, h.pair_i, h.mt,
-                                               **kw)),
+            ms=time_ms(lambda: sig_mel.sig_mel(sig, h, **kw)),
             plain_ms=time_ms(lambda: sig_mel.sig_mel_reference(
-                sig, h.m_big, h.pair_i, h.mt, **kw), reps=3, warmup=1),
+                sig, h, **kw), reps=3, warmup=1),
             library_composition_ms=time_ms(lib),
             **bound(head_work(h, STEP_B * nf), head_bytes([h], sig, [out])))
     emit("k1_ln_modes", bars=bars, jfk_kaldi_k1=jfk_k1,
@@ -1543,8 +1529,7 @@ def phase_k1_widths(dev, rows, ln_rows) -> dict:
         if layout[3]:
             nj = k1_jfk.shape[1]
             fplain, fplain64 = (sig_mel.sig_mel_factored_reference(
-                xj, sig_mel.factored_dft(fft, dev), head.mt, n_frames=nj,
-                hop=hop, offset=0, n_mels=n_mels, dot_dtype=dt)
+                xj, head, n_frames=nj, hop=hop, offset=0, dot_dtype=dt)
                 for dt in (torch.float32, torch.float64))
             cases[-1].update(
                 jfk_vs_factored_plain=max_abs(k1_jfk, fplain),
@@ -1639,10 +1624,8 @@ def width_epilogues(x, head, fft, hop, n_mels, sr, dev) -> dict:
     q = mel_kernel.whisper_mel_quantized(x, fft, hop, n_mels, sr, device=dev)
     vad = sig_mel.vad_args(settings, n_mels)
     tile = sig_mel.k1_vad_tile(head, hop, dev)
-    k_mel, counts = sig_mel.sig_mel_vad(
-        x, head.m_big, head.pair_i, head.mt, ks=3, n_frames=mel.shape[1],
-        hop=hop, offset=0, pack=fft, n_bins_pad=head.n_bins_pad,
-        n_mels=n_mels, vad=vad, live=head.live, dft_size=head.dft_size)
+    k_mel, counts = sig_mel.sig_mel_vad(x, head, ks=3, n_frames=mel.shape[1],
+                                        hop=hop, offset=0, vad=vad)
     return dict(
         vad_tile=tile,
         vad_mel_equal=bool(torch.equal(mel_v, mel)
@@ -1724,9 +1707,7 @@ def chunk_walk_heads() -> dict:
         if name in WIDE_HOPS:
             m = mel_kernel.sig_matrices(fft, n_mels, sr, 2, 1,
                                         torch.device("cpu"))
-            heads[f"{name}_ks2"] = (sig_mel.SigHead(
-                m.m_big, m.pair_i, m.mt_bf2, m.n_bins_pad, fft, n_mels,
-                live=m.live, dft_size=m.dft_size), hop)
+            heads[f"{name}_ks2"] = (m.head(fft, n_mels), hop)
     out = {}
     for name, (h, hop) in heads.items():
         ks = 1 + max(h.pair_i)
@@ -1792,13 +1773,11 @@ def phase_wide_hops(dev) -> dict:
         r.update(check_shape=list(xc.shape),
                  **held(got[:WIDE_CHECK_B], xc, head, nf, hop),
                  **held_factored(got[:WIDE_CHECK_B], xc, head, nf, hop))
-        kw = dict(ks=3, n_frames=nf, hop=hop, offset=0, **head.kw())
-        r["ms"] = time_ms(lambda: sig_mel.sig_mel(x, head.m_big, head.pair_i,
-                                                  head.mt, **kw))
+        kw = dict(ks=3, n_frames=nf, hop=hop, offset=0)
+        r["ms"] = time_ms(lambda: sig_mel.sig_mel(x, head, **kw))
         r["factored_plain_ms"] = time_ms(
             lambda: sig_mel.sig_mel_factored_reference(
-                x, fac, head.mt, n_frames=nf, hop=hop, offset=0,
-                n_mels=n_mels), reps=3, warmup=1)
+                x, head, n_frames=nf, hop=hop, offset=0), reps=3, warmup=1)
         frames, _ = mel_kernel.framed_input(x, fft, hop)
         mats = mel_kernel.framed_matrices("bf3", fft, n_mels, sr, 3, 2, dev)
         r["k5_ms"] = time_ms(lambda: framed_mel.framed_mel(
@@ -1902,13 +1881,11 @@ def held_fft(got, x, truth, head, nf, hop) -> dict:
     and against the dense plain version (``sig_mel_reference``, the JAX
     kernel's float32 numerics) and the exact result (its float64 dot),
     with the distance of each of those two from ``truth``."""
-    kw = dict(ks=3, n_frames=nf, hop=hop, offset=0, **head.kw())
-    plain = sig_mel.sig_mel_fft_reference(x, n_frames=nf, hop=hop,
-                                          offset=0, **sig_mel.fft_args(head))
-    dense = sig_mel.sig_mel_reference(x, head.m_big, head.pair_i, head.mt,
-                                      **kw)
-    exact = sig_mel.sig_mel_reference(x, head.m_big, head.pair_i, head.mt,
-                                      dot_dtype=torch.float64, **kw)
+    kw = dict(ks=3, n_frames=nf, hop=hop, offset=0)
+    plain = sig_mel.sig_mel_fft_reference(x, head, n_frames=nf, hop=hop,
+                                          offset=0)
+    dense = sig_mel.sig_mel_reference(x, head, **kw)
+    exact = sig_mel.sig_mel_reference(x, head, dot_dtype=torch.float64, **kw)
     torch.cuda.synchronize()
     if got.shape != plain.shape or got.shape != truth.shape:
         raise AssertionError(f"shape {tuple(got.shape)} vs "
@@ -1942,8 +1919,8 @@ def held_mfcc(got, x, truth, head, nf, hop, cfg) -> dict:
     the fbank's bars to the cepstra (``tests/test_torch_mfcc.py``)."""
     m = dct_matrix(cfg.num_ceps, cfg.fbank.num_mel_bins) \
         * cepstral_lifter_coeffs(cfg.num_ceps, cfg.cepstral_lifter)[:, None]
-    plain = sig_mel.sig_mel_fft_reference(x, n_frames=nf, hop=hop, offset=0,
-                                          **sig_mel.fft_args(head))
+    plain = sig_mel.sig_mel_fft_reference(x, head, n_frames=nf, hop=hop,
+                                          offset=0)
     ceps = plain.double() @ torch.as_tensor(m.T, device=x.device)
     if cfg.apply_cmn:
         ceps = ceps - ceps.mean(dim=-2, keepdim=True)
@@ -2017,8 +1994,7 @@ def ln_fft_more(dev, rng, run) -> tuple:
             if p_row:
                 outs[name] = (got, got_real)
             r["ms"] = time_ms(lambda: sig_mel.sig_mel(
-                x, h.m_big, h.pair_i, h.mt, ks=3, n_frames=nf, hop=hop,
-                offset=0, **h.kw()))
+                x, h, ks=3, n_frames=nf, hop=hop, offset=0))
             bound_fft = fft_bound(h, WIDE_B * nf, x, [got])
             r.update(bound_fft=bound_fft, bound_ms=bound_fft["bound_ms"],
                      bound_by=bound_fft["bound_by"],
@@ -2026,8 +2002,8 @@ def ln_fft_more(dev, rng, run) -> tuple:
             if name in LN_FFT_TIMED:
                 r["fft_plain_ms"] = time_ms(
                     lambda: sig_mel.sig_mel_fft_reference(
-                        x, n_frames=nf, hop=hop, offset=0,
-                        **sig_mel.fft_args(h)), reps=3, warmup=1)
+                        x, h, n_frames=nf, hop=hop, offset=0),
+                    reps=3, warmup=1)
                 r["library_composition_ms"] = time_ms(
                     library_kaldi(x, fcfg))
                 r["k1_over_composition"] = (r["ms"]
@@ -2103,9 +2079,8 @@ def phase_ln_fft(dev) -> dict:
                         else framing.num_frames_centered(v.shape[-1], hop))
 
             def k1(sig, nf, head=h):
-                return sig_mel.sig_mel(sig, head.m_big, head.pair_i,
-                                       head.mt, ks=3, n_frames=nf, hop=hop,
-                                       offset=0, **head.kw())
+                return sig_mel.sig_mel(sig, head, ks=3, n_frames=nf, hop=hop,
+                                       offset=0)
 
             def truth(v):
                 t = f64.compute(v.double())
@@ -2150,16 +2125,16 @@ def phase_ln_fft(dev) -> dict:
                      bound_by=bound_fft["bound_by"],
                      share_of_bound=bound_fft["bound_ms"] / r["ms"])
             if sr == 48000:
-                kw = dict(ks=3, n_frames=nf, hop=hop, offset=0, **h.kw())
+                kw = dict(ks=3, n_frames=nf, hop=hop, offset=0)
                 walk_head = dataclasses.replace(h, fft=None)
                 r["chunk_walk_ms"] = time_ms(lambda: k1(sig, nf, walk_head),
                                              reps=3, warmup=1)
                 r["fft_plain_ms"] = time_ms(
                     lambda: sig_mel.sig_mel_fft_reference(
-                        sig, n_frames=nf, hop=hop, offset=0,
-                        **sig_mel.fft_args(h)), reps=3, warmup=1)
+                        sig, h, n_frames=nf, hop=hop, offset=0),
+                    reps=3, warmup=1)
                 r["plain_ms"] = time_ms(lambda: sig_mel.sig_mel_reference(
-                    sig, h.m_big, h.pair_i, h.mt, **kw), reps=3, warmup=1)
+                    sig, h, **kw), reps=3, warmup=1)
                 r["library_composition_ms"] = time_ms(library(x, cfg))
                 dense = bound(head_work(h, b * nf), head_bytes([h], sig,
                                                                 [got]))
@@ -2342,9 +2317,9 @@ def plain_kernels(dot_dtype: torch.dtype = torch.float32):
         return sig_multi.sig_multi_reference(samples, heads,
                                              dot_dtype=dot_dtype, **kw)
 
-    def k1(samples, m_big, pair_i, mt, **kw):
-        return sig_mel.sig_mel_reference(samples, m_big, pair_i, mt,
-                                         dot_dtype=dot_dtype, **kw)
+    def k1(samples, head, **kw):
+        return sig_mel.sig_mel_reference(samples, head, dot_dtype=dot_dtype,
+                                         **kw)
 
     def k3_k4(name, a, b, g, g_host, up, down, q, precision):
         sig = a if b is None else torch.cat([a, b], dim=1)
@@ -2874,16 +2849,13 @@ def phase_framed_auto_routes(dev, rng, rows) -> tuple:
     return res, counts
 
 
-def quant_held(q, lo, hi, x, mats, n_mels, offset, nf) -> dict:
+def quant_held(q, lo, hi, x, head, offset, nf) -> dict:
     """K1's quant records against the plain version's (f32 dot) and the
     exact one's (float64 dot) on the same signal."""
-    kw = dict(ks=3, n_frames=nf, hop=160, offset=offset, pack=400,
-              n_bins_pad=mats.n_bins_pad, n_mels=n_mels, live=mats.live)
-    pq, plo, phi = sig_mel.sig_mel_quantized_reference(
-        x, mats.m_big, mats.pair_i, mats.mt_bf2, **kw)
+    kw = dict(ks=3, n_frames=nf, hop=160, offset=offset)
+    pq, plo, phi = sig_mel.sig_mel_quantized_reference(x, head, **kw)
     _, elo, ehi = sig_mel.sig_mel_quantized_reference(
-        x, mats.m_big, mats.pair_i, mats.mt_bf2, dot_dtype=torch.float64,
-        **kw)
+        x, head, dot_dtype=torch.float64, **kw)
     return dict(range_vs_plain=max(max_abs(lo, plo), max_abs(hi, phi)),
                 range_plain_vs_exact=max(max_abs(plo, elo),
                                          max_abs(phi, ehi)),
@@ -2910,7 +2882,7 @@ def phase_k1_epilogues_vs_plain(dev, rows) -> dict:
     bar = tolerances(rows)["vs_plain"]
     cases, fails = [], []
     for n_mels in (80, 128):
-        mats = mel_kernel.sig_matrices(400, n_mels, 16000.0, 3, 2, dev)
+        head = mel_kernel.whisper_head(400, n_mels, 16000.0, dev)
         for streaming in (False, True):
             for name, x in inputs:
                 offset, nf = k1_grid(x.shape[-1], 400, 160, streaming)
@@ -2924,8 +2896,7 @@ def phase_k1_epilogues_vs_plain(dev, rows) -> dict:
                             quant_equal=bool(torch.equal(q, wq)
                                              and torch.equal(lo, wlo)
                                              and torch.equal(hi, whi)),
-                            **quant_held(q, lo, hi, x, mats, n_mels, offset,
-                                         nf))
+                            **quant_held(q, lo, hi, x, head, offset, nf))
                 vad = {}
                 for sname, settings in EDGE_SETTINGS.items():
                     vmel, raw = mel_kernel.whisper_mel_vad_sig(
@@ -3062,16 +3033,12 @@ def phase_vad_wire_path(dev, rows) -> dict:
                           stamps[0].end_ms],
             stamps_last=[stamps[-1].start_ms, stamps[-1].center_ms,
                          stamps[-1].end_ms])
-        mats = mel_kernel.sig_matrices(400, n_mels, 16000.0, 3, 2, dev)
         head = mel_kernel.whisper_head(400, n_mels, 16000.0, dev)
-        kw = dict(ks=3, n_frames=nf, hop=160, offset=0, pack=400,
-                  n_bins_pad=mats.n_bins_pad, n_mels=n_mels, live=mats.live,
-                  stages=mats.stages)
+        kw = dict(ks=3, n_frames=nf, hop=160, offset=0)
         vad = sig_mel.vad_args(settings, n_mels)
-        k_mel, k_counts = sig_mel.sig_mel_vad(
-            x, mats.m_big, mats.pair_i, mats.mt_bf2, vad=vad, **kw)
-        p_mel, p_counts = sig_mel.sig_mel_vad_reference(
-            x, mats.m_big, mats.pair_i, mats.mt_bf2, vad=vad, **kw)
+        k_mel, k_counts = sig_mel.sig_mel_vad(x, head, vad=vad, **kw)
+        p_mel, p_counts = sig_mel.sig_mel_vad_reference(x, head, vad=vad,
+                                                        **kw)
         torch.cuda.synchronize()
         vad_err = dict(
             route_mel_equal=bool(torch.equal(k_mel, mel)),
@@ -3093,18 +3060,15 @@ def phase_vad_wire_path(dev, rows) -> dict:
             whisper_mel_quantized=time_ms(
                 lambda: mel_kernel.whisper_mel_quantized(x, 400, 160, n_mels,
                                                          device=dev)),
-            k1=time_ms(lambda: sig_mel.sig_mel(x, mats.m_big, mats.pair_i,
-                                               mats.mt_bf2, **kw)),
-            k1_vad=time_ms(lambda: sig_mel.sig_mel_vad(
-                x, mats.m_big, mats.pair_i, mats.mt_bf2, vad=vad, **kw)),
-            k1_quant=time_ms(lambda: sig_mel.sig_mel_quantized(
-                x, mats.m_big, mats.pair_i, mats.mt_bf2, **kw)),
+            k1=time_ms(lambda: sig_mel.sig_mel(x, head, **kw)),
+            k1_vad=time_ms(lambda: sig_mel.sig_mel_vad(x, head, vad=vad,
+                                                       **kw)),
+            k1_quant=time_ms(lambda: sig_mel.sig_mel_quantized(x, head,
+                                                               **kw)),
             plain_vad=time_ms(lambda: sig_mel.sig_mel_vad_reference(
-                x, mats.m_big, mats.pair_i, mats.mt_bf2, vad=vad, **kw),
-                reps=3, warmup=1),
+                x, head, vad=vad, **kw), reps=3, warmup=1),
             plain_quant=time_ms(lambda: sig_mel.sig_mel_quantized_reference(
-                x, mats.m_big, mats.pair_i, mats.mt_bf2, **kw),
-                reps=3, warmup=1))
+                x, head, **kw), reps=3, warmup=1))
         bounds = {e: epilogue_bound(head, x, frames, n_mels, e)
                   for e in (None, "quant", "vad")}
         out[n_mels] = dict(shape=list(x.shape), n_mels=n_mels, frames=frames,

@@ -146,24 +146,22 @@ class StageSlot:
     """Where a head keeps its pipelined walk's stage stream
     (``pipe_stages``): the head's first launch on the pipelined walk
     (K1's, or K2's with the head among its heads) builds it, its later
-    launches reuse it. One stream per projection
-    dtype (``SigMatrices`` launches with either), each kept with the
-    matrices and arguments it was laid out from, so a launch with others
-    lays out its own."""
+    launches reuse it. One stream per projection dtype (``SigMatrices``
+    makes heads of either), each kept with the matrices and fields it was
+    laid out from, so a head with others (one made by
+    ``dataclasses.replace``, say) lays out its own."""
 
     def __init__(self):
         self._streams = {}
 
-    def stream(self, m_big: torch.Tensor, mt: torch.Tensor, pair_i: tuple,
-               *, pack: int, npow: int, live: int) -> torch.Tensor:
-        key = (pair_i, pack, npow, live)
-        hit = self._streams.get(mt.dtype)
-        if (hit is not None and hit[0] is m_big and hit[1] is mt
+    def stream(self, head: SigHead) -> torch.Tensor:
+        key = (head.pair_i, head.pack, head.npow, head.live)
+        hit = self._streams.get(head.mt.dtype)
+        if (hit is not None and hit[0] is head.m_big and hit[1] is head.mt
                 and hit[2] == key):
             return hit[3]
-        stream = stage_stream(m_big, mt, pair_i, pack=pack, npow=npow,
-                              live=live)
-        self._streams[mt.dtype] = (m_big, mt, key, stream)
+        stream = stage_stream(head)
+        self._streams[head.mt.dtype] = (head.m_big, head.mt, key, stream)
         return stream
 
 
@@ -239,7 +237,9 @@ class SigHead:
     matrix: where ``factored_route`` takes it, K1 runs the factored path;
     ``fft`` the description of K1's float64 FFT path, which a head
     carrying it takes; ``stages`` the slot of its pipelined walk's stage
-    stream (a copy on another device starts an empty one)."""
+    stream (a copy on another device starts an empty one). ``pair_i`` is
+    kept as a tuple of ints; ``width``, ``npow``, ``n_mels_pad`` and
+    ``mel_precision`` follow from the matrices."""
 
     m_big: torch.Tensor
     pair_i: tuple
@@ -257,23 +257,30 @@ class SigHead:
                                           compare=False, repr=False)
 
     def __post_init__(self):
+        object.__setattr__(self, "pair_i", tuple(int(i) for i in self.pair_i))
         if self.live is None:
             object.__setattr__(self, "live",
                                live_columns(self.m_big, self.n_bins_pad))
 
     @property
+    def width(self) -> int:
+        """``m_big``'s DFT columns."""
+        return self.m_big.shape[1]
+
+    @property
+    def npow(self) -> int:
+        """The power columns: the split point, or every column where
+        they are N-packed."""
+        return self.n_bins_pad or self.width
+
+    @property
+    def n_mels_pad(self) -> int:
+        """The projection's columns."""
+        return self.mt.shape[-1]
+
+    @property
     def mel_precision(self) -> str:
         return "bf2" if self.mt.dtype == torch.bfloat16 else "highest"
-
-    def kw(self) -> dict:
-        """The keyword arguments of ``sig_mel`` / ``sig_mel_reference``
-        besides the matrices and the frame grid."""
-        return dict(pack=self.pack, pack_off=self.pack_off,
-                    n_bins_pad=self.n_bins_pad, n_mels=self.n_mels,
-                    mel_precision=self.mel_precision,
-                    out_mode=self.out_mode, guard=self.guard,
-                    live=self.live, dft_size=self.dft_size, fft=self.fft,
-                    stages=self.stages)
 
     def to(self, device) -> "SigHead":
         return dataclasses.replace(
@@ -304,62 +311,58 @@ def out_vals(energy: torch.Tensor, out_mode: str,
     return (torch.maximum(log_mel, raw - 8.0) + 4.0) * 0.25
 
 
-def sig_mel_reference(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
-                      mt: torch.Tensor, *, ks: int, n_frames: int, hop: int,
-                      offset: int, pack: int, n_bins_pad: int, n_mels: int,
-                      mel_precision: str = "bf2", pack_off: int = 0,
-                      out_mode: str = "whisper", guard: float = 0.0,
-                      live: int | None = None, dft_size: int = 0,
-                      fft: FftHead | None = None,
-                      stages: StageSlot | None = None,
+def project(power: torch.Tensor, mt: torch.Tensor) -> torch.Tensor:
+    """The mel energy of float32 ``power``: split into bf16 ``p0``, ``p1``
+    against the bf2 stack ``[F0; F1; F0]`` (bf16 ``mt``), or against the
+    f32 projection, in float32."""
+    if mt.dtype == torch.bfloat16:
+        p0 = power.to(torch.bfloat16)
+        p1 = (power - p0.to(torch.float32)).to(torch.bfloat16)
+        power = torch.cat([p0, p0, p1], dim=-1).to(torch.float32)
+    return power @ mt.to(torch.float32)
+
+
+def sig_mel_reference(samples: torch.Tensor, head: SigHead, *, ks: int,
+                      n_frames: int, hop: int, offset: int,
                       dot_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The JAX kernel's math written out in plain PyTorch, on whatever
     device ``samples`` lies on: ``samples [B, T]`` f32 -> ``[B, n_frames,
     n_mels]`` f32. Frame ``k`` contracts samples ``offset + k*hop +
     pack_off ... + pack``; samples past the clip read as zero.
 
-    ``m_big`` is the bf16 K-stack whose block ``blk`` pairs with signal
-    slice ``pair_i[blk]``; its columns are re in ``[0, n_bins_pad)`` and
-    im in ``[n_bins_pad, 2*n_bins_pad)`` (split), or one component each
-    when ``n_bins_pad`` is 0 (N-packed: power is ``y*y`` per column).
-    ``mt`` is the bf2 stack ``[F0; F1; F0]`` (bf16) for
-    ``mel_precision="bf2"`` or the f32 projection for ``"highest"``. The
-    DFT dot is one ``torch.matmul`` in ``dot_dtype``: float32 as in the
-    JAX kernel, or float64, which sums the exact bf16 x bf16 products with
-    no rounding that reaches float32 — the exact value the float32
-    versions are held against. ``live``, ``dft_size``, ``fft`` and
-    ``stages`` are K1's and not used here: the plain version multiplies every column of
-    ``m_big``."""
-    b = samples.shape[0]
+    The head's ``m_big`` is the bf16 K-stack whose block ``blk`` pairs
+    with signal slice ``pair_i[blk]``; its columns are re in ``[0,
+    n_bins_pad)`` and im in ``[n_bins_pad, 2*n_bins_pad)`` (split), or one
+    component each when ``n_bins_pad`` is 0 (N-packed: power is ``y*y``
+    per column); ``mt`` is projected by ``project``. The DFT dot is one
+    ``torch.matmul`` in ``dot_dtype``: float32 as in the JAX kernel, or
+    float64, which sums the exact bf16 x bf16 products with no rounding
+    that reaches float32 — the exact value the float32 versions are held
+    against. The plain version multiplies every column of ``m_big``: the
+    head's ``live``, ``dft_size``, ``fft`` and ``stages`` choose K1's
+    routes and are not read here."""
+    b, h = samples.shape[0], head
     if n_frames <= 0:
-        return samples.new_zeros((b, 0, n_mels))
+        return samples.new_zeros((b, 0, h.n_mels))
     x = samples.to(torch.float32)
-    start = offset + pack_off
-    need = start + (n_frames - 1) * hop + pack
+    start = offset + h.pack_off
+    need = start + (n_frames - 1) * hop + h.pack
     if x.shape[-1] < need:
         x = torch.nn.functional.pad(x, (0, need - x.shape[-1]))
-    frames = x[:, start:need].unfold(-1, pack, hop)  # [B, nf, pack]
+    frames = x[:, start:need].unfold(-1, h.pack, hop)  # [B, nf, pack]
     slices = bf16_cascade(frames, ks)
     # xcat @ m_big, the blocks concatenated in pair_i order; the K-stack's
     # zero pad rows past the real blocks contribute nothing
-    xcat = torch.cat([slices[i] for i in pair_i], dim=-1).to(dot_dtype)
-    y = (xcat @ m_big[: xcat.shape[-1]].to(dot_dtype)).to(torch.float32)
-    if n_bins_pad:
-        re = y[..., :n_bins_pad]
-        im = y[..., n_bins_pad : 2 * n_bins_pad]
+    xcat = torch.cat([slices[i] for i in h.pair_i], dim=-1).to(dot_dtype)
+    y = (xcat @ h.m_big[: xcat.shape[-1]].to(dot_dtype)).to(torch.float32)
+    if h.n_bins_pad:
+        re = y[..., : h.n_bins_pad]
+        im = y[..., h.n_bins_pad : 2 * h.n_bins_pad]
         power = re * re + im * im
     else:
         power = y * y
-    if mel_precision == "bf2":
-        p0 = power.to(torch.bfloat16)
-        p1 = (power - p0.to(torch.float32)).to(torch.bfloat16)
-        pcat = torch.cat([p0, p0, p1], dim=-1).to(torch.float32)
-        energy = pcat @ mt.to(torch.float32)
-    elif mel_precision == "highest":
-        energy = power @ mt.to(torch.float32)
-    else:
-        raise ValueError("mel_precision must be 'bf2' or 'highest'")
-    return out_vals(energy, out_mode, guard)[..., :n_mels].contiguous()
+    energy = project(power, h.mt)
+    return out_vals(energy, h.out_mode, h.guard)[..., : h.n_mels].contiguous()
 
 
 def factored_split(dft_size: int) -> tuple | None:
@@ -379,19 +382,19 @@ def factored_split(dft_size: int) -> tuple | None:
     return None
 
 
-def factored_route(dft_size: int, *, ks: int, pair_i, pack: int,
-                   pack_off: int, width: int, npow: int,
-                   out_mode: str = "whisper") -> tuple | None:
-    """The factored split the host hands K1's layout for a head, or None.
-    A split only for a whisper head whose matrix is the periodic Hann
-    window times the split DFT of ``dft_size`` taps (``dft_size`` set
-    where it is built), contracting the whole frame, in the (3, 2) slice
-    schedule; the built kernel then takes layout 3 where the head's own
-    would be the 32-frame chunk walk, and keeps every other layout."""
-    split = factored_split(dft_size) if dft_size else None
-    if (split is None or out_mode != "whisper" or ks != 3
-            or tuple(pair_i) != FACTORED_PAIR_I or pack != dft_size
-            or pack_off != 0 or width != 2 * npow):
+def factored_route(head: SigHead, ks: int) -> tuple | None:
+    """The factored split the host hands K1's layout for ``head`` with
+    ``ks`` signal slices, or None. A split only for a whisper head whose
+    matrix is the periodic Hann window times the split DFT of its
+    ``dft_size`` taps (set where it is built), contracting the whole
+    frame, in the (3, 2) slice schedule; the built kernel then takes
+    layout 3 where the head's own would be the 32-frame chunk walk, and
+    keeps every other layout."""
+    h = head
+    split = factored_split(h.dft_size) if h.dft_size else None
+    if (split is None or h.out_mode != "whisper" or ks != 3
+            or h.pair_i != FACTORED_PAIR_I or h.pack != h.dft_size
+            or h.pack_off != 0 or h.width != 2 * h.npow):
         return None
     return split
 
@@ -529,32 +532,24 @@ def factored_power(samples: torch.Tensor, fac: FactoredDft, *,
         b, n_frames, k2 * n1)
 
 
-def sig_mel_factored_reference(samples: torch.Tensor, fac: FactoredDft,
-                               mt: torch.Tensor, *, n_frames: int, hop: int,
-                               offset: int, n_mels: int,
-                               mel_precision: str = "bf2",
+def sig_mel_factored_reference(samples: torch.Tensor, head: SigHead, *,
+                               n_frames: int, hop: int, offset: int,
                                dot_dtype: torch.dtype = torch.float32
                                ) -> torch.Tensor:
-    """The plain version of K1's factored path on whatever device
-    ``samples`` lies on: ``samples [B, T]`` f32 -> whisper values ``[B,
-    n_frames, n_mels]``: ``factored_power`` projected by ``mt`` (bins in
-    order: the bf2 stack ``[F0; F1; F0]`` or the f32 projection), then
-    ``out_vals``, as in ``sig_mel_reference``."""
+    """The plain version of K1's factored path for a whisper ``head`` on
+    whatever device ``samples`` lies on: ``samples [B, T]`` f32 ->
+    whisper values ``[B, n_frames, n_mels]``: ``factored_power`` with the
+    tables of ``factored_dft(head.dft_size)``, projected by the head's
+    ``mt`` (bins in order, ``project``), then ``out_vals``, as in
+    ``sig_mel_reference``."""
     b = samples.shape[0]
     if n_frames <= 0:
-        return samples.new_zeros((b, 0, n_mels))
+        return samples.new_zeros((b, 0, head.n_mels))
+    fac = factored_dft(head.dft_size, samples.device)
     power = factored_power(samples, fac, n_frames=n_frames, hop=hop,
                            offset=offset, dot_dtype=dot_dtype)
-    if mel_precision == "bf2":
-        p0 = power.to(torch.bfloat16)
-        p1 = (power - p0.to(torch.float32)).to(torch.bfloat16)
-        energy = (torch.cat([p0, p0, p1], dim=-1).to(torch.float32)
-                  @ mt.to(torch.float32))
-    elif mel_precision == "highest":
-        energy = power @ mt.to(torch.float32)
-    else:
-        raise ValueError("mel_precision must be 'bf2' or 'highest'")
-    return out_vals(energy, "whisper", 0.0)[..., :n_mels].contiguous()
+    energy = project(power, head.mt)
+    return out_vals(energy, "whisper", 0.0)[..., : head.n_mels].contiguous()
 
 
 def fft_taps(samples: torch.Tensor, *, n_frames: int, hop: int,
@@ -592,45 +587,47 @@ def fft_power(samples: torch.Tensor, *, n_frames: int, hop: int,
     return (spec.real * spec.real + spec.imag * spec.imag).to(torch.float32)
 
 
-def sig_mel_fft_reference(samples: torch.Tensor, fft: FftHead, *,
-                          n_frames: int, hop: int, offset: int,
-                          pack_off: int, n_mels: int, out_mode: str,
-                          guard: float) -> torch.Tensor:
-    """The plain version of K1's float64 FFT path on whatever device
-    ``samples`` lies on: ``samples [B, T]`` f32 -> ``[B, n_frames,
-    n_mels]`` values of ``out_mode`` (an ln mode) with ``guard``:
-    ``fft_power`` with ``fft``'s window and preprocessing, split into
-    bf16 ``p0``, ``p1`` and projected by ``fft.mt`` in float32, then
-    ``out_vals``, as in ``sig_mel_reference``. ``fft_args(head)`` gives a
-    head's arguments."""
-    b = samples.shape[0]
+def sig_mel_fft_reference(samples: torch.Tensor, head: SigHead, *,
+                          n_frames: int, hop: int,
+                          offset: int) -> torch.Tensor:
+    """The plain version of K1's float64 FFT path for ``head``, which
+    carries ``fft``, on whatever device ``samples`` lies on: ``samples [B,
+    T]`` f32 -> ``[B, n_frames, n_mels]`` values of the head's ln mode:
+    ``fft_power`` with ``fft``'s window and preprocessing, projected by
+    ``fft.mt`` (``project``), then ``out_vals``, as in
+    ``sig_mel_reference``."""
+    b, f = samples.shape[0], head.fft
     if n_frames <= 0:
-        return samples.new_zeros((b, 0, n_mels))
+        return samples.new_zeros((b, 0, head.n_mels))
     power = fft_power(samples, n_frames=n_frames, hop=hop, offset=offset,
-                      pack_off=pack_off, window=fft.window,
-                      preemph=fft.preemph)
-    p0 = power.to(torch.bfloat16)
-    p1 = (power - p0.to(torch.float32)).to(torch.bfloat16)
-    energy = (torch.cat([p0, p0, p1], dim=-1).to(torch.float32)
-              @ fft.mt.to(torch.float32))
-    return out_vals(energy, out_mode, guard)[..., :n_mels].contiguous()
+                      pack_off=head.pack_off, window=f.window,
+                      preemph=f.preemph)
+    energy = project(power, f.mt)
+    return out_vals(energy, head.out_mode,
+                    head.guard)[..., : head.n_mels].contiguous()
 
 
-def fft_args(head: SigHead) -> dict:
-    """``sig_mel_fft_reference``'s arguments for ``head`` (which carries
-    ``fft``) besides the signal and its frame grid."""
-    return dict(fft=head.fft, pack_off=head.pack_off, n_mels=head.n_mels,
-                out_mode=head.out_mode, guard=head.guard)
+def check_epilogue(head: SigHead, epilogue: str) -> None:
+    """Raises for a head that ``epilogue`` ("quant" or "vad") cannot run
+    on, alike in the kernel and in its plain version."""
+    if head.out_mode != "whisper":
+        raise ValueError("K1's epilogues run on the whisper mode")
+    if epilogue == "vad" and head.n_mels < 3:
+        raise ValueError("the Sobel VAD needs n_mels >= 3")
 
 
-def sig_mel_quantized_reference(samples: torch.Tensor, m_big: torch.Tensor,
-                                pair_i, mt: torch.Tensor, **kw) -> tuple:
+def sig_mel_quantized_reference(samples: torch.Tensor, head: SigHead, *,
+                                ks: int, n_frames: int, hop: int,
+                                offset: int, dot_dtype: torch.dtype =
+                                torch.float32) -> tuple:
     """The quant epilogue's plain version: the whisper mel of
     ``sig_mel_reference`` (same arguments) quantized per frame by
     ``ops/quant.quantize_frames``: ``(q [B, F, n_mels] u8, lo [B, F], hi
     [B, F])``."""
-    return quantize_frames(sig_mel_reference(samples, m_big, pair_i, mt,
-                                             **kw))
+    check_epilogue(head, "quant")
+    return quantize_frames(sig_mel_reference(
+        samples, head, ks=ks, n_frames=n_frames, hop=hop, offset=offset,
+        dot_dtype=dot_dtype))
 
 
 def vad_threshold(min_energy: float) -> float:
@@ -665,15 +662,17 @@ def tile_vad_counts(mel: torch.Tensor, thr: float, start_y: int,
     return counts
 
 
-def sig_mel_vad_reference(samples: torch.Tensor, m_big: torch.Tensor,
-                          pair_i, mt: torch.Tensor, *, vad: tuple,
-                          **kw) -> tuple:
+def sig_mel_vad_reference(samples: torch.Tensor, head: SigHead, *, ks: int,
+                          n_frames: int, hop: int, offset: int, vad: tuple,
+                          dot_dtype: torch.dtype = torch.float32) -> tuple:
     """The VAD epilogue's plain version: the whisper mel of
     ``sig_mel_reference`` (same arguments) and ``tile_vad_counts`` of it
     at ``vad = (thr, start_y)``: ``(mel [B, F, n_mels], counts [B, F]
     int32)``, the classification ``classify_columns`` thresholds, with
     the tile-boundary zeros of the 128- and 64-frame blocks."""
-    mel = sig_mel_reference(samples, m_big, pair_i, mt, **kw)
+    check_epilogue(head, "vad")
+    mel = sig_mel_reference(samples, head, ks=ks, n_frames=n_frames,
+                            hop=hop, offset=offset, dot_dtype=dot_dtype)
     return mel, tile_vad_counts(mel, *vad)
 
 
@@ -772,13 +771,8 @@ def head_layout(head: SigHead, hop: int, ks: int = 3) -> Layout:
     launch, ``k1_accepts`` and ``k1_vad_tile`` agree."""
     if head.fft is not None:
         return fft_layout(head)
-    width = head.m_big.shape[1]
-    npow = width if head.n_bins_pad == 0 else head.n_bins_pad
-    split = factored_route(head.dft_size, ks=ks, pair_i=head.pair_i,
-                           pack=head.pack, pack_off=head.pack_off,
-                           width=width, npow=npow, out_mode=head.out_mode)
-    return block_layout(ks, hop, head.pack, head.pack_off, width, npow,
-                        head.mt.shape[1], split)
+    return block_layout(ks, hop, head.pack, head.pack_off, head.width,
+                        head.npow, head.n_mels_pad, factored_route(head, ks))
 
 
 def pipe_groups(split: bool, live_in: int) -> int:
@@ -854,32 +848,30 @@ def pipe_index(k_tot: int, width: int, npow: int, live: int,
     return torch.cat(parts) if parts else torch.zeros(0, dtype=torch.int64)
 
 
-def pipe_stages(m_big: torch.Tensor, mt: torch.Tensor, pair_i, *,
-                pack: int, npow: int, live: int) -> torch.Tensor:
-    """The pipelined walk's stage stream of a head (bf16, on ``m_big``'s
+def pipe_stages(head: SigHead) -> torch.Tensor:
+    """The pipelined walk's stage stream of ``head`` (bf16, on ``m_big``'s
     device): ``m_big`` and, for a bf2 head, ``mt`` gathered by
     ``pipe_index`` in the head's block order, so each ring stage and each
     projection piece is one contiguous copy."""
-    bf2 = mt.dtype == torch.bfloat16
-    idx = pipe_index(m_big.shape[0], m_big.shape[1], npow, live,
-                     block_order(tuple(int(i) for i in pair_i)), pack,
-                     mt.shape[1], bf2)
+    m_big, mt = head.m_big, head.mt
+    bf2 = head.mel_precision == "bf2"
+    idx = pipe_index(m_big.shape[0], head.width, head.npow, head.live,
+                     block_order(head.pair_i), head.pack, head.n_mels_pad,
+                     bf2)
     src = [m_big.reshape(-1)] + ([mt.reshape(-1)] if bf2 else [])
     src.append(m_big.new_zeros(1))
     return torch.cat(src)[idx.to(m_big.device)].contiguous()
 
 
-def stage_stream(m_big: torch.Tensor, mt: torch.Tensor, pair_i: tuple, *,
-                 pack: int, npow: int, live: int) -> torch.Tensor:
-    """``pipe_stages`` of a head for a launch, checked against the
+def stage_stream(head: SigHead) -> torch.Tensor:
+    """``pipe_stages`` of ``head`` for a launch, checked against the
     kernels' own count of the stream's bytes (``csrc/sig_pipe.cuh::
     pipe_bytes``, which K1 and K2 share; asked of K1's library)."""
     with profiling.span("setup.heads", head="stages"):
-        stream = pipe_stages(m_big, mt, pair_i, pack=pack, npow=npow,
-                             live=live)
+        stream = pipe_stages(head)
     want = _bound().melspec_sig_mel_pipe_bytes(
-        m_big.shape[1], npow, live, len(pair_i), pack, mt.shape[1],
-        int(mt.dtype == torch.bfloat16))
+        head.width, head.npow, head.live, len(head.pair_i), head.pack,
+        head.n_mels_pad, int(head.mel_precision == "bf2"))
     if 2 * stream.numel() != want:
         raise RuntimeError(f"the head's stage stream holds "
                            f"{2 * stream.numel()} bytes; the kernels read "
@@ -906,8 +898,8 @@ def fft_layout(head: SigHead) -> Layout:
     elif head.pack_off + head.pack > FFT_N:
         why = f"taps [{head.pack_off}, {head.pack_off + head.pack}) past it"
     elif (head.mel_precision != "bf2"
-          or f.mt.shape[1] != head.mt.shape[1]):
-        why = (f"a {head.mel_precision} head of {head.mt.shape[1]} mel "
+          or f.mt.shape[1] != head.n_mels_pad):
+        why = (f"a {head.mel_precision} head of {head.n_mels_pad} mel "
                f"columns for a bf2 projection of {f.mt.shape[1]}")
     if why is not None:
         raise ValueError(f"K1's float64 FFT path: {why}")
@@ -991,14 +983,13 @@ def shape_refusal(width: int, n_bins_pad: int, n_mels_pad: int,
     return None
 
 
-def _smem_refusal(smem: int, hop: int, pack: int, pack_off: int,
-                  npow: int) -> str | None:
-    """Why K1 refuses a head whose block needs ``smem`` bytes of shared
-    memory, or None."""
+def _smem_refusal(smem: int, head: SigHead, hop: int) -> str | None:
+    """Why K1 refuses ``head`` at ``hop`` where its block needs ``smem``
+    bytes of shared memory, or None."""
     if smem > MAX_SMEM_BYTES:
         return (f"K1 needs {smem} bytes of shared memory for hop {hop}, "
-                f"{pack} taps at {pack_off}, {npow} power columns; a block "
-                f"has {MAX_SMEM_BYTES}")
+                f"{head.pack} taps at {head.pack_off}, {head.npow} power "
+                f"columns; a block has {MAX_SMEM_BYTES}")
     return None
 
 
@@ -1007,12 +998,10 @@ def k1_accepts(head: SigHead, *, hop: int, ks: int = 3) -> bool:
     shape check of ``check_head`` and the shared-memory check of the
     launch, the same functions the launch applies. The auto routes pick
     K1 only where this holds."""
-    width, split = head.m_big.shape[1], head.n_bins_pad
-    if shape_refusal(width, split, head.mt.shape[1], "K1") is not None:
+    if shape_refusal(head.width, head.n_bins_pad, head.n_mels_pad,
+                     "K1") is not None:
         return False
-    npow = width if split == 0 else split
-    smem = _smem_bytes(head, hop, ks)
-    return _smem_refusal(smem, hop, head.pack, head.pack_off, npow) is None
+    return _smem_refusal(_smem_bytes(head, hop, ks), head, hop) is None
 
 
 def live_columns(m_big: torch.Tensor, n_bins_pad: int) -> int:
@@ -1035,43 +1024,36 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def check_head(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
-               mt: torch.Tensor, *, ks: int, pack: int, pack_off: int,
-               n_bins_pad: int, n_mels: int, mel_precision: str,
-               out_mode: str, what: str, widths: tuple = WIDTHS) -> tuple:
-    """Validate one head's arguments for K1 or K2 (``widths``: the DFT
-    widths the kernel takes); returns ``(pair_i as ints, npow, n_mels_pad,
-    bf2)``."""
-    dev = samples.device
+def check_head(samples: torch.Tensor, head: SigHead, *, ks: int, what: str,
+               widths: tuple = WIDTHS) -> None:
+    """Validate the signal and one head for K1 or K2 (``widths``: the DFT
+    widths the kernel takes)."""
+    h, dev = head, samples.device
     if samples.dtype != torch.float32 or samples.dim() != 2:
         raise ValueError(f"{what} takes a [B, T] float32 signal")
-    if m_big.dtype != torch.bfloat16 or m_big.device != dev:
+    if h.m_big.dtype != torch.bfloat16 or h.m_big.device != dev:
         raise ValueError("m_big must be a bf16 tensor on the signal's device")
-    refusal = shape_refusal(m_big.shape[1], n_bins_pad, mt.shape[-1], what,
+    refusal = shape_refusal(h.width, h.n_bins_pad, h.n_mels_pad, what,
                             widths)
     if refusal is not None:
         raise NotImplementedError(refusal)
-    npow = m_big.shape[1] if n_bins_pad == 0 else n_bins_pad
-    if mel_precision not in ("bf2", "highest"):
-        raise ValueError("mel_precision must be 'bf2' or 'highest'")
-    if out_mode not in OUT_MODES:
+    if h.out_mode not in OUT_MODES:
         raise ValueError(f"out_mode must be one of {OUT_MODES}")
-    bf2 = mel_precision == "bf2"
-    want = (torch.bfloat16, 3 * npow) if bf2 else (torch.float32, npow)
-    if (mt.dtype, mt.shape[0]) != want or mt.device != dev:
+    want = ((torch.bfloat16, 3 * h.npow) if h.mel_precision == "bf2"
+            else (torch.float32, h.npow))
+    if (h.mt.dtype, h.mt.shape[0]) != want or h.mt.device != dev:
         raise ValueError(f"mt must be {want[0]} with {want[1]} rows on the "
-                         f"signal's device; got {mt.dtype} {tuple(mt.shape)}")
-    n_mels_pad = mt.shape[1]
-    if n_mels_pad % 128 or n_mels > n_mels_pad:
+                         f"signal's device; got {h.mt.dtype} "
+                         f"{tuple(h.mt.shape)}")
+    if h.n_mels_pad % 128 or h.n_mels > h.n_mels_pad:
         raise ValueError("mt's columns must be n_mels padded to 128")
-    pair_i = tuple(int(i) for i in pair_i)
+    pair_i = h.pair_i
     if not (0 < len(pair_i) <= MAX_BLOCKS and 0 < ks <= MAX_SLICES
-            and max(pair_i) < ks and min(pair_i) >= 0 and pack > 0
-            and pack_off >= 0 and len(pair_i) * pack <= m_big.shape[0]):
+            and max(pair_i) < ks and min(pair_i) >= 0 and h.pack > 0
+            and h.pack_off >= 0 and len(pair_i) * h.pack <= h.m_big.shape[0]):
         raise ValueError(f"{what} takes <= {MAX_BLOCKS} K blocks of "
                          f"<= {MAX_SLICES} signal slices; got pair_i "
-                         f"{pair_i}, ks {ks}, pack {pack}")
-    return pair_i, npow, n_mels_pad, bf2
+                         f"{pair_i}, ks {ks}, pack {h.pack}")
 
 
 def raise_for(lib, rc: int, what: str) -> None:
@@ -1080,53 +1062,38 @@ def raise_for(lib, rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
 
 
-def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
-            n_bins_pad, n_mels, mel_precision, pack_off, out_mode, guard,
-            live, dft_size: int = 0, fft: FftHead | None = None,
-            stages: StageSlot | None = None, epilogue: str | None = None,
-            vad: tuple = (0.0, 0)) -> tuple:
-    """One K1 launch. ``live``: the power columns that can be nonzero
-    (None: every one). ``dft_size``, ``fft``: the head's (``SigHead``);
-    on the pipelined walk the head's stage stream comes from ``stages``
-    (its ``StageSlot``), or is laid out for this launch alone where that
-    is None;
-    where ``head_layout`` gives layout 3, the factored path runs, from
-    ``factored_dft``'s tables, and with ``fft`` the float64 FFT path, from
-    its description (``m_big`` is not read by either; a launch that
-    fails raises: no other route stands in). ``epilogue``: None (the
-    float mel), ``"quant"`` (the u8
-    records ``q, lo, hi`` and no float mel) or ``"vad"`` (the mel and the
-    Sobel counts at ``vad = (thr, start_y)``). Returns the outputs as a
-    tuple."""
+def _launch(samples, head: SigHead, *, ks, n_frames, hop, offset,
+            epilogue: str | None = None, vad: tuple = (0.0, 0)) -> tuple:
+    """One K1 launch of ``head``. On the pipelined walk the head's stage
+    stream comes from its ``StageSlot``; where ``head_layout`` gives
+    layout 3, the factored path runs, from ``factored_dft``'s tables, and
+    for a head carrying ``fft`` the float64 FFT path, from its
+    description (``m_big`` is not read by either; a launch that fails
+    raises: no other route stands in). ``epilogue``: None (the float
+    mel), ``"quant"`` (the u8 records ``q, lo, hi`` and no float mel) or
+    ``"vad"`` (the mel and the Sobel counts at ``vad = (thr, start_y)``).
+    Returns the outputs as a tuple."""
     global launches, factored_launches, fft_launches, pipelined_launches
-    dev = samples.device
-    pair_i, npow, n_mels_pad, bf2 = check_head(
-        samples, m_big, pair_i, mt, ks=ks, pack=pack, pack_off=pack_off,
-        n_bins_pad=n_bins_pad, n_mels=n_mels, mel_precision=mel_precision,
-        out_mode=out_mode, what="K1")
-    if epilogue is not None and out_mode != "whisper":
-        raise ValueError("K1's epilogues run on the whisper mode")
-    if epilogue == "vad" and n_mels < 3:
-        raise ValueError("the Sobel VAD needs n_mels >= 3")
-    width = m_big.shape[1]
-    live = npow if live is None else live
-    head = SigHead(m_big, pair_i, mt, n_bins_pad, pack, n_mels, pack_off,
-                   out_mode, guard, live, dft_size, fft)
-    layout = head_layout(head, hop, ks)
+    h, dev = head, samples.device
+    check_head(samples, h, ks=ks, what="K1")
+    if epilogue is not None:
+        check_epilogue(h, epilogue)
+    layout = head_layout(h, hop, ks)
     smem, frames, _, factored = layout
     pipe = layout.pipelined
-    refusal = _smem_refusal(smem, hop, pack, pack_off, npow)
+    refusal = _smem_refusal(smem, h, hop)
     if refusal is not None:
         raise NotImplementedError(refusal)
     b, t = samples.shape
     out = q = lo = hi = counts = None
     if epilogue == "quant":
-        q = torch.empty((b, n_frames, n_mels), dtype=torch.uint8, device=dev)
+        q = torch.empty((b, n_frames, h.n_mels), dtype=torch.uint8,
+                        device=dev)
         lo = torch.empty((b, n_frames), dtype=torch.float32, device=dev)
         hi = torch.empty_like(lo)
         outs = (q, lo, hi)
     else:
-        out = torch.empty((b, n_frames, n_mels), dtype=torch.float32,
+        out = torch.empty((b, n_frames, h.n_mels), dtype=torch.float32,
                           device=dev)
         outs = (out,)
         if epilogue == "vad":
@@ -1136,11 +1103,11 @@ def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
     if b == 0 or n_frames <= 0:
         return outs
     samples = samples.contiguous()
-    staged = None
-    if pipe:
-        staged = (stage_stream if stages is None else stages.stream)(
-            m_big, mt, pair_i, pack=pack, npow=npow, live=live)
-    mt = aligned(mt)
+    staged = h.stages.stream(h) if pipe else None
+    mt = aligned(h.mt)
+    bf2 = int(h.mel_precision == "bf2")
+    mode, guard = OUT_MODES.index(h.out_mode), clamped_guard(h.guard)
+    fft = h.fft
     lib = _bound()
 
     def ptr(t):
@@ -1154,34 +1121,32 @@ def _launch(samples, m_big, pair_i, mt, *, ks, n_frames, hop, offset, pack,
                 raise ValueError("the head's FftHead must lie on the "
                                  "signal's device")
             rc = lib.melspec_sig_mel_fft(
-                samples.data_ptr(), b, t, n_frames, hop, offset, pack,
-                pack_off, fft.window.contiguous().data_ptr(),
+                samples.data_ptr(), b, t, n_frames, hop, offset, h.pack,
+                h.pack_off, fft.window.contiguous().data_ptr(),
                 fft_twiddles(dev).data_ptr(),
                 -1.0 if fft.preemph is None else float(fft.preemph),
                 fft.mel_off.data_ptr(), fft.mel_lo.data_ptr(),
-                fft.f0.data_ptr(), fft.f1.data_ptr(), fft.nnz, n_mels,
-                OUT_MODES.index(out_mode), clamped_guard(guard),
-                out.data_ptr(), stream)
+                fft.f0.data_ptr(), fft.f1.data_ptr(), fft.nnz, h.n_mels,
+                mode, guard, out.data_ptr(), stream)
         elif factored:
-            fac = factored_dft(dft_size, dev)
+            fac = factored_dft(h.dft_size, dev)
             rc = lib.melspec_sig_mel_factored(
                 samples.data_ptr(), b, t, n_frames, hop, offset,
                 vad_tile(frames), fac.n1, fac.n2, fac.window.data_ptr(),
                 fac.f1.data_ptr(), fac.tw.data_ptr(), fac.f2.data_ptr(),
-                fac.rowmap.data_ptr(), mt.data_ptr(), npow, n_mels,
-                n_mels_pad, int(bf2), ptr(out), ptr(q), ptr(lo), ptr(hi),
+                fac.rowmap.data_ptr(), mt.data_ptr(), h.npow, h.n_mels,
+                h.n_mels_pad, bf2, ptr(out), ptr(q), ptr(lo), ptr(hi),
                 ptr(counts), vad[0], int(vad[1]), stream)
         else:
-            m_big = aligned(m_big)
-            blocks = block_table(pair_i, dev)
+            m_big = aligned(h.m_big)
+            blocks = block_table(h.pair_i, dev)
             rc = lib.melspec_sig_mel(
                 samples.data_ptr(), b, t, n_frames, hop, offset,
-                vad_tile(frames),
-                m_big.data_ptr(), width, pack, pack_off, blocks.data_ptr(),
-                len(pair_i), ks, npow, live, mt.data_ptr(), n_mels,
-                n_mels_pad, int(bf2), OUT_MODES.index(out_mode),
-                clamped_guard(guard), ptr(out), ptr(q), ptr(lo), ptr(hi),
-                ptr(counts), vad[0], int(vad[1]), ptr(staged), stream)
+                vad_tile(frames), m_big.data_ptr(), h.width, h.pack,
+                h.pack_off, blocks.data_ptr(), len(h.pair_i), ks, h.npow,
+                h.live, mt.data_ptr(), h.n_mels, h.n_mels_pad, bf2, mode,
+                guard, ptr(out), ptr(q), ptr(lo), ptr(hi), ptr(counts),
+                vad[0], int(vad[1]), ptr(staged), stream)
     raise_for(lib, rc, "K1 (sig_mel)")
     launches += 1
     factored_launches += int(factored)
@@ -1201,80 +1166,49 @@ def _on_device(samples: torch.Tensor, kernel, plain):
     raise ValueError(f"unsupported device {samples.device}")
 
 
-def sig_mel(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
-            mt: torch.Tensor, *, ks: int, n_frames: int, hop: int,
-            offset: int, pack: int, n_bins_pad: int, n_mels: int,
-            mel_precision: str = "bf2", pack_off: int = 0,
-            out_mode: str = "whisper", guard: float = 0.0,
-            live: int | None = None, dft_size: int = 0,
-            fft: FftHead | None = None,
-            stages: StageSlot | None = None) -> torch.Tensor:
-    """K1 on a CUDA signal, its plain version on a CPU one (same
-    arguments as ``sig_mel_reference``; ``live``, the head's
-    ``live_columns``, lets K1 skip the power columns that are zero, and
-    None has it multiply every one; ``dft_size``, the head's, takes the
-    factored path where ``factored_route`` gives a split and the head's
-    own layout would be 32-frame blocks; ``fft``, the head's, the float64
-    FFT path; ``stages``, the head's ``StageSlot``, keeps the pipelined
-    walk's stage stream between launches, and None lays it out anew each
-    launch). On the CPU the DFT dot is
-    summed exactly (float64): the f32 sum of a CPU BLAS changes with its
-    thread count, and on near-silent mel bins that order alone can cost
-    more than the accuracy gates allow."""
-    kw = dict(ks=ks, n_frames=n_frames, hop=hop, offset=offset, pack=pack,
-              n_bins_pad=n_bins_pad, n_mels=n_mels,
-              mel_precision=mel_precision, pack_off=pack_off,
-              out_mode=out_mode, guard=guard, live=live, dft_size=dft_size,
-              fft=fft, stages=stages)
+def sig_mel(samples: torch.Tensor, head: SigHead, *, ks: int,
+            n_frames: int, hop: int, offset: int) -> torch.Tensor:
+    """K1 on ``head`` for a CUDA signal, its plain version
+    (``sig_mel_reference``) for a CPU one. On the CUDA signal the head's
+    ``live`` lets K1 skip the power columns that are zero, its
+    ``dft_size`` takes the factored path where ``factored_route`` gives a
+    split and the head's own layout would be 32-frame blocks, its ``fft``
+    the float64 FFT path, and its ``stages`` keeps the pipelined walk's
+    stage stream between launches. On the CPU the DFT dot is summed
+    exactly (float64): the f32 sum of a CPU BLAS changes with its thread
+    count, and on near-silent mel bins that order alone can cost more
+    than the accuracy gates allow."""
+    kw = dict(ks=ks, n_frames=n_frames, hop=hop, offset=offset)
     return _on_device(
-        samples, lambda: _launch(samples, m_big, pair_i, mt, **kw)[0],
-        lambda: sig_mel_reference(samples, m_big, pair_i, mt,
-                                  dot_dtype=torch.float64, **kw))
+        samples, lambda: _launch(samples, head, **kw)[0],
+        lambda: sig_mel_reference(samples, head, dot_dtype=torch.float64,
+                                  **kw))
 
 
-def sig_mel_quantized(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
-                      mt: torch.Tensor, *, ks: int, n_frames: int, hop: int,
-                      offset: int, pack: int, n_bins_pad: int, n_mels: int,
-                      mel_precision: str = "bf2",
-                      live: int | None = None, dft_size: int = 0,
-                      stages: StageSlot | None = None) -> tuple:
-    """K1 in whisper mode with the quant epilogue on a CUDA signal, its
-    plain version on a CPU one (float64 DFT dot, as ``sig_mel``): ``(q
-    [B, n_frames, n_mels] u8, lo [B, n_frames], hi [B, n_frames])``, each
-    frame's record of ``quantize_frames``; the kernel writes no float
-    mel."""
-    kw = dict(ks=ks, n_frames=n_frames, hop=hop, offset=offset, pack=pack,
-              n_bins_pad=n_bins_pad, n_mels=n_mels,
-              mel_precision=mel_precision, live=live, dft_size=dft_size,
-              stages=stages)
+def sig_mel_quantized(samples: torch.Tensor, head: SigHead, *, ks: int,
+                      n_frames: int, hop: int, offset: int) -> tuple:
+    """K1 on a whisper ``head`` with the quant epilogue for a CUDA signal,
+    its plain version for a CPU one (float64 DFT dot, as ``sig_mel``):
+    ``(q [B, n_frames, n_mels] u8, lo [B, n_frames], hi [B, n_frames])``,
+    each frame's record of ``quantize_frames``; the kernel writes no
+    float mel."""
+    kw = dict(ks=ks, n_frames=n_frames, hop=hop, offset=offset)
     return _on_device(
-        samples,
-        lambda: _launch(samples, m_big, pair_i, mt, pack_off=0,
-                        out_mode="whisper", guard=0.0, epilogue="quant",
-                        **kw),
-        lambda: sig_mel_quantized_reference(samples, m_big, pair_i, mt,
+        samples, lambda: _launch(samples, head, epilogue="quant", **kw),
+        lambda: sig_mel_quantized_reference(samples, head,
                                             dot_dtype=torch.float64, **kw))
 
 
-def sig_mel_vad(samples: torch.Tensor, m_big: torch.Tensor, pair_i,
-                mt: torch.Tensor, *, ks: int, n_frames: int, hop: int,
-                offset: int, pack: int, n_bins_pad: int, n_mels: int,
-                vad: tuple, mel_precision: str = "bf2",
-                live: int | None = None, dft_size: int = 0,
-                stages: StageSlot | None = None) -> tuple:
-    """K1 in whisper mode with the Sobel VAD epilogue on a CUDA signal,
-    its plain version on a CPU one (float64 DFT dot): ``(mel [B,
+def sig_mel_vad(samples: torch.Tensor, head: SigHead, *, ks: int,
+                n_frames: int, hop: int, offset: int, vad: tuple) -> tuple:
+    """K1 on a whisper ``head`` with the Sobel VAD epilogue for a CUDA
+    signal, its plain version for a CPU one (float64 DFT dot): ``(mel [B,
     n_frames, n_mels], counts [B, n_frames] int32)`` at ``vad = (thr,
-    start_y)``; the counts of the last two frames of each ``k1_vad_tile``
-    tile are 0 (see ``tile_vad_counts``)."""
-    kw = dict(ks=ks, n_frames=n_frames, hop=hop, offset=offset, pack=pack,
-              n_bins_pad=n_bins_pad, n_mels=n_mels,
-              mel_precision=mel_precision, live=live, dft_size=dft_size,
-              stages=stages)
+    start_y)``; the counts of the last two frames of each
+    ``k1_vad_tile`` tile are 0 (see ``tile_vad_counts``)."""
+    kw = dict(ks=ks, n_frames=n_frames, hop=hop, offset=offset)
     return _on_device(
         samples,
-        lambda: _launch(samples, m_big, pair_i, mt, pack_off=0,
-                        out_mode="whisper", guard=0.0, epilogue="vad",
-                        vad=vad, **kw),
-        lambda: sig_mel_vad_reference(samples, m_big, pair_i, mt, vad=vad,
+        lambda: _launch(samples, head, epilogue="vad", vad=vad, **kw),
+        lambda: sig_mel_vad_reference(samples, head, vad=vad,
                                       dot_dtype=torch.float64, **kw))

@@ -59,9 +59,9 @@ def sig_multi_reference(samples: torch.Tensor, heads: Sequence[SigHead], *,
     Returns ``(outs, counts)``, ``outs`` one ``[B, n_frames, n_mels_h]``
     float32 tensor per head, ``counts`` int32 ``[B, n_frames]`` or
     None."""
-    outs = tuple(sig_mel_reference(samples, h.m_big, h.pair_i, h.mt, ks=ks,
-                                   n_frames=n_frames, hop=hop, offset=offset,
-                                   dot_dtype=dot_dtype, **h.kw())
+    outs = tuple(sig_mel_reference(samples, h, ks=ks, n_frames=n_frames,
+                                   hop=hop, offset=offset,
+                                   dot_dtype=dot_dtype)
                  for h in heads)
     counts = None if vad is None else tile_vad_counts(outs[0], *vad)
     return outs, counts
@@ -141,11 +141,9 @@ def _smem_bytes(ks: int, hop: int, packs, pack_offs, widths, npows,
 
 def _layout(heads: Sequence[SigHead]) -> tuple:
     """``(packs, pack_offs, widths, npows, nmps)`` of the heads."""
-    widths = [h.m_big.shape[1] for h in heads]
-    return ([h.pack for h in heads], [h.pack_off for h in heads], widths,
-            [w if h.n_bins_pad == 0 else h.n_bins_pad
-             for h, w in zip(heads, widths)],
-            [h.mt.shape[-1] for h in heads])
+    return ([h.pack for h in heads], [h.pack_off for h in heads],
+            [h.width for h in heads], [h.npow for h in heads],
+            [h.n_mels_pad for h in heads])
 
 
 def _refusal(heads: Sequence[SigHead], ks: int, hop: int) -> str | None:
@@ -155,8 +153,8 @@ def _refusal(heads: Sequence[SigHead], ks: int, hop: int) -> str | None:
     if not 0 < len(heads) <= MAX_HEADS:
         return f"K2 takes 1..{MAX_HEADS} heads; got {len(heads)}"
     for h in heads:
-        refusal = shape_refusal(h.m_big.shape[1], h.n_bins_pad,
-                                h.mt.shape[-1], "K2", WIDTHS)
+        refusal = shape_refusal(h.width, h.n_bins_pad, h.n_mels_pad, "K2",
+                                WIDTHS)
         if refusal is not None:
             return refusal
     smem, span = _smem_bytes(ks, hop, *_layout(heads))
@@ -180,11 +178,7 @@ def stage_streams(heads: Sequence[SigHead]) -> list:
     """Each head's stage stream for K2's pipelined walk, from the head's
     own ``StageSlot`` (laid out by its first pipelined launch, K1's or
     K2's, and reused after)."""
-    return [h.stages.stream(h.m_big, h.mt, tuple(int(i) for i in h.pair_i),
-                            pack=h.pack,
-                            npow=h.n_bins_pad or h.m_big.shape[1],
-                            live=h.live)
-            for h in heads]
+    return [h.stages.stream(h) for h in heads]
 
 
 def _launch(samples, heads, *, ks, n_frames, hop, offset, vad) -> tuple:
@@ -192,12 +186,8 @@ def _launch(samples, heads, *, ks, n_frames, hop, offset, vad) -> tuple:
     dev = samples.device
     if not 0 < len(heads) <= MAX_HEADS:
         raise ValueError(f"K2 takes 1..{MAX_HEADS} heads; got {len(heads)}")
-    checked = [check_head(samples, h.m_big, h.pair_i, h.mt, ks=ks,
-                          pack=h.pack, pack_off=h.pack_off,
-                          n_bins_pad=h.n_bins_pad, n_mels=h.n_mels,
-                          mel_precision=h.mel_precision,
-                          out_mode=h.out_mode, what="K2", widths=WIDTHS)
-               for h in heads]
+    for h in heads:
+        check_head(samples, h, ks=ks, what="K2", widths=WIDTHS)
     if vad is not None and heads[0].out_mode != "whisper":
         raise ValueError("K2's VAD epilogue runs on a whisper head 0")
     n = len(heads)
@@ -219,8 +209,8 @@ def _launch(samples, heads, *, ks, n_frames, hop, offset, vad) -> tuple:
     if b == 0 or n_frames <= 0:
         return outs, counts
     samples = samples.contiguous()
-    keep = [(aligned(h.m_big), aligned(h.mt), block_table(pair_i, dev))
-            for h, (pair_i, _, _, _) in zip(heads, checked)]
+    keep = [(aligned(h.m_big), aligned(h.mt), block_table(h.pair_i, dev))
+            for h in heads]
     staged = stage_streams(heads) if pipe else None
     lib = _bound()
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -234,12 +224,12 @@ def _launch(samples, heads, *, ks, n_frames, hop, offset, vad) -> tuple:
             arr(vp, [bt.data_ptr() for _, _, bt in keep]),
             arr(vp, [mt.data_ptr() for _, mt, _ in keep]),
             arr(vp, [o.data_ptr() for o in outs]),
-            arr(ci, [len(pi) for pi, _, _, _ in checked]),
+            arr(ci, [len(h.pair_i) for h in heads]),
             _ints(packs), _ints(pack_offs), _ints(widths), _ints(npows),
             _ints([h.live for h in heads]),
             arr(ci, [h.n_mels for h in heads]),
-            arr(ci, [nmp for _, _, nmp, _ in checked]),
-            arr(ci, [int(bf2) for _, _, _, bf2 in checked]),
+            _ints(nmps),
+            arr(ci, [int(h.mel_precision == "bf2") for h in heads]),
             arr(ci, [OUT_MODES.index(h.out_mode) for h in heads]),
             arr(ctypes.c_float, [clamped_guard(h.guard) for h in heads]),
             None if counts is None else counts.data_ptr(), thr, start_y,

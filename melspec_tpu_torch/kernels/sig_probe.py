@@ -270,10 +270,10 @@ def run_factored(dev: torch.device, timer) -> list:
         head = mel_kernel.whisper_head(fft, n_mels, sr, dev)
         kw = dict(ks=3, n_frames=framing.num_frames_batch(x.shape[-1], fft,
                                                           hop),
-                  hop=hop, offset=0, **head.kw())
+                  hop=hop, offset=0)
         calls[f"{fft}_{hop}_{n_mels}"] = (
             lambda x=x, h=head, kw=kw: sig_mel.sig_mel(
-                x, h.m_big, h.pair_i, h.mt, **kw))
+                x, h, **kw))
     names = ["full", *FACTORED_CUTS]
     libs = build.build_variants("sig_probe_factored", "sig_mel", {
         name: {FACTORED.name: factored_source(name)} for name in names})
@@ -319,20 +319,20 @@ def run(dev: torch.device, timer) -> list:
     head = mel_kernel.whisper_head(c.fft_size, c.n_mels, c.sampling_rate,
                                    dev)
     nf = framing.num_frames_batch(x.shape[-1], c.fft_size, c.hop_size)
-    kw = dict(ks=3, n_frames=nf, hop=c.hop_size, offset=0, **head.kw())
+    kw = dict(ks=3, n_frames=nf, hop=c.hop_size, offset=0)
     nemo = BatchLogMel(device=dev)
     wide = mel_kernel.whisper_head(1024, 80, 22050.0, dev)
     x22 = torch.from_numpy((rng.normal(size=(B, int(SECONDS * 22050)))
                             * 0.2).astype(np.float32)).to(dev)
     kw22 = dict(ks=3, n_frames=framing.num_frames_batch(x22.shape[-1], 1024,
                                                         256),
-                hop=256, offset=0, **wide.kw())
+                hop=256, offset=0)
 
     def k1():
-        return sig_mel.sig_mel(x, head.m_big, head.pair_i, head.mt, **kw)
+        return sig_mel.sig_mel(x, head, **kw)
 
     def k1_22k():
-        return sig_mel.sig_mel(x22, wide.m_big, wide.pair_i, wide.mt, **kw22)
+        return sig_mel.sig_mel(x22, wide, **kw22)
 
     calls = {"whisper_400_160_128": k1, "nemo_512_400_80": (
         lambda: nemo.compute(x)), "whisper_1024_256_80": k1_22k}
@@ -366,8 +366,7 @@ def run(dev: torch.device, timer) -> list:
                 vad=sig_mel.vad_args(DetectionSettings(), c.n_mels)))),
         dict(variant="k1_ln_guard_nemo", ms=timer(lambda: nemo.compute(x))),
         dict(variant="k1_whisper_1024_22k", ms=timer(
-            lambda: sig_mel.sig_mel(x22, wide.m_big, wide.pair_i, wide.mt,
-                                    **kw22)))]
+            lambda: sig_mel.sig_mel(x22, wide, **kw22)))]
     return rows
 
 
@@ -386,10 +385,10 @@ def time_main_path(dev: torch.device, timer) -> dict:
         head = mel_kernel.whisper_head(fft, n_mels, sr, dev)
         kw = dict(ks=3, n_frames=framing.num_frames_batch(x.shape[-1], fft,
                                                           hop),
-                  hop=hop, offset=0, **head.kw())
+                  hop=hop, offset=0)
         ms[f"{fft}_{hop}_{n_mels}"] = timer(
             lambda x=x, h=head, kw=kw: sig_mel.sig_mel(
-                x, h.m_big, h.pair_i, h.mt, **kw))
+                x, h, **kw))
         if sr == 16000.0:
             ms["k2_whisper_kaldi_vad"] = timer(k2_step(dev, x))
     return ms

@@ -177,9 +177,8 @@ class BatchLogMel:
             # ln(x + guard) in one launch
             h = self.sig_head
             lead = x.shape[:-1]
-            mel = sig_mel(x.reshape((-1, x.shape[-1])).to(torch.float32),
-                          h.m_big, h.pair_i, h.mt, ks=3, n_frames=valid,
-                          hop=cfg.hop_length, offset=0, **h.kw())
+            mel = sig_mel(x.reshape((-1, x.shape[-1])).to(torch.float32), h,
+                          ks=3, n_frames=valid, hop=cfg.hop_length, offset=0)
             feats = mel.transpose(-1, -2).reshape(
                 lead + (cfg.n_mels, valid)).to(self.dtype)
             return self._norm_and_pad(feats, valid)

@@ -205,9 +205,8 @@ class Fbank:
             # per frame); ln(max(., floor)) in the kernel
             h = self.sig_head
             lead = x.shape[:-1]
-            feats = sig_mel(x.reshape((-1, n)).to(torch.float32), h.m_big,
-                            h.pair_i, h.mt, ks=3, n_frames=nf,
-                            hop=self.frame_shift, offset=0, **h.kw())
+            feats = sig_mel(x.reshape((-1, n)).to(torch.float32), h, ks=3,
+                            n_frames=nf, hop=self.frame_shift, offset=0)
             return feats.reshape(lead + (nf, cfg.num_mel_bins)).to(
                 self.dtype)
 

@@ -256,7 +256,8 @@ class SigMatrices:
     the power columns that can be nonzero (``live_columns`` of the host
     matrix), ``dft_size``, the N whose Hann-windowed DFT ``m_big`` is
     (``SigHead.dft_size``; 0 for matrices from elsewhere), and ``stages``,
-    the slot of K1's pipelined stage stream (``SigHead.stages``)."""
+    the slot of K1's pipelined stage stream (``SigHead.stages``), which
+    the heads that ``head`` makes share."""
 
     m_big: torch.Tensor
     pair_i: tuple
@@ -276,6 +277,19 @@ class SigMatrices:
             self, m_big=self.m_big.to(device), mt=self.mt.to(device),
             mt_bf2=self.mt_bf2.to(device), stages=StageSlot())
 
+    def head(self, fft_size: int, n_mels: int, mel_precision: str = "bf2",
+             pack_off: int = 0) -> SigHead:
+        """The whisper head of these matrices: taps ``[pack_off, pack_off
+        + fft_size)`` of each frame, ``n_mels`` columns, the bf2 stack
+        (``"bf2"``) or the f32 projection (``"highest"``)."""
+        if mel_precision not in ("bf2", "highest"):
+            raise ValueError("mel_precision must be 'bf2' or 'highest'")
+        return SigHead(self.m_big, self.pair_i,
+                       self.mt_bf2 if mel_precision == "bf2" else self.mt,
+                       self.n_bins_pad, fft_size, n_mels, pack_off=pack_off,
+                       live=self.live, dft_size=self.dft_size,
+                       stages=self.stages)
+
 
 @functools.lru_cache(maxsize=16)
 @profiling.spanned("setup.heads", head="whisper")
@@ -293,11 +307,8 @@ def whisper_head(fft_size: int, n_mels: int, sampling_rate: float,
     """The whisper frontend (bf2 projection, (ks, cutoff) = (3, 2)) as a
     head of K2, contracting taps ``[pack_off, pack_off + fft_size)`` of
     each frame."""
-    mats = sig_matrices(fft_size, n_mels, float(sampling_rate), 3, 2,
-                        device)
-    return SigHead(mats.m_big, mats.pair_i, mats.mt_bf2, mats.n_bins_pad,
-                   fft_size, n_mels, pack_off=pack_off, live=mats.live,
-                   dft_size=mats.dft_size, stages=mats.stages)
+    return sig_matrices(fft_size, n_mels, float(sampling_rate), 3, 2,
+                        device).head(fft_size, n_mels, pack_off=pack_off)
 
 
 def _k1_input(samples, fft_size: int, hop_size: int, streaming: bool,
@@ -323,18 +334,6 @@ def _k1_input(samples, fft_size: int, hop_size: int, streaming: bool,
             "JAX package does"
         )
     return x, squeeze, offset, n_frames
-
-
-def _sig_kw(ks: int, fft_size: int, hop_size: int, n_mels: int,
-            offset: int, n_frames: int, mats: SigMatrices,
-            mel_precision: str) -> dict:
-    """K1's arguments for the whisper head of ``mats``."""
-    if mel_precision not in ("bf2", "highest"):
-        raise ValueError("mel_precision must be 'bf2' or 'highest'")
-    return dict(ks=ks, n_frames=n_frames, hop=hop_size,
-                offset=offset, pack=fft_size, n_bins_pad=mats.n_bins_pad,
-                n_mels=n_mels, mel_precision=mel_precision, live=mats.live,
-                dft_size=mats.dft_size, stages=mats.stages)
 
 
 def whisper_mel_sig(
@@ -375,10 +374,8 @@ def whisper_mel_sig(
     mats = (sig_matrices(fft_size, n_mels, float(sampling_rate), ks, cutoff,
                          x.device)
             if matrices is None else matrices.to(x.device))
-    out = sig_mel(x, mats.m_big, mats.pair_i,
-                  mats.mt_bf2 if mel_precision == "bf2" else mats.mt,
-                  **_sig_kw(ks, fft_size, hop_size, n_mels, offset, n_frames,
-                            mats, mel_precision))
+    out = sig_mel(x, mats.head(fft_size, n_mels, mel_precision), ks=ks,
+                  n_frames=n_frames, hop=hop_size, offset=offset)
     return out[0] if squeeze else out
 
 
@@ -416,13 +413,10 @@ def whisper_mel_quantized(
         z = torch.zeros((x.shape[0], nf), dtype=torch.float32,
                         device=x.device)
         return (q[0], z[0], z[0]) if squeeze else (q, z, z)
-    mats = sig_matrices(fft_size, n_mels, float(sampling_rate), ks, cutoff,
-                        x.device)
-    kw = _sig_kw(ks, fft_size, hop_size, n_mels, offset, n_frames, mats,
-                 mel_precision)
-    q, lo, hi = sig_mel_quantized(
-        x, mats.m_big, mats.pair_i,
-        mats.mt_bf2 if mel_precision == "bf2" else mats.mt, **kw)
+    head = sig_matrices(fft_size, n_mels, float(sampling_rate), ks, cutoff,
+                        x.device).head(fft_size, n_mels, mel_precision)
+    q, lo, hi = sig_mel_quantized(x, head, ks=ks, n_frames=n_frames,
+                                  hop=hop_size, offset=offset)
     return (q[0], lo[0], hi[0]) if squeeze else (q, lo, hi)
 
 
@@ -459,14 +453,10 @@ def whisper_mel_vad_sig(
                               streaming=streaming, device=x.device)
         raw = torch.zeros((x.shape[0], 0), dtype=torch.bool, device=x.device)
         return (mel[0], raw[0]) if squeeze else (mel, raw)
-    mats = sig_matrices(fft_size, n_mels, float(sampling_rate), 3, 2,
-                        x.device)
-    kw = _sig_kw(3, fft_size, hop_size, n_mels, offset, n_frames, mats,
-                 "bf2")
-    mel, counts = sig_mel_vad(x, mats.m_big, mats.pair_i, mats.mt_bf2,
-                              vad=vad_args(settings, n_mels), **kw)
-    head = SigHead(mats.m_big, mats.pair_i, mats.mt_bf2, mats.n_bins_pad,
-                   fft_size, n_mels, live=mats.live, dft_size=mats.dft_size)
+    head = whisper_head(fft_size, n_mels, sampling_rate, x.device)
+    mel, counts = sig_mel_vad(x, head, ks=3, n_frames=n_frames,
+                              hop=hop_size, offset=offset,
+                              vad=vad_args(settings, n_mels))
     tile = k1_vad_tile(head, hop_size, x.device)
     raw = fix_raw(counts, mel, n_frames, n_frames - 2, settings, tile)
     return (mel[0], raw[0]) if squeeze else (mel, raw)
@@ -667,10 +657,8 @@ def resolve_pallas_impl(fft_size: int, hop_size: int, n_mels: int,
         return "sig"
     ks = 3 if hp_n_slices is None else hp_n_slices
     cutoff = 2 if hp_max_pair_sum is None else hp_max_pair_sum
-    mats = sig_matrices(fft_size, n_mels, float(sampling_rate), ks, cutoff,
-                        torch.device("cpu"))
-    head = SigHead(mats.m_big, mats.pair_i, mats.mt_bf2, mats.n_bins_pad,
-                   fft_size, n_mels, live=mats.live, dft_size=mats.dft_size)
+    head = sig_matrices(fft_size, n_mels, float(sampling_rate), ks, cutoff,
+                        torch.device("cpu")).head(fft_size, n_mels)
     return "sig" if k1_accepts(head, hop=hop_size, ks=ks) else "bf3"
 
 

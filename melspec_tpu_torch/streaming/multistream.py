@@ -32,7 +32,7 @@ from melspec_tpu_torch.kernels.sig_mel import sig_mel
 from melspec_tpu_torch.ops import dft, framing
 from melspec_tpu_torch.ops.filterbank import mel_filterbank
 from melspec_tpu_torch.ops.hp_dft import bf3_rdft_power
-from melspec_tpu_torch.ops.mel_kernel import sig_geometry, sig_matrices
+from melspec_tpu_torch.ops.mel_kernel import sig_geometry, whisper_head
 from melspec_tpu_torch.ops.spectrogram import log_mel_from_power, whisper_norm
 from melspec_tpu_torch.ops.windows import hann_periodic
 
@@ -84,9 +84,8 @@ class MultiStreamMel:
                     "no macro-row geometry for this (fft, hop) — use "
                     "fft_impl='rdft' or 'bf3'"
                 )
-            self._sig = sig_matrices(fft, n_mels,
-                                     float(config.sampling_rate), 3, 2,
-                                     self.device)
+            self._sig = whisper_head(fft, n_mels,
+                                     float(config.sampling_rate), self.device)
 
     def _power(self, frames: torch.Tensor) -> torch.Tensor:
         """``|rfft|^2`` of RAW (unwindowed) frames ``[..., fft]`` over the
@@ -161,13 +160,8 @@ class MultiStreamMel:
                     "log10 records need fft_impl 'rdft' or 'bf3' (the sig "
                     "kernel normalizes in-kernel)"
                 )
-            m = self._sig
-            mels = sig_mel(
-                signal, m.m_big, m.pair_i, m.mt_bf2, ks=3, n_frames=h,
-                hop=hop, offset=hop, pack=fft, n_bins_pad=m.n_bins_pad,
-                n_mels=self.config.n_mels, mel_precision="bf2", live=m.live,
-                dft_size=m.dft_size, stages=m.stages,
-            ).to(self.dtype)
+            mels = sig_mel(signal, self._sig, ks=3, n_frames=h, hop=hop,
+                           offset=hop).to(self.dtype)
         else:
             frames = framing.frame_signal(signal, fft, hop, h, offset=hop)
             log_mel = log_mel_from_power(self._power(frames),

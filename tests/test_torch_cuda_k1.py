@@ -61,10 +61,8 @@ def _plain(x, mats, fft, hop, n_mels, streaming, precision,
     nf = (framing.num_frames_streaming(x.shape[-1], fft, hop) if streaming
           else framing.num_frames_batch(x.shape[-1], fft, hop))
     return sig_mel.sig_mel_reference(
-        x, mats.m_big, mats.pair_i,
-        mats.mt_bf2 if precision == "bf2" else mats.mt, ks=3, n_frames=nf,
-        hop=hop, offset=offset, pack=fft, n_bins_pad=mats.n_bins_pad,
-        n_mels=n_mels, mel_precision=precision, dot_dtype=dot_dtype)
+        x, mats.head(fft, n_mels, precision), ks=3, n_frames=nf, hop=hop,
+        offset=offset, dot_dtype=dot_dtype)
 
 
 @pytest.mark.parametrize("fft,hop,n_mels", [(400, 160, 80), (400, 160, 128),
@@ -121,15 +119,15 @@ def test_k1_zero_frames_launch_nothing(dev):
 
 
 def test_k1_rejects_what_it_does_not_take(dev):
-    mats = mel_kernel.sig_matrices(400, 80, 16000.0, 3, 2, dev)
+    head = mel_kernel.whisper_head(400, 80, 16000.0, dev)
     x = torch.zeros(1, 4000, device=dev)
-    kw = dict(ks=3, n_frames=1, hop=160, offset=0, pack=400,
-              n_bins_pad=mats.n_bins_pad, n_mels=80)
+    kw = dict(ks=3, n_frames=1, hop=160, offset=0)
+    # a float32 projection of the bf2 stack's rows
+    f32 = dataclasses.replace(head, mt=head.mt.to(torch.float32))
     with pytest.raises(ValueError, match="mt must be"):
-        sig_mel.sig_mel(x, mats.m_big, mats.pair_i, mats.mt, **kw)
+        sig_mel.sig_mel(x, f32, **kw)
     with pytest.raises(ValueError, match="float32"):
-        sig_mel.sig_mel(x.double(), mats.m_big, mats.pair_i, mats.mt_bf2,
-                        **kw)
+        sig_mel.sig_mel(x.double(), head, **kw)
 
 
 @pytest.mark.parametrize("n_mels", [80, 128])
@@ -145,7 +143,7 @@ def test_multistream_sig_route_matches_plain(dev, n_mels):
     s = 5
     mel = MultiStreamMel(MelConfig(400, 160, n_mels, 16000.0), s,
                          fft_impl="sig", device=dev)
-    m = mel._sig
+    head = mel._sig
     rng = np.random.default_rng(n_mels)
     st = mel.init()
     for h in (4, 1, 70):
@@ -157,13 +155,10 @@ def test_multistream_sig_route_matches_plain(dev, n_mels):
         st, _, got, _ = mel._push_many(st, x, active)
         torch.cuda.synchronize()
         assert sig_mel.launches == before + 1
-        kw = dict(ks=3, n_frames=h, hop=160, offset=160, pack=400,
-                  n_bins_pad=m.n_bins_pad, n_mels=n_mels)
-        want = sig_mel.sig_mel_reference(concat, m.m_big, m.pair_i,
-                                         m.mt_bf2, **kw)
-        exact = sig_mel.sig_mel_reference(concat, m.m_big, m.pair_i,
-                                          m.mt_bf2, dot_dtype=torch.float64,
-                                          **kw)
+        kw = dict(ks=3, n_frames=h, hop=160, offset=160)
+        want = sig_mel.sig_mel_reference(concat, head, **kw)
+        exact = sig_mel.sig_mel_reference(concat, head,
+                                          dot_dtype=torch.float64, **kw)
         assert got.shape == want.shape == (s, h, n_mels)
         floor = float((want - exact).abs().max())
         assert float((got - exact).abs().max()) <= 1e-5
@@ -191,12 +186,9 @@ def test_k1_matches_plain_at_256_and_1024_columns(dev, fft, hop, n_mels, sr,
     torch.cuda.synchronize()
     assert sig_mel.launches == before + 1
     offset = framing.streaming_frame_offset(fft, hop) if streaming else 0
-    kw = dict(ks=3, n_frames=got.shape[1], hop=hop, offset=offset,
-              **head.kw())
-    want = sig_mel.sig_mel_reference(x, head.m_big, head.pair_i, head.mt,
-                                     **kw)
-    exact = sig_mel.sig_mel_reference(x, head.m_big, head.pair_i, head.mt,
-                                      dot_dtype=torch.float64, **kw)
+    kw = dict(ks=3, n_frames=got.shape[1], hop=hop, offset=offset)
+    want = sig_mel.sig_mel_reference(x, head, **kw)
+    exact = sig_mel.sig_mel_reference(x, head, dot_dtype=torch.float64, **kw)
     assert got.shape == want.shape
     floor = float((want - exact).abs().max())
     assert float((got - exact).abs().max()) <= max(1e-5, floor)
@@ -272,8 +264,8 @@ def test_k1_factored_matches_its_plain_version(dev, fft, hop, n_mels, sr,
     64-frame tile: within max(2e-5, floor) of exact and that plus the
     floor of the plain version, the floor being the plain version's
     distance from exact (the bars of chip_smoke.py's phase wide_hops)."""
-    mats = mel_kernel.sig_matrices(fft, n_mels, sr, 3, 2, dev)
-    mt = mats.mt_bf2 if precision == "bf2" else mats.mt
+    head = mel_kernel.sig_matrices(fft, n_mels, sr, 3, 2, dev).head(
+        fft, n_mels, precision)
     x = _noise(dev, fft + hop + 1, (3, int(sr) + 37))
     before = sig_mel.factored_launches
     got = mel_kernel.whisper_mel_sig(x, fft, hop, n_mels, sr,
@@ -284,13 +276,10 @@ def test_k1_factored_matches_its_plain_version(dev, fft, hop, n_mels, sr,
     offset = framing.streaming_frame_offset(fft, hop) if streaming else 0
     nf = got.shape[1]
     assert nf % 64
-    plain = sig_mel.sig_mel_factored_reference(
-        x, sig_mel.factored_dft(fft, dev), mt, n_frames=nf, hop=hop,
-        offset=offset, n_mels=n_mels, mel_precision=precision)
-    exact = sig_mel.sig_mel_reference(
-        x, mats.m_big, mats.pair_i, mt, ks=3, n_frames=nf, hop=hop,
-        offset=offset, pack=fft, n_bins_pad=mats.n_bins_pad, n_mels=n_mels,
-        mel_precision=precision, dot_dtype=torch.float64)
+    plain = sig_mel.sig_mel_factored_reference(x, head, n_frames=nf,
+                                               hop=hop, offset=offset)
+    exact = sig_mel.sig_mel_reference(x, head, ks=3, n_frames=nf, hop=hop,
+                                      offset=offset, dot_dtype=torch.float64)
     floor = float((plain - exact).abs().max())
     bar = max(2e-5, floor)
     assert float((got - exact).abs().max()) <= bar
@@ -311,12 +300,10 @@ def test_k1_factored_at_256_mel_columns(dev, fft, hop, n_mels, sr):
     torch.cuda.synchronize()
     assert sig_mel.factored_launches == before + 1
     nf = got.shape[1]
-    plain = sig_mel.sig_mel_factored_reference(
-        x, sig_mel.factored_dft(fft, dev), head.mt, n_frames=nf, hop=hop,
-        offset=0, n_mels=n_mels)
-    exact = sig_mel.sig_mel_reference(
-        x, head.m_big, head.pair_i, head.mt, ks=3, n_frames=nf, hop=hop,
-        offset=0, dot_dtype=torch.float64, **head.kw())
+    plain = sig_mel.sig_mel_factored_reference(x, head, n_frames=nf,
+                                               hop=hop, offset=0)
+    exact = sig_mel.sig_mel_reference(x, head, ks=3, n_frames=nf, hop=hop,
+                                      offset=0, dot_dtype=torch.float64)
     floor = float((plain - exact).abs().max())
     bar = max(2e-5, floor)
     assert float((got - exact).abs().max()) <= bar
@@ -342,22 +329,19 @@ def test_k1_chunk_walk_in_32_frame_blocks(dev, which):
         hop, sr = cfg.frame_shift_samples, 48e3
     else:
         w = mel_kernel.whisper_head(2048, 128, 22050.0, dev)
-        head = sig_mel.SigHead(w.m_big, w.pair_i, w.mt, w.n_bins_pad,
-                               2048, 128, live=w.live)
+        head = dataclasses.replace(w, dft_size=0)
         hop, sr = 512, 22050.0
     assert tuple(sig_mel.head_layout(head, hop))[1:] == (32, 256, False)
     x = _noise(dev, hop, (2, int(sr) + 11))
     nf = framing.num_frames_batch(x.shape[-1], head.pack, hop)
-    kw = dict(ks=3, n_frames=nf, hop=hop, offset=0, **head.kw())
+    kw = dict(ks=3, n_frames=nf, hop=hop, offset=0)
     before = (sig_mel.launches, sig_mel.factored_launches)
-    got = sig_mel.sig_mel(x, head.m_big, head.pair_i, head.mt, **kw)
+    got = sig_mel.sig_mel(x, head, **kw)
     torch.cuda.synchronize()
     assert (sig_mel.launches, sig_mel.factored_launches) == (
         before[0] + 1, before[1])
-    want = sig_mel.sig_mel_reference(x, head.m_big, head.pair_i, head.mt,
-                                     **kw)
-    exact = sig_mel.sig_mel_reference(x, head.m_big, head.pair_i, head.mt,
-                                      dot_dtype=torch.float64, **kw)
+    want = sig_mel.sig_mel_reference(x, head, **kw)
+    exact = sig_mel.sig_mel_reference(x, head, dot_dtype=torch.float64, **kw)
     tol = 1e-5 if head.out_mode == "whisper" else 2e-4
     floor = float((want - exact).abs().max())
     assert float((got - exact).abs().max()) <= max(tol, floor)
@@ -454,11 +438,11 @@ def _held_fft_head(dev, head, hop, front, f64, kind, sr, clip, n_mels):
     nf = (framing.num_frames_batch(x.shape[-1], head.pack, hop)
           if kind == "kaldi" else framing.num_frames_centered(x.shape[-1],
                                                                hop))
-    kw = dict(ks=3, n_frames=nf, hop=hop, offset=0, **head.kw())
+    kw = dict(ks=3, n_frames=nf, hop=hop, offset=0)
     before = (sig_mel.launches, sig_mel.fft_launches,
               sig_mel.factored_launches)
     if front is None:
-        got = sig_mel.sig_mel(sig, head.m_big, head.pair_i, head.mt, **kw)
+        got = sig_mel.sig_mel(sig, head, **kw)
     else:
         assert front.fft_impl == "sig"
         got = front.compute(x)
@@ -469,15 +453,13 @@ def _held_fft_head(dev, head, hop, front, f64, kind, sr, clip, n_mels):
             sig_mel.factored_launches) == (before[0] + 1, before[1] + 1,
                                            before[2])
     assert got.shape == (3, nf, n_mels) and bool(torch.isfinite(got).all())
-    plain = sig_mel.sig_mel_fft_reference(sig, n_frames=nf, hop=hop,
-                                          offset=0, **sig_mel.fft_args(head))
+    plain = sig_mel.sig_mel_fft_reference(sig, head, n_frames=nf, hop=hop,
+                                          offset=0)
     truth = f64.compute(x.double())
     if kind == "nemo":
         truth = truth.transpose(-1, -2)
-    dense = sig_mel.sig_mel_reference(sig, head.m_big, head.pair_i,
-                                      head.mt, **kw)
-    exact = sig_mel.sig_mel_reference(sig, head.m_big, head.pair_i,
-                                      head.mt, dot_dtype=torch.float64, **kw)
+    dense = sig_mel.sig_mel_reference(sig, head, **kw)
+    exact = sig_mel.sig_mel_reference(sig, head, dot_dtype=torch.float64, **kw)
 
     def dist(a, b):
         return float((a.double() - b.double()).abs().max())
@@ -552,12 +534,9 @@ def test_k1_matches_plain_at_the_wide_heads(dev, fft, hop, n_mels, sr,
     torch.cuda.synchronize()
     assert sig_mel.launches == before + 1
     offset = framing.streaming_frame_offset(fft, hop) if streaming else 0
-    kw = dict(ks=3, n_frames=got.shape[1], hop=hop, offset=offset,
-              **head.kw())
-    want = sig_mel.sig_mel_reference(x, head.m_big, head.pair_i, head.mt,
-                                     **kw)
-    exact = sig_mel.sig_mel_reference(x, head.m_big, head.pair_i, head.mt,
-                                      dot_dtype=torch.float64, **kw)
+    kw = dict(ks=3, n_frames=got.shape[1], hop=hop, offset=offset)
+    want = sig_mel.sig_mel_reference(x, head, **kw)
+    exact = sig_mel.sig_mel_reference(x, head, dot_dtype=torch.float64, **kw)
     assert got.shape == want.shape and got.shape[1] % 32
     floor = float((want - exact).abs().max())
     assert float((got - exact).abs().max()) <= max(1e-5, floor)
@@ -583,12 +562,10 @@ def test_jfk_gate_at_the_wide_heads(dev, fft, hop, n_mels, sr):
     assert float((got.double() - want).abs().max()) <= 1e-5
     head = mel_kernel.whisper_head(fft, n_mels, sr, dev)
     nf = got.shape[1]
-    plain = sig_mel.sig_mel_factored_reference(
-        jfk, sig_mel.factored_dft(fft, dev), head.mt, n_frames=nf, hop=hop,
-        offset=0, n_mels=n_mels)
-    exact = sig_mel.sig_mel_reference(
-        jfk, head.m_big, head.pair_i, head.mt, ks=3, n_frames=nf, hop=hop,
-        offset=0, dot_dtype=torch.float64, **head.kw())
+    plain = sig_mel.sig_mel_factored_reference(jfk, head, n_frames=nf,
+                                               hop=hop, offset=0)
+    exact = sig_mel.sig_mel_reference(jfk, head, ks=3, n_frames=nf, hop=hop,
+                                      offset=0, dot_dtype=torch.float64)
     floor = float((plain - exact).abs().max())
     assert float((got - plain).abs().max()) <= max(1e-5, floor) + floor
 
@@ -628,10 +605,8 @@ def test_wide_head_epilogues_are_exact(dev, fft, hop, n_mels, sr,
     head = mel_kernel.whisper_head(fft, n_mels, sr, dev)
     vad = sig_mel.vad_args(settings, n_mels)
     offset = framing.streaming_frame_offset(fft, hop) if streaming else 0
-    k_mel, counts = sig_mel.sig_mel_vad(
-        x, head.m_big, head.pair_i, head.mt, ks=3, n_frames=mel.shape[1],
-        hop=hop, offset=offset, pack=fft, n_bins_pad=head.n_bins_pad,
-        n_mels=n_mels, vad=vad, live=head.live, dft_size=head.dft_size)
+    k_mel, counts = sig_mel.sig_mel_vad(x, head, ks=3, n_frames=mel.shape[1],
+                                        hop=hop, offset=offset, vad=vad)
     tile = sig_mel.k1_vad_tile(head, hop, dev)
     assert tile == 64
     assert torch.equal(k_mel, mel)
@@ -676,10 +651,8 @@ def test_chunk_walk_epilogues_are_exact(dev, streaming):
         assert torch.equal(a, b)
     vad = sig_mel.vad_args(settings, n_mels)
     offset = framing.streaming_frame_offset(fft, hop) if streaming else 0
-    k_mel, counts = sig_mel.sig_mel_vad(
-        x, head.m_big, head.pair_i, head.mt, ks=3, n_frames=mel.shape[1],
-        hop=hop, offset=offset, pack=fft, n_bins_pad=head.n_bins_pad,
-        n_mels=n_mels, vad=vad, live=head.live, dft_size=head.dft_size)
+    k_mel, counts = sig_mel.sig_mel_vad(x, head, ks=3, n_frames=mel.shape[1],
+                                        hop=hop, offset=offset, vad=vad)
     assert torch.equal(k_mel, mel)
     assert torch.equal(counts, sig_mel.tile_vad_counts(mel, *vad, 32))
 
@@ -871,8 +844,7 @@ def test_k1_pipelined_equals_k2(dev, which, shape):
     nf = framing.num_frames_batch(shape[1], 400, 160)
     kw = dict(ks=3, n_frames=nf, hop=160, offset=0)
     before = (sig_mel.launches, sig_mel.pipelined_launches)
-    k1 = sig_mel.sig_mel(x, head.m_big, head.pair_i, head.mt, **kw,
-                         **head.kw())
+    k1 = sig_mel.sig_mel(x, head, **kw)
     (k2,), _ = sig_multi.sig_multi(x, [head], **kw)
     torch.cuda.synchronize()
     assert (sig_mel.launches, sig_mel.pipelined_launches) == (
@@ -894,12 +866,9 @@ def test_k1_pipelined_epilogues_equal_k2(dev, shape):
     nf = framing.num_frames_batch(shape[1], 400, 160)
     kw = dict(ks=3, n_frames=nf, hop=160, offset=0)
     vad = sig_mel.vad_args(DetectionSettings(), head.n_mels)
-    args = (x, head.m_big, head.pair_i, head.mt)
-    hkw = dict(pack=head.pack, n_bins_pad=head.n_bins_pad,
-               n_mels=head.n_mels, live=head.live)
     before = sig_mel.pipelined_launches
-    mel, counts = sig_mel.sig_mel_vad(*args, vad=vad, **kw, **hkw)
-    q, lo, hi = sig_mel.sig_mel_quantized(*args, **kw, **hkw)
+    mel, counts = sig_mel.sig_mel_vad(x, head, vad=vad, **kw)
+    q, lo, hi = sig_mel.sig_mel_quantized(x, head, **kw)
     (k2,), k2_counts = sig_multi.sig_multi(x, [head], vad=vad, **kw)
     torch.cuda.synchronize()
     assert sig_mel.pipelined_launches == before + 2

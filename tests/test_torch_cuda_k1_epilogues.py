@@ -68,16 +68,12 @@ def test_quantized_equals_quantize_frames_of_k1_mel(dev, n_mels, streaming,
     assert torch.equal(lo, wlo) and torch.equal(hi, whi)
 
     # against the plain version (f32 dot) and the exact one (float64 dot)
-    mats = mel_kernel.sig_matrices(400, n_mels, 16000.0, 3, 2, dev)
+    head = mel_kernel.whisper_head(400, n_mels, 16000.0, dev)
     offset = framing.streaming_frame_offset(400, 160) if streaming else 0
-    nf = mel.shape[1]
-    kw = dict(ks=3, n_frames=nf, hop=160, offset=offset, pack=400,
-              n_bins_pad=mats.n_bins_pad, n_mels=n_mels)
-    pq, plo, phi = sig_mel.sig_mel_quantized_reference(
-        x, mats.m_big, mats.pair_i, mats.mt_bf2, **kw)
+    kw = dict(ks=3, n_frames=mel.shape[1], hop=160, offset=offset)
+    pq, plo, phi = sig_mel.sig_mel_quantized_reference(x, head, **kw)
     _, elo, ehi = sig_mel.sig_mel_quantized_reference(
-        x, mats.m_big, mats.pair_i, mats.mt_bf2, dot_dtype=torch.float64,
-        **kw)
+        x, head, dot_dtype=torch.float64, **kw)
     floor = float(torch.maximum((plo - elo).abs().max(),
                                 (phi - ehi).abs().max()))
     assert float((lo - plo).abs().max()) <= 1e-5 + floor
@@ -118,12 +114,10 @@ def test_vad_counts_equal_tile_counts(dev):
     version's ``tile_vad_counts`` of K1's own mel."""
     settings = DetectionSettings(min_energy=0.5, min_y=3)
     x = _signal(7, (4, _samples(3 * TILE + 9)), dev, 0.3)
-    mats = mel_kernel.sig_matrices(400, 128, 16000.0, 3, 2, dev)
+    head = mel_kernel.whisper_head(400, 128, 16000.0, dev)
     vad = (sig_mel.vad_threshold(settings.min_energy), settings.min_mel)
-    kw = dict(ks=3, n_frames=3 * TILE + 9, hop=160, offset=0, pack=400,
-              n_bins_pad=mats.n_bins_pad, n_mels=128)
-    mel, counts = sig_mel.sig_mel_vad(x, mats.m_big, mats.pair_i,
-                                      mats.mt_bf2, vad=vad, **kw)
+    mel, counts = sig_mel.sig_mel_vad(x, head, ks=3, n_frames=3 * TILE + 9,
+                                      hop=160, offset=0, vad=vad)
     assert counts.dtype == torch.int32
     assert torch.equal(counts, sig_mel.tile_vad_counts(mel, *vad))
     assert bool(counts.any())

@@ -49,11 +49,9 @@ def _signal(dev, b, t, seed):
 
 
 def _held(got, x, head, *, n_frames, hop, offset=0):
-    kw = dict(ks=3, n_frames=n_frames, hop=hop, offset=offset, **head.kw())
-    want = sig_mel.sig_mel_reference(x, head.m_big, head.pair_i, head.mt,
-                                     **kw)
-    exact = sig_mel.sig_mel_reference(x, head.m_big, head.pair_i, head.mt,
-                                      dot_dtype=torch.float64, **kw)
+    kw = dict(ks=3, n_frames=n_frames, hop=hop, offset=offset)
+    want = sig_mel.sig_mel_reference(x, head, **kw)
+    exact = sig_mel.sig_mel_reference(x, head, dot_dtype=torch.float64, **kw)
     assert got.shape == want.shape
     floor = float((want - exact).abs().max())
     bar = max(LN_TOL, floor)
@@ -90,9 +88,8 @@ def test_k1_ln_guard_nemo_matches_plain(dev, b, t):
     xp = torch.nn.functional.pad(x, (pad, pad))
     nf = nemo.num_frames(t)
     want = sig_mel.sig_mel_reference(
-        xp, nemo.sig_head.m_big, nemo.sig_head.pair_i, nemo.sig_head.mt,
-        ks=3, n_frames=nf, hop=cfg.hop_length, offset=0,
-        dot_dtype=torch.float64, **nemo.sig_head.kw())
+        xp, nemo.sig_head, ks=3, n_frames=nf, hop=cfg.hop_length, offset=0,
+        dot_dtype=torch.float64)
     assert float((got.transpose(-1, -2) - want).abs().max()) <= LN_TOL
 
 
@@ -221,12 +218,10 @@ def test_k1_odd_pack_off_matches_plain(dev, h):
     x = _signal(dev, 3, 16000 * 2 + 37, 21 + h)
     xin = torch.nn.functional.pad(x, (tri._nemo_pad, 0))
     nf = framing.num_frames_centered(x.shape[-1], 160)
-    kw = dict(ks=3, n_frames=nf, hop=160, offset=0, **head.kw())
-    got = sig_mel.sig_mel(xin, head.m_big, head.pair_i, head.mt, **kw)
-    want = sig_mel.sig_mel_reference(xin, head.m_big, head.pair_i, head.mt,
-                                     **kw)
-    exact = sig_mel.sig_mel_reference(xin, head.m_big, head.pair_i,
-                                      head.mt, dot_dtype=torch.float64, **kw)
+    kw = dict(ks=3, n_frames=nf, hop=160, offset=0)
+    got = sig_mel.sig_mel(xin, head, **kw)
+    want = sig_mel.sig_mel_reference(xin, head, **kw)
+    exact = sig_mel.sig_mel_reference(xin, head, dot_dtype=torch.float64, **kw)
     floor = float((want - exact).abs().max())
     bar = max(1e-5 if h == 0 else LN_TOL, floor)
     assert float((got - exact).abs().max()) <= bar
@@ -256,8 +251,7 @@ def _k2_against_k1(x, front, *, tri):
     piped = [sig_mel.head_layout(h, 160).pipelined for h in front.heads]
     before = sig_mel.pipelined_launches
     for h, got in zip(front.heads, outs):
-        k1 = sig_mel.sig_mel(xin, h.m_big, h.pair_i, h.mt, ks=3,
-                             n_frames=nf, hop=160, offset=0, **h.kw())
+        k1 = sig_mel.sig_mel(xin, h, ks=3, n_frames=nf, hop=160, offset=0)
         assert torch.equal(got, k1)
     torch.cuda.synchronize()
     assert sig_mel.pipelined_launches == before + sum(piped)

@@ -87,7 +87,7 @@ def test_wide_whisper_heads_take_the_factored_route(monkeypatch, fft, hop,
     split to K1's layout query, for ``k1_accepts`` too (the query
     stubbed: it comes from the built kernel)."""
     head = mel_kernel.whisper_head(fft, n_mels, sr, CPU)
-    assert head.dft_size == fft and head.kw()["dft_size"] == fft
+    assert head.dft_size == fft
     assert _route(head) == SPLITS[fft]
     calls = []
 
@@ -117,10 +117,7 @@ def test_other_heads_keep_the_chunk_walk():
     assert _route(dataclasses.replace(kaldi, fft=None)) is None
     assert _route(dataclasses.replace(nemo, fft=None)) is None
     two = mel_kernel.sig_matrices(1024, 64, 48000.0, 2, 1, CPU)
-    head2 = sig_mel.SigHead(two.m_big, two.pair_i, two.mt_bf2,
-                            two.n_bins_pad, 1024, 64, live=two.live,
-                            dft_size=two.dft_size)
-    assert _route(head2, ks=2) is None
+    assert _route(two.head(1024, 64), ks=2) is None
     assert _route(mel_kernel.whisper_head(400, 128, 16000.0, CPU)) is None
     assert _route(mel_kernel.whisper_head(1000, 80, 48000.0, CPU)) is None
     bare = mel_kernel.whisper_head(2048, 128, 22050.0, CPU)
@@ -298,13 +295,12 @@ def test_factored_reference_against_exact_and_jax(fft, hop, n_mels, sr,
                    framing.num_frames_streaming(t, fft, hop)) if streaming
                   else (0, framing.num_frames_batch(t, fft, hop)))
     xt = torch.from_numpy(x)
+    head = mats.head(fft, n_mels)
     got = sig_mel.sig_mel_factored_reference(
-        xt, sig_mel.factored_dft(fft, CPU), mats.mt_bf2, n_frames=nf,
-        hop=hop, offset=offset, n_mels=n_mels).numpy()
+        xt, head, n_frames=nf, hop=hop, offset=offset).numpy()
     exact = sig_mel.sig_mel_reference(
-        xt, mats.m_big, mats.pair_i, mats.mt_bf2, ks=3, n_frames=nf,
-        hop=hop, offset=offset, pack=fft, n_bins_pad=mats.n_bins_pad,
-        n_mels=n_mels, dot_dtype=torch.float64).numpy()
+        xt, head, ks=3, n_frames=nf, hop=hop, offset=offset,
+        dot_dtype=torch.float64).numpy()
     assert got.shape == (2, nf, n_mels)
     assert np.abs(got - exact).max() <= 2e-5
     if not streaming:
@@ -320,11 +316,9 @@ def test_highest_projection_of_the_plain_version():
     x = torch.from_numpy(_signal(3, 1, int(0.5 * sr)))
     mats = mel_kernel.sig_matrices(fft, n_mels, sr, 3, 2, CPU)
     nf = framing.num_frames_batch(x.shape[-1], fft, hop)
-    got = sig_mel.sig_mel_factored_reference(
-        x, sig_mel.factored_dft(fft, CPU), mats.mt, n_frames=nf, hop=hop,
-        offset=0, n_mels=n_mels, mel_precision="highest")
-    exact = sig_mel.sig_mel_reference(
-        x, mats.m_big, mats.pair_i, mats.mt, ks=3, n_frames=nf, hop=hop,
-        offset=0, pack=fft, n_bins_pad=mats.n_bins_pad, n_mels=n_mels,
-        mel_precision="highest", dot_dtype=torch.float64)
+    head = mats.head(fft, n_mels, "highest")
+    got = sig_mel.sig_mel_factored_reference(x, head, n_frames=nf, hop=hop,
+                                             offset=0)
+    exact = sig_mel.sig_mel_reference(x, head, ks=3, n_frames=nf, hop=hop,
+                                      offset=0, dot_dtype=torch.float64)
     assert float((got - exact).abs().max()) <= 2e-5

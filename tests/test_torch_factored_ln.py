@@ -163,7 +163,6 @@ def test_what_the_head_carries(kind, sr):
         assert head.pack_off == (2048 - n) // 2 and f.preemph is None
     assert f.window.dtype == torch.float64
     assert torch.equal(f.window, torch.as_tensor(want, dtype=torch.float64))
-    assert head.kw()["fft"] is f
     moved = head.to(CPU)
     assert moved.fft.window.device == CPU and moved.fft.nnz == f.nnz
 
@@ -231,9 +230,8 @@ def test_kaldi_heads_whose_nyquist_weight_is_rounding(n_mels):
     x = _signal(n_mels, (2, 8000))
     hop = cfg.frame_shift_samples
     nf = framing.num_frames_batch(x.shape[-1], head.pack, hop)
-    got = sig_mel.sig_mel_fft_reference(torch.from_numpy(x), n_frames=nf,
-                                        hop=hop, offset=0,
-                                        **sig_mel.fft_args(head))
+    got = sig_mel.sig_mel_fft_reference(torch.from_numpy(x), head,
+                                        n_frames=nf, hop=hop, offset=0)
     want = fbank.Fbank(cfg, dtype=torch.float64, fft_impl="rdft",
                        device=CPU).compute(x)
     assert got.shape == want.shape == (2, nf, n_mels)
@@ -387,8 +385,8 @@ def _fft_plain(kind, sr, x):
     else:
         nf = framing.num_frames_centered(x.shape[-1], hop)
         xt = torch.nn.functional.pad(xt, (1024, 1024))
-    return sig_mel.sig_mel_fft_reference(xt, n_frames=nf, hop=hop,
-                                         offset=0, **sig_mel.fft_args(head))
+    return sig_mel.sig_mel_fft_reference(xt, head, n_frames=nf, hop=hop,
+                                         offset=0)
 
 
 @pytest.mark.parametrize("kind", ["kaldi", "nemo"])
@@ -499,9 +497,8 @@ def test_cpu_route_stays_the_dense_plain_version(kind):
         front = batch_logmel.BatchLogMel(cfg, fft_impl="sig", device=CPU)
         got = front.compute(x).transpose(-1, -2)
         sig, hop = torch.nn.functional.pad(x, (1024, 1024)), cfg.hop_length
-    h = front.sig_head
     want = sig_mel.sig_mel_reference(
-        sig, h.m_big, h.pair_i, h.mt, ks=3, n_frames=got.shape[1], hop=hop,
-        offset=0, dot_dtype=torch.float64, **h.kw())
+        sig, front.sig_head, ks=3, n_frames=got.shape[1], hop=hop, offset=0,
+        dot_dtype=torch.float64)
     assert torch.equal(got, want)
     assert (sig_mel.launches, sig_mel.fft_launches) == before

@@ -132,9 +132,8 @@ def test_cpu_tensor_runs_plain_version_without_launch_count():
 
 def test_wrapper_rejects_devices_other_than_cuda_and_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
-        sig_mel.sig_mel(torch.zeros(1, 400, device="meta"), None, (0,),
-                        None, ks=1, n_frames=1, hop=160, offset=0, pack=400,
-                        n_bins_pad=256, n_mels=80)
+        sig_mel.sig_mel(torch.zeros(1, 400, device="meta"), None, ks=1,
+                        n_frames=1, hop=160, offset=0)
 
 
 def test_import_builds_nothing():

@@ -15,6 +15,7 @@ against JAX's may flip where a gradient sits within 1e-5 of the
 threshold: at most one per clip.
 """
 
+import dataclasses
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -87,9 +88,8 @@ def test_quantized_plain_version_f32_dot_matches_jax():
     x = _noise(5, (3, 12345))
     mats = mel_kernel.sig_matrices(400, 80, 16000.0, 3, 2, torch.device(CPU))
     q, lo, hi = sig_mel.sig_mel_quantized_reference(
-        torch.from_numpy(x), mats.m_big, mats.pair_i, mats.mt_bf2, ks=3,
-        n_frames=75, hop=160, offset=0, pack=400, n_bins_pad=mats.n_bins_pad,
-        n_mels=80)
+        torch.from_numpy(x), mats.head(400, 80), ks=3, n_frames=75, hop=160,
+        offset=0)
     jq, jlo, jhi = (np.asarray(a) for a in jmk.whisper_mel_quantized(
         x, interpret=True))
     assert tuple(q.shape) == jq.shape
@@ -107,6 +107,21 @@ def test_quantized_degenerate_range():
     assert not q.any() and torch.equal(lo, hi)
     np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
     assert np.abs(lo.numpy() - np.asarray(jlo)).max() <= MEL_BAR
+
+
+@pytest.mark.parametrize("epilogue", ["quant", "vad"])
+def test_epilogues_refuse_a_non_whisper_head(epilogue):
+    """The plain versions refuse an ln head as the kernel does: the
+    epilogues quantize and VAD-count whisper values only."""
+    mats = mel_kernel.sig_matrices(400, 80, 16000.0, 3, 2, torch.device(CPU))
+    head = dataclasses.replace(mats.head(400, 80), out_mode="ln")
+    x = torch.from_numpy(_noise(17, (1, _samples(10))))
+    kw = dict(ks=3, n_frames=10, hop=160, offset=0)
+    with pytest.raises(ValueError, match="whisper mode"):
+        if epilogue == "quant":
+            sig_mel.sig_mel_quantized(x, head, **kw)
+        else:
+            sig_mel.sig_mel_vad(x, head, vad=(0.0, 0), **kw)
 
 
 @pytest.mark.parametrize("streaming", [False, True])

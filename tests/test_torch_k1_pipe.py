@@ -29,9 +29,7 @@ def _head(which):
 
 
 def _dims(head):
-    width = head.m_big.shape[1]
-    npow = head.n_bins_pad or width
-    return width, npow, head.mt.shape[1]
+    return head.width, head.npow, head.n_mels_pad
 
 
 def _decode(head):
@@ -117,8 +115,7 @@ def test_stage_stream_holds_the_head_values(which):
     the stream equals them value for value, zeros elsewhere."""
     head = _head(which)
     width, npow, nmp = _dims(head)
-    stream = sig_mel.pipe_stages(head.m_big, head.mt, head.pair_i,
-                                 pack=head.pack, npow=npow, live=head.live)
+    stream = sig_mel.pipe_stages(head)
     idx = sig_mel.pipe_index(head.m_big.shape[0], width, npow, head.live,
                              sig_mel.block_order(head.pair_i), head.pack,
                              nmp, True)
@@ -172,14 +169,15 @@ def test_stage_stream_of_other_block_counts_and_f32():
 
 def test_stage_slot_keeps_one_stream_per_head(monkeypatch):
     """A head's ``StageSlot`` lays its stream out once and hands it to
-    the head's later launches; a launch with the other projection dtype
-    gets its own beside it, and one with other matrices or arguments has
-    it laid out anew. ``SigMatrices`` shares its slot with
-    ``whisper_head``, and a copy on another device starts an empty one."""
+    the head's later launches; a head of the other projection dtype gets
+    its own beside it, and one with other matrices or fields (made by
+    ``dataclasses.replace``) has it laid out anew. ``SigMatrices`` shares
+    its slot with its heads and ``whisper_head``, and a copy on another
+    device starts an empty one."""
     built = []
 
-    def fake(m_big, mt, pair_i, *, pack, npow, live):
-        built.append((mt.dtype, pack, live))
+    def fake(head):
+        built.append((head.mt.dtype, head.pack, head.live))
         return torch.zeros(1)
 
     monkeypatch.setattr(sig_mel, "stage_stream", fake)
@@ -188,21 +186,16 @@ def test_stage_slot_keeps_one_stream_per_head(monkeypatch):
         cached.stages
     # a private slot, so the cached matrices' stays as it was
     mats = dataclasses.replace(cached, stages=sig_mel.StageSlot())
+    bf2, f32 = mats.head(400, 80), mats.head(400, 80, "highest")
+    assert bf2.stages is mats.stages and f32.stages is mats.stages
     head = dataclasses.replace(_head("whisper_80"), stages=mats.stages)
-    assert head.kw()["stages"] is head.stages
-    _, npow, _ = _dims(head)
-    args = dict(pack=400, npow=npow, live=mats.live)
-    first = mats.stages.stream(mats.m_big, mats.mt_bf2, mats.pair_i, **args)
-    assert head.stages.stream(head.m_big, head.mt, head.pair_i,
-                              **args) is first
-    f32 = mats.stages.stream(mats.m_big, mats.mt, mats.pair_i, **args)
-    assert f32 is not first
-    assert mats.stages.stream(mats.m_big, mats.mt_bf2, mats.pair_i,
-                              **args) is first
+    first = mats.stages.stream(bf2)
+    assert head.stages.stream(head) is first
+    assert mats.stages.stream(f32) is not first
+    assert mats.stages.stream(mats.head(400, 80)) is first
     assert len(built) == 2
-    mats.stages.stream(mats.m_big.clone(), mats.mt_bf2, mats.pair_i, **args)
-    mats.stages.stream(mats.m_big, mats.mt_bf2, mats.pair_i,
-                       **{**args, "live": mats.live - 8})
+    mats.stages.stream(dataclasses.replace(bf2, m_big=bf2.m_big.clone()))
+    mats.stages.stream(dataclasses.replace(bf2, live=bf2.live - 8))
     assert len(built) == 4
     assert mats.to(CPU) is mats
     assert head.to(torch.device("meta")).stages is not head.stages
@@ -215,9 +208,8 @@ def test_cpu_launch_takes_the_slot():
     x = torch.from_numpy(np.random.default_rng(3).normal(
         size=(1, 16000)).astype(np.float32) * 0.2)
     kw = dict(ks=3, n_frames=98, hop=160, offset=0)
-    got = sig_mel.sig_mel(x, head.m_big, head.pair_i, head.mt, **kw,
-                          **head.kw())
-    want = sig_mel.sig_mel(x, head.m_big, head.pair_i, head.mt, **kw,
-                           **{**head.kw(), "stages": None})
+    got = sig_mel.sig_mel(x, head, **kw)
+    want = sig_mel.sig_mel(
+        x, dataclasses.replace(head, stages=sig_mel.StageSlot()), **kw)
     assert torch.equal(got, want)
     assert not head.stages._streams

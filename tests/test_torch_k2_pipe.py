@@ -167,14 +167,11 @@ def test_each_head_keeps_its_own_stream(monkeypatch, name):
     first = sig_multi.stage_streams(heads)
     assert len(lib.asked) == len(heads)
     for h, s in zip(heads, first):
-        width = h.m_big.shape[1]
-        npow = h.n_bins_pad or width
-        want = pipe_bytes(width, npow, h.live, len(h.pair_i), h.pack,
-                          h.mt.shape[1], True)
+        want = pipe_bytes(h.width, h.npow, h.live, len(h.pair_i), h.pack,
+                          h.n_mels_pad, True)
         assert s.dtype == torch.bfloat16 and 2 * s.numel() == want
         assert h.stages._streams[torch.bfloat16][3] is s
-        assert torch.equal(s, sig_mel.pipe_stages(
-            h.m_big, h.mt, h.pair_i, pack=h.pack, npow=npow, live=h.live))
+        assert torch.equal(s, sig_mel.pipe_stages(h))
     again = sig_multi.stage_streams(heads)
     assert all(a is b for a, b in zip(first, again))
     assert len(lib.asked) == len(heads)

@@ -103,8 +103,8 @@ def test_fft_plain_version_is_dc_removal_alone(sr, p):
     nf = framing.num_frames_batch(x.shape[-1], head.pack, hop)
 
     def plain(h):
-        return sig_mel.sig_mel_fft_reference(x, n_frames=nf, hop=hop,
-                                             offset=0, **sig_mel.fft_args(h))
+        return sig_mel.sig_mel_fft_reference(x, h, n_frames=nf, hop=hop,
+                                             offset=0)
 
     got, want = plain(head), plain(zero)
     assert got.shape == (2, nf, 80) and bool(torch.isfinite(got).all())

@@ -68,9 +68,8 @@ def test_plain_f32_dot_matches_jax_interpret(n_mels, streaming):
     nf = (framing.num_frames_streaming if streaming
           else framing.num_frames_batch)(12345, 400, 160)
     out = {dt: sig_mel_reference(
-        torch.from_numpy(x), mats.m_big, mats.pair_i, mats.mt_bf2, ks=3,
-        n_frames=nf, hop=160, offset=offset, pack=400,
-        n_bins_pad=mats.n_bins_pad, n_mels=n_mels, dot_dtype=dt).numpy()
+        torch.from_numpy(x), mats.head(400, n_mels), ks=3, n_frames=nf,
+        hop=160, offset=offset, dot_dtype=dt).numpy()
         for dt in (torch.float32, torch.float64)}
     assert out[torch.float32].shape == want.shape
     assert np.abs(out[torch.float32] - want).max() <= 1e-5
