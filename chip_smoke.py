@@ -1826,16 +1826,28 @@ def phase_wide_hops(dev) -> dict:
 
 def fft_work(head, frames: int) -> dict:
     """FLOPs of K1's float64 FFT path over ``frames`` frames, the
-    design's work by type: in float64 the taps (the window's product a
-    tap; with Kaldi's preemphasis the mean's sum, the mean's and the
-    preemphasis's differences and product a tap), the 1024-point complex
-    FFT (five radix-4 passes of 256 butterflies: three complex products
-    of 6 and eight complex sums of 2), the real-input split (10 a bin)
-    and the power (3 a bin); in float32 the bf2 projection (three
-    products and sums a run value: 6) and the output (1 a mel)."""
+    design's work by type (``csrc/sig_fft.cuh``): in float64 the taps (the
+    window's product a tap; with Kaldi's preemphasis the mean's sum, the
+    mean's and the preemphasis's differences and product a tap), the
+    1024-point complex FFT as 16 x 16 x 4 (two passes of 64 radix-16s in
+    registers, each two layers of four radix-4s of eight complex sums of 2
+    and the W16 twiddles: three general complex products of 6, four by
+    (1 -/+ i) / sqrt 2 of 4, -i free; a pass's twiddles a thread, 15
+    complex products of 6 by the powers of one base, those by 1 included,
+    and the 14 products of 6 that raise it; then 256 radix-4s), the
+    real-input split in pairs of bins k, 1024 - k (the sums and halvings 8,
+    the twiddle's product 6, the two bins 4, the two powers 6: 24 a pair,
+    512 pairs and bin 512 alone; the twiddles W8^d by (1 -/+ i) / sqrt 2,
+    4 each, two of four a base, two bases a thread); in float32 the bf2
+    projection (three products and sums a run value: 6) and the output (1
+    a mel)."""
     pack, fft = head.pack, head.fft
+    threads = sig_mel.FFT_GROUP_THREADS
     taps = pack * (1 if fft.preemph is None else 5)
-    f64 = taps + 5 * 256 * (3 * 6 + 8 * 2) + 1024 * (10 + 3)
+    radix16 = 8 * 8 * 2 + 3 * 6 + 4 * 4
+    passes = 2 * threads * (radix16 + 15 * 6 + 14 * 6) + 256 * 8 * 2
+    split = (sig_mel.FFT_N // 4 + 1) * 24 + threads * 2 * 2 * 4
+    f64 = taps + passes + split
     f32 = 6 * fft.nnz + head.n_mels
     return dict(flops_f64=frames * f64, flops_f32=frames * f32)
 
@@ -1850,7 +1862,8 @@ def fft_bound(head, frames: int, x, outs) -> dict:
                 work["flops_f32"] / PEAK_F32_FLOPS) * 1e3
     f = head.fft
     nbytes = (x.numel() * 4 + sum(o.numel() * o.element_size() for o in outs)
-              + f.window.numel() * 8 + (sig_mel.FFT_N // 2) * 16
+              + f.window.numel() * 8
+              + sig_mel.fft_twiddles(torch.device("cpu")).numel() * 8
               + sum(t.numel() * t.element_size()
                     for t in (f.mel_off, f.mel_lo, f.f0, f.f1)))
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3

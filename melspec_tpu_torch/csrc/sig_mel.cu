@@ -71,7 +71,8 @@
 // (melspec_sig_mel_factored). The ln heads of a 2048-point DFT (Kaldi
 // fbank and NeMo log-mel at 44.1 / 48 kHz), where the host hands their
 // window, preprocessing and bin-order filters, take the float64 FFT of
-// sig_fft.cuh instead (melspec_sig_mel_fft), one frame at a time a block.
+// sig_fft.cuh instead (melspec_sig_mel_fft), one frame a group of 64
+// threads, four groups a block.
 // The 32-frame dense layout stays for the other heads that fold
 // preprocessing into their matrix and for other slice schedules.
 //
@@ -485,7 +486,9 @@ int melspec_sig_mel_factored(const float* x, long long batch, long long T,
 
 // K1's float64 FFT path (sig_fft.cuh) for an ln head whose frame is pack
 // taps at pack_off inside a 2048-point DFT: window float64 [pack]; tw
-// float64 pairs [1024], (cos, -sin)(2 pi e / 2048); preemph Kaldi's
+// float64 pairs [kFftTw], (cos, -sin)(2 pi e / 2048) for e < kFftTw, the
+// bases of the passes' and the split's twiddles
+// (kernels/sig_mel.py::fft_twiddles); preemph Kaldi's
 // coefficient (its DC removal and preemphasis before the window), or < 0
 // for neither; each mel's run of bins (mel_off [n_mels + 1], mel_lo
 // [n_mels]) and its bf2 filters f0, f1 (bf16, concatenated runs of nnz
@@ -542,8 +545,11 @@ int melspec_sig_mel_fft(const float* x, long long batch, long long T,
   p.out_mode = out_mode;
   p.guard = guard;
   p.out = out;
+  // every block resident at once, each group a run of frames, and no block
+  // whose groups would all have none
   const long long blocks = static_cast<long long>(sms) * per_sm;
-  const long long grid = p.frames < blocks ? p.frames : blocks;
+  const long long need = (p.frames + kFftGroups - 1) / kFftGroups;
+  const long long grid = need < blocks ? need : blocks;
   sig_mel_fft_kernel<<<static_cast<unsigned>(grid), kFftThreads,
                        static_cast<size_t>(smem),
                        static_cast<cudaStream_t>(stream)>>>(p);
@@ -553,8 +559,7 @@ int melspec_sig_mel_fft(const float* x, long long batch, long long T,
 // the shared memory of one block of the float64 FFT path for a projection
 // of n_mels runs of nnz values in all
 long long melspec_sig_mel_fft_smem(int n_mels, int nnz) {
-  return fft_smem(n_mels, nnz) +
-         static_cast<long long>(sizeof(double)) * kFftWarps;
+  return fft_smem(n_mels, nnz) + kFftStatic;
 }
 
 const char* melspec_cuda_error_string(int code) {

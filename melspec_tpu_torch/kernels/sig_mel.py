@@ -41,10 +41,12 @@ frame lies inside a DFT of ``FFT_N`` = 2048 points and that carry its
 description (``FftHead``: Kaldi fbank and NeMo log-mel at n_fft 2048,
 44.1 / 48 kHz): the frame's window and Kaldi's DC removal and
 preemphasis applied per frame, the DFT as a 2048-point real FFT, all in
-float64, then K1's bf2 projection and ln. The two-stage path's float32
-roundings are relative to the frame's whole spectrum and swamp the
-near-empty bins of real clips, which the ln modes keep; in float64 every
-bin's power is exact to float32. Its plain version is
+float64, then K1's bf2 projection and ln; a frame belongs to a group of
+``FFT_GROUP_THREADS`` threads that holds its FFT in registers as the
+passes ``FFT_RADICES``, ``FFT_GROUPS`` groups a block. The two-stage
+path's float32 roundings are relative to the frame's whole spectrum and
+swamp the near-empty bins of real clips, which the ln modes keep; in
+float64 every bin's power is exact to float32. Its plain version is
 ``sig_mel_fft_reference``; on the CPU these heads keep
 ``sig_mel_reference`` (float64 dot) as every head does.
 """
@@ -103,6 +105,12 @@ FACTORED_K2 = 16
 # which moves a mel's energy by at most 1e-12 of the Nyquist bin's power
 FFT_N = 2048
 NYQUIST_TOL = 1e-12
+# the float64 FFT path's group (kFftGroupThreads: one frame's threads),
+# its groups a block (kFftGroups: frames in flight) and the passes of its
+# 1024-point complex FFT (two radix-16 passes in registers, then radix-4s)
+FFT_GROUP_THREADS = 64
+FFT_GROUPS = 4
+FFT_RADICES = (16, 16, 4)
 
 # the pipelined walk (csrc/sig_pipe.cuh): its block's frames, the DFT
 # columns of a chunk (Lay<0>::kCols), the bf16 values of a stage's
@@ -724,8 +732,8 @@ def _bound() -> ctypes.CDLL:
 class Layout(NamedTuple):
     """K1's block layout: a block's shared memory, its frames, its chunks'
     DFT columns and whether it is the factored path. The float64 FFT
-    path is ``(smem, 1, FFT_N, False)``: a block takes one frame at a
-    time and the whole DFT."""
+    path is ``(smem, 1, FFT_N, False)``: each of a block's
+    ``FFT_GROUPS`` groups takes one frame at a time and the whole DFT."""
 
     smem: int
     frames: int
@@ -907,24 +915,18 @@ def fft_layout(head: SigHead) -> Layout:
     return Layout(int(smem), 1, FFT_N, False)
 
 
-# the float64 FFT path's radix-4 passes that turn their inputs (csrc/
-# sig_fft.cuh: fft_pass, kFftTw)
-FFT_PASSES = (4, 16, 64, 256)
-
-
 @functools.lru_cache(maxsize=8)
 @profiling.spanned("setup.heads", head="fft_twiddles")
 def fft_twiddles(device: torch.device) -> torch.Tensor:
-    """The float64 FFT path's twiddle tables, ``(cos, -sin)(2 pi e /
-    FFT_N)`` as float64 ``[rows, 2]`` on ``device``: ``e = k`` for the
-    bins ``k < FFT_N / 2``, then for each pass of ``Ns`` in
-    ``FFT_PASSES`` the ``e = r m (FFT_N / 4) / Ns`` of its input ``r =
-    1..3`` and sub-transform index ``m < Ns``, at ``(r - 1) Ns + m``."""
-    e = [np.arange(FFT_N // 2)]
-    for ns in FFT_PASSES:
-        r, m = np.meshgrid(np.arange(1, 4), np.arange(ns), indexing="ij")
-        e.append((r * m * (FFT_N // 4) // ns).reshape(-1))
-    ang = 2 * np.pi * np.concatenate(e) / FFT_N
+    """The float64 FFT path's twiddle table, ``W2048^e = (cos, -sin)(2 pi
+    e / FFT_N)`` for ``e < FFT_N / 8`` as float64 ``[256, 2]`` on
+    ``device`` (``csrc/sig_fft.cuh``: ``kFftTw``). With the 1024-point FFT
+    as ``FFT_RADICES`` = (16, 16, 4) over ``j = t + 64 n`` and ``k = k1 +
+    16 (c + 16 d)``: the bases each thread raises to the powers it needs,
+    pass 1's ``W1024^(t k1) = (W2048^(2 t))^k1`` and pass 2's ``W64^(a c)
+    = (W2048^(32 a))^c`` (``a < 4``), and the real split's ``W2048^k =
+    W2048^(k1 + 16 c) W8^d`` (bin ``1024 - k`` takes ``-conj W2048^k``)."""
+    ang = 2 * np.pi * np.arange(FFT_N // 8) / FFT_N
     return torch.as_tensor(np.stack([np.cos(ang), -np.sin(ang)], axis=-1),
                            device=device).contiguous()
 

@@ -471,6 +471,60 @@ def _held_fft_head(dev, head, hop, front, f64, kind, sr, clip, n_mels):
     return got
 
 
+def _fft_frames(kind, head, hop, x):
+    """``(signal K1 reads, frames a clip)`` of ``x`` for ``head``: Kaldi's
+    frames inside the clip, NeMo's centred on the padded signal."""
+    if kind == "kaldi":
+        return x, framing.num_frames_batch(x.shape[-1], head.pack, hop)
+    return (torch.nn.functional.pad(x, (1024, 1024)),
+            framing.num_frames_centered(x.shape[-1], hop))
+
+
+@pytest.mark.parametrize("kind", ["kaldi", "nemo"])
+@pytest.mark.parametrize("case", ["ragged", "fewer_than_groups"])
+def test_k1_fft_frame_counts(dev, kind, case):
+    """K1's FFT path where the frames are no multiple of the frames a
+    block holds (``FFT_GROUPS``, one a group: 3 clips whose frames leave a
+    remainder) and where the batch holds fewer frames than the card has
+    groups (one clip of 0.05 s), within 1e-5 of the path's plain version
+    (``test_k1_fft_ln_heads``'s bar), one launch on the path."""
+    head, hop, _, _ = _ln_front(kind, 48000, 80, dev)
+    batch, n = (3, 48000 // 2 + 37) if case == "ragged" else (1, 2400)
+    while case == "ragged" and batch * _fft_frames(
+            kind, head, hop, torch.zeros(1, n))[1] % sig_mel.FFT_GROUPS == 0:
+        n += 97
+    x = _noise(dev, n + batch, (batch, n))
+    sig, nf = _fft_frames(kind, head, hop, x)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if case == "ragged":
+        assert batch * nf % sig_mel.FFT_GROUPS
+    else:
+        assert batch * nf < sms * sig_mel.FFT_GROUPS
+    before = (sig_mel.launches, sig_mel.fft_launches)
+    got = sig_mel.sig_mel(sig, head, ks=3, n_frames=nf, hop=hop, offset=0)
+    torch.cuda.synchronize()
+    assert (sig_mel.launches, sig_mel.fft_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    plain = sig_mel.sig_mel_fft_reference(sig, head, n_frames=nf, hop=hop,
+                                          offset=0)
+    assert got.shape == (batch, nf, 80) and bool(torch.isfinite(got).all())
+    assert float((got.double() - plain.double()).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["kaldi", "nemo"])
+def test_k1_fft_launches_bit_equal(dev, kind):
+    """Two launches of K1's FFT path on the same input are equal bit for
+    bit (each group's sums in a fixed order: no atomics, no order that
+    depends on timing), on a batch whose frames spread over every group
+    of the card."""
+    head, hop, _, _ = _ln_front(kind, 48000, 80, dev)
+    sig, nf = _fft_frames(kind, head, hop, _noise(dev, 5, (8, 48000 * 3)))
+    kw = dict(ks=3, n_frames=nf, hop=hop, offset=0)
+    first = sig_mel.sig_mel(sig, head, **kw)
+    second = sig_mel.sig_mel(sig, head, **kw)
+    assert torch.equal(first, second)
+
+
 @pytest.mark.parametrize("kind", ["kaldi", "nemo"])
 def test_k1_fft_ln_heads_raise_without_it(dev, kind, monkeypatch):
     """No fallback hides the float64 FFT path of the Kaldi and NeMo

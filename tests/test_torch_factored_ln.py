@@ -2,7 +2,8 @@
 n_fft 2048 (44.1, 48, 64 and 80 kHz) on the CPU: the route table, what
 the heads carry for it (window, preprocessing, projection in bin order
 and its runs of bins), a float64 model of the kernel's FFT (``csrc/sig_fft.cuh``:
-five radix-4 Stockham passes, then the real-input split), and its plain
+1024 = 16 x 16 x 4, two radix-16 passes and the radix-4s, then the
+real-input split) and of its exchanges' bank layout, and its plain
 version ``sig_mel_fft_reference`` against a numpy float64 pipeline (on
 noise, with a DC offset, on JFK resampled to each of those rates and on
 high-passed noise) and against JAX's fused kernel (Pallas in interpret
@@ -274,48 +275,208 @@ def test_heads_the_fft_path_cannot_take(monkeypatch):
 
 
 def test_kernel_constants():
-    """The host's DFT size and twiddle tables are the kernel's
+    """The host's DFT size, the group's threads, the groups a block, the
+    passes and the twiddle table's rows are the kernel's
     (``csrc/sig_fft.cuh``)."""
     text = (build.CSRC_DIR / "sig_fft.cuh").read_text()
     assert f"constexpr int kFftN = {sig_mel.FFT_N};" in text
-    assert "constexpr int kFftThreads = 256;" in text
-    passes = " + ".join(str(n) for n in sig_mel.FFT_PASSES)
-    assert f"constexpr int kFftTw = kFftHalf + 3 * ({passes});" in text
-    assert sig_mel.fft_twiddles(CPU).shape == (
-        1024 + 3 * sum(sig_mel.FFT_PASSES), 2)
+    assert (f"constexpr int kFftGroupThreads = {sig_mel.FFT_GROUP_THREADS};"
+            in text)
+    assert f"constexpr int kFftGroups = {sig_mel.FFT_GROUPS};" in text
+    r1, r2, r3 = sig_mel.FFT_RADICES
+    assert r1 * r2 * r3 == sig_mel.FFT_N // 2
+    assert sig_mel.FFT_GROUP_THREADS * r1 == sig_mel.FFT_N // 2
+    rows = sig_mel.fft_twiddles(CPU).shape[0]
+    assert rows == sig_mel.FFT_N // 8
+    assert f"constexpr int kFftTw = {rows};" in text
 
 
-def _stockham(y):
+# the kernel's exchange layouts (csrc/sig_fft.cuh: fft_at1, fft_at2), in
+# complex doubles of the group's buffer, and pass 3's butterflies
+AT1 = "return kFftGroupThreads * k1 + (t ^ (4 * (k1 & 1)));"
+AT2 = "return kFftGroupThreads * c + 4 * k1 + (a ^ ((k1 >> 1) & 3));"
+PASS3 = """  const int j = t & 7, u = t >> 3, v = u & 3;
+  klo = j ? j : (u & 4) * 2;
+  khi = j ? 16 - j : klo;
+  if (j) {
+    c[0] = u;
+    c[1] = u + 8;
+    c[2] = 15 - u;
+    c[3] = 7 - u;
+  } else if (u & 4) {
+    c[0] = v;
+    c[1] = v + 4;
+    c[2] = 15 - v;
+    c[3] = 11 - v;
+  } else {
+    c[0] = u ? u : 4;
+    c[1] = u ? u + 4 : 0;
+    c[2] = 16 - c[0];
+    c[3] = u ? 12 - u : 8;
+  }"""
+
+
+def _at1(t, k1):
+    return 64 * k1 + (t ^ (4 * (k1 & 1)))
+
+
+def _at2(k1, a, c):
+    return 64 * c + 4 * k1 + (a ^ ((k1 >> 1) & 3))
+
+
+def _pass3(t):
+    """``fft_pass3``: thread t's butterflies ``[(k1, c)] * 4`` of pass 3."""
+    j, u, v = t & 7, t >> 3, (t >> 3) & 3
+    klo = j if j else (u & 4) * 2
+    khi = 16 - j if j else klo
+    if j:
+        c = [u, u + 8, 15 - u, 7 - u]
+    elif u & 4:
+        c = [v, v + 4, 15 - v, 11 - v]
+    else:
+        c0 = u if u else 4
+        c = [c0, u + 4 if u else 0, 16 - c0, 12 - u if u else 8]
+    return [(klo, c[0]), (klo, c[1]), (khi, c[2]), (khi, c[3])]
+
+
+# thread 0's butterflies 1 and 3 (k1 0, c 0 and 8): the bins they give
+# among themselves, each pair (Z[k], Z[1024 - k]) or one bin alone
+SPECIAL = [(0, None), (512, None), (256, 768), (128, 896), (384, 640)]
+
+
+def _split_pairs():
+    """``[(k, 1024 - k or None)]``: the bins of every thread's split, in
+    the kernel's order: its butterflies 0 and 1 (``Z[k] = v[4 b + d]``,
+    ``k = k1 + 16 c + 256 d``) with their mirrors, thread 0's butterfly 1
+    replaced by ``SPECIAL``."""
+    out = []
+    for t in range(64):
+        for b, (k1, c) in enumerate(_pass3(t)[:2]):
+            if t == 0 and b == 1:
+                out += SPECIAL
+            else:
+                out += [(k1 + 16 * c + 256 * d, 1024 - k1 - 16 * c - 256 * d)
+                        for d in range(4)]
+    return out
+
+
+def _exchanges():
+    """Each access of the group's buffer in a frame: ``name -> [i, t]``,
+    the place thread t reads or writes in its i-th access: exchange 1
+    (thread t writes ``B[t][k1]``, thread (k1, a) = (t / 4, t mod 4) reads
+    ``B[a + 4 b][k1]``), exchange 2 (thread (k1, a) writes ``C[k1,a][c]``,
+    pass 3's thread reads ``C[k1,a][c]`` of its butterflies
+    (``_pass3``)); then the Z each thread's butterflies give (``Z[k1 + 16
+    c + 256 d]`` at ``v[4 b + d]``), which no exchange moves, and the bins
+    whose power each writes."""
+    t = np.arange(64)
+    k1a, a = t >> 2, t & 3
+    p3 = [_pass3(i) for i in range(64)]
+    bins = [k for pair in _split_pairs() for k in pair if k is not None]
+    return {
+        "write_1": np.array([_at1(t, j) for j in range(16)]),
+        "read_1": np.array([_at1(a + 4 * b, k1a) for b in range(16)]),
+        "write_2": np.array([_at2(k1a, a, c) for c in range(16)]),
+        "read_2": np.array([[_at2(*p3[i][n // 4][:1], n % 4,
+                                  p3[i][n // 4][1]) for i in range(64)]
+                            for n in range(16)]),
+        "pass_3": np.array([[k1 + 16 * c + 256 * d for k1, c in p3[i]
+                             for d in range(4)] for i in range(64)]).T,
+        "power": np.array(bins).reshape(64, 16).T,
+    }
+
+
+@pytest.mark.parametrize("name", ["write_1", "read_1", "write_2", "read_2",
+                                  "pass_3", "power"])
+def test_exchange_layout(name):
+    """Each exchange of the kernel's FFT covers the group's 1024 places
+    once, and in every access no 8 consecutive threads (a quarter warp,
+    which a 16-byte access serves at once) meet on one of the 8 16-byte
+    bank groups twice: no bank conflict; pass 3's butterflies give each Z
+    once, each beside its mirror ``Z[1024 - k]`` (``v[4 (b + 2) + 3 - d]``
+    beside ``v[4 b + d]``; thread 0's butterflies 1 and 3 pair among
+    themselves), so the split needs no exchange; the power is written once
+    a bin. The layouts are the kernel's text."""
+    text = (build.CSRC_DIR / "sig_fft.cuh").read_text()
+    assert AT1 in text and AT2 in text and PASS3 in text
+    at = _exchanges()[name]
+    assert sorted(at.reshape(-1)) == list(range(1024))
+    if name == "pass_3":
+        for i in range(64):
+            z = at[:, i].reshape(4, 4)
+            mirror = (1024 - z[2:, ::-1]) % 1024
+            assert (z[0] == mirror[0]).all()
+            assert (z[1] == mirror[1]).all() == (i != 0)
+        assert sorted(at[[4, 5, 6, 7, 12, 13, 14, 15], 0]) == sorted(
+            k for pair in SPECIAL for k in pair if k is not None)
+    elif name != "power":
+        quarters = at.reshape(at.shape[0], 8, 8) % 8
+        assert all(len(set(qq)) == 8 for row in quarters for qq in row)
+
+
+def _fft4(v, axis):
+    """The kernel's radix-4 (``fft4``) along ``axis`` of length 4."""
+    v0, v1, v2, v3 = np.moveaxis(v, axis, 0)
+    a0, a1, a2, a3 = v0 + v2, v0 - v2, v1 + v3, -1j * (v1 - v3)
+    return np.moveaxis(np.stack([a0 + a2, a1 + a3, a0 - a2, a1 - a3]), 0,
+                       axis)
+
+
+def _fft16(v, axis):
+    """The kernel's radix-16 in registers (``fft16``) along ``axis``:
+    radix-4s over ``n2`` of ``n = n1 + 4 n2``, the twiddles ``W16^(n1
+    k1)``, radix-4s over ``n1``; ``V[k1 + 4 k2]`` in natural order."""
+    v = np.moveaxis(v, axis, -1)
+    x = v.reshape(*v.shape[:-1], 4, 4)  # [n2, n1]
+    y = _fft4(x, -2)  # [k1, n1]
+    e = np.arange(4)[:, None] * np.arange(4)[None, :]
+    y = y * np.exp(-2j * np.pi * e / 16)
+    out = _fft4(y, -1).swapaxes(-1, -2)  # [k2, k1]
+    return np.moveaxis(out.reshape(v.shape), -1, axis)
+
+
+def _powers(w):
+    """``[16, len(w)]``: the powers ``w^0 .. w^15`` of each base, each the
+    previous times the base, as the kernel turns its values (``fft_turn``)."""
+    out = [np.ones_like(w), w]
+    for _ in range(14):
+        out.append(out[-1] * w)
+    return np.stack(out)
+
+
+def _group_fft(y):
     """A float64 model of the kernel's FFT (``csrc/sig_fft.cuh``): the
-    2048 real taps as 1024 complex values, five radix-4 Stockham passes
-    (butterfly j of 256 reads ``src[j + 256 r]``, turns input r by its
-    pass's table entry ``(r - 1) Ns + j mod Ns``, writes output r to
-    ``dst[4 (j - j mod Ns) + j mod Ns + r Ns]``), then the real-input
-    split of the bins below 1024 with the bins' table."""
+    2048 real taps as 1024 complex values ``z[t + 64 n]``, pass 1's
+    radix-16 over ``n`` turned by the powers of thread t's base
+    ``W1024^t``, pass 2's radix-16 over ``b`` of ``t = a + 4 b`` turned by
+    the powers of ``W64^a``, the radix-4s over ``a``, then the real-input
+    split of the bins below 1024 in the kernel's pairs ``k``, ``1024 - k``
+    (``_split_pairs``) with ``W2048^k = W2048^(k mod 256) W8^(k / 256)``
+    (``fft_twiddles``; ``FFT_RADICES``)."""
     tab = sig_mel.fft_twiddles(CPU).numpy()
     tw = tab[:, 0] + 1j * tab[:, 1]
-    at = {4: 1024, 16: 1024 + 12, 64: 1024 + 60, 256: 1024 + 252}
     z = y[..., 0::2] + 1j * y[..., 1::2]
-    j = np.arange(256)
-    for ns in (1, 4, 16, 64, 256):
-        v = [z[..., j + 256 * r] for r in range(4)]
-        m = j & (ns - 1)
-        if ns > 1:
-            v = [v[0]] + [v[r] * tw[at[ns] + (r - 1) * ns + m]
-                          for r in (1, 2, 3)]
-        a0, a1, a2 = v[0] + v[2], v[0] - v[2], v[1] + v[3]
-        d = v[1] - v[3]
-        a3 = d.imag - 1j * d.real
-        dst = np.empty_like(z)
-        o = 4 * (j - m) + m
-        dst[..., o], dst[..., o + ns] = a0 + a2, a1 + a3
-        dst[..., o + 2 * ns], dst[..., o + 3 * ns] = a0 - a2, a1 - a3
-        z = dst
-    k = np.arange(1024)
-    zk, zn = z, z[..., (1024 - k) & 1023]
-    even = 0.5 * (zk + np.conj(zn))
-    odd = 0.5 * (zn.real - zk.real) * 1j + 0.5 * (zk.imag + zn.imag)
-    return even + tw[:1024] * odd
+    lead = z.shape[:-1]
+    b = _fft16(z.reshape(*lead, 16, 64), -2)  # [k1, t]
+    b = b * _powers(tw[2 * np.arange(64)])  # [k1, t]
+    c = _fft16(b.reshape(*lead, 16, 16, 4), -2)  # [k1, c, a]
+    c = c * _powers(tw[32 * np.arange(4)])  # [c, a]
+    zz = _fft4(c, -1)  # [k1, c, d]: Z[k1 + 16 c + 256 d]
+    zn = np.moveaxis(zz, (-3, -2, -1), (-1, -2, -3)).reshape(*lead, 1024)
+    out = np.empty((*lead, 1024), dtype=complex)
+    for k, kb in _split_pairs():
+        # W2048^k: the table's W2048^(k1 + 16 c) times W8^d, or a constant
+        w = np.exp(-2j * np.pi * k / 2048) if kb is None or k % 128 == 0 \
+            else tw[k % 256] * np.exp(-2j * np.pi * (k // 256) / 8)
+        za = zn[..., k]
+        zb = za if kb is None else zn[..., kb]
+        er, ei = 0.5 * (za.real + zb.real), 0.5 * (za.imag - zb.imag)
+        orr, oi = 0.5 * (za.imag + zb.imag), 0.5 * (zb.real - za.real)
+        tr, ti = w.real * orr - w.imag * oi, w.real * oi + w.imag * orr
+        out[..., k] = (er + tr) + 1j * (ei + ti)
+        if kb is not None:
+            out[..., kb] = (er - tr) + 1j * (ti - ei)
+    return out
 
 
 def test_fft_model_against_numpy():
@@ -327,7 +488,7 @@ def test_fft_model_against_numpy():
     y[0, :1200] = rng.normal(size=1200)
     y[1] = rng.normal(size=2048)
     y[2, :1102] = rng.normal(size=1102) + 0.5
-    got = _stockham(y)
+    got = _group_fft(y)
     want = np.fft.rfft(y)[..., :1024]
     assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
 

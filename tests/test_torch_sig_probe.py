@@ -5,10 +5,12 @@ the float64 FFT path's: ``csrc/sig_fft.cuh``) exactly once, a cut that no longer
 fronts of its ``dump`` carry the FFT path at each rate, and the command
 refuses without a card."""
 
+import json
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from melspec_tpu_torch.kernels import sig_probe
@@ -93,3 +95,27 @@ def test_ln_fronts_carry_the_fft_heads(rate):
         assert front.sig_head.dft_size == 2048
         assert front.sig_head.fft is not None
         assert front.sig_head.pack == rate // 40
+
+
+@pytest.mark.parametrize("ln_gap,want", [(0.0, 0), (1e-6, 0), (1e-5, 1)])
+def test_compare_holds_ln_cases_within_their_bar(tmp_path, ln_gap, want):
+    """``compare`` passes bit-equal dumps, lets an ``ln_...`` case of the
+    FFT path differ by at most ``LN_TOL`` (its saved outputs), and fails a
+    case past it, or any other case that differs."""
+    out = np.linspace(-20.0, 2.0, 24, dtype=np.float32).reshape(2, 3, 4)
+    dirs = []
+    for k, gap in enumerate((0.0, ln_gap)):
+        d = tmp_path / f"dump{k}"
+        d.mkdir()
+        ln = out + np.float32(gap)
+        np.save(d / "ln_kaldi_48000.npy", ln)
+        cases = {"sig_x": {"sha256": ["same"]},
+                 "ln_kaldi_48000": {"sha256": [str(ln.tobytes())]}}
+        (d / "dump.json").write_text(json.dumps(
+            {"package": str(d), "cases": cases}))
+        dirs.append(d)
+    assert sig_probe.compare(dirs) == want
+    cases = json.loads((dirs[1] / "dump.json").read_text())
+    cases["cases"]["sig_x"]["sha256"] = ["other"]
+    (dirs[1] / "dump.json").write_text(json.dumps(cases))
+    assert sig_probe.compare(dirs) == 1
