@@ -43,7 +43,15 @@ class BatchLogMelConfig:
     """NeMo/Parakeet-style batch log-mel config (reference
     ``src/mel.rs:189-208``, validation ``src/mel.rs:656-683``): 16 kHz,
     n_fft 512, win_length 400, hop 160, 80 mels, Slaney norm, center zero
-    padding, natural log with a float32-epsilon guard."""
+    padding, natural log with a float32-epsilon guard.
+
+    NeMo's ``FilterbankFeatures`` options beyond the reference's:
+    ``mag_power`` 2.0 (power spectra) or 1.0 (magnitude, ``sqrt(re^2 +
+    im^2)``, as NeMo's TTS configurations take); ``log_zero_guard_type``
+    ``"add"`` (``ln(e + guard)``) or ``"clamp"`` (``ln(max(e, guard))``);
+    ``exact_pad``: the wave reflect-padded by ``(n_fft - hop_length) //
+    2`` on each side and framed without centring, ``T // hop_length``
+    frames (NeMo's ``stft_pad_amount``), which excludes ``center``."""
 
     sample_rate: int = 16000
     n_fft: int = 512
@@ -59,6 +67,9 @@ class BatchLogMelConfig:
     log_zero_guard: float = 1.1920929e-07  # f32 machine epsilon
     pad_to: int = 0
     normalize_per_feature: bool = False
+    mag_power: float = 2.0
+    log_zero_guard_type: str = "add"
+    exact_pad: bool = False
 
     def __post_init__(self) -> None:
         if self.sample_rate <= 0:
@@ -84,10 +95,29 @@ class BatchLogMelConfig:
             )
         if not math.isfinite(self.log_zero_guard) or self.log_zero_guard <= 0:
             raise ValueError("log_zero_guard must be finite and > 0")
+        if self.mag_power not in (1.0, 2.0):
+            raise ValueError(
+                f"mag_power must be 1.0 or 2.0 (got {self.mag_power})")
+        if self.log_zero_guard_type not in ("add", "clamp"):
+            raise ValueError(
+                f"log_zero_guard_type must be 'add' or 'clamp' (got "
+                f"{self.log_zero_guard_type!r})")
+        if self.exact_pad and self.center:
+            raise ValueError("exact_pad excludes center: set center=False")
 
     @property
     def fft_bins(self) -> int:
         return self.n_fft // 2 + 1
+
+    @property
+    def magnitude(self) -> bool:
+        """Whether the spectra are magnitudes (``mag_power`` 1)."""
+        return self.mag_power == 1.0
+
+    @property
+    def exact_pad_amount(self) -> int:
+        """Samples of reflect padding on each side under ``exact_pad``."""
+        return (self.n_fft - self.hop_length) // 2
 
     @property
     def effective_f_max(self) -> float:

@@ -172,6 +172,16 @@ constexpr float kLnC3 = 0x1.555556p-1f;
 constexpr float kLnC1 = 0x1.0p+1f;
 constexpr float kLogFloor = 1e-10f;
 
+// Whether the walks' power stages keep a magnitude head's root: K2
+// (sig_multi.cu), whose heads are power heads, defines SIG_POWER_ONLY and
+// keeps no magnitude code, which cost its pipelined walk 1-3% even where no
+// head used it
+#ifdef SIG_POWER_ONLY
+constexpr bool kMagnitudeHeads = false;
+#else
+constexpr bool kMagnitudeHeads = true;
+#endif
+
 // output modes (ops/mel_kernel.py::_sig_out_vals): whisper log10 + norm,
 // NeMo ln(e + guard), Kaldi ln(max(e, guard)); guard arrives clamped to
 // the smallest normal float32
@@ -190,6 +200,7 @@ struct Head {
   int live;                    // power columns [0, live) may be nonzero
   int n_mels, n_mels_pad, bf2, out_mode;
   float guard;
+  int magnitude;  // split heads: sqrt(re^2 + im^2) in place of the power
 };
 
 __host__ __device__ inline long long align16(long long n) {
@@ -707,11 +718,15 @@ __device__ __forceinline__ void dft_chunk(const Head& h, const int* tab,
   __syncthreads();  // every warp is done with the ring
 }
 
-// The chunk's power into shared memory: split re^2 + im^2, N-packed y^2
-// per column; bf2 as bf16 p0 = bf16(power) and p1 = bf16(power - p0),
-// each [tile][cp] with swizzled rows, else float32 [tile][cp]. Tile j of
-// d holds the warpgroup's power columns 8j .. 8j + 7 (split: re tiles
-// 0-7, their im tiles 8-15).
+// The chunk's power into shared memory: split re^2 + im^2 (a magnitude
+// head: its sqrt, correctly rounded as torch.sqrt; the head's flag, read
+// once, is uniform, and this branch a value kept the power heads' time
+// where an instance a flag cost the 64-frame walk 1%), N-packed y^2 per
+// column;
+// bf2 as bf16 p0 = bf16(power) and p1 = bf16(power - p0), each
+// [tile][cp] with swizzled rows, else float32 [tile][cp]. Tile j of d
+// holds the warpgroup's power columns 8j .. 8j + 7 (split: re tiles 0-7,
+// their im tiles 8-15).
 template <int C>
 __device__ __forceinline__ void store_power(const Head& h,
                                             const float (&d)[64],
@@ -722,6 +737,7 @@ __device__ __forceinline__ void store_power(const Head& h,
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
   const bool split = split_head(h);
+  const bool mag = kMagnitudeHeads && h.magnitude;
   const int cp = chunk_pow<C>(h.width, h.npow);
   const int wg = warp >> 2;
   const int col0 = wg * (split ? L::kWgCols / 2 : L::kWgCols);
@@ -740,6 +756,7 @@ __device__ __forceinline__ void store_power(const Head& h,
         if (split) {
           const float im = d[4 * (j + 8) + 2 * hh + e];
           pw[e] = __fadd_rn(__fmul_rn(y, y), __fmul_rn(im, im));
+          if (mag) pw[e] = __fsqrt_rn(pw[e]);
         } else {
           pw[e] = __fmul_rn(y, y);
         }

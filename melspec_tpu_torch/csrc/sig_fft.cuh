@@ -55,8 +55,9 @@
 //      write on one bank twice (fft_at1, fft_at2);
 //   3. the bins k and 1024 - k from the registers Z[k], Z[1024 - k]: X[k] =
 //      (Z[k] + conj Z[-k]) / 2 - i W2048^k (Z[k] - conj Z[-k]) / 2, the
-//      power |X[k]|^2 rounded once to float32 (the Nyquist bin is not
-//      computed: the host checks its filter row);
+//      power |X[k]|^2 (a magnitude head's |X[k]|, the root taken in
+//      float64: the kernel's kMag instance) rounded once to float32 (the
+//      Nyquist bin is not computed: the host checks its filter row);
 //   4. the power's bf2 halves p0 = bf16(power), p1 = bf16(power - p0) by
 //      bin through the buffer, and the bf2 projection of each mel's run of
 //      bins, [p0 p0 p1] . [F0 F1 F0], float32 sums, eight lanes a mel; each
@@ -254,17 +255,23 @@ __device__ __forceinline__ void group_sync(int grp) {
                : "memory");
 }
 
-// the float32 power of bins k and 1024 - k from za = Z[k], zb = Z[1024 -
-// k] and w = W2048^k: X[k] = E + W^k O, X[1024 - k] = conj(E - W^k O)
-// with E = (za + conj zb) / 2, O = -i (za - conj zb) / 2
+// the float32 power (kMag: magnitude) of bins k and 1024 - k from za =
+// Z[k], zb = Z[1024 - k] and w = W2048^k: X[k] = E + W^k O, X[1024 - k] =
+// conj(E - W^k O) with E = (za + conj zb) / 2, O = -i (za - conj zb) / 2
+template <bool kMag>
 __device__ __forceinline__ void fft_split(double2 za, double2 zb, double2 w,
                                           float& lo, float& hi) {
   const double er = 0.5 * (za.x + zb.x), ei = 0.5 * (za.y - zb.y);
   const double orr = 0.5 * (za.y + zb.y), oi = 0.5 * (zb.x - za.x);
   const double tr = w.x * orr - w.y * oi, ti = w.x * oi + w.y * orr;
   const double xr = er + tr, xi = ei + ti, yr = er - tr, yi = ti - ei;
-  lo = static_cast<float>(xr * xr + xi * xi);
-  hi = static_cast<float>(yr * yr + yi * yi);
+  if constexpr (kMag) {
+    lo = static_cast<float>(sqrt(xr * xr + xi * xi));
+    hi = static_cast<float>(sqrt(yr * yr + yi * yi));
+  } else {
+    lo = static_cast<float>(xr * xr + xi * xi);
+    hi = static_cast<float>(yr * yr + yi * yi);
+  }
 }
 
 // the bf2 halves of a power, p0 = bf16(p) and p1 = bf16(p - p0), as floats
@@ -275,10 +282,11 @@ __device__ __forceinline__ float2 bf2_halves(float v) {
 
 // bins k and 1024 - k from za = Z[k], zb = Z[1024 - k] and w = W2048^k
 // (fft_split), their power's bf2 halves into pq
+template <bool kMag>
 __device__ __forceinline__ void fft_put(double2 za, double2 zb, double2 w,
                                         float2* pq, int k) {
   float lo, hi;
-  fft_split(za, zb, w, lo, hi);
+  fft_split<kMag>(za, zb, w, lo, hi);
   pq[k] = bf2_halves(lo);
   pq[kFftHalf - k] = bf2_halves(hi);
 }
@@ -317,6 +325,9 @@ __device__ __forceinline__ void fft_load(const float* xf, long long left,
   }
 }
 
+// kMag: the magnitude heads' instance, else the power heads' (the host
+// picks one a launch)
+template <bool kMag>
 __global__ void __launch_bounds__(kFftThreads, kFftBlocksPerSm)
     sig_mel_fft_kernel(const Fft p) {
   extern __shared__ __align__(16) unsigned char fft_smem_[];
@@ -465,22 +476,22 @@ __global__ void __launch_bounds__(kFftThreads, kFftBlocksPerSm)
       if (bq == 0 || t) {
         const int k = klo + 16 * c3[bq];
         const double2 w = stw[k];
-        fft_put(v[4 * bq], v[4 * bq + 11], w, pq, k);
-        fft_put(v[4 * bq + 1], v[4 * bq + 10], w16<2>(w), pq, k + 256);
-        fft_put(v[4 * bq + 2], v[4 * bq + 9], w16<4>(w), pq, k + 512);
-        fft_put(v[4 * bq + 3], v[4 * bq + 8], w16<6>(w), pq, k + 768);
+        fft_put<kMag>(v[4 * bq], v[4 * bq + 11], w, pq, k);
+        fft_put<kMag>(v[4 * bq + 1], v[4 * bq + 10], w16<2>(w), pq, k + 256);
+        fft_put<kMag>(v[4 * bq + 2], v[4 * bq + 9], w16<4>(w), pq, k + 512);
+        fft_put<kMag>(v[4 * bq + 3], v[4 * bq + 8], w16<6>(w), pq, k + 768);
       }
     }
     if (t == 0) {
       constexpr double c1 = kCos8, s1 = kSin8, h = kHalf2;
       float bin, unused;
-      fft_split(v[4], v[4], make_double2(1.0, 0.0), bin, unused);
+      fft_split<kMag>(v[4], v[4], make_double2(1.0, 0.0), bin, unused);
       pq[0] = bf2_halves(bin);
-      fft_split(v[6], v[6], make_double2(0.0, -1.0), bin, unused);
+      fft_split<kMag>(v[6], v[6], make_double2(0.0, -1.0), bin, unused);
       pq[kFftHalf / 2] = bf2_halves(bin);
-      fft_put(v[5], v[7], make_double2(h, -h), pq, 256);
-      fft_put(v[12], v[15], make_double2(c1, -s1), pq, 128);
-      fft_put(v[13], v[14], make_double2(s1, -c1), pq, 384);
+      fft_put<kMag>(v[5], v[7], make_double2(h, -h), pq, 256);
+      fft_put<kMag>(v[12], v[15], make_double2(c1, -s1), pq, 128);
+      fft_put<kMag>(v[13], v[14], make_double2(s1, -c1), pq, 384);
     }
     group_sync(grp);
     // each mel's sum into the buffer past the halves, then its ln a thread

@@ -18,7 +18,8 @@
 //      round at full magnitude;
 //   4. power: re^2 + im^2 with re in columns [0, width/2), im in [width/2,
 //      width) (split layout), or y^2 per column (N-packed: the re/im add
-//      rides the projection, whose rows hold each filter row twice);
+//      rides the projection, whose rows hold each filter row twice); a
+//      magnitude head (split only) takes sqrt(re^2 + im^2) instead;
 //   5. energy = [p0 | p0 | p1] @ [F0; F1; F0] with p0 = bf16(power),
 //      p1 = bf16(power - p0) (mel_precision "bf2") on the tensor cores, or
 //      power @ mt in float32 FMAs ("highest");
@@ -308,13 +309,15 @@ long long melspec_sig_mel_pipe_bytes(int width, int npow, int live,
 // the count of power columns that may be nonzero (a multiple of 8): the
 // kernel skips the rest. out may be null when q is given (the quant route
 // writes no float mel); q (with lo, hi) and vad select the epilogues, both
-// of the whisper mode only.
+// of the whisper mode only. magnitude 1 takes each bin's sqrt(re^2 +
+// im^2) in place of its power, for a split head (npow = width / 2) only.
 int melspec_sig_mel(const float* x, long long batch, long long T,
                     int n_frames, int hop, int offset, int tile_frames,
                     const void* m_big, int width, int pack, int pack_off,
                     const int* blocks, int n_blocks, int ks, int npow,
                     int live, const void* mt, int n_mels, int n_mels_pad,
-                    int bf2, int out_mode, float guard, float* out,
+                    int bf2, int out_mode, float guard, int magnitude,
+                    float* out,
                     unsigned char* q, float* lo, float* hi, int* vad,
                     float vad_thr, int vad_start_y, const void* stages,
                     void* stream) {
@@ -322,7 +325,8 @@ int melspec_sig_mel(const float* x, long long batch, long long T,
   if (hop <= 0 || pack <= 0 || offset < 0 || pack_off < 0 || ks <= 0 ||
       ks > kMaxSlices || n_blocks <= 0 || n_blocks > kMaxBlocks ||
       !head_ok(width, npow, live, n_mels, n_mels_pad, 2048) ||
-      out_mode < kWhisper || out_mode > kLnFloor)
+      out_mode < kWhisper || out_mode > kLnFloor ||
+      (magnitude != 0 && (magnitude != 1 || npow == width)))
     return cudaErrorInvalidValue;
   if ((out == nullptr && q == nullptr) ||
       (q != nullptr && (lo == nullptr || hi == nullptr)) ||
@@ -368,6 +372,7 @@ int melspec_sig_mel(const float* x, long long batch, long long T,
   p.head.bf2 = bf2;
   p.head.out_mode = out_mode;
   p.head.guard = guard;
+  p.head.magnitude = magnitude;
   p.q = q;
   p.lo = lo;
   p.hi = hi;
@@ -493,34 +498,39 @@ int melspec_sig_mel_factored(const float* x, long long batch, long long T,
 // for neither; each mel's run of bins (mel_off [n_mels + 1], mel_lo
 // [n_mels]) and its bf2 filters f0, f1 (bf16, concatenated runs of nnz
 // values in all, bins below 1024); out_mode 1 (ln(e + guard)) or 2
-// (ln(max(e, guard))); out [batch, n_frames, n_mels]. Returns 0 or the cudaError_t of the launch
-// (cudaErrorInvalidValue for arguments the kernel does not take).
+// (ln(max(e, guard))); magnitude 1 projects |X[k]| in place of |X[k]|^2
+// (its own instance of the kernel); out [batch, n_frames, n_mels]. Returns
+// 0 or the cudaError_t of the launch (cudaErrorInvalidValue for arguments
+// the kernel does not take).
 int melspec_sig_mel_fft(const float* x, long long batch, long long T,
                         int n_frames, int hop, int offset, int pack,
                         int pack_off, const double* window, const void* tw,
                         double preemph, const int* mel_off,
                         const int* mel_lo, const void* f0, const void* f1,
                         int nnz, int n_mels, int out_mode, float guard,
-                        float* out, void* stream) {
+                        int magnitude, float* out, void* stream) {
   if (batch <= 0 || n_frames <= 0) return cudaSuccess;
   if (hop <= 0 || offset < 0 || pack <= 0 || pack_off < 0 ||
       pack + pack_off > kFftN || n_mels <= 0 || nnz < 0 || out == nullptr ||
       (out_mode != kLnGuard && out_mode != kLnFloor) || !(guard > 0.0f) ||
+      (magnitude != 0 && magnitude != 1) ||
       reinterpret_cast<uintptr_t>(tw) % 16)
     return cudaErrorInvalidValue;
   const long long smem = fft_smem(n_mels, nnz);
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  auto kernel = magnitude ? sig_mel_fft_kernel<true>
+                          : sig_mel_fft_kernel<false>;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sig_mel_fft_kernel,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, sig_mel_fft_kernel, kFftThreads, static_cast<size_t>(smem));
+        &per_sm, kernel, kFftThreads, static_cast<size_t>(smem));
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   Fft p;
@@ -550,9 +560,8 @@ int melspec_sig_mel_fft(const float* x, long long batch, long long T,
   const long long blocks = static_cast<long long>(sms) * per_sm;
   const long long need = (p.frames + kFftGroups - 1) / kFftGroups;
   const long long grid = need < blocks ? need : blocks;
-  sig_mel_fft_kernel<<<static_cast<unsigned>(grid), kFftThreads,
-                       static_cast<size_t>(smem),
-                       static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<static_cast<unsigned>(grid), kFftThreads,
+           static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(p);
   return cudaGetLastError();
 }
 

@@ -43,6 +43,9 @@
 // (melspec_tpu_torch/kernels/sig_multi.py). Every launch is followed by
 // cudaGetLastError, and its code is returned.
 
+// K2's heads are power heads (the host refuses a magnitude head): its
+// power stages keep no magnitude code (sig_common.cuh::kMagnitudeHeads)
+#define SIG_POWER_ONLY 1
 #include "sig_common.cuh"
 #include "sig_pipe.cuh"
 
@@ -274,6 +277,7 @@ int melspec_sig_multi(const float* x, long long batch, long long T,
     hd.bf2 = bf2[h];
     hd.out_mode = out_modes[h];
     hd.guard = guards[h];
+    hd.magnitude = 0;
     if (hd.pack <= 0 || hd.pack_off < 0 || hd.n_blocks <= 0 ||
         hd.n_blocks > kMaxBlocks ||
         !head_ok(hd.width, hd.npow, hd.live, hd.n_mels, hd.n_mels_pad,

@@ -392,9 +392,9 @@ __device__ __forceinline__ void pipe_dft(const Head& h, const int* tab,
   rg.release(rel);
 }
 
-// The chunk's power into the power tile as Lay<0>'s store_power, from the
-// N / 8 accumulator tiles of a chunk of N ring columns (split: re tile j <
-// N / 16 beside its im tile j + N / 16)
+// The chunk's power (a magnitude head: its sqrt) into the power tile as
+// Lay<0>'s store_power, from the N / 8 accumulator tiles of a chunk of N
+// ring columns (split: re tile j < N / 16 beside its im tile j + N / 16)
 template <int N>
 __device__ __forceinline__ void pipe_power(const Head& h,
                                            const float (&d)[N / 2],
@@ -404,6 +404,7 @@ __device__ __forceinline__ void pipe_power(const Head& h,
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
   const bool split = split_head(h);
+  const bool mag = kMagnitudeHeads && h.magnitude;
   const int cp = chunk_pow<0>(h.width, h.npow);
 #pragma unroll
   for (int j = 0; j < kT; ++j) {
@@ -420,6 +421,7 @@ __device__ __forceinline__ void pipe_power(const Head& h,
         if (split) {
           const float im = d[4 * (j + kT / 2) + 2 * hh + e];
           pw[e] = __fadd_rn(__fmul_rn(y, y), __fmul_rn(im, im));
+          if (mag) pw[e] = __fsqrt_rn(pw[e]);
         } else {
           pw[e] = __fmul_rn(y, y);
         }

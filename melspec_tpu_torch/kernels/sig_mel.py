@@ -13,9 +13,19 @@ plain version (``sig_mel_reference``, ``sig_mel_quantized_reference``,
 ``sig_mel_vad_reference``) only for a CPU tensor. ``launches`` counts
 kernel launches, ``epilogue_launches`` those that ran an epilogue,
 ``factored_launches`` those of the factored wide-hop path,
-``fft_launches`` those of the float64 FFT path and
-``pipelined_launches`` those of the pipelined 128-frame walk; nothing
-else adds to them.
+``fft_launches`` those of the float64 FFT path,
+``pipelined_launches`` those of the pipelined 128-frame walk and
+``magnitude_launches`` those of a magnitude head; nothing else adds to
+them.
+
+A head with ``magnitude`` set takes each bin's magnitude ``sqrt(re^2 +
+im^2)`` where the others take its power (NeMo's ``mag_power`` 1, Kaldi's
+``use_power=False``): in float32 before the projection's bf2 split on
+the chunk walks, in float64 before the one rounding to float32 on the
+float64 FFT path. Only a split head holds a bin's ``re^2 + im^2`` to take
+the root of, so K1 refuses an N-packed magnitude head
+(``magnitude_refusal``), the factored path computes power alone and
+leaves such heads to the chunk walk, and K2 refuses them.
 
 The pipelined walk (``csrc/sig_pipe.cuh``, block layout 4) is how K1
 and K2 walk every 128-frame block: a producer warp brings m_big in stage
@@ -126,6 +136,7 @@ epilogue_launches = {"quant": 0, "vad": 0}
 factored_launches = 0
 fft_launches = 0
 pipelined_launches = 0
+magnitude_launches = 0
 
 
 def mel_runs(mt: torch.Tensor) -> tuple:
@@ -244,8 +255,10 @@ class SigHead:
     ``fft``'s window and preprocessing (Kaldi, NeMo), 0 for any other
     matrix: where ``factored_route`` takes it, K1 runs the factored path;
     ``fft`` the description of K1's float64 FFT path, which a head
-    carrying it takes; ``stages`` the slot of its pipelined walk's stage
-    stream (a copy on another device starts an empty one). ``pair_i`` is
+    carrying it takes; ``magnitude`` whether the projection takes each
+    bin's magnitude in place of its power (a split head only:
+    ``magnitude_refusal``); ``stages`` the slot of its pipelined walk's
+    stage stream (a copy on another device starts an empty one). ``pair_i`` is
     kept as a tuple of ints; ``width``, ``npow``, ``n_mels_pad`` and
     ``mel_precision`` follow from the matrices."""
 
@@ -261,6 +274,7 @@ class SigHead:
     live: int | None = None
     dft_size: int = 0
     fft: FftHead | None = None
+    magnitude: bool = False
     stages: StageSlot = dataclasses.field(default_factory=StageSlot,
                                           compare=False, repr=False)
 
@@ -320,7 +334,8 @@ def out_vals(energy: torch.Tensor, out_mode: str,
 
 
 def project(power: torch.Tensor, mt: torch.Tensor) -> torch.Tensor:
-    """The mel energy of float32 ``power``: split into bf16 ``p0``, ``p1``
+    """The mel energy of float32 ``power`` (a magnitude head's
+    magnitudes): split into bf16 ``p0``, ``p1``
     against the bf2 stack ``[F0; F1; F0]`` (bf16 ``mt``), or against the
     f32 projection, in float32."""
     if mt.dtype == torch.bfloat16:
@@ -342,7 +357,9 @@ def sig_mel_reference(samples: torch.Tensor, head: SigHead, *, ks: int,
     with signal slice ``pair_i[blk]``; its columns are re in ``[0,
     n_bins_pad)`` and im in ``[n_bins_pad, 2*n_bins_pad)`` (split), or one
     component each when ``n_bins_pad`` is 0 (N-packed: power is ``y*y``
-    per column); ``mt`` is projected by ``project``. The DFT dot is one
+    per column); a magnitude head takes the root of the split power
+    (correctly rounded, as the kernels' ``__fsqrt_rn``); ``mt`` is
+    projected by ``project``. The DFT dot is one
     ``torch.matmul`` in ``dot_dtype``: float32 as in the JAX kernel, or
     float64, which sums the exact bf16 x bf16 products with no rounding
     that reaches float32 — the exact value the float32 versions are held
@@ -367,7 +384,12 @@ def sig_mel_reference(samples: torch.Tensor, head: SigHead, *, ks: int,
         re = y[..., : h.n_bins_pad]
         im = y[..., h.n_bins_pad : 2 * h.n_bins_pad]
         power = re * re + im * im
+        if h.magnitude:
+            power = torch.sqrt(power)
     else:
+        refusal = magnitude_refusal(h)
+        if refusal is not None:
+            raise NotImplementedError(refusal)
         power = y * y
     energy = project(power, h.mt)
     return out_vals(energy, h.out_mode, h.guard)[..., : h.n_mels].contiguous()
@@ -397,10 +419,11 @@ def factored_route(head: SigHead, ks: int) -> tuple | None:
     ``dft_size`` taps (set where it is built), contracting the whole
     frame, in the (3, 2) slice schedule; the built kernel then takes
     layout 3 where the head's own would be the 32-frame chunk walk, and
-    keeps every other layout."""
+    keeps every other layout. The factored path computes power alone: a
+    magnitude head keeps its chunk walk."""
     h = head
     split = factored_split(h.dft_size) if h.dft_size else None
-    if (split is None or h.out_mode != "whisper" or ks != 3
+    if (split is None or h.out_mode != "whisper" or h.magnitude or ks != 3
             or h.pair_i != FACTORED_PAIR_I or h.pack != h.dft_size
             or h.pack_off != 0 or h.width != 2 * h.npow):
         return None
@@ -550,6 +573,9 @@ def sig_mel_factored_reference(samples: torch.Tensor, head: SigHead, *,
     tables of ``factored_dft(head.dft_size)``, projected by the head's
     ``mt`` (bins in order, ``project``), then ``out_vals``, as in
     ``sig_mel_reference``."""
+    if head.magnitude:
+        raise NotImplementedError("K1's factored path computes power, not "
+                                  "a magnitude head's magnitudes")
     b = samples.shape[0]
     if n_frames <= 0:
         return samples.new_zeros((b, 0, head.n_mels))
@@ -583,16 +609,18 @@ def fft_taps(samples: torch.Tensor, *, n_frames: int, hop: int,
 
 def fft_power(samples: torch.Tensor, *, n_frames: int, hop: int,
               offset: int, pack_off: int, window: torch.Tensor,
-              preemph: float | None) -> torch.Tensor:
+              preemph: float | None, magnitude: bool = False
+              ) -> torch.Tensor:
     """The power of K1's float64 FFT path: ``fft_taps`` from ``offset +
     pack_off`` zero-padded to ``FFT_N`` (a circular shift of the frame at
     ``pack_off``: the same power), the float64 real DFT, ``|X[k]|^2``
-    for the bins ``k < FFT_N / 2`` rounded once to float32, ``[B,
-    n_frames, FFT_N / 2]``."""
+    (with ``magnitude`` its root, in float64) for the bins ``k < FFT_N /
+    2`` rounded once to float32, ``[B, n_frames, FFT_N / 2]``."""
     y = fft_taps(samples, n_frames=n_frames, hop=hop,
                  start=offset + pack_off, window=window, preemph=preemph)
     spec = torch.fft.rfft(y, n=FFT_N)[..., : FFT_N // 2]
-    return (spec.real * spec.real + spec.imag * spec.imag).to(torch.float32)
+    power = spec.real * spec.real + spec.imag * spec.imag
+    return (torch.sqrt(power) if magnitude else power).to(torch.float32)
 
 
 def sig_mel_fft_reference(samples: torch.Tensor, head: SigHead, *,
@@ -601,15 +629,15 @@ def sig_mel_fft_reference(samples: torch.Tensor, head: SigHead, *,
     """The plain version of K1's float64 FFT path for ``head``, which
     carries ``fft``, on whatever device ``samples`` lies on: ``samples [B,
     T]`` f32 -> ``[B, n_frames, n_mels]`` values of the head's ln mode:
-    ``fft_power`` with ``fft``'s window and preprocessing, projected by
-    ``fft.mt`` (``project``), then ``out_vals``, as in
-    ``sig_mel_reference``."""
+    ``fft_power`` with ``fft``'s window and preprocessing (a magnitude
+    head's magnitudes), projected by ``fft.mt`` (``project``), then
+    ``out_vals``, as in ``sig_mel_reference``."""
     b, f = samples.shape[0], head.fft
     if n_frames <= 0:
         return samples.new_zeros((b, 0, head.n_mels))
     power = fft_power(samples, n_frames=n_frames, hop=hop, offset=offset,
                       pack_off=head.pack_off, window=f.window,
-                      preemph=f.preemph)
+                      preemph=f.preemph, magnitude=head.magnitude)
     energy = project(power, f.mt)
     return out_vals(energy, head.out_mode,
                     head.guard)[..., : head.n_mels].contiguous()
@@ -693,7 +721,7 @@ def _bound() -> ctypes.CDLL:
         p, i, i, i,             # m_big, width, pack, pack_off
         p, i, i, i, i,          # blocks, n_blocks, ks, npow, live
         p, i, i, i,             # mt, n_mels, n_mels_pad, bf2
-        i, ctypes.c_float,      # out_mode, guard
+        i, ctypes.c_float, i,   # out_mode, guard, magnitude
         p, p, p, p,             # out, q, lo, hi
         p, ctypes.c_float, i,   # vad, vad_thr, vad_start_y
         p, p,                   # stages, stream
@@ -716,6 +744,7 @@ def _bound() -> ctypes.CDLL:
         ctypes.c_double,        # preemph
         p, p, p, p, i,          # mel_off, mel_lo, f0, f1, nnz
         i, i, ctypes.c_float,   # n_mels, out_mode, guard
+        i,                      # magnitude
         p, p,                   # out, stream
     ]
     lib.melspec_sig_mel_fft.restype = ctypes.c_int
@@ -985,6 +1014,16 @@ def shape_refusal(width: int, n_bins_pad: int, n_mels_pad: int,
     return None
 
 
+def magnitude_refusal(head: SigHead) -> str | None:
+    """Why K1 refuses ``head`` as a magnitude head, or None: an N-packed
+    head squares each DFT column alone and never holds a bin's ``re^2 +
+    im^2`` to take the root of."""
+    if head.magnitude and not head.n_bins_pad:
+        return ("K1 takes a magnitude head split into re|im halves; an "
+                "N-packed head holds no bin's re^2 + im^2")
+    return None
+
+
 def _smem_refusal(smem: int, head: SigHead, hop: int) -> str | None:
     """Why K1 refuses ``head`` at ``hop`` where its block needs ``smem``
     bytes of shared memory, or None."""
@@ -997,11 +1036,12 @@ def _smem_refusal(smem: int, head: SigHead, hop: int) -> str | None:
 
 def k1_accepts(head: SigHead, *, hop: int, ks: int = 3) -> bool:
     """Whether K1 takes ``head`` at ``hop`` with ``ks`` signal slices: the
-    shape check of ``check_head`` and the shared-memory check of the
-    launch, the same functions the launch applies. The auto routes pick
-    K1 only where this holds."""
-    if shape_refusal(head.width, head.n_bins_pad, head.n_mels_pad,
-                     "K1") is not None:
+    shape and magnitude checks of ``check_head`` and the shared-memory
+    check of the launch, the same functions the launch applies. The auto
+    routes pick K1 only where this holds."""
+    if (shape_refusal(head.width, head.n_bins_pad, head.n_mels_pad,
+                      "K1") is not None
+            or magnitude_refusal(head) is not None):
         return False
     return _smem_refusal(_smem_bytes(head, hop, ks), head, hop) is None
 
@@ -1035,8 +1075,8 @@ def check_head(samples: torch.Tensor, head: SigHead, *, ks: int, what: str,
         raise ValueError(f"{what} takes a [B, T] float32 signal")
     if h.m_big.dtype != torch.bfloat16 or h.m_big.device != dev:
         raise ValueError("m_big must be a bf16 tensor on the signal's device")
-    refusal = shape_refusal(h.width, h.n_bins_pad, h.n_mels_pad, what,
-                            widths)
+    refusal = (shape_refusal(h.width, h.n_bins_pad, h.n_mels_pad, what,
+                             widths) or magnitude_refusal(h))
     if refusal is not None:
         raise NotImplementedError(refusal)
     if h.out_mode not in OUT_MODES:
@@ -1076,6 +1116,7 @@ def _launch(samples, head: SigHead, *, ks, n_frames, hop, offset,
     ``"vad"`` (the mel and the Sobel counts at ``vad = (thr, start_y)``).
     Returns the outputs as a tuple."""
     global launches, factored_launches, fft_launches, pipelined_launches
+    global magnitude_launches
     h, dev = head, samples.device
     check_head(samples, h, ks=ks, what="K1")
     if epilogue is not None:
@@ -1129,7 +1170,7 @@ def _launch(samples, head: SigHead, *, ks, n_frames, hop, offset,
                 -1.0 if fft.preemph is None else float(fft.preemph),
                 fft.mel_off.data_ptr(), fft.mel_lo.data_ptr(),
                 fft.f0.data_ptr(), fft.f1.data_ptr(), fft.nnz, h.n_mels,
-                mode, guard, out.data_ptr(), stream)
+                mode, guard, int(h.magnitude), out.data_ptr(), stream)
         elif factored:
             fac = factored_dft(h.dft_size, dev)
             rc = lib.melspec_sig_mel_factored(
@@ -1147,13 +1188,14 @@ def _launch(samples, head: SigHead, *, ks, n_frames, hop, offset,
                 vad_tile(frames), m_big.data_ptr(), h.width, h.pack,
                 h.pack_off, blocks.data_ptr(), len(h.pair_i), ks, h.npow,
                 h.live, mt.data_ptr(), h.n_mels, h.n_mels_pad, bf2, mode,
-                guard, ptr(out), ptr(q), ptr(lo), ptr(hi), ptr(counts),
-                vad[0], int(vad[1]), ptr(staged), stream)
+                guard, int(h.magnitude), ptr(out), ptr(q), ptr(lo), ptr(hi),
+                ptr(counts), vad[0], int(vad[1]), ptr(staged), stream)
     raise_for(lib, rc, "K1 (sig_mel)")
     launches += 1
     factored_launches += int(factored)
     fft_launches += int(fft is not None)
     pipelined_launches += int(pipe)
+    magnitude_launches += int(h.magnitude)
     if epilogue is not None:
         epilogue_launches[epilogue] += 1
     return outs

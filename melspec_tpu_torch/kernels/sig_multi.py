@@ -5,8 +5,9 @@ the wrapper that picks between them by the device the signal lies on.
 Replaces ``melspec_tpu/ops/sig_multihead.py::_pallas_sig_multi`` (body
 ``_sig_multi_tile_kernel``). Each head is a ``SigHead`` (its matrices,
 taps, layout, projection and output mode); head 0 may carry the Sobel VAD
-epilogue. ``sig_multi`` launches the kernel for a CUDA tensor (or raises)
-and runs ``sig_multi_reference`` only for a CPU tensor. ``launches``
+epilogue; a magnitude head is refused (``magnitude_refusal``: K2's walks
+compute power). ``sig_multi`` launches the kernel for a CUDA tensor (or
+raises) and runs ``sig_multi_reference`` only for a CPU tensor. ``launches``
 counts kernel launches and ``pipelined_launches`` those of the pipelined
 128-frame walk; nothing else adds to them.
 
@@ -58,7 +59,10 @@ def sig_multi_reference(samples: torch.Tensor, heads: Sequence[SigHead], *,
     and ``vad = (thr, start_y)`` adds ``tile_vad_counts`` of head 0.
     Returns ``(outs, counts)``, ``outs`` one ``[B, n_frames, n_mels_h]``
     float32 tensor per head, ``counts`` int32 ``[B, n_frames]`` or
-    None."""
+    None. A magnitude head raises, as on the card (``magnitude_refusal``)."""
+    refusal = magnitude_refusal(heads)
+    if refusal is not None:
+        raise NotImplementedError(refusal)
     outs = tuple(sig_mel_reference(samples, h, ks=ks, n_frames=n_frames,
                                    hop=hop, offset=offset,
                                    dot_dtype=dot_dtype)
@@ -146,12 +150,25 @@ def _layout(heads: Sequence[SigHead]) -> tuple:
             [h.n_mels_pad for h in heads])
 
 
+def magnitude_refusal(heads: Sequence[SigHead]) -> str | None:
+    """Why K2 refuses ``heads`` for a magnitude head among them, or None:
+    K2's heads (whisper, Kaldi, NeMo's fold) are power heads, and its
+    walks compute power alone."""
+    if any(h.magnitude for h in heads):
+        return "K2 computes power spectra only; a magnitude head takes K1"
+    return None
+
+
 def _refusal(heads: Sequence[SigHead], ks: int, hop: int) -> str | None:
     """Why K2 refuses these heads at ``hop`` with ``ks`` slices, or None:
-    the head count, each head's shape check and the shared-memory figure
-    of the built kernel, the checks the launch applies."""
+    the head count, a magnitude head, each head's shape check and the
+    shared-memory figure of the built kernel, the checks the launch
+    applies."""
     if not 0 < len(heads) <= MAX_HEADS:
         return f"K2 takes 1..{MAX_HEADS} heads; got {len(heads)}"
+    refusal = magnitude_refusal(heads)
+    if refusal is not None:
+        return refusal
     for h in heads:
         refusal = shape_refusal(h.width, h.n_bins_pad, h.n_mels_pad, "K2",
                                 WIDTHS)
@@ -186,6 +203,9 @@ def _launch(samples, heads, *, ks, n_frames, hop, offset, vad) -> tuple:
     dev = samples.device
     if not 0 < len(heads) <= MAX_HEADS:
         raise ValueError(f"K2 takes 1..{MAX_HEADS} heads; got {len(heads)}")
+    refusal = magnitude_refusal(heads)
+    if refusal is not None:
+        raise NotImplementedError(refusal)
     for h in heads:
         check_head(samples, h, ks=ks, what="K2", widths=WIDTHS)
     if vad is not None and heads[0].out_mode != "whisper":

@@ -178,7 +178,7 @@ FFT_CUTS = {
         ("      fft4(v[4 * bq], v[4 * bq + 1], v[4 * bq + 2], v[4 * bq + 3]);\n",
          "")],
     "no_split": [(
-        "  fft_split(za, zb, w, lo, hi);\n",
+        "  fft_split<kMag>(za, zb, w, lo, hi);\n",
         "  lo = static_cast<float>(za.x);\n  hi = static_cast<float>(zb.y);\n")],
     "no_projection": [(
         "      for (int j = sub; j < n; j += kFftMelLanes) {",

@@ -7,24 +7,34 @@ batched tensor code over ``[..., T]``:
 - optional preemphasis over the whole waveform ``y[n] = x[n] - c*x[n-1]``,
   ``y[0] = x[0]``;
 - ``center=True`` zero-pads ``n_fft/2`` on both sides (zeros, not
-  reflect);
+  reflect); ``exact_pad`` (NeMo's) reflect-pads ``(n_fft - hop) // 2`` on
+  both sides instead;
 - ``len // hop + 1`` frames when centered, ``(len - n_fft) // hop + 1``
-  otherwise;
+  otherwise (of the padded length under ``exact_pad``: ``len // hop``
+  where ``n_fft - hop`` is even);
 - symmetric Hann of ``win_length`` centered inside ``n_fft``;
-- power over all ``n_fft//2 + 1`` bins, Slaney filterbank,
-  ``ln(energy + guard)``;
+- power (``mag_power`` 2) or magnitude (1) over all ``n_fft//2 + 1``
+  bins, Slaney filterbank, ``ln(energy + guard)`` (``log_zero_guard_type``
+  ``"add"``) or ``ln(max(energy, guard))`` (``"clamp"``);
 - feature-major output ``[..., n_mels, padded_frames]`` with ``pad_to``
   column padding, and optional per-feature mean/std normalization over
   the valid frames (``max(valid - 1, 1)`` variance denominator, ``std +
   1e-5``).
 
-``fft_impl``: ``"sig"`` runs kernel K1 in its ``ln_guard`` mode over the
-N-packed 512-column head, contracting only the ``win_length`` taps inside
+``fft_impl``: ``"sig"`` runs kernel K1 in its ``ln_guard`` (or
+``ln_floor``) mode over the N-packed 512-column head (a magnitude head
+split into re|im halves), contracting only the ``win_length`` taps inside
 the window (``pack_off = (n_fft - win) // 2``); ``"rdft"``, ``"fft"`` and
 ``"hp"`` (the exact Ozaki split with the window folded in,
 ``ops/hp_dft.py``) run as plain PyTorch; ``"auto"`` picks ``"sig"`` on
 CUDA where the config qualifies and K1 takes its head
 (``auto_fft_impl``), ``"rdft"`` otherwise.
+
+Traced (``utils/profiling.py``), ``BatchLogMel.compute`` is the span
+``logmel`` with its stages ``logmel.pad`` (the preemphasis and the centre
+or exact pad) and ``logmel.spectral`` (the K1 launch or the plain body,
+the transpose, the normalisation and ``pad_to``); ``_compute``, which the
+frontend step calls inside its own stage, records neither.
 """
 
 from __future__ import annotations
@@ -36,14 +46,15 @@ import torch
 
 from melspec_tpu_torch._device import full_f32, resolve_device
 from melspec_tpu_torch.config import BatchLogMelConfig
+from melspec_tpu_torch.kernels import sig_mel as k1
 from melspec_tpu_torch.kernels.sig_mel import SigHead, k1_accepts, sig_mel
 from melspec_tpu_torch.ops import dft, framing
 from melspec_tpu_torch.ops.fastmath import ln_best
 from melspec_tpu_torch.ops.filterbank import mel_filterbank
 from melspec_tpu_torch.ops.hp_dft import hp_rdft_power_windowed
 from melspec_tpu_torch.ops.mel_kernel import (_sig_frontend_matrices,
-                                              bf2_stack, sig_fft_head,
-                                              sig_geometry)
+                                              bf2_stack, magnitude_matrices,
+                                              sig_fft_head, sig_geometry)
 from melspec_tpu_torch.ops.windows import hann_centered
 from melspec_tpu_torch.utils import profiling
 
@@ -62,28 +73,43 @@ def nemo_filters(config: BatchLogMelConfig) -> np.ndarray:
                           norm=config.norm)
 
 
+def out_mode(config: BatchLogMelConfig) -> str:
+    """K1's ln mode of the config's guard: ``ln(e + guard)`` or
+    ``ln(max(e, guard))``."""
+    return "ln_floor" if config.log_zero_guard_type == "clamp" else "ln_guard"
+
+
 @functools.lru_cache(maxsize=8)
 @profiling.spanned("setup.heads", head="nemo")
 def sig_head(config: BatchLogMelConfig) -> SigHead:
     """NeMo's K1 head on the CPU: centered frames are zero outside the
     ``win_length`` window, so each K block keeps only that interior
     (``pack = win``, ``pack_off = (n_fft - win) // 2``); ``npack="auto"``
-    N-packs the 257-bin head into 512 columns; bf2 projection;
-    ``ln(e + guard)``. Where K1's float64 FFT path can take it (n_fft
+    N-packs the 257-bin head into 512 columns; a magnitude head
+    (``mag_power`` 1) is split into re|im halves (``magnitude_matrices``:
+    512 and 512 at n_fft 1024, the columns past the filters' last bin
+    zero); bf2 projection; ``ln(e + guard)``, or ``ln(max(e, guard))``
+    under the clamp guard. Where K1's float64 FFT path can take it (n_fft
     2048: 44.1 / 48 kHz), the head also carries its DFT size, the float64
     window of its ``win_length`` taps and the projection in bin order
     (``sig_fft_head``)."""
     pack_off = (config.n_fft - config.win_length) // 2
     window = hann_centered(config.n_fft, config.win_length)
-    m_big, pair_i, mt, n_bins_pad, _, _, _ = _sig_frontend_matrices(
-        config.n_fft, config.fft_bins, window, nemo_filters(config),
-        ks=3, km=3, cutoff=2, pack=config.win_length, pack_off=pack_off)
+    filters = nemo_filters(config)
+    kw = dict(ks=3, km=3, cutoff=2, pack=config.win_length, pack_off=pack_off)
+    if config.magnitude:
+        m_big, pair_i, mt, n_bins_pad = magnitude_matrices(
+            config.n_fft, window, filters, **kw)
+    else:
+        m_big, pair_i, mt, n_bins_pad, _, _, _ = _sig_frontend_matrices(
+            config.n_fft, config.fft_bins, window, filters, **kw)
     dft_size, fft = sig_fft_head(
         config.n_fft, window[pack_off : pack_off + config.win_length], mt)
     return SigHead(m_big, pair_i, bf2_stack(mt), n_bins_pad,
                    config.win_length, config.n_mels, pack_off=pack_off,
-                   out_mode="ln_guard", guard=float(config.log_zero_guard),
-                   dft_size=dft_size, fft=fft)
+                   out_mode=out_mode(config),
+                   guard=float(config.log_zero_guard), dft_size=dft_size,
+                   fft=fft, magnitude=config.magnitude)
 
 
 @profiling.spanned("setup.route", route="batch_logmel.auto_fft_impl")
@@ -150,14 +176,21 @@ class BatchLogMel:
         return self._filters_np
 
     def num_frames(self, sample_len: int) -> int:
-        if self.config.center:
-            return framing.num_frames_centered(sample_len,
-                                               self.config.hop_length)
-        return framing.num_frames_batch(sample_len, self.config.n_fft,
-                                        self.config.hop_length)
+        cfg = self.config
+        if cfg.center:
+            return framing.num_frames_centered(sample_len, cfg.hop_length)
+        if cfg.exact_pad:
+            sample_len += 2 * cfg.exact_pad_amount
+        return framing.num_frames_batch(sample_len, cfg.n_fft,
+                                        cfg.hop_length)
 
     def _compute(self, x: torch.Tensor) -> torch.Tensor:
         """Features of ``x [..., T]`` (on the device, pipeline dtype)."""
+        return self._spectral(*self._pad(x))
+
+    def _pad(self, x: torch.Tensor) -> tuple:
+        """``x [..., T]`` preemphasized and padded as the framing reads
+        it, and its frame count."""
         cfg = self.config
         n = x.shape[-1]
         if cfg.preemphasis != 0.0:
@@ -167,14 +200,25 @@ class BatchLogMel:
         if cfg.center:
             pad = cfg.n_fft // 2
             x = torch.nn.functional.pad(x, (pad, pad))
+        elif cfg.exact_pad:
+            # one reflect pad over every clip: as [rows, T] (reflect
+            # padding takes a batch of rows)
+            pad = cfg.exact_pad_amount
+            x = torch.nn.functional.pad(
+                x.reshape((-1, n)), (pad, pad), mode="reflect").reshape(
+                    x.shape[:-1] + (n + 2 * pad,))
         # the framing needs this many samples
         needed = (valid - 1) * cfg.hop_length + cfg.n_fft
         if x.shape[-1] < needed:
             x = torch.nn.functional.pad(x, (0, needed - x.shape[-1]))
+        return x, valid
 
+    def _spectral(self, x: torch.Tensor, valid: int) -> torch.Tensor:
+        """Features of the padded ``x`` (``_pad``) over ``valid`` frames."""
+        cfg = self.config
         if self.fft_impl == "sig":
-            # K1: framing, windowed rDFT, power, filterbank and
-            # ln(x + guard) in one launch
+            # K1: framing, windowed rDFT, power (or magnitude),
+            # filterbank and the guarded ln in one launch
             h = self.sig_head
             lead = x.shape[:-1]
             mel = sig_mel(x.reshape((-1, x.shape[-1])).to(torch.float32), h,
@@ -196,8 +240,14 @@ class BatchLogMel:
             else:
                 spec = torch.fft.rfft(frames * self.window, dim=-1)
                 power = (spec.real ** 2 + spec.imag ** 2).to(self.dtype)
+            if cfg.magnitude:
+                power = torch.sqrt(power)
             energy = power @ self.filters_t
-        feats = ln_best(energy + cfg.log_zero_guard, self.dtype)
+        if cfg.log_zero_guard_type == "clamp":
+            energy = torch.clamp_min(energy, cfg.log_zero_guard)
+        else:
+            energy = energy + cfg.log_zero_guard
+        feats = ln_best(energy, self.dtype)
         feats = feats.transpose(-1, -2)  # [..., n_mels, valid]
         return self._norm_and_pad(feats, valid)
 
@@ -215,11 +265,31 @@ class BatchLogMel:
         return feats
 
     def compute(self, samples) -> torch.Tensor:
+        """``samples [..., T]`` -> ``[..., n_mels, padded_frames]``.
+
+        Traced (``utils/profiling.py``), a call is the span ``logmel``,
+        with the attrs ``k1_launches`` and ``magnitude_launches`` (K1's
+        launches in the call, and those of a magnitude head), and its
+        stages ``logmel.pad`` and ``logmel.spectral``, which tile the
+        features' work on the device. ``_compute``, which the frontend
+        step calls, records neither."""
+        with profiling.span("logmel", self.device) as sp:
+            launches, mags = k1.launches, k1.magnitude_launches
+            out = self._call(samples)
+            sp.set(k1_launches=k1.launches - launches,
+                   magnitude_launches=k1.magnitude_launches - mags)
+            return out
+
+    def _call(self, samples) -> torch.Tensor:
         x = torch.as_tensor(samples, device=self.device)
         if x.shape[-1] == 0:
             return torch.zeros(x.shape[:-1] + (self.config.n_mels, 0),
                                dtype=self.dtype, device=self.device)
-        return self._compute(x.to(self.dtype))
+        stage = profiling.stages(self.device)
+        with stage("logmel.pad"):
+            x, valid = self._pad(x.to(self.dtype))
+        with stage("logmel.spectral"):
+            return self._spectral(x, valid)
 
     def compute_flat(self, samples) -> tuple[np.ndarray, int, int]:
         """Flat row-major output and ``(rows, cols)``, the reference's

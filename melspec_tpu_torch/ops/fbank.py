@@ -15,8 +15,9 @@ its Kaldi edge cases kept exactly:
 - optional CMN: subtract the per-bin mean over time.
 
 ``fft_impl``: ``"sig"`` runs kernel K1 in its ``ln_floor`` mode with the
-N-packed 512-column head and the whole per-frame preprocessing folded into
-its matrices; ``"rdft"`` (DFT as matmuls), ``"fft"`` (``torch.fft``) and
+N-packed 512-column head (``use_power=False``: a magnitude head split into
+re|im halves) and the whole per-frame preprocessing folded into its
+matrices; ``"rdft"`` (DFT as matmuls), ``"fft"`` (``torch.fft``) and
 ``"hp"`` (the exact Ozaki split with the Povey window folded in,
 ``ops/hp_dft.py``) run as plain PyTorch; ``"auto"`` picks ``"sig"`` on
 CUDA where the config qualifies and K1 takes its head
@@ -39,8 +40,8 @@ from melspec_tpu_torch.ops.fastmath import ln_best
 from melspec_tpu_torch.ops.filterbank import kaldi_filterbank
 from melspec_tpu_torch.ops.hp_dft import hp_rdft_power_windowed
 from melspec_tpu_torch.ops.mel_kernel import (_sig_frontend_matrices,
-                                              bf2_stack, sig_fft_head,
-                                              sig_geometry)
+                                              bf2_stack, magnitude_matrices,
+                                              sig_fft_head, sig_geometry)
 from melspec_tpu_torch.ops.windows import povey
 from melspec_tpu_torch.utils import profiling
 
@@ -70,7 +71,9 @@ def sig_head(config: FbankConfig) -> SigHead:
     """Kaldi's K1 head on the CPU: window, DC removal and preemphasis
     folded into the spectral matrices (exact: all three are linear in the
     frame), the N-packed 512-column layout that ``npack="auto"`` picks for
-    the 257-bin head, the bf2 projection, ``ln(max(e, floor))``. Where
+    the 257-bin head (``use_power=False``: a magnitude head, split into
+    re|im halves by ``magnitude_matrices``, 256 and 256 at n_fft 512), the bf2
+    projection, ``ln(max(e, floor))``. Where
     K1's float64 FFT path can take it (n_fft 2048: 44.1 to 80 kHz), the
     head also carries its DFT size, the float64 Povey window, the
     preemphasis coefficient (that path removes the mean and preemphasizes
@@ -78,13 +81,17 @@ def sig_head(config: FbankConfig) -> SigHead:
     ``preemph`` is 0 for every ``p <= 0`` and for NaN, as in JAX."""
     n = config.frame_length_samples
     window = povey(n)
-    m_big, pair_i, mt, n_bins_pad, _, _, _ = _sig_frontend_matrices(
-        config.fft_size, config.fft_size // 2 + 1, window,
-        kaldi_filterbank(config.sample_rate, config.fft_size,
-                         config.num_mel_bins, config.low_freq,
-                         config.effective_high_freq),
-        ks=3, km=3, cutoff=2, pack=n,
-        preproc=kaldi_preproc_matrix(n, float(config.preemphasis)))
+    filters = kaldi_filterbank(config.sample_rate, config.fft_size,
+                               config.num_mel_bins, config.low_freq,
+                               config.effective_high_freq)
+    kw = dict(ks=3, km=3, cutoff=2, pack=n,
+              preproc=kaldi_preproc_matrix(n, float(config.preemphasis)))
+    if config.use_power:
+        m_big, pair_i, mt, n_bins_pad, _, _, _ = _sig_frontend_matrices(
+            config.fft_size, config.fft_size // 2 + 1, window, filters, **kw)
+    else:
+        m_big, pair_i, mt, n_bins_pad = magnitude_matrices(
+            config.fft_size, window, filters, **kw)
     p = float(config.preemphasis)
     # JAX preemphasizes only where p > 0; any other p (NaN too) is DC
     # removal alone, which the FFT path reads from a coefficient of 0
@@ -92,20 +99,20 @@ def sig_head(config: FbankConfig) -> SigHead:
                                  p if p > 0.0 else 0.0)
     return SigHead(m_big, pair_i, bf2_stack(mt), n_bins_pad, n,
                    config.num_mel_bins, out_mode="ln_floor",
-                   guard=energy_floor(config), dft_size=dft_size, fft=fft)
+                   guard=energy_floor(config), dft_size=dft_size, fft=fft,
+                   magnitude=not config.use_power)
 
 
 @profiling.spanned("setup.route", route="fbank.auto_fft_impl")
 def auto_fft_impl(config: FbankConfig, dtype, device) -> str:
     """``fft_impl="auto"`` on ``device``: ``"sig"`` on CUDA where the
-    config qualifies (macro-row geometry, power spectra, log output,
-    float32) and K1 takes its head (``k1_accepts``), else ``"rdft"``. The
-    head is built on the CPU; no kernel runs."""
+    config qualifies (macro-row geometry, log output, float32) and K1
+    takes its head (``k1_accepts``; power or magnitude spectra), else
+    ``"rdft"``. The head is built on the CPU; no kernel runs."""
     eligible = (torch.device(device).type == "cuda"
                 and sig_geometry(config.frame_length_samples,
                                  config.frame_shift_samples) is not None
-                and config.use_power and config.use_log_fbank
-                and dtype == torch.float32)
+                and config.use_log_fbank and dtype == torch.float32)
     if eligible and k1_accepts(sig_head(config),
                                hop=config.frame_shift_samples):
         return "sig"
@@ -138,11 +145,6 @@ class Fbank:
                 raise ValueError(
                     "fft_impl='sig': no macro-row geometry for this "
                     "(frame_length, frame_shift)"
-                )
-            if not config.use_power:
-                raise ValueError(
-                    "fft_impl='sig' computes power spectra only "
-                    "(use_power=False needs a per-bin sqrt)"
                 )
             if not config.use_log_fbank:
                 raise ValueError("fft_impl='sig' emits log-fbank only")

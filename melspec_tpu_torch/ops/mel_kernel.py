@@ -215,17 +215,44 @@ def sig_fft_head(fft_size: int, window: np.ndarray, mt: np.ndarray,
     preprocessing (``preemph``: Kaldi's DC removal and preemphasis, None
     for none) and the bf2 projection in bin order, ``bf2_stack`` of the
     float64 ``mt``'s rows of the bins below ``fft_size / 2`` (so its rows
-    equal those of the head's own stack bit for bit). ``(0, None)`` where
+    equal those of the head's own stack bit for bit; a split magnitude
+    head's ``mt`` may end there, ``magnitude_matrices``). ``(0, None)`` where
     the path does not take the head: a DFT of other than ``FFT_N``
     points, or filters whose Nyquist row, which it does not compute,
     exceeds ``NYQUIST_TOL``; such a head keeps its chunk walk."""
     half = fft_size // 2
     if (fft_size != FFT_N or len(window) > fft_size
-            or float(np.abs(mt[half]).max()) > NYQUIST_TOL):
+            or (mt.shape[0] > half
+                and float(np.abs(mt[half]).max()) > NYQUIST_TOL)):
         return 0, None
     return fft_size, FftHead(
         torch.as_tensor(np.asarray(window, np.float64)),
         None if preemph is None else float(preemph), bf2_stack(mt[:half]))
+
+
+def magnitude_matrices(fft_size: int, window: np.ndarray,
+                       filters: np.ndarray, **kw) -> tuple:
+    """``_sig_frontend_matrices`` (``kw``: its keywords past ``filters``)
+    of a magnitude head, which is split (an N-packed head never holds a
+    bin's ``re^2 + im^2`` to take the root of): ``(m_big, pair_i, mt,
+    n_bins_pad)``. Its bins are the ``fft_size // 2`` below the Nyquist
+    bin where the filters weigh it at most ``NYQUIST_TOL`` (re|im halves
+    of ``fft_size // 2`` columns each, a width K1 takes: 512 and 512 at
+    n_fft 1024), else all ``fft_size // 2 + 1``; the re and im columns of
+    the bins past the last one any filter weighs are zero (NeMo's TTS mel
+    stops at 8 kHz of 11.025), so that the head's ``live_columns`` ends
+    there and K1 skips them: their magnitude meets only zero rows of the
+    projection."""
+    half = fft_size // 2
+    n_bins = half if float(np.abs(filters[:, half]).max()) <= NYQUIST_TOL \
+        else half + 1
+    m_big, pair_i, mt, n_bins_pad, _, _, _ = _sig_frontend_matrices(
+        fft_size, n_bins, window, filters, npack=False, **kw)
+    weighted = np.nonzero(np.abs(filters[:, :n_bins]).max(axis=0))[0]
+    last = int(weighted[-1]) + 1 if weighted.size else 0
+    m_big[:, last:n_bins_pad] = 0
+    m_big[:, n_bins_pad + last :] = 0
+    return m_big, pair_i, mt, n_bins_pad
 
 
 @functools.lru_cache(maxsize=8)

@@ -32,7 +32,8 @@ from melspec_tpu_torch.config import (BatchLogMelConfig, DetectionSettings,
 from melspec_tpu_torch.kernels import sig_multi
 from melspec_tpu_torch.kernels.sig_mel import SigHead, vad_args
 from melspec_tpu_torch.ops import framing
-from melspec_tpu_torch.ops.batch_logmel import BatchLogMel, nemo_filters
+from melspec_tpu_torch.ops.batch_logmel import (BatchLogMel, nemo_filters,
+                                               out_mode)
 from melspec_tpu_torch.ops.fbank import sig_head as kaldi_head
 from melspec_tpu_torch.ops.mel_kernel import (_sig_frontend_matrices,
                                               bf2_stack, sig_geometry,
@@ -93,7 +94,11 @@ def check_k2(heads: Sequence[SigHead], hop: int, device) -> None:
     ``heads`` (``kernels/sig_multi.py::k2_accepts``), so that a caller
     such as ``sharded_frontend_step`` takes the per-frontend routes, as
     for a config without the fused route. On the CPU the plain version
-    takes any heads."""
+    takes any heads but a magnitude head, which K2 refuses on every
+    device."""
+    refusal = sig_multi.magnitude_refusal(heads)
+    if refusal is not None:
+        raise ValueError(refusal)
     if (torch.device(device).type == "cuda"
             and not sig_multi.k2_accepts(heads, hop=hop)):
         raise ValueError(
@@ -168,7 +173,9 @@ def nemo_fold_head(config: BatchLogMelConfig) -> SigHead:
     centered frame and the cross-frame preemphasis ``y[t] = x[t] -
     p*x[t-1]`` folded, as a banded rectangular ``[512, 513]`` preproc, into
     spectral rows over the RAW window; each K block keeps the ``win + 1``
-    raw taps starting at the window flank ``(n_fft - win) // 2``."""
+    raw taps starting at the window flank ``(n_fft - win) // 2``. Its ln
+    mode follows the config's guard; a magnitude config's head is marked
+    so, and K2, which computes power alone, refuses it."""
     n_fft, win, p = config.n_fft, config.win_length, float(config.preemphasis)
     pre_t = np.zeros((n_fft + 1, n_fft))
     pre_t[np.arange(1, n_fft + 1), np.arange(n_fft)] = 1.0
@@ -179,8 +186,9 @@ def nemo_fold_head(config: BatchLogMelConfig) -> SigHead:
         nemo_filters(config), ks=3, km=3, cutoff=2, pack=win + 1,
         pack_off=flank, preproc=pre_t.T)
     return SigHead(m_big, pair_i, bf2_stack(mt), n_bins_pad, win + 1,
-                   config.n_mels, pack_off=flank, out_mode="ln_guard",
-                   guard=float(config.log_zero_guard))
+                   config.n_mels, pack_off=flank, out_mode=out_mode(config),
+                   guard=float(config.log_zero_guard),
+                   magnitude=config.magnitude)
 
 
 class WhisperKaldiNemoFused(WhisperKaldiFused):

@@ -128,6 +128,7 @@ SETUP = "setup."
 # where they live, never moved
 COUNTERS = (("sig_mel", "launches"), ("sig_mel", "factored_launches"),
             ("sig_mel", "fft_launches"), ("sig_mel", "pipelined_launches"),
+            ("sig_mel", "magnitude_launches"),
             ("sig_mel", "epilogue_launches"),
             ("sig_multi", "launches"), ("sig_multi", "pipelined_launches"),
             ("resample", "launches"),

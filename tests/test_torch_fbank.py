@@ -211,9 +211,10 @@ def test_routes_and_validation():
     hp = fbank.Fbank(fft_impl="hp", device="cpu").compute(x).numpy()
     want = np.asarray(jfbank.Fbank(JFbankConfig(), fft_impl="hp").compute(x))
     assert np.abs(hp - want).max() <= CROSS_ROUTE
-    with pytest.raises(ValueError):
-        fbank.Fbank(FbankConfig(use_power=False), fft_impl="sig",
-                    device="cpu")
+    # magnitude spectra take K1 on a split head (its plain version here)
+    mag = fbank.Fbank(FbankConfig(use_power=False), fft_impl="sig",
+                      device="cpu")
+    assert mag.sig_head.magnitude and mag.sig_head.n_bins_pad == 256
     with pytest.raises(ValueError):
         fbank.Fbank(FbankConfig(use_log_fbank=False), fft_impl="sig",
                     device="cpu")
