@@ -373,6 +373,18 @@ LN_FFT_MORE = {
 # the rows whose K1 time stands beside its plain version's and the
 # composition's (the p <= 0 rows: K1's time and bound alone)
 LN_FFT_TIMED = ("kaldi_64k", "kaldi_80k")
+# phase ln_fft's rows at n_fft 1024, the FFT path's 1024-point instance:
+# NeMo's TTS mel (the cell nemo-tts-22k's settings: 1024 / 1024 / 256,
+# magnitude, ln of the clamp, exact_pad) through its auto route, and Kaldi
+# fbank at 22.05 kHz (551 / 220 taps, n_fft 1024; no macro-row geometry,
+# so K1 on its head), at LN_1024_B x LN_1024_SECONDS (the cell's clips)
+LN_FFT_1024 = {
+    "nemo_tts_22k": BatchLogMelConfig(
+        sample_rate=22050, n_fft=1024, win_length=1024, hop_length=256,
+        f_max=8000.0, center=False, log_zero_guard=1e-5, mag_power=1.0,
+        log_zero_guard_type="clamp", exact_pad=True),
+    "kaldi_22k": FbankConfig(sample_rate=22050.0, apply_cmn=False)}
+LN_1024_B, LN_1024_SECONDS = 64, 10.0
 # the live per-hop service (phase live_stream), plain PyTorch as in JAX:
 # the JFK master regression through RingBuffer in 32-sample pushes at
 # 512/160/80 (float64 at JAX's 1e-6 from the golden; float32 reported
@@ -1689,9 +1701,10 @@ def chunk_walk_heads() -> dict:
     25 ms window, 10 ms hop) and for the whisper heads of another slice
     schedule ((2, 1)): none of them is the Hann-windowed DFT of the (3, 2)
     schedule, so none takes the factored path; the heads that carry the
-    float64 FFT path's description (``fft``: Kaldi and NeMo at n_fft 2048)
-    take that path, and the rest keep their dense layout (asks the built
-    kernel; no launch)."""
+    float64 FFT path's description (``fft``: Kaldi and NeMo at n_fft 1024,
+    22.05 kHz, and 2048) take that path at the description's size, and
+    the rest keep their dense layout (asks the built kernel; no
+    launch)."""
     heads = {}
     for sr in (22050.0, 44100.0, 48000.0):
         kc = FbankConfig(sample_rate=sr, apply_cmn=False)
@@ -1715,7 +1728,8 @@ def chunk_walk_heads() -> dict:
         out[name] = dict(width=h.m_big.shape[1], pack=h.pack, hop=hop,
                          ks=ks, block_frames=frames, chunk_cols=cols,
                          factored=factored, carries_fft=h.fft is not None,
-                         fft=(frames, cols) == (1, sig_mel.FFT_N),
+                         fft=frames == 1 and cols in sig_mel.FFT_SIZES
+                         and cols == h.dft_size,
                          accepted=sig_mel.k1_accepts(h, hop=hop, ks=ks))
     return out
 
@@ -1826,27 +1840,35 @@ def phase_wide_hops(dev) -> dict:
 
 def fft_work(head, frames: int) -> dict:
     """FLOPs of K1's float64 FFT path over ``frames`` frames, the
-    design's work by type (``csrc/sig_fft.cuh``): in float64 the taps (the
-    window's product a tap; with Kaldi's preemphasis the mean's sum, the
-    mean's and the preemphasis's differences and product a tap), the
-    1024-point complex FFT as 16 x 16 x 4 (two passes of 64 radix-16s in
-    registers, each two layers of four radix-4s of eight complex sums of 2
-    and the W16 twiddles: three general complex products of 6, four by
-    (1 -/+ i) / sqrt 2 of 4, -i free; a pass's twiddles a thread, 15
-    complex products of 6 by the powers of one base, those by 1 included,
-    and the 14 products of 6 that raise it; then 256 radix-4s), the
-    real-input split in pairs of bins k, 1024 - k (the sums and halvings 8,
-    the twiddle's product 6, the two bins 4, the two powers 6: 24 a pair,
-    512 pairs and bin 512 alone; the twiddles W8^d by (1 -/+ i) / sqrt 2,
-    4 each, two of four a base, two bases a thread); in float32 the bf2
+    design's work by type (``csrc/sig_fft.cuh``), at the head's DFT size
+    n: in float64 the taps (the window's product a tap; with Kaldi's
+    preemphasis the mean's sum, the mean's and the preemphasis's
+    differences and product a tap), the complex FFT of n / 2 points as
+    ``FFT_RADICES[n]`` (two passes of radix-16s in registers, a thread's
+    each, each two layers of four radix-4s of eight complex sums of 2 and
+    the W16 twiddles: three general complex products of 6, four by (1 -/+
+    i) / sqrt 2 of 4, -i free; a pass's twiddles a thread, 15 complex
+    products of 6 by the powers of one base, those by 1 included, and the
+    14 products of 6 that raise it; then at 2048 points 256 radix-4s of
+    eight complex sums, at 1024 points 256 radix-2s of two), the
+    real-input split in pairs of bins k, n / 2 - k: at 2048 points the
+    sums and halvings 8, the twiddle's product 6, the two bins 4, the two
+    powers 6: 24 a pair, 512 pairs and bin 512 alone, and the twiddles
+    W8^d by (1 -/+ i) / sqrt 2, 4 each, two of four a base, two bases a
+    thread; at 1024 points the sums, halvings and the twiddle's product
+    14 a pair of its 256, and a bin's sum and power 5 for the head's live
+    bins alone (``FftHead.bins``; W4^d is free); in float32 the bf2
     projection (three products and sums a run value: 6) and the output (1
     a mel)."""
     pack, fft = head.pack, head.fft
-    threads = sig_mel.FFT_GROUP_THREADS
+    n = fft.size
+    threads = sig_mel.FFT_GROUP_THREADS[n]
     taps = pack * (1 if fft.preemph is None else 5)
     radix16 = 8 * 8 * 2 + 3 * 6 + 4 * 4
-    passes = 2 * threads * (radix16 + 15 * 6 + 14 * 6) + 256 * 8 * 2
-    split = (sig_mel.FFT_N // 4 + 1) * 24 + threads * 2 * 2 * 4
+    last = 256 * 8 * 2 if n == 2048 else 256 * 2 * 2
+    passes = 2 * threads * (radix16 + 15 * 6 + 14 * 6) + last
+    split = ((n // 4 + 1) * 24 + threads * 2 * 2 * 4 if n == 2048
+             else n // 4 * 14 + fft.bins * 5)
     f64 = taps + passes + split
     f32 = 6 * fft.nnz + head.n_mels
     return dict(flops_f64=frames * f64, flops_f32=frames * f32)
@@ -1863,7 +1885,8 @@ def fft_bound(head, frames: int, x, outs) -> dict:
     f = head.fft
     nbytes = (x.numel() * 4 + sum(o.numel() * o.element_size() for o in outs)
               + f.window.numel() * 8
-              + sig_mel.fft_twiddles(torch.device("cpu")).numel() * 8
+              + sig_mel.fft_twiddles(f.size,
+                                     torch.device("cpu")).numel() * 8
               + sum(t.numel() * t.element_size()
                     for t in (f.mel_off, f.mel_lo, f.f0, f.f1)))
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
@@ -1993,7 +2016,8 @@ def ln_fft_more(dev, rng, run) -> tuple:
             return held_mfcc(*args, cfg) if is_mfcc else held_fft(*args)
 
         r = dict(route=route, pack=h.pack, pack_off=h.pack_off, hop=hop,
-                 preemph=h.fft.preemph, shape=list(x.shape), n_frames=nf,
+                 fft_size=h.fft.size, preemph=h.fft.preemph,
+                 shape=list(x.shape), n_frames=nf,
                  check_shape=list(xc.shape), **held(got[:WIDE_CHECK_B], xc),
                  real=dict(clips=["jfk_band_limited",
                                   "noise_high_passed_300hz"],
@@ -2029,6 +2053,97 @@ def ln_fft_more(dev, rng, run) -> tuple:
     return res, mfcc_rows, equal
 
 
+def ln_fft_1024(dev, rng, run) -> dict:
+    """Phase ln_fft's rows at n_fft 1024 (``LN_FFT_1024``), the float64
+    FFT path's 1024-point instance (a frame a warp): NeMo's TTS mel at the
+    cell nemo-tts-22k's settings through ``BatchLogMel``'s auto route
+    (magnitude, 372 live bins, the reflect pad of ``exact_pad`` in the
+    entry point) and Kaldi fbank at 22.05 kHz (551 / 220: no macro-row
+    geometry, so K1 on its head directly), each on ``LN_1024_B`` x
+    ``LN_1024_SECONDS`` of noise and on ``ln_clips``, counted by ``run``
+    (K1 once, on the FFT path); the first ``WIDE_CHECK_B`` noise clips and
+    both real clips held as the 48 kHz rows (``held_fft``); K1's time per
+    call on the signal it reads beside the design's bound (``fft_bound``:
+    float64 work of the 1024 design, counted as the 2048 design's) and the
+    chunk walk's on the same head without its description (the route
+    these heads took before: the TTS head's 64-frame blocks)."""
+    res = {}
+    for name, cfg in LN_FFT_1024.items():
+        sr = int(cfg.sample_rate)
+        x = signal(rng, LN_1024_B, int(LN_1024_SECONDS * sr), dev)
+        real = ln_clips(sr, int(10 * sr), dev)
+        if isinstance(cfg, FbankConfig):
+            front = Fbank(cfg, device=dev)
+            f64 = Fbank(cfg, dtype=torch.float64, fft_impl="rdft",
+                        device=dev)
+            h, hop = fbank_sig_head(cfg).to(dev), cfg.frame_shift_samples
+
+            def framed(v):
+                return v
+
+            def entry(v, h=h, hop=hop):
+                return sig_mel.sig_mel(v, h, ks=3, n_frames=(
+                    framing.num_frames_batch(v.shape[-1], h.pack, hop)),
+                    hop=hop, offset=0)
+
+            def truth(v, f64=f64):
+                return f64.compute(v.double())
+        else:
+            front = BatchLogMel(cfg, device=dev)
+            f64 = BatchLogMel(cfg, dtype=torch.float64, fft_impl="rdft",
+                              device=dev)
+            h, hop = batch_logmel.sig_head(cfg).to(dev), cfg.hop_length
+            pad = cfg.exact_pad_amount
+
+            def framed(v, pad=pad):
+                return torch.nn.functional.pad(
+                    v[:, None], (pad, pad), mode="reflect")[:, 0]
+
+            def entry(v, front=front):
+                if front.fft_impl != "sig":
+                    raise AssertionError(f"{name}: auto route "
+                                         f"{front.fft_impl!r}")
+                return front.compute(v).transpose(-1, -2)
+
+            def truth(v, f64=f64):
+                return f64.compute(v.double()).transpose(-1, -2)
+        got = run(name, lambda: entry(x))
+        got_real = run(f"{name}_real", lambda: entry(real))
+        nf = got.shape[1]
+        frames, cols, fact = k1_layout(h, hop)
+        xc = x[:WIDE_CHECK_B]
+        r = dict(route=front.fft_impl, block_frames=frames, chunk_cols=cols,
+                 factored=fact, width=h.m_big.shape[1], fft_size=h.fft.size,
+                 live_bins=h.fft.bins, magnitude=h.magnitude, pack=h.pack,
+                 pack_off=h.pack_off, hop=hop, preemph=h.fft.preemph,
+                 shape=list(framed(x).shape), n_frames=nf,
+                 check_shape=list(xc.shape),
+                 **held_fft(got[:WIDE_CHECK_B], framed(xc), truth(xc), h,
+                            nf, hop))
+        r["real"] = dict(
+            clips=["jfk_band_limited", "noise_high_passed_300hz"],
+            shape=list(real.shape),
+            **held_fft(got_real, framed(real), truth(real), h,
+                       got_real.shape[1], hop))
+        del got_real
+        sig = framed(x).contiguous()
+        kw = dict(ks=3, n_frames=nf, hop=hop, offset=0)
+        r["ms"] = time_ms(lambda: sig_mel.sig_mel(sig, h, **kw))
+        walk_head = dataclasses.replace(h, fft=None, dft_size=0)
+        r["chunk_walk_block_frames"] = k1_layout(walk_head, hop)[0]
+        r["chunk_walk_ms"] = time_ms(
+            lambda: sig_mel.sig_mel(sig, walk_head, **kw), reps=3, warmup=1)
+        bound_fft = fft_bound(h, LN_1024_B * nf, sig, [got])
+        r.update(bound_fft=bound_fft, bound_ms=bound_fft["bound_ms"],
+                 bound_by=bound_fft["bound_by"],
+                 share_of_bound=bound_fft["bound_ms"] / r["ms"],
+                 chunk_walk_over_k1=r["chunk_walk_ms"] / r["ms"])
+        res[name] = r
+        del x, real, got, sig
+        torch.cuda.empty_cache()
+    return res
+
+
 def phase_ln_fft(dev) -> dict:
     """Kaldi fbank and NeMo log-mel at n_fft 2048 on K1's float64 FFT
     path, which took them off the 32-frame chunk walk. At 48 kHz through
@@ -2054,7 +2169,9 @@ def phase_ln_fft(dev) -> dict:
     bars and its time. The 32-frame chunk walk itself runs in phase
     k1_widths (``CHUNK_WALK_WHISPER``). Then ``ln_fft_more``: Kaldi at 64
     and 80 kHz, MFCC at 64 kHz and Kaldi at 48 kHz with p = -0.5 and p =
-    0, through their auto routes, each K1 once on its FFT path."""
+    0, through their auto routes, each K1 once on its FFT path; last
+    ``ln_fft_1024``: NeMo's TTS mel and Kaldi at 22.05 kHz on the path's
+    1024-point instance."""
     rng = np.random.default_rng(SEED + 59)
     res, counts, ffts = {}, {}, {}
 
@@ -2118,8 +2235,8 @@ def phase_ln_fft(dev) -> dict:
             xc = x[:WIDE_CHECK_B]
             r = dict(route=front.fft_impl, block_frames=frames,
                      chunk_cols=cols, factored=fact, width=h.m_big.shape[1],
-                     pack=h.pack, pack_off=h.pack_off, hop=hop,
-                     shape=list(framed(x).shape), n_frames=nf,
+                     fft_size=h.fft.size, pack=h.pack, pack_off=h.pack_off,
+                     hop=hop, shape=list(framed(x).shape), n_frames=nf,
                      check_shape=list(xc.shape),
                      **held_fft(got[:WIDE_CHECK_B], framed(xc),
                                 truth(xc), h, nf, hop))
@@ -2164,6 +2281,7 @@ def phase_ln_fft(dev) -> dict:
         torch.cuda.empty_cache()
     more, mfcc_rows, p_equal = ln_fft_more(dev, rng, run)
     res.update(more)
+    res.update(ln_fft_1024(dev, rng, run))
     emit("ln_fft", launches=counts, fft_launches=ffts,
          bars=dict(vs_fft_plain=LN_FFT_PLAIN_TOL, vs_f64=LN_TOL,
                    vs_plain_and_exact="LN_TOL + their distance from f64",
@@ -2174,10 +2292,12 @@ def phase_ln_fft(dev) -> dict:
              or ffts[k] != 1]
     fails += [n for n, r in res.items()
               if (r["block_frames"], r["chunk_cols"], r["factored"])
-              != (1, sig_mel.FFT_N, False)
+              != (1, r["fft_size"], False)
+              or r["fft_size"] != (1024 if n in LN_FFT_1024 else 2048)
               or fft_fails(r) or fft_fails(r["real"])]
     fails += [n for n, r in res.items()
-              if r["route"] != ("rdft" if "_44k" in n else "sig")]
+              if r["route"] != ("rdft" if n in ("kaldi_22k",) or "_44k" in n
+                                else "sig")]
     fails += [n for n, r in mfcc_rows.items()
               if mfcc_fails(r) or mfcc_fails(r["real"])]
     if not p_equal:

@@ -69,11 +69,12 @@
 // 128- and 64-frame spans do not fit, and where the host gives the
 // factored split) take layout 3 instead: the two-stage DFT of
 // sig_factored.cuh in persistent 64-frame blocks
-// (melspec_sig_mel_factored). The ln heads of a 2048-point DFT (Kaldi
-// fbank and NeMo log-mel at 44.1 / 48 kHz), where the host hands their
-// window, preprocessing and bin-order filters, take the float64 FFT of
-// sig_fft.cuh instead (melspec_sig_mel_fft), one frame a group of 64
-// threads, four groups a block.
+// (melspec_sig_mel_factored). The ln heads of a 2048- or 1024-point DFT
+// (Kaldi fbank and NeMo log-mel at 22.05 to 80 kHz), where the host hands
+// their window, preprocessing and bin-order filters, take the float64 FFT
+// of sig_fft.cuh instead (melspec_sig_mel_fft): at 2048 points one frame a
+// group of 64 threads, four groups a block; at 1024 one frame a warp,
+// eight warps a block.
 // The 32-frame dense layout stays for the other heads that fold
 // preprocessing into their matrix and for other slice schedules.
 //
@@ -256,6 +257,37 @@ int layout(int ks, int hop, int pack, int pack_off, int width, int npow,
 // head's split columns (npow = 16 n1: 32 k1 x 16 k2 a chunk)
 bool factored_ok(int n1, int n2, int npow) {
   return (n1 == 32 || n1 == 64) && n2 > 24 && n2 <= kFN2 && npow == 16 * n1;
+}
+
+// a launch of the float64 FFT path's N-point instance on p: every block
+// resident at once, each group a run of frames, and no block whose groups
+// would all have none
+template <int N>
+cudaError_t fft_launch(const Fft& p, int magnitude, void* stream) {
+  using S = FftSize<N>;
+  const long long smem = fft_smem<N>(p.n_mels, p.nnz);
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  auto kernel = magnitude ? sig_mel_fft_kernel<N, true>
+                          : sig_mel_fft_kernel<N, false>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, S::kThreads, static_cast<size_t>(smem));
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long blocks = static_cast<long long>(sms) * per_sm;
+  const long long need = (p.frames + S::kGroups - 1) / S::kGroups;
+  const long long grid = need < blocks ? need : blocks;
+  kernel<<<static_cast<unsigned>(grid), S::kThreads,
+           static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -490,49 +522,33 @@ int melspec_sig_mel_factored(const float* x, long long batch, long long T,
 }
 
 // K1's float64 FFT path (sig_fft.cuh) for an ln head whose frame is pack
-// taps at pack_off inside a 2048-point DFT: window float64 [pack]; tw
-// float64 pairs [kFftTw], (cos, -sin)(2 pi e / 2048) for e < kFftTw, the
-// bases of the passes' and the split's twiddles
-// (kernels/sig_mel.py::fft_twiddles); preemph Kaldi's
+// taps at pack_off inside an n-point DFT (n 2048 or 1024, each its own
+// instance of the kernel): window float64 [pack]; tw float64 pairs [256],
+// (cos, -sin)(2 pi e / n) for e < 256, the bases of the passes' and the
+// split's twiddles (kernels/sig_mel.py::fft_twiddles); preemph Kaldi's
 // coefficient (its DC removal and preemphasis before the window), or < 0
 // for neither; each mel's run of bins (mel_off [n_mels + 1], mel_lo
 // [n_mels]) and its bf2 filters f0, f1 (bf16, concatenated runs of nnz
-// values in all, bins below 1024); out_mode 1 (ln(e + guard)) or 2
+// values in all, bins below n / 2); out_mode 1 (ln(e + guard)) or 2
 // (ln(max(e, guard))); magnitude 1 projects |X[k]| in place of |X[k]|^2
 // (its own instance of the kernel); out [batch, n_frames, n_mels]. Returns
 // 0 or the cudaError_t of the launch (cudaErrorInvalidValue for arguments
 // the kernel does not take).
 int melspec_sig_mel_fft(const float* x, long long batch, long long T,
-                        int n_frames, int hop, int offset, int pack,
+                        int n_frames, int hop, int offset, int n, int pack,
                         int pack_off, const double* window, const void* tw,
                         double preemph, const int* mel_off,
                         const int* mel_lo, const void* f0, const void* f1,
                         int nnz, int n_mels, int out_mode, float guard,
                         int magnitude, float* out, void* stream) {
   if (batch <= 0 || n_frames <= 0) return cudaSuccess;
-  if (hop <= 0 || offset < 0 || pack <= 0 || pack_off < 0 ||
-      pack + pack_off > kFftN || n_mels <= 0 || nnz < 0 || out == nullptr ||
+  if ((n != 2048 && n != 1024) || hop <= 0 || offset < 0 || pack <= 0 ||
+      pack_off < 0 || pack + pack_off > n || n_mels <= 0 || nnz < 0 ||
+      out == nullptr ||
       (out_mode != kLnGuard && out_mode != kLnFloor) || !(guard > 0.0f) ||
       (magnitude != 0 && magnitude != 1) ||
       reinterpret_cast<uintptr_t>(tw) % 16)
     return cudaErrorInvalidValue;
-  const long long smem = fft_smem(n_mels, nnz);
-  if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  auto kernel = magnitude ? sig_mel_fft_kernel<true>
-                          : sig_mel_fft_kernel<false>;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, kFftThreads, static_cast<size_t>(smem));
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
   Fft p;
   p.x = x;
   p.T = T;
@@ -555,20 +571,17 @@ int melspec_sig_mel_fft(const float* x, long long batch, long long T,
   p.out_mode = out_mode;
   p.guard = guard;
   p.out = out;
-  // every block resident at once, each group a run of frames, and no block
-  // whose groups would all have none
-  const long long blocks = static_cast<long long>(sms) * per_sm;
-  const long long need = (p.frames + kFftGroups - 1) / kFftGroups;
-  const long long grid = need < blocks ? need : blocks;
-  kernel<<<static_cast<unsigned>(grid), kFftThreads,
-           static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(p);
-  return cudaGetLastError();
+  return n == 2048 ? fft_launch<2048>(p, magnitude, stream)
+                   : fft_launch<1024>(p, magnitude, stream);
 }
 
-// the shared memory of one block of the float64 FFT path for a projection
-// of n_mels runs of nnz values in all
-long long melspec_sig_mel_fft_smem(int n_mels, int nnz) {
-  return fft_smem(n_mels, nnz) + kFftStatic;
+// the shared memory of one block of the float64 FFT path's n-point
+// instance for a projection of n_mels runs of nnz values in all, or -1
+// for another n
+long long melspec_sig_mel_fft_smem(int n, int n_mels, int nnz) {
+  if (n == 2048) return fft_smem<2048>(n_mels, nnz) + FftSize<2048>::kStatic;
+  if (n == 1024) return fft_smem<1024>(n_mels, nnz) + FftSize<1024>::kStatic;
+  return -1;
 }
 
 const char* melspec_cuda_error_string(int code) {

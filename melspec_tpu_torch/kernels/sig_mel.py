@@ -47,13 +47,16 @@ host gives no split (another slice schedule, a size with no split, or
 matrices from elsewhere) keeps the 32-frame chunk walk.
 
 The float64 FFT path (``csrc/sig_fft.cuh``) takes the ln heads whose
-frame lies inside a DFT of ``FFT_N`` = 2048 points and that carry its
-description (``FftHead``: Kaldi fbank and NeMo log-mel at n_fft 2048,
-44.1 / 48 kHz): the frame's window and Kaldi's DC removal and
-preemphasis applied per frame, the DFT as a 2048-point real FFT, all in
-float64, then K1's bf2 projection and ln; a frame belongs to a group of
-``FFT_GROUP_THREADS`` threads that holds its FFT in registers as the
-passes ``FFT_RADICES``, ``FFT_GROUPS`` groups a block. The two-stage
+frame lies inside a DFT of one of ``FFT_SIZES`` (1024 or 2048 points)
+and that carry its description (``FftHead``: Kaldi fbank and NeMo
+log-mel at n_fft 1024, 22.05 to 40 kHz, NeMo's TTS mel among them, and
+at n_fft 2048, 44.1 to 80 kHz): the frame's window and Kaldi's DC
+removal and preemphasis applied per frame, the DFT as a real FFT of its
+points, all in float64, then K1's bf2 projection and ln; each size is
+its own instance of the kernel, where a frame belongs to a group of
+``FFT_GROUP_THREADS[n]`` threads (at 1024 points a warp) that holds its
+FFT in registers as the passes ``FFT_RADICES[n]``, ``FFT_GROUPS[n]``
+groups a block. The two-stage
 path's float32 roundings are relative to the frame's whole spectrum and
 swamp the near-empty bins of real clips, which the ln modes keep; in
 float64 every bin's power is exact to float32. Its plain version is
@@ -108,19 +111,23 @@ FACTORED_N1 = (32, 64)
 # k1 x 16 k2 = 512 power columns
 FACTORED_N2 = 32
 FACTORED_K2 = 16
-# the float64 FFT path's DFT size (csrc/sig_fft.cuh: kFftN); it computes
-# the bins below FFT_N / 2, so a head's filter row of the Nyquist bin
-# must be at most NYQUIST_TOL: the rounding noise of a zero weight (Kaldi's
-# top filter ends at Nyquist and weighs it 1.4e-14 at 80 kHz, 160 mels),
-# which moves a mel's energy by at most 1e-12 of the Nyquist bin's power
-FFT_N = 2048
+# the float64 FFT path's DFT sizes (csrc/sig_fft.cuh: FftSize<N>::kN), an
+# instance of the kernel each; it computes the bins below n / 2, so a
+# head's filter row of the Nyquist bin must be at most NYQUIST_TOL: the
+# rounding noise of a zero weight (Kaldi's top filter ends at Nyquist and
+# weighs it 1.4e-14 at 80 kHz, 160 mels), which moves a mel's energy by at
+# most 1e-12 of the Nyquist bin's power
+FFT_SIZES = (1024, 2048)
 NYQUIST_TOL = 1e-12
-# the float64 FFT path's group (kFftGroupThreads: one frame's threads),
-# its groups a block (kFftGroups: frames in flight) and the passes of its
-# 1024-point complex FFT (two radix-16 passes in registers, then radix-4s)
-FFT_GROUP_THREADS = 64
-FFT_GROUPS = 4
-FFT_RADICES = (16, 16, 4)
+# by DFT size: the float64 FFT path's group (FftSize<N>::kGroupThreads: one
+# frame's threads), its groups a block (kGroups: frames in flight) and the
+# passes of its complex FFT of n / 2 points (two radix-16 passes in
+# registers, then radix-4s at 2048 points, radix-2s at 1024)
+FFT_GROUP_THREADS = {1024: 32, 2048: 64}
+FFT_GROUPS = {1024: 8, 2048: 4}
+FFT_RADICES = {1024: (16, 16, 2), 2048: (16, 16, 4)}
+# the twiddle table's rows at either size (FftSize<N>::kTw: W_n^e, e < 256)
+FFT_TW = 256
 
 # the pipelined walk (csrc/sig_pipe.cuh): its block's frames, the DFT
 # columns of a chunk (Lay<0>::kCols), the bf16 values of a stage's
@@ -188,15 +195,17 @@ class StageSlot:
 class FftHead:
     """What K1's float64 FFT path needs of an ln head whose matrix folds
     a frame of ``pack`` taps, and per-frame preprocessing, into a DFT of
-    ``FFT_N`` points (Kaldi fbank, NeMo log-mel at n_fft 2048):
-    ``window`` float64 ``[pack]``, the window of the frame's taps;
+    ``size`` points, one of ``FFT_SIZES`` (Kaldi fbank, NeMo log-mel at
+    n_fft 1024 or 2048), which its projection's rows give:
+    ``window`` float64 ``[pack]``, the window of the frame's taps, ``pack
+    <= size``;
     ``preemph`` None (no preprocessing) or Kaldi's coefficient p (DC
     removal, then in-frame preemphasis: ``d[i] - p d[i-1]`` with ``d = x -
     mean``, ``d[0]`` as it is; ``fbank.kaldi_preproc_matrix``; 0 is DC
     removal alone, which ``fbank.sig_head`` gives for every Kaldi ``p <=
     0``, as in JAX; a negative value is refused); ``mt`` the
-    bf2 projection ``[F0; F1; F0]`` of the bins below ``FFT_N / 2``, bin
-    order (bf16 ``[3 FFT_N / 2, nmp]``), and its ``mel_runs`` with
+    bf2 projection ``[F0; F1; F0]`` of the bins below ``size / 2``, bin
+    order (bf16 ``[3 size / 2, nmp]``), and its ``mel_runs`` with
     ``nnz``, their values in all (computed where the head is built unless
     given). A malformed field raises ``ValueError``."""
 
@@ -210,28 +219,40 @@ class FftHead:
     nnz: int | None = None
 
     def __post_init__(self):
-        half = FFT_N // 2
         w, mt = self.window, self.mt
+        halves = tuple(n // 2 for n in FFT_SIZES)
+        if (mt.dtype != torch.bfloat16 or mt.dim() != 2
+                or mt.shape[0] not in tuple(3 * h for h in halves)
+                or not torch.equal(mt[2 * mt.shape[0] // 3 :],
+                                   mt[: mt.shape[0] // 3])):
+            raise ValueError(f"FftHead: mt must be the bf2 stack [F0; F1; "
+                             f"F0] of {' or '.join(map(str, halves))} "
+                             f"bins; got {mt.dtype} {tuple(mt.shape)}")
         if (w.dtype != torch.float64 or w.dim() != 1
-                or not 0 < w.shape[0] <= FFT_N):
+                or not 0 < w.shape[0] <= self.size):
             raise ValueError(f"FftHead: the window must be float64 [pack] "
-                             f"with pack <= {FFT_N}; got {w.dtype} "
+                             f"with pack <= {self.size}; got {w.dtype} "
                              f"{tuple(w.shape)}")
         if self.preemph is not None and not (math.isfinite(self.preemph)
                                              and self.preemph >= 0.0):
             raise ValueError(f"FftHead: preemph must be None or finite and "
                              f">= 0; got {self.preemph}")
-        if (mt.dtype != torch.bfloat16 or mt.dim() != 2
-                or mt.shape[0] != 3 * half
-                or not torch.equal(mt[2 * half :], mt[:half])):
-            raise ValueError(f"FftHead: mt must be the bf2 stack [F0; F1; "
-                             f"F0] of {half} bins; got {mt.dtype} "
-                             f"{tuple(mt.shape)}")
         if self.mel_off is None:
             for name, v in zip(("mel_off", "mel_lo", "f0", "f1"),
                                mel_runs(mt)):
                 object.__setattr__(self, name, v)
             object.__setattr__(self, "nnz", int(self.mel_off[-1]))
+
+    @property
+    def size(self) -> int:
+        """The DFT's points: twice the bins of the projection's rows."""
+        return 2 * self.mt.shape[0] // 3
+
+    @property
+    def bins(self) -> int:
+        """The bins the runs reach: the 1024-point instance computes no
+        power past them (it reads the same end from the staged runs)."""
+        return int((self.mel_lo + self.mel_off[1:] - self.mel_off[:-1]).max())
 
     def to(self, device) -> "FftHead":
         return dataclasses.replace(self, **{
@@ -607,18 +628,19 @@ def fft_taps(samples: torch.Tensor, *, n_frames: int, hop: int,
     return d * window.to(torch.float64)
 
 
-def fft_power(samples: torch.Tensor, *, n_frames: int, hop: int,
-              offset: int, pack_off: int, window: torch.Tensor,
+def fft_power(samples: torch.Tensor, *, size: int, n_frames: int,
+              hop: int, offset: int, pack_off: int, window: torch.Tensor,
               preemph: float | None, magnitude: bool = False
               ) -> torch.Tensor:
-    """The power of K1's float64 FFT path: ``fft_taps`` from ``offset +
-    pack_off`` zero-padded to ``FFT_N`` (a circular shift of the frame at
-    ``pack_off``: the same power), the float64 real DFT, ``|X[k]|^2``
-    (with ``magnitude`` its root, in float64) for the bins ``k < FFT_N /
-    2`` rounded once to float32, ``[B, n_frames, FFT_N / 2]``."""
+    """The power of K1's float64 FFT path at a DFT of ``size`` points:
+    ``fft_taps`` from ``offset + pack_off`` zero-padded to ``size`` (a
+    circular shift of the frame at ``pack_off``: the same power), the
+    float64 real DFT, ``|X[k]|^2`` (with ``magnitude`` its root, in
+    float64) for the bins ``k < size / 2`` rounded once to float32, ``[B,
+    n_frames, size / 2]``."""
     y = fft_taps(samples, n_frames=n_frames, hop=hop,
                  start=offset + pack_off, window=window, preemph=preemph)
-    spec = torch.fft.rfft(y, n=FFT_N)[..., : FFT_N // 2]
+    spec = torch.fft.rfft(y, n=size)[..., : size // 2]
     power = spec.real * spec.real + spec.imag * spec.imag
     return (torch.sqrt(power) if magnitude else power).to(torch.float32)
 
@@ -630,12 +652,14 @@ def sig_mel_fft_reference(samples: torch.Tensor, head: SigHead, *,
     carries ``fft``, on whatever device ``samples`` lies on: ``samples [B,
     T]`` f32 -> ``[B, n_frames, n_mels]`` values of the head's ln mode:
     ``fft_power`` with ``fft``'s window and preprocessing (a magnitude
-    head's magnitudes), projected by ``fft.mt`` (``project``), then
-    ``out_vals``, as in ``sig_mel_reference``."""
+    head's magnitudes) at the description's DFT size, projected by
+    ``fft.mt`` (``project``), then ``out_vals``, as in
+    ``sig_mel_reference``."""
     b, f = samples.shape[0], head.fft
     if n_frames <= 0:
         return samples.new_zeros((b, 0, head.n_mels))
-    power = fft_power(samples, n_frames=n_frames, hop=hop, offset=offset,
+    power = fft_power(samples, size=f.size, n_frames=n_frames, hop=hop,
+                      offset=offset,
                       pack_off=head.pack_off, window=f.window,
                       preemph=f.preemph, magnitude=head.magnitude)
     energy = project(power, f.mt)
@@ -740,7 +764,7 @@ def _bound() -> ctypes.CDLL:
     lib.melspec_sig_mel_factored.restype = ctypes.c_int
     lib.melspec_sig_mel_fft.argtypes = [
         p, ll, ll, i, i, i,     # x, batch, T, n_frames, hop, offset
-        i, i, p, p,             # pack, pack_off, window, tw
+        i, i, i, p, p,          # n, pack, pack_off, window, tw
         ctypes.c_double,        # preemph
         p, p, p, p, i,          # mel_off, mel_lo, f0, f1, nnz
         i, i, ctypes.c_float,   # n_mels, out_mode, guard
@@ -748,7 +772,7 @@ def _bound() -> ctypes.CDLL:
         p, p,                   # out, stream
     ]
     lib.melspec_sig_mel_fft.restype = ctypes.c_int
-    lib.melspec_sig_mel_fft_smem.argtypes = [i, i]
+    lib.melspec_sig_mel_fft_smem.argtypes = [i, i, i]
     lib.melspec_sig_mel_fft_smem.restype = ctypes.c_longlong
     lib.melspec_sig_mel_layout.argtypes = [i, i, i, i, i, i, i, i, i, p, p,
                                            p]
@@ -761,8 +785,9 @@ def _bound() -> ctypes.CDLL:
 class Layout(NamedTuple):
     """K1's block layout: a block's shared memory, its frames, its chunks'
     DFT columns and whether it is the factored path. The float64 FFT
-    path is ``(smem, 1, FFT_N, False)``: each of a block's
-    ``FFT_GROUPS`` groups takes one frame at a time and the whole DFT."""
+    path is ``(smem, 1, n, False)`` at a DFT of n points: each of a
+    block's ``FFT_GROUPS[n]`` groups takes one frame at a time and the
+    whole DFT."""
 
     smem: int
     frames: int
@@ -919,20 +944,22 @@ def stage_stream(head: SigHead) -> torch.Tensor:
 def fft_layout(head: SigHead) -> Layout:
     """The float64 FFT path's layout for ``head``, which carries ``fft``,
     after the checks its launch applies: a ``ValueError`` where the head
-    does not match the description (another DFT size or output mode, a
-    window that is not its ``pack`` taps, a frame past the DFT, a
+    does not match the description (a DFT size other than the
+    description's, or one the path has no instance for, another output
+    mode, a window that is not its ``pack`` taps, a frame past the DFT, a
     projection of other columns or precision), so no head meant for the
     path quietly takes another route. The shared memory asks the built
-    kernel."""
+    kernel's instance of the head's size."""
     f = head.fft
+    n = f.size
     why = None
-    if head.dft_size != FFT_N:
-        why = f"dft_size {head.dft_size}, not {FFT_N}"
+    if head.dft_size != n:
+        why = f"dft_size {head.dft_size} for a description of {n} points"
     elif head.out_mode not in ("ln_guard", "ln_floor"):
         why = f"out_mode {head.out_mode!r}, not an ln mode"
     elif f.window.shape[0] != head.pack:
         why = f"a window of {f.window.shape[0]} taps for pack {head.pack}"
-    elif head.pack_off + head.pack > FFT_N:
+    elif head.pack_off + head.pack > n:
         why = f"taps [{head.pack_off}, {head.pack_off + head.pack}) past it"
     elif (head.mel_precision != "bf2"
           or f.mt.shape[1] != head.n_mels_pad):
@@ -940,22 +967,28 @@ def fft_layout(head: SigHead) -> Layout:
                f"columns for a bf2 projection of {f.mt.shape[1]}")
     if why is not None:
         raise ValueError(f"K1's float64 FFT path: {why}")
-    smem = _bound().melspec_sig_mel_fft_smem(head.n_mels, f.nnz)
-    return Layout(int(smem), 1, FFT_N, False)
+    smem = _bound().melspec_sig_mel_fft_smem(n, head.n_mels, f.nnz)
+    return Layout(int(smem), 1, n, False)
 
 
 @functools.lru_cache(maxsize=8)
 @profiling.spanned("setup.heads", head="fft_twiddles")
-def fft_twiddles(device: torch.device) -> torch.Tensor:
-    """The float64 FFT path's twiddle table, ``W2048^e = (cos, -sin)(2 pi
-    e / FFT_N)`` for ``e < FFT_N / 8`` as float64 ``[256, 2]`` on
-    ``device`` (``csrc/sig_fft.cuh``: ``kFftTw``). With the 1024-point FFT
-    as ``FFT_RADICES`` = (16, 16, 4) over ``j = t + 64 n`` and ``k = k1 +
-    16 (c + 16 d)``: the bases each thread raises to the powers it needs,
-    pass 1's ``W1024^(t k1) = (W2048^(2 t))^k1`` and pass 2's ``W64^(a c)
-    = (W2048^(32 a))^c`` (``a < 4``), and the real split's ``W2048^k =
-    W2048^(k1 + 16 c) W8^d`` (bin ``1024 - k`` takes ``-conj W2048^k``)."""
-    ang = 2 * np.pi * np.arange(FFT_N // 8) / FFT_N
+def fft_twiddles(n: int, device: torch.device) -> torch.Tensor:
+    """The float64 FFT path's twiddle table of its ``n``-point instance,
+    ``Wn^e = (cos, -sin)(2 pi e / n)`` for ``e < FFT_TW`` as float64
+    ``[256, 2]`` on ``device`` (``csrc/sig_fft.cuh``: ``FftSize<N>::kTw``).
+    At 2048 points, the 1024-point FFT as ``FFT_RADICES[2048]`` = (16, 16,
+    4) over ``j = t + 64 n`` and ``k = k1 + 16 (c + 16 d)``: the bases each
+    thread raises to the powers it needs, pass 1's ``W1024^(t k1) =
+    (W2048^(2 t))^k1`` and pass 2's ``W64^(a c) = (W2048^(32 a))^c`` (``a <
+    4``), and the real split's ``W2048^k = W2048^(k1 + 16 c) W8^d`` (bin
+    ``1024 - k`` takes ``-conj W2048^k``). At 1024 points, the 512-point
+    FFT as (16, 16, 2) over ``j = t + 32 n``: ``W512^(t k1) = (W1024^(2
+    t))^k1``, ``W32^(a c) = (W1024^(32 a))^c`` (``a < 2``) and ``W1024^k =
+    W1024^(k1 + 16 c) W4^d``."""
+    if n not in FFT_SIZES:
+        raise ValueError(f"the float64 FFT path has no {n}-point instance")
+    ang = 2 * np.pi * np.arange(FFT_TW) / n
     return torch.as_tensor(np.stack([np.cos(ang), -np.sin(ang)], axis=-1),
                            device=device).contiguous()
 
@@ -1164,9 +1197,10 @@ def _launch(samples, head: SigHead, *, ks, n_frames, hop, offset,
                 raise ValueError("the head's FftHead must lie on the "
                                  "signal's device")
             rc = lib.melspec_sig_mel_fft(
-                samples.data_ptr(), b, t, n_frames, hop, offset, h.pack,
-                h.pack_off, fft.window.contiguous().data_ptr(),
-                fft_twiddles(dev).data_ptr(),
+                samples.data_ptr(), b, t, n_frames, hop, offset, fft.size,
+                h.pack, h.pack_off,
+                fft.window.contiguous().data_ptr(),
+                fft_twiddles(fft.size, dev).data_ptr(),
                 -1.0 if fft.preemph is None else float(fft.preemph),
                 fft.mel_off.data_ptr(), fft.mel_lo.data_ptr(),
                 fft.f0.data_ptr(), fft.f1.data_ptr(), fft.nnz, h.n_mels,

@@ -35,13 +35,21 @@ at 960/480/40, 1024/480/64 and 2048/512/128 on 64 x 30 s.
     python3 -m melspec_tpu_torch.kernels.sig_probe fft
 
 does the same for K1's float64 FFT path of the Kaldi fbank and NeMo
-log-mel heads (``csrc/sig_fft.cuh``; ``FFT_CUTS``: the taps' load,
-Kaldi's frame mean (the group's shuffles and warp words; its barrier
-stays, the buffer's guard), the preprocessing and window a tap, the
-radix passes (both radix-16s and the radix-4s; the twiddles and the
-exchanges stay), the split and power, the projection, and every named
-barrier of the groups (timing only: the exchanges then race)), each
-variant timed at both heads at 48 kHz (``LN_RATE``) on 64 x 30 s.
+log-mel heads (``csrc/sig_fft.cuh``). The 2048-point instance's cuts
+(``FFT_CUTS``: the taps' load, Kaldi's frame mean (the group's shuffles
+and warp words; its barrier stays, the buffer's guard), the
+preprocessing and window a tap, the radix passes (both radix-16s and the
+radix-4s; the twiddles and the exchanges stay), the split and power, the
+projection, and every named barrier of the groups (timing only: the
+exchanges then race)) are timed at both heads at 48 kHz (``LN_RATE``) on
+64 x 30 s through ``Fbank`` / ``BatchLogMel``; the 1024-point instance's
+(``FFT1024_CUTS``: the projection, the radix passes (both radix-16s and
+the radix-2s), the split with the power, its root and halves, both
+exchanges through the warp's buffer (their writes and reads; the passes
+then run on registers alone), and the float64 root of a magnitude head)
+on K1 alone (``sig_mel`` on the head) at NeMo's TTS head (``TTS``: 1024
+/ 256, magnitude, 372 live bins, on the 64 x 10 s cell's reflect-padded
+clips) and Kaldi's at 22.05 kHz (551 / 220, power, preemphasis).
 
     PYTHONPATH=<tree> python3 -P melspec_tpu_torch/kernels/sig_probe.py \
         dump <dir>
@@ -60,13 +68,21 @@ kHz, 2048/512/128 at 22.05 kHz, batch and streaming, both projections,
 and the VAD and quant routes; cases named ``wide_...``) and Kaldi fbank
 and NeMo log-mel at 48, 64 and 80 kHz through ``Fbank`` / ``BatchLogMel``
 (``ln_...``: the float64 FFT path since it takes them, the 32-frame
-chunk walk before). It writes each
-output's SHA-256 to ``<dir>/dump.json`` (and each ``ln_...`` output to
-``<dir>/<case>.npy``); ``compare`` holds the hashes of every dump equal
-case by case (bit-equal outputs), an ``ln_...`` case within ``LN_TOL``
-of the first dump's where they differ, and exits non-zero where any
-case fails, as ``resample_probe.py``'s modes do for K3/K4; a case that a
-dump lacks counts as differing.
+chunk walk before), then the heads at n_fft 1024 (``FFT1024_CASES``,
+``fft1024_...``: NeMo's TTS mel, Kaldi power and magnitude and NeMo at 32
+kHz, each through its entry point on the ``"sig"`` route: the float64
+FFT path's 1024-point instance since it takes them, K1's chunk walks
+before), each beside its entry point's float64 rdft route on the same
+input. It writes each output's SHA-256 to ``<dir>/dump.json`` (and each
+``ln_...`` and ``fft1024_...`` output to ``<dir>/<case>.npy``, with the
+float64 route's to ``<dir>/<case>.ref.npy`` and whether K1's FFT path
+ran the case); ``compare`` holds the hashes of every dump equal case by
+case (bit-equal outputs), an ``ln_...`` case within ``LN_TOL`` of the
+first dump's where they differ, an ``fft1024_...`` case not to another
+dump but, in each dump where the FFT path ran it, within ``REF_TOL`` of
+its own float64 route (the other dumps' distances are reported), and
+exits non-zero where any case fails, as ``resample_probe.py``'s modes do
+for K3/K4; a case that a dump lacks counts as differing.
 
     PYTHONPATH=<tree> python3 -P melspec_tpu_torch/kernels/sig_probe.py time
 
@@ -159,7 +175,7 @@ FFT = build.CSRC_DIR / "sig_fft.cuh"
 # K1's float64 FFT path: variant -> its (text, replacement) cuts
 FFT_CUTS = {
     "no_load": [(
-        "      fft_load(p.x + b * p.T + s, p.T - s, p.pack, t, xv);\n",
+        "      fft_load<2048>(p.x + b * p.T + s, p.T - s, p.pack, t, xv);\n",
         "      for (int n = 0; n < kFftPoints; ++n) xv[n] = make_float2(n + g, "
         "t);\n")],
     "no_mean": [(
@@ -181,11 +197,61 @@ FFT_CUTS = {
         "  fft_split<kMag>(za, zb, w, lo, hi);\n",
         "  lo = static_cast<float>(za.x);\n  hi = static_cast<float>(zb.y);\n")],
     "no_projection": [(
-        "      for (int j = sub; j < n; j += kFftMelLanes) {",
-        "      for (int j = sub; j < 0; j += kFftMelLanes) {")],
+        "#pragma unroll 1\n"
+        "      for (int j = sub; j < n; j += kFftMelLanes) {\n"
+        "        const float2 qq = pm[j];",
+        "#pragma unroll 1\n"
+        "      for (int j = sub; j < 0; j += kFftMelLanes) {\n"
+        "        const float2 qq = pm[j];")],
     "no_group_syncs": [(
-        '  asm volatile("bar.sync %0, %1;" ::"r"(grp + 1), '
-        '"n"(kFftGroupThreads)\n               : "memory");', "")],
+        '  asm volatile("bar.sync %0, %1;" ::"r"(grp + 1),\n'
+        '               "n"(FftSize<2048>::kGroupThreads)\n'
+        '               : "memory");', "")],
+}
+# the 1024-point instance's cuts, timed on K1 alone at its heads
+FFT1024_CUTS = {
+    "no_projection": [(
+        "#pragma unroll 1\n"
+        "      for (int j = sub; j < n; j += kFftMelLanes) {\n"
+        "        const float2 hq = pm[j];",
+        "#pragma unroll 1\n"
+        "      for (int j = sub; j < 0; j += kFftMelLanes) {\n"
+        "        const float2 hq = pm[j];")],
+    "no_passes": [
+        ("    // pass 1: the radix-16 over n in lane t, then W512^(t k1)\n"
+         "    fft16(v);\n", ""),
+        ("      fft16(v);\n      fft_turn(v, stw[32 * (u & 1)]);\n",
+         "      fft_turn(v, stw[32 * (u & 1)]);\n"),
+        ("        fft2(v[2 * bq], v[2 * bq + 1], buf[lo], buf[lo ^ 1]);\n"
+         "        fft2(v[2 * bq + 8], v[2 * bq + 9], buf[hi], buf[hi ^ 1]);\n",
+         "        v[2 * bq] = buf[lo];\n        v[2 * bq + 1] = buf[lo ^ 1];\n"
+         "        v[2 * bq + 8] = buf[hi];\n"
+         "        v[2 * bq + 9] = buf[hi ^ 1];\n")],
+    "no_split": [(
+        "  const double er = 0.5 * (za.x + zb.x), ei = 0.5 * (za.y - zb.y);\n"
+        "  const double orr = 0.5 * (za.y + zb.y), oi = 0.5 * (zb.x - za.x);\n"
+        "  const double tr = w.x * orr - w.y * oi, ti = w.x * oi + w.y * orr;\n"
+        "  if (lo) pq[k] = bf2_halves(fft512_power<kMag>(er + tr, ei + ti));\n"
+        "  if (hi) pq[kHalf - k] = bf2_halves(fft512_power<kMag>(er - tr, "
+        "ti - ei));\n",
+        "  if (lo) pq[k] = make_float2(za.x, w.y);\n"
+        "  if (hi) pq[kHalf - k] = make_float2(zb.y, w.x);\n")],
+    "no_exchanges": [
+        ("        buf[fft512_at1(u, k1 & 3) + 32 * (k1 & ~3)] = "
+         "v[fft16_at(k1)];\n", "        (void)u;\n"),
+        ("        v[bb] = buf[fft512_at1(a + 2 * (bb & 3), k1) + 2 * "
+         "(bb & ~3)];\n",
+         "        v[bb] = make_double2(v[bb].y + k1, v[bb].x - a);\n"),
+        ("#pragma unroll\n      for (int c = 0; c < kFftPoints; ++c) "
+         "w[32 * c] = v[fft16_at(c)];\n", "      (void)w;\n"),
+        ("        fft2(v[2 * bq], v[2 * bq + 1], buf[lo], buf[lo ^ 1]);\n"
+         "        fft2(v[2 * bq + 8], v[2 * bq + 9], buf[hi], buf[hi ^ 1]);\n",
+         "        fft2(v[2 * bq], v[2 * bq + 1], v[bq], make_double2(lo, hi));\n"
+         "        fft2(v[2 * bq + 8], v[2 * bq + 9], v[15 - bq], v[bq + 4]);"
+         "\n")],
+    "no_root": [(
+        "    return static_cast<float>(sqrt(re * re + im * im));",
+        "    return static_cast<float>(re * re + im * im);")],
 }
 B, SECONDS = 64, 30.0
 # the configs of mode time: K1's 128- and 64-frame chunk-walk layouts
@@ -202,6 +268,23 @@ LN_RATES = (48000, 64000, 80000)
 # another dump's (two designs of the float64 FFT: their sums in another
 # order, the power rounded once to float32 either way)
 LN_TOL = 2e-6
+# NeMo's TTS mel (the cell nemo-tts-22k's settings)
+TTS = dict(sample_rate=22050, n_fft=1024, win_length=1024, hop_length=256,
+           f_max=8000.0, center=False, log_zero_guard=1e-5, mag_power=1.0,
+           log_zero_guard_type="clamp", exact_pad=True)
+# dump's heads at n_fft 1024: (case, entry point, config keywords, rate)
+FFT1024_CASES = (
+    ("fft1024_nemo_tts", "logmel", TTS, 22050),
+    ("fft1024_kaldi_32000", "fbank", dict(sample_rate=32000.0,
+                                          apply_cmn=False), 32000),
+    ("fft1024_kaldi_mag_32000", "fbank", dict(
+        sample_rate=32000.0, apply_cmn=False, use_power=False), 32000),
+    ("fft1024_nemo_32000", "logmel", dict(sample_rate=32000, n_fft=1024,
+                                          win_length=800, hop_length=320),
+     32000))
+# compare: the largest distance an fft1024 case may read from its float64
+# rdft route where the FFT path ran it (chip_smoke.py's LN_TOL)
+REF_TOL = 2e-4
 FUNCTIONS = ("melspec_sig_mel", "melspec_sig_mel_factored",
              "melspec_sig_mel_fft", "melspec_sig_mel_fft_smem",
              "melspec_sig_mel_layout", "melspec_sig_mel_pipe_bytes",
@@ -236,9 +319,12 @@ def factored_source(name: str, text: str | None = None) -> str:
 
 
 def fft_source(name: str, text: str | None = None) -> str:
-    """``sig_fft.cuh`` with ``FFT_CUTS[name]`` made (``"full"``: as it
-    is); raises unless each cut's text occurs exactly once."""
-    cuts = [] if name == "full" else FFT_CUTS[name]
+    """``sig_fft.cuh`` with ``FFT_CUTS[name]`` made, or
+    ``FFT1024_CUTS[cut]`` for ``name`` ``"w1024_<cut>"`` (``"full"``: as
+    it is); raises unless each cut's text occurs exactly once."""
+    cuts = ([] if name == "full" else
+            FFT1024_CUTS[name[len("w1024_"):]] if name.startswith("w1024_")
+            else FFT_CUTS[name])
     return build.edited(FFT, cuts, f"sig_probe cut {name!r}", text)
 
 
@@ -257,21 +343,56 @@ def ln_fronts(dev: torch.device, rate: int = LN_RATE) -> dict:
                 hop_length=rate // 100), fft_impl="sig", device=dev)}
 
 
+def fft1024_calls(dev: torch.device) -> dict:
+    """K1 alone (``sig_mel`` on the head) at the 1024-point instance's
+    heads on ``B`` x 10 s: NeMo's TTS head on the cell's reflect-padded
+    clips, Kaldi's at 22.05 kHz (no entry point takes the sig route
+    there)."""
+    from melspec_tpu_torch.config import BatchLogMelConfig, FbankConfig
+    from melspec_tpu_torch.ops import batch_logmel, fbank, framing
+
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy((rng.normal(size=(B, 220500)) * 0.2).astype(
+        np.float32)).to(dev)
+    tts = batch_logmel.sig_head(BatchLogMelConfig(**TTS)).to(dev)
+    padded = torch.nn.functional.pad(x[:, None], (384, 384),
+                                     mode="reflect")[:, 0].contiguous()
+    kaldi_cfg = FbankConfig(sample_rate=22050.0, apply_cmn=False)
+    kaldi = fbank.sig_head(kaldi_cfg).to(dev)
+    calls = {}
+    for name, head, sig, hop in (
+            ("nemo_tts", tts, padded, 256),
+            ("kaldi_22050", kaldi, x, kaldi_cfg.frame_shift_samples)):
+        kw = dict(ks=3, n_frames=framing.num_frames_batch(
+            sig.shape[-1], head.pack_off + head.pack, hop), hop=hop,
+            offset=0)
+        calls[name] = (lambda s=sig, h=head, kw=kw: sig_mel.sig_mel(
+            s, h, **kw))
+    return calls
+
+
 def run_fft(dev: torch.device, timer) -> list:
-    """Each FFT-path variant's K1 time (``timer(fn)`` -> ms), through
-    ``Fbank`` / ``BatchLogMel`` at ``LN_RATE`` on ``B`` x ``SECONDS``."""
+    """Each FFT-path variant's K1 time (``timer(fn)`` -> ms): the 2048
+    instance's cuts through ``Fbank`` / ``BatchLogMel`` at ``LN_RATE`` on
+    ``B`` x ``SECONDS``, the 1024 instance's (``w1024_...``) on K1 alone
+    at ``fft1024_calls``; the full kernel at both."""
     x = torch.from_numpy((np.random.default_rng(0).normal(
         size=(B, int(SECONDS * LN_RATE))) * 0.2).astype(np.float32)).to(dev)
     calls = {name: (lambda f=front: f.compute(x))
              for name, front in ln_fronts(dev).items()}
-    names = ["full", *FFT_CUTS]
+    calls1024 = fft1024_calls(dev)
+    cuts = {**FFT_CUTS, **{f"w1024_{k}": v for k, v in
+                           FFT1024_CUTS.items()}}
+    names = ["full", *cuts]
     libs = build.build_variants("sig_probe_fft", "sig_mel", {
         name: {FFT.name: fft_source(name)} for name in names})
     rows = []
     for name in names:
+        timed = ({**calls, **calls1024} if name == "full" else
+                 calls1024 if name.startswith("w1024_") else calls)
         with build.bound_to(sig_mel, libs[name], FUNCTIONS):
             rows.append(dict(variant=name, ms={k: timer(fn)
-                                               for k, fn in calls.items()}))
+                                               for k, fn in timed.items()}))
     for r in rows:
         r["saves_ms"] = {k: rows[0]["ms"][k] - v for k, v in r["ms"].items()}
     return rows
@@ -474,6 +595,27 @@ def dump_cases(dev: torch.device) -> list:
         for name, front in ln_fronts(dev, rate).items():
             out.append((f"ln_{name}_{rate}",
                         lambda x=xl, f=front: (f.compute(x),)))
+    for name, (front, f64), rate in fft1024_fronts(dev):
+        xf = signal(4, 10 * rate + 37)
+        out.append((name, lambda x=xf, f=front, r=f64: (
+            f.compute(x), r.compute(x.double()))))
+    return out
+
+
+def fft1024_fronts(dev: torch.device) -> list:
+    """``[(case, (entry point on "sig", its float64 rdft route), rate)]``
+    of ``FFT1024_CASES`` (public API only)."""
+    from melspec_tpu_torch.config import BatchLogMelConfig, FbankConfig
+    from melspec_tpu_torch.ops.batch_logmel import BatchLogMel
+    from melspec_tpu_torch.ops.fbank import Fbank
+
+    out = []
+    for name, entry, kw, rate in FFT1024_CASES:
+        cls, cfg = ((BatchLogMel, BatchLogMelConfig(**kw)) if entry == "logmel"
+                    else (Fbank, FbankConfig(**kw)))
+        out.append((name, (cls(cfg, fft_impl="sig", device=dev),
+                           cls(cfg, dtype=torch.float64, fft_impl="rdft",
+                               device=dev)), rate))
     return out
 
 
@@ -520,12 +662,20 @@ def dump(out_dir: Path, dev: torch.device) -> dict:
     out_dir.mkdir(parents=True, exist_ok=True)
     rows = {}
     for name, launch in dump_cases(dev):
+        ffts = sig_mel.fft_launches
         outs = _flat(launch())
         torch.cuda.synchronize()
         rows[name] = dict(sha256=[_digest(t) for t in outs],
                           shapes=[list(t.shape) for t in outs])
-        if name.startswith("ln_"):
+        if name.startswith(("ln_", "fft1024_")):
             np.save(out_dir / f"{name}.npy", outs[0].cpu().numpy())
+        if name.startswith("fft1024_"):
+            # the kernel's output alone is hashed; the float64 route's is
+            # saved beside it
+            rows[name] = dict(sha256=rows[name]["sha256"][:1],
+                              shapes=rows[name]["shapes"][:1],
+                              fft_path=sig_mel.fft_launches > ffts)
+            np.save(out_dir / f"{name}.ref.npy", outs[1].cpu().numpy())
     import melspec_tpu_torch
 
     result = dict(package=str(Path(melspec_tpu_torch.__file__).parent),
@@ -547,22 +697,49 @@ def ln_distance(dirs, name: str):
     return max(float(np.abs(o - outs[0]).max()) for o in outs)
 
 
+def ref_distances(dirs, dumps, name: str) -> list:
+    """For each dump, ``(distance of the fft1024 case name's output from
+    its float64 route, whether the FFT path ran it)``, or ``None`` where
+    the dump lacks the case or its outputs."""
+    out = []
+    for d, dump in zip(dirs, dumps):
+        got, ref = Path(d) / f"{name}.npy", Path(d) / f"{name}.ref.npy"
+        case = dump["cases"].get(name)
+        if case is None or not (got.exists() and ref.exists()):
+            out.append(None)
+            continue
+        a, b = np.load(got).astype(np.float64), np.load(ref)
+        out.append(None if a.shape != b.shape else (
+            float(np.abs(a - b).max()), bool(case.get("fft_path"))))
+    return out
+
+
 def compare(dirs) -> int:
     """Every case bit-equal across the dumps, but an ``ln_...`` case of
     the float64 FFT path may differ by at most ``LN_TOL`` (its sums are
-    float64 in another order where the kernel's FFT changed)."""
+    float64 in another order where the kernel's FFT changed), and an
+    ``fft1024_...`` case is held to its own float64 route instead: within
+    ``REF_TOL`` in each dump where the FFT path ran it, and run there in
+    one dump at least."""
     dumps = [json.loads((Path(d) / "dump.json").read_text()) for d in dirs]
     names = list(dict.fromkeys(n for d in dumps for n in d["cases"]))
-    unequal = [n for n in names
-               if len({json.dumps(d["cases"].get(n, {}).get("sha256"))
-                       for d in dumps}) != 1]
+    refs = {n: ref_distances(dirs, dumps, n) for n in names
+            if n.startswith("fft1024_")}
+    ref_fail = [n for n, r in refs.items()
+                if None in r or not any(ran for _, ran in r)
+                or any(ran and dist > REF_TOL for dist, ran in r)]
+    unequal = [n for n in names if n not in refs
+               and len({json.dumps(d["cases"].get(n, {}).get("sha256"))
+                        for d in dumps}) != 1]
     within = {n: ln_distance(dirs, n) for n in unequal if n.startswith("ln_")}
     within = {n: d for n, d in within.items() if d is not None and d <= LN_TOL}
-    differ = [n for n in unequal if n not in within]
+    differ = [n for n in unequal if n not in within] + ref_fail
     print(json.dumps(dict(dumps=[str(d) for d in dirs],
                           packages=[d["package"] for d in dumps],
-                          n_cases=len(names), n_equal=len(names) - len(unequal),
+                          n_cases=len(names),
+                          n_equal=len(names) - len(refs) - len(unequal),
                           ln_within=within, ln_tol=LN_TOL,
+                          fft1024_vs_f64=refs, ref_tol=REF_TOL,
                           differ=differ)), flush=True)
     return 1 if differ else 0
 

@@ -90,8 +90,9 @@ def sig_head(config: BatchLogMelConfig) -> SigHead:
     512 and 512 at n_fft 1024, the columns past the filters' last bin
     zero); bf2 projection; ``ln(e + guard)``, or ``ln(max(e, guard))``
     under the clamp guard. Where K1's float64 FFT path can take it (n_fft
-    2048: 44.1 / 48 kHz), the head also carries its DFT size, the float64
-    window of its ``win_length`` taps and the projection in bin order
+    1024: 22.05 to 40 kHz, NeMo's TTS mel among them; 2048: 44.1 / 48
+    kHz), the head also carries its DFT size, the float64 window of its
+    ``win_length`` taps and the projection in bin order
     (``sig_fft_head``)."""
     pack_off = (config.n_fft - config.win_length) // 2
     window = hann_centered(config.n_fft, config.win_length)

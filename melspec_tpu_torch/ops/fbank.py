@@ -74,8 +74,9 @@ def sig_head(config: FbankConfig) -> SigHead:
     the 257-bin head (``use_power=False``: a magnitude head, split into
     re|im halves by ``magnitude_matrices``, 256 and 256 at n_fft 512), the bf2
     projection, ``ln(max(e, floor))``. Where
-    K1's float64 FFT path can take it (n_fft 2048: 44.1 to 80 kHz), the
-    head also carries its DFT size, the float64 Povey window, the
+    K1's float64 FFT path can take it (n_fft 1024: 22.05 to 40 kHz; 2048:
+    44.1 to 80 kHz), the head also carries its DFT size, the float64 Povey
+    window, the
     preemphasis coefficient (that path removes the mean and preemphasizes
     per frame) and the projection in bin order (``sig_fft_head``).
     ``preemph`` is 0 for every ``p <= 0`` and for NaN, as in JAX."""

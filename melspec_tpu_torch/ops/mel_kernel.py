@@ -42,7 +42,7 @@ from melspec_tpu_torch._device import as_signal, resolve_device
 from melspec_tpu_torch.config import DetectionSettings
 from melspec_tpu_torch.kernels.framed_mel import (IMPLS, FramedMatrices,
                                                   framed_mel)
-from melspec_tpu_torch.kernels.sig_mel import (FFT_N, NYQUIST_TOL,
+from melspec_tpu_torch.kernels.sig_mel import (FFT_SIZES, NYQUIST_TOL,
                                                FftHead, SigHead,
                                                StageSlot, k1_accepts,
                                                k1_vad_tile, live_columns,
@@ -217,11 +217,13 @@ def sig_fft_head(fft_size: int, window: np.ndarray, mt: np.ndarray,
     float64 ``mt``'s rows of the bins below ``fft_size / 2`` (so its rows
     equal those of the head's own stack bit for bit; a split magnitude
     head's ``mt`` may end there, ``magnitude_matrices``). ``(0, None)`` where
-    the path does not take the head: a DFT of other than ``FFT_N``
-    points, or filters whose Nyquist row, which it does not compute,
-    exceeds ``NYQUIST_TOL``; such a head keeps its chunk walk."""
+    the path does not take the head: a DFT of a size the path has no
+    instance for (``FFT_SIZES``: 1024 and 2048 points), a window longer
+    than the DFT, or filters whose Nyquist row, which it does not compute,
+    exceeds ``NYQUIST_TOL``; such a head keeps its chunk walk. The rule
+    reads the head's shape alone."""
     half = fft_size // 2
-    if (fft_size != FFT_N or len(window) > fft_size
+    if (fft_size not in FFT_SIZES or len(window) > fft_size
             or (mt.shape[0] > half
                 and float(np.abs(mt[half]).max()) > NYQUIST_TOL)):
         return 0, None

@@ -3,7 +3,9 @@
 the factored path of the wide hops 2048/512 at 22.05 kHz, 1024/480 and
 960/480 at 48 kHz, also against its own plain version) and the float64
 FFT path of Kaldi fbank and NeMo log-mel at n_fft 2048 (44.1, 48, 64 and
-80 kHz; Kaldi at 48 kHz also with preemphasis <= 0, DC removal alone).
+80 kHz; Kaldi at 48 kHz also with preemphasis <= 0, DC removal alone) and
+at n_fft 1024 (22.05 and 32 kHz, power and magnitude: the 1024-point
+instance, a frame a warp).
 Needs a CUDA device and nvcc; skipped elsewhere. On a machine with the
 card (no JAX needed):
 
@@ -484,22 +486,23 @@ def _fft_frames(kind, head, hop, x):
 @pytest.mark.parametrize("case", ["ragged", "fewer_than_groups"])
 def test_k1_fft_frame_counts(dev, kind, case):
     """K1's FFT path where the frames are no multiple of the frames a
-    block holds (``FFT_GROUPS``, one a group: 3 clips whose frames leave a
+    block holds (``FFT_GROUPS[2048]``, one a group: 3 clips whose frames leave a
     remainder) and where the batch holds fewer frames than the card has
     groups (one clip of 0.05 s), within 1e-5 of the path's plain version
     (``test_k1_fft_ln_heads``'s bar), one launch on the path."""
     head, hop, _, _ = _ln_front(kind, 48000, 80, dev)
+    groups = sig_mel.FFT_GROUPS[2048]
     batch, n = (3, 48000 // 2 + 37) if case == "ragged" else (1, 2400)
     while case == "ragged" and batch * _fft_frames(
-            kind, head, hop, torch.zeros(1, n))[1] % sig_mel.FFT_GROUPS == 0:
+            kind, head, hop, torch.zeros(1, n))[1] % groups == 0:
         n += 97
     x = _noise(dev, n + batch, (batch, n))
     sig, nf = _fft_frames(kind, head, hop, x)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if case == "ragged":
-        assert batch * nf % sig_mel.FFT_GROUPS
+        assert batch * nf % groups
     else:
-        assert batch * nf < sms * sig_mel.FFT_GROUPS
+        assert batch * nf < sms * groups
     before = (sig_mel.launches, sig_mel.fft_launches)
     got = sig_mel.sig_mel(sig, head, ks=3, n_frames=nf, hop=hop, offset=0)
     torch.cuda.synchronize()
@@ -509,6 +512,101 @@ def test_k1_fft_frame_counts(dev, kind, case):
                                           offset=0)
     assert got.shape == (batch, nf, 80) and bool(torch.isfinite(got).all())
     assert float((got.double() - plain.double()).abs().max()) <= 1e-5
+
+
+def _front_1024(kind, sr, magnitude, dev):
+    """Kaldi fbank (preemphasis 0.97) or NeMo log-mel at n_fft 1024 (25 ms
+    frames, 10 ms hop) at ``sr``, power or magnitude spectra: ``(head on
+    dev, hop, entry point or None, float64 rdft entry point)``; at 22.05
+    kHz (hops 220 / 221) the entry points have no macro-row geometry, so
+    the head alone."""
+    from melspec_tpu_torch.config import BatchLogMelConfig, FbankConfig
+    from melspec_tpu_torch.ops import batch_logmel, fbank
+
+    if kind == "kaldi":
+        cfg = FbankConfig(sample_rate=float(sr), use_power=not magnitude,
+                          apply_cmn=False)
+        cls, head, hop = (fbank.Fbank, fbank.sig_head(cfg),
+                          cfg.frame_shift_samples)
+    else:
+        cfg = BatchLogMelConfig(sample_rate=sr, n_fft=1024,
+                                win_length=round(0.025 * sr),
+                                hop_length=round(0.01 * sr),
+                                mag_power=1.0 if magnitude else 2.0)
+        cls, head, hop = (batch_logmel.BatchLogMel,
+                          batch_logmel.sig_head(cfg), cfg.hop_length)
+    front = cls(cfg, device=dev) if sr != 22050 else None
+    f64 = cls(cfg, dtype=torch.float64, fft_impl="rdft", device=dev)
+    return head.to(dev), hop, front, f64
+
+
+@pytest.mark.parametrize("kind", ["kaldi", "nemo"])
+@pytest.mark.parametrize("sr", [22050, 32000])
+@pytest.mark.parametrize("magnitude", [False, True])
+@pytest.mark.parametrize("clip", ["noise", "jfk"])
+def test_k1_fft_1024_instance(dev, kind, sr, magnitude, clip):
+    """Kaldi fbank and NeMo log-mel at n_fft 1024 (power and magnitude
+    spectra) on the float64 FFT path's 1024-point instance, one launch
+    counted as an FFT launch (and a magnitude launch where the head is
+    one; at 32 kHz through the entry point's auto route, at 22.05 kHz
+    through ``sig_mel`` on the head), on 3 clips of noise or JFK
+    band-limited to ``sr`` whose frames (3 F in all) fill no whole block
+    of ``FFT_GROUPS[1024]`` warps and whose last frame ends at the clip's
+    last sample (NeMo: the centred pad's): within 1e-5 of the path's
+    plain version, within 2e-4 of the float64 rdft route, and within 2e-4
+    plus their own distance from it of the dense plain version and of the
+    exact result."""
+    head, hop, front, f64 = _front_1024(kind, sr, magnitude, dev)
+    assert tuple(sig_mel.head_layout(head, hop))[1:] == (1, 1024, False)
+    assert head.magnitude == magnitude and head.fft.size == 1024
+    frames = 67
+    assert 3 * frames % sig_mel.FFT_GROUPS[1024]
+    n = (head.pack + hop * (frames - 1) if kind == "kaldi"
+         else hop * (frames - 1))
+    x = _clip(clip, sr, dev, sr + 1024 + magnitude)
+    while x.shape[-1] < n:
+        x = torch.cat([x, x], dim=-1)
+    x = x[:, :n].contiguous()
+    sig, nf = ((x, framing.num_frames_batch(n, head.pack, hop))
+               if kind == "kaldi" else
+               (torch.nn.functional.pad(x, (512, 512)),
+                framing.num_frames_centered(n, hop)))
+    assert nf == frames
+    # the last frame's taps (Kaldi) or its DFT's span (NeMo) end where the
+    # signal K1 reads ends
+    assert hop * (nf - 1) + (head.pack if kind == "kaldi" else 1024) == (
+        sig.shape[-1])
+    kw = dict(ks=3, n_frames=nf, hop=hop, offset=0)
+    before = (sig_mel.launches, sig_mel.fft_launches,
+              sig_mel.magnitude_launches, sig_mel.factored_launches)
+    if front is None:
+        got = sig_mel.sig_mel(sig, head, **kw)
+    else:
+        assert front.fft_impl == "sig"
+        got = front.compute(x)
+        if kind == "nemo":
+            got = got.transpose(-1, -2)
+    torch.cuda.synchronize()
+    assert (sig_mel.launches, sig_mel.fft_launches,
+            sig_mel.magnitude_launches, sig_mel.factored_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + int(magnitude), before[3])
+    assert got.shape == (3, nf, head.n_mels)
+    assert bool(torch.isfinite(got).all())
+    plain = sig_mel.sig_mel_fft_reference(sig, head, n_frames=nf, hop=hop,
+                                          offset=0)
+    truth = f64.compute(x.double())
+    if kind == "nemo":
+        truth = truth.transpose(-1, -2)
+    dense = sig_mel.sig_mel_reference(sig, head, **kw)
+    exact = sig_mel.sig_mel_reference(sig, head, dot_dtype=torch.float64, **kw)
+
+    def dist(a, b):
+        return float((a.double() - b.double()).abs().max())
+
+    assert dist(got, plain) <= 1e-5
+    assert dist(got, truth) <= 2e-4
+    for other in (dense, exact):
+        assert dist(got, other) <= 2e-4 + dist(other, truth)
 
 
 @pytest.mark.parametrize("kind", ["kaldi", "nemo"])

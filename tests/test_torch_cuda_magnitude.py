@@ -3,8 +3,9 @@ walk (the pipelined 128-frame walk, layout 4; the 64-frame synchronous
 walk, layout 1; its 32-frame blocks, layout 2; the float64 FFT path at
 n_fft 2048) runs a split magnitude head, one launch counted as a
 magnitude launch; NeMo's TTS mel (``nemo-tts-22k``) through
-``BatchLogMel``'s auto route in 64-frame blocks, against the float64
-reference, its span's stages tiling the call on the device; and the
+``BatchLogMel``'s auto route on the float64 FFT path's 1024-point
+instance, against the float64 reference, its span's stages tiling the
+call on the device; and the
 refusals of an N-packed magnitude head and of K2. Needs a CUDA device and
 nvcc; skipped elsewhere. On a machine with the card (no JAX needed):
 
@@ -56,15 +57,17 @@ def _heads():
     """``(name, head, hop, block frames)`` of a split magnitude head on
     each chunk walk: Kaldi fbank at 16 kHz (400 / 160, 256 | 256 columns)
     on the pipelined walk, NeMo's TTS head (1024 / 256, 512 | 512, 376
-    live) in 64-frame blocks, NeMo at 22.05 kHz n_fft 2048 / 512 (1024 |
-    1024) without its FFT description in 32-frame blocks."""
+    live) without its FFT description in 64-frame blocks, NeMo at 22.05
+    kHz n_fft 2048 / 512 (1024 | 1024) without its FFT description in
+    32-frame blocks."""
     wide = batch_logmel.sig_head(BatchLogMelConfig(
         sample_rate=22050, n_fft=2048, win_length=2048, hop_length=512,
         n_mels=128, mag_power=1.0))
     return [
         ("kaldi_16k", fbank.sig_head(FbankConfig(use_power=False,
                                                  apply_cmn=False)), 160, 128),
-        ("nemo_tts", batch_logmel.sig_head(TTS), 256, 64),
+        ("nemo_tts", dataclasses.replace(batch_logmel.sig_head(TTS),
+                                         fft=None, dft_size=0), 256, 64),
         ("nemo_2048_512", dataclasses.replace(wide, fft=None, dft_size=0),
          512, 32),
     ]
@@ -146,31 +149,33 @@ def test_k1_magnitude_head_on_the_fft_path(dev, kind):
 
 def test_tts_mel_takes_k1_in_64_frame_blocks(dev):
     """NeMo's TTS mel at the cell's settings: ``"auto"`` takes ``"sig"``,
-    K1 runs the split magnitude head in 64-frame blocks, one launch a
-    call counted as a magnitude launch and on no other walk; the output
-    holds ``T // 256`` frames within 1e-3 of the float64 reference on
-    noise (K1's float32 DFT, the relative error of a frame's loudest bin
-    on its quietest mels); the span's two stages read device time and
-    tile the call."""
+    K1 runs the split magnitude head on the float64 FFT path's 1024-point
+    instance (the 64-frame walk keeps the head without its description,
+    ``test_k1_magnitude_head_on_each_chunk_walk``), one launch a call
+    counted as an FFT and a magnitude launch and on no other walk; the
+    output holds ``T // 256`` frames within 1e-3 of the float64 reference
+    on noise; the span's two stages read device time and tile the call."""
     from portbench.reference.nemo_tts import tts_log_mel
 
     f = BatchLogMel(TTS, device=dev)
     assert f.fft_impl == "sig"
-    assert sig_mel.head_layout(f.sig_head, 256).frames == 64
+    assert tuple(sig_mel.head_layout(f.sig_head, 256))[1:] == (1, 1024,
+                                                               False)
     x = _noise(dev, 22, (4, 220_500), 0.1)
     want = f.compute(x)                   # warm: head, library
     torch.cuda.synchronize()
-    walks = ("pipelined_launches", "factored_launches", "fft_launches")
+    walks = ("pipelined_launches", "factored_launches")
     before = [getattr(sig_mel, w) for w in walks]
-    counts = (sig_mel.launches, sig_mel.magnitude_launches)
+    counts = (sig_mel.launches, sig_mel.magnitude_launches,
+              sig_mel.fft_launches)
     profiling.enable()
     for _ in range(3):
         got = f.compute(x)
     profiling.disable()
     torch.cuda.synchronize()
     assert torch.equal(got, want) and tuple(got.shape) == (4, 80, 861)
-    assert (sig_mel.launches, sig_mel.magnitude_launches) == (
-        counts[0] + 3, counts[1] + 3)
+    assert (sig_mel.launches, sig_mel.magnitude_launches,
+            sig_mel.fft_launches) == tuple(c + 3 for c in counts)
     assert [getattr(sig_mel, w) for w in walks] == before
     recs = profiling.records()
     calls = [r for r in recs if r.name == "logmel"]

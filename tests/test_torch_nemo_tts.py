@@ -133,7 +133,11 @@ def test_the_configuration_is_nemos_tts_mel():
     assert (head.width, head.n_bins_pad, head.live) == (1024, 512, 376)
     assert (head.magnitude, head.out_mode, head.guard) == (
         True, "ln_floor", 1e-5)
-    assert (head.pack, head.pack_off, head.fft) == (1024, 0, None)
+    # K1's float64 FFT path takes it at 1024 points, its power and root
+    # computed for the 372 bins the filters reach
+    assert (head.pack, head.pack_off, head.dft_size) == (1024, 0, 1024)
+    assert (head.fft.size, head.fft.bins, head.fft.preemph) == (
+        1024, 372, None)
     assert int((mel_kernel.mel_filterbank(22050.0, 1024, 80, f_max=8000.0)
                 != 0).sum()) == 727
 
@@ -225,8 +229,8 @@ def test_the_fft_paths_plain_version_takes_the_root_in_float64():
     head = batch_logmel.sig_head(cfg)
     assert head.fft is not None and head.magnitude and head.n_bins_pad
     x = _signal("noise")
-    kw = dict(n_frames=8, hop=480, offset=0, pack_off=head.pack_off,
-              window=head.fft.window, preemph=None)
+    kw = dict(size=2048, n_frames=8, hop=480, offset=0,
+              pack_off=head.pack_off, window=head.fft.window, preemph=None)
     mag = sig_mel.fft_power(x, magnitude=True, **kw)
     power = sig_mel.fft_power(x, **kw)
     y = sig_mel.fft_taps(x, n_frames=8, hop=480, start=head.pack_off,

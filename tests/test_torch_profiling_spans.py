@@ -325,7 +325,8 @@ def test_mel_batch_span_on_cpu():
     ("whisper", lambda: mel_kernel.sig_matrices(400, 128, 16000.0, 3, 2,
                                                 torch.device("cpu"))),
     ("factored_dft", lambda: sig_mel.factored_dft(960, torch.device("cpu"))),
-    ("fft_twiddles", lambda: sig_mel.fft_twiddles(torch.device("cpu"))),
+    ("fft_twiddles", lambda: sig_mel.fft_twiddles(1024,
+                                                  torch.device("cpu"))),
 ])
 def test_cold_head_build_records_setup_heads(head, build):
     """Tracing off: a cold build records one ``setup.heads`` span with its

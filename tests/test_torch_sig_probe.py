@@ -1,9 +1,11 @@
 """K1's time probe on the CPU (it runs on the card only): every cut of
 the device code matches ``csrc/sig_common.cuh`` (the pipelined walk's:
 ``csrc/sig_pipe.cuh``; the factored path's: ``csrc/sig_factored.cuh``;
-the float64 FFT path's: ``csrc/sig_fft.cuh``) exactly once, a cut that no longer matches raises, the Kaldi and NeMo
-fronts of its ``dump`` carry the FFT path at each rate, and the command
-refuses without a card."""
+the float64 FFT path's, both instances: ``csrc/sig_fft.cuh``) exactly
+once, a cut that no longer matches raises, the Kaldi and NeMo fronts of
+its ``dump`` carry the FFT path at each rate (at n_fft 1024 too),
+``compare`` holds the 1024-point cases to their float64 route, and the
+command refuses without a card."""
 
 import json
 import subprocess
@@ -79,6 +81,67 @@ def test_fft_cuts_match_their_header_once(name):
         assert all(old not in got for old, _ in cuts)
         assert len(got) - len(text) == sum(len(new) - len(old)
                                            for old, new in cuts)
+
+
+@pytest.mark.parametrize("name", [*sig_probe.FFT1024_CUTS])
+def test_fft1024_cuts_match_their_header_once(name):
+    """The 1024-point instance's cuts each match ``csrc/sig_fft.cuh``
+    exactly once, and none touches the 2048-point instance's text."""
+    text = sig_probe.FFT.read_text()
+    got = sig_probe.fft_source(f"w1024_{name}", text)
+    cuts = sig_probe.FFT1024_CUTS[name]
+    assert all(old not in got for old, _ in cuts)
+    assert len(got) - len(text) == sum(len(new) - len(old)
+                                       for old, new in cuts)
+    start = text.index("__device__ __forceinline__ void fft2048_frames(")
+    end = text.index("// the buffer's place of B[t][k1] (the 1024 instance")
+    assert text[start:end] in got
+
+
+def test_fft1024_fronts_carry_the_1024_heads():
+    """``dump``'s heads at n_fft 1024 are on the sig route with heads
+    that carry the 1024-point description (the TTS head magnitude, its
+    372 bins), beside a float64 rdft route."""
+    import torch
+
+    fronts = sig_probe.fft1024_fronts(torch.device("cpu"))
+    assert [n for n, _, _ in fronts] == [c[0] for c in sig_probe.FFT1024_CASES]
+    for name, (front, f64), _ in fronts:
+        head = front.sig_head
+        assert front.fft_impl == "sig" and f64.fft_impl == "rdft"
+        assert head.dft_size == head.fft.size == 1024
+        assert head.magnitude == ("tts" in name or "mag" in name)
+    assert fronts[0][1][0].sig_head.fft.bins == 372
+
+
+def _dump_1024(d, gap, fft_path, other="same"):
+    d.mkdir()
+    ref = np.linspace(-20.0, 2.0, 24).reshape(2, 3, 4)
+    np.save(d / "fft1024_nemo_tts.npy", (ref + gap).astype(np.float32))
+    np.save(d / "fft1024_nemo_tts.ref.npy", ref)
+    cases = {"sig_x": {"sha256": [other]},
+             "fft1024_nemo_tts": {"sha256": [str(gap)],
+                                  "fft_path": fft_path}}
+    (d / "dump.json").write_text(json.dumps({"package": str(d),
+                                             "cases": cases}))
+    return d
+
+
+@pytest.mark.parametrize("parent_gap,gap,want", [
+    (0.0, 0.0, 0), (5e-4, 1e-5, 0), (0.0, 3e-4, 1)])
+def test_compare_holds_fft1024_cases_to_their_float64_route(
+        tmp_path, parent_gap, gap, want):
+    """An ``fft1024_...`` case is not held to another dump: where the FFT
+    path ran it (the second dump) it must lie within ``REF_TOL`` of its
+    own float64 route; where a chunk walk ran it (the first, a parent's)
+    its distance is reported alone. Every other case stays bit-equal."""
+    dirs = [_dump_1024(tmp_path / "parent", parent_gap, False),
+            _dump_1024(tmp_path / "change", gap, True)]
+    assert sig_probe.compare(dirs) == want
+    other = [dirs[0], _dump_1024(tmp_path / "other", gap, True, "other")]
+    assert sig_probe.compare(other) == 1
+    none = [dirs[0], _dump_1024(tmp_path / "walk", gap, False)]
+    assert sig_probe.compare(none) == 1
 
 
 @pytest.mark.parametrize("rate", sig_probe.LN_RATES)
